@@ -1,0 +1,1 @@
+"""CUDA kernels for Hopper with their plain PyTorch versions."""

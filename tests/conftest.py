@@ -18,3 +18,4 @@ def rng_key():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running (dry-run compiles)")
+    config.addinivalue_line("markers", "gpu: needs a CUDA device (skips without one)")
