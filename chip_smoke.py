@@ -11,26 +11,42 @@ Phases (any failure exits nonzero):
               power limit;
 2. build    — nvcc builds every CUDA kernel from ``src/repro_torch/kernels/
               csrc`` into the git-ignored ``build/`` (ptxas report printed);
-3. kernels  — each kernel against its plain PyTorch version on CUDA tensors
-              at qwen2-0.5b shapes (KV 2, G 7, D 64, page 16) and gemma2-2b
-              shapes (KV 4, G 2, D 288, window 4096 with longer contexts,
-              softcap 50), with ragged lengths, trash/garbage table entries
-              and q_len == 0 rows;
+3. kernels  — each kernel against its plain PyTorch version on CUDA tensors.
+              Paged kernels at qwen2-0.5b shapes (KV 2, G 7, D 64, page 16)
+              and gemma2-2b shapes (KV 4, G 2, D 288, window 4096 with
+              longer contexts, softcap 50), with ragged lengths,
+              trash/garbage table entries and q_len == 0 rows.  The flash
+              kernel at qwen2-0.5b training shapes (B 8, S 1024, H 14, KV 2,
+              D 64, causal) and gemma2-2b shapes (B 1, S 4150 — past the
+              window and not a tile multiple — H 8, KV 4, D 288, window
+              4096, softcap 50): output, logsumexp, and dQ/dK/dV through the
+              autograd Function against autograd through the plain version;
 4. times    — each kernel at the main path's shapes (decode: B = 8,
-              contexts 512-2048; prefill: B = 4, C = 64) with CUDA events,
-              L2 flushed before every launch, beside its plain version, the
-              library yardstick (gather + scaled_dot_product_attention,
-              used nowhere in the port) and its bound (bytes at 3.35 TB/s or
-              flops at 989 TFLOP/s, whichever is larger);
+              contexts 512-2048; prefill: B = 4, C = 64; flash: the
+              training shapes above) with CUDA events, L2 flushed before
+              every launch, beside its plain version, the library yardstick
+              (gather + scaled_dot_product_attention, used nowhere in the
+              port) and its bound (bytes at 3.35 TB/s or flops at 989
+              TFLOP/s, whichever is larger);
 5. serving  — full-width qwen2-0.5b (random weights, seed 0): (a) the port's
               launcher ``repro_torch.launch.serve.main``; (b) the scheduler
               and engine driven directly with 12 prompts of 320-1024 tokens
-              sharing a 256-token prefix.  Both kernels' launch counters are
-              zeroed just before each part and must be > 0 after it; every
-              request completes, the prefix cache hits, nothing leaks;
+              sharing a 256-token prefix.  Every kernel's launch counter is
+              zeroed just before each part and the paged kernels' must be
+              > 0 after it; every request completes, the prefix cache hits,
+              nothing leaks;
 6. card vs CPU — the same weights on the CPU (plain kernel versions): one
               48-token prompt, last-position logits within tolerance and 4
-              equal greedy tokens.
+              equal greedy tokens;
+7. training — full-width qwen2-0.5b through the port's launcher
+              ``repro_torch.launch.train.main`` (seq 1024, batch 8, 8 AdamW
+              steps): every loss finite, the last below the first, the
+              flash kernel launched on every layer of every step (counters
+              zeroed just before); then one step under ``torch.profiler``
+              for where the device time goes;
+8. training card vs CPU — one train step of a 2-layer full-width qwen2 at
+              seq 128, batch 2, on the same weights on both: loss and the
+              gradient's global norm within tolerance.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -56,6 +72,13 @@ KERNEL_TOL = 2e-2              # bf16 output: one bf16 ulp at |x| ~ 4, plus
                                # mixes of N(0, 1) values
 CPU_LOGIT_TOL = 5e-2           # 24 layers of bf16 GEMMs summed in another
                                # order (cuBLAS vs CPU), logits of std ~0.6
+LSE_TOL = 1e-3                 # f32 logsumexp, summed in another order
+GRAD_TOL = 2e-2                # max |grad err| / max |grad|: bf16 grads
+                               # (one ulp is 2**-8 = 3.9e-3 relative) from
+                               # f32 sums in another order
+TRAIN_LOSS_RTOL = 1e-3         # one train step, card vs CPU: a mean over
+                               # 254 token losses of bf16-computed logits
+TRAIN_GNORM_RTOL = 2e-2        # the gradient's global norm, same step
 
 
 class SmokeFailure(RuntimeError):
@@ -159,6 +182,35 @@ def library_prefill(torch, F, case):
         B, KV, CG, D)
 
 
+def flash_case(torch, rng, dev, *, B, S, H, KV, D, window=None,
+               softcap=None):
+    mk = lambda *s: torch.tensor(rng.standard_normal(s), dtype=torch.bfloat16,
+                                 device=dev)
+    return dict(q=mk(B, S, H, D), k=mk(B, S, KV, D), v=mk(B, S, KV, D),
+                dout=mk(B, S, H, D), kw=dict(causal=True, window=window,
+                                             softcap=softcap))
+
+
+def library_flash(torch, F, case):
+    """scaled_dot_product_attention on the same (causal, no window, no
+    softcap) inputs, back in the model layout."""
+    q, k, v = (case[n].transpose(1, 2) for n in "qkv")
+    return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                          enable_gqa=True).transpose(1, 2)
+
+
+def flash_cost(case):
+    """(bytes, flops): q, k, v read once, out and lse written once; 4
+    flops per (query head, attended key, dim), counting the keys each row
+    attends under the causal and window masks."""
+    B, S, H, D = case["q"].shape
+    KV = case["k"].shape[2]
+    w = case["kw"]["window"]
+    pairs = sum(min(t + 1, w) if w else t + 1 for t in range(S))
+    nbytes = 2 * (B * S * H * D * 2) + 2 * (B * S * KV * D * 2) + B * H * S * 4
+    return nbytes, 4 * B * H * D * pairs
+
+
 def decode_cost(case):
     """(bytes, flops) the function needs for these inputs: q, the K and V
     positions each row attends (window included), out; 4 flops per
@@ -210,6 +262,36 @@ def time_ms(torch, fn, flush, reps: int = 20, warmup: int = 3) -> float:
         e.synchronize()
         total += s.elapsed_time(e)
     return total / reps
+
+
+def profile_breakdown(prof, wall_ms: float) -> dict:
+    """Device time of one profiled step by kernel family: the device-side
+    events' time (``self_device_time_total``, in us) summed over kernels;
+    busy share = total kernel time / the step's wall time (the profiler's
+    own overhead is in that wall time)."""
+    fams = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
+    top = []
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue                              # host-side op
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if not us:
+            continue
+        key = e.key.lower()
+        fam = ("flash_attention" if "flash_fwd" in key else
+               "gemm" if any(t in key for t in ("gemm", "xmma", "cutlass",
+                                                "cublas")) else "other")
+        fams[fam] += us / 1e3
+        top.append((us / 1e3, e.key[:80], e.count))
+    total = sum(fams.values())
+    top.sort(reverse=True)
+    return {"wall_ms": wall_ms, "kernel_ms": total,
+            "busy_share": total / wall_ms if wall_ms else None,
+            "by_family_ms": fams,
+            "top": [{"ms": t, "kernel": k, "calls": c}
+                    for t, k, c in top[:12]]}
 
 
 # ---------------------------------------------------------------------------
@@ -288,6 +370,8 @@ def main() -> int:
     # 2. build -------------------------------------------------------------
     phase("build")
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import paged_prefill as pp
     t0 = time.perf_counter()
@@ -351,6 +435,40 @@ def main() -> int:
         check(err <= KERNEL_TOL, f"prefill kernel disagrees at {label}")
         worst["paged_prefill_attention"] = max(
             worst.get("paged_prefill_attention", 0.0), err)
+
+    flash_sets = {
+        "qwen2-0.5b": dict(B=8, S=1024, H=14, KV=2, D=64),
+        "gemma2-2b": dict(B=1, S=4150, H=8, KV=4, D=288, window=4096,
+                          softcap=50.0),
+    }
+    for label, s in flash_sets.items():
+        fc = flash_case(torch, rng, dev, **s)
+        qkv, kw = (fc["q"], fc["k"], fc["v"]), fc["kw"]
+        out, lse = fa.flash_attention(*qkv, **kw)
+        torch.cuda.synchronize()
+        ref, ref_lse = fa.flash_attention_plain(*qkv, **kw)
+        err = (out.float() - ref.float()).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        ins = [t.clone().requires_grad_(True) for t in qkv]
+        got = torch.autograd.grad(kops.mha_flash_attention(*ins, **kw), ins,
+                                  fc["dout"])
+        torch.cuda.synchronize()
+        ins = [t.clone().requires_grad_(True) for t in qkv]
+        want = torch.autograd.grad(fa.flash_attention_plain(*ins, **kw)[0],
+                                   ins, fc["dout"])
+        gerr = [((g.float() - r.float()).abs().max()
+                 / r.float().abs().max()).item() for g, r in zip(got, want)]
+        print(f"flash   {label}: out max_abs_err {err:.3e} (tol "
+              f"{KERNEL_TOL}); lse {lse_err:.3e} (tol {LSE_TOL}); "
+              f"dq/dk/dv max err / max |grad| "
+              f"{', '.join(f'{g:.3e}' for g in gerr)} (tol {GRAD_TOL})")
+        check(err <= KERNEL_TOL and lse_err <= LSE_TOL,
+              f"flash kernel disagrees at {label} shapes")
+        check(max(gerr) <= GRAD_TOL,
+              f"flash gradients disagree at {label} shapes")
+        worst["flash_attention"] = max(worst.get("flash_attention", 0.0), err)
+        del fc, qkv, out, lse, ref, ref_lse, ins, got, want
+    torch.cuda.empty_cache()
     sys.stdout.flush()
 
     # 4. times at the main path's shapes -----------------------------------
@@ -367,6 +485,8 @@ def main() -> int:
     pargs = (pcase["q"], pcase["k_pages"], pcase["v_pages"],
              pcase["block_tables"], pcase["start_pos"], pcase["q_lens"])
     pkw = dict(group=pcase["group"])
+    fcase = flash_case(torch, rng, dev, B=8, S=1024, H=14, KV=2, D=64)
+    fargs = (fcase["q"], fcase["k"], fcase["v"])
     kernels = []
     for kname, fn, plain, lib, cost, case, src, tpu in (
             ("paged_decode_attention",
@@ -380,7 +500,13 @@ def main() -> int:
              lambda: pp.paged_prefill_plain(*pargs, **pkw),
              lambda: library_prefill(torch, F, pcase), prefill_cost, pcase,
              "src/repro_torch/kernels/csrc/paged_prefill.cu",
-             "src/repro/kernels/paged_prefill.py:111")):
+             "src/repro/kernels/paged_prefill.py:111"),
+            ("flash_attention",
+             lambda: fa.flash_attention(*fargs)[0],
+             lambda: fa.flash_attention_plain(*fargs)[0],
+             lambda: library_flash(torch, F, fcase), flash_cost, fcase,
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:203")):
         err = (fn().float() - plain().float()).abs().max().item()
         lib_err = (lib().float() - plain().float()).abs().max().item()
         check(err <= KERNEL_TOL, f"{kname} disagrees at timing shapes")
@@ -399,7 +525,7 @@ def main() -> int:
                  "library_ms": lib_ms, "bytes": nbytes, "flops": flops}
         kernels.append(entry)
         print(f"{kname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library {lib_ms:.4f} ms (gather + SDPA, err vs plain "
+              f"library {lib_ms:.4f} ms (SDPA, err vs plain "
               f"{lib_err:.2e}), bound {entry['bound_ms']:.4f} ms by "
               f"{bound_by} ({nbytes} B, {flops} flop)", flush=True)
 
@@ -413,6 +539,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats(dev)
     pa.paged_attention.launches = 0
     pp.paged_prefill.launches = 0
+    fa.flash_attention.launches = 0
     sched_a = launcher.main([
         "--arch", "qwen2-0.5b", "--paged", "--max-slots", "8",
         "--max-seq-len", "2048", "--prefill-batch", "4",
@@ -445,6 +572,7 @@ def main() -> int:
     sched_b = Scheduler(eng, prefill_token_budget=512, profile=True)
     pa.paged_attention.launches = 0
     pp.paged_prefill.launches = 0
+    fa.flash_attention.launches = 0
     rids = [sched_b.submit(Request(p, SamplingParams(max_new_tokens=32,
                                                      greedy=True)))
             for p in prompts]
@@ -463,7 +591,7 @@ def main() -> int:
           "(b) a kernel of the path was never launched")
     check(rep_b["prefix_hit_rate"] > 0, "(b) no prefix-cache hit")
     check_no_leaks(sched_b, "(b)")
-    for k in kernels:
+    for k in kernels[:2]:                 # the serving path's kernels
         k["launches"] = launches_a[k["name"]] + launches_b[k["name"]]
         k["launches_per_part"] = [launches_a[k["name"]],
                                   launches_b[k["name"]]]
@@ -515,6 +643,83 @@ def main() -> int:
           f"cuda {tg.tolist()} cpu {tc.tolist()}")
     check(diff <= CPU_LOGIT_TOL, "card and CPU logits disagree")
     check(tg.tolist() == tc.tolist(), "card and CPU greedy tokens differ")
+    del params
+    torch.cuda.empty_cache()
+
+    # 7. training at full width ---------------------------------------------
+    phase("training qwen2-0.5b, full width")
+    from repro_torch import optim
+    from repro_torch.data import SyntheticTokenSource, TokenDatasetSpec
+    from repro_torch.distributed import stepfn
+    from repro_torch.launch import train as train_launcher
+    pa.paged_attention.launches = 0
+    pp.paged_prefill.launches = 0
+    fa.flash_attention.launches = 0
+    run = train_launcher.main(["--arch", "qwen2-0.5b", "--seq-len", "1024",
+                               "--global-batch", "8", "--steps", "8"])
+    torch.cuda.synchronize()
+    flash_launches = fa.flash_attention.launches
+    losses = run["losses"]
+    per_step = run["flash_launches_per_step"]
+    summary = {k: run[k] for k in ("losses", "step_s", "tokens_per_s",
+                                   "flash_launches_per_step",
+                                   "max_memory_allocated")}
+    print("training: " + json.dumps(summary), flush=True)
+    check(all(np.isfinite(losses)), "a training loss is not finite")
+    check(losses[-1] < losses[0], "the loss did not fall over 8 steps")
+    check(flash_launches > 0 and sum(per_step) == flash_launches,
+          "the flash kernel was never launched in training")
+    # remat: every layer's attention runs in the forward and again in the
+    # backward's recompute
+    check(all(n == 2 * cfg.num_layers for n in per_step),
+          f"flash launches per step {per_step}, want {2 * cfg.num_layers}")
+    kernels[2]["launches"] = flash_launches
+
+    # where one training step's device time goes (torch.profiler)
+    tparams = T.init_params(cfg, torch.Generator().manual_seed(0),
+                            device=dev, weight_dtype=torch.float32)
+    topt = optim.adamw(3e-4, clip_norm=1.0)
+    tstate = topt.init(tparams)
+    tstep = stepfn.make_train_step(cfg, topt, device=dev)
+    tsrc = SyntheticTokenSource(TokenDatasetSpec(cfg.vocab_size, 1024, 8))
+    for i in range(2):
+        tparams, tstate, _ = tstep(tparams, tstate, tsrc.batch(i))
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        tparams, tstate, m = tstep(tparams, tstate, tsrc.batch(2))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof_out = profile_breakdown(prof, wall_ms)
+    print("train step profile: " + json.dumps(prof_out), flush=True)
+    del tparams, tstate, tstep, prof
+    torch.cuda.empty_cache()
+
+    # 8. training, card vs CPU ----------------------------------------------
+    phase("training card vs CPU")
+    cfg2 = cfg.with_(num_layers=2)
+    p_cpu = T.init_params(cfg2, torch.Generator().manual_seed(1),
+                          weight_dtype=torch.float32)
+    batch = SyntheticTokenSource(TokenDatasetSpec(
+        cfg2.vocab_size, 128, 2)).batch(0)
+    got = {}
+    for where in ("cuda", "cpu"):
+        p = optim.tree_map(lambda t: t.to(where), p_cpu)
+        o = optim.adamw(3e-4, clip_norm=1.0)
+        _, _, m = stepfn.make_train_step(cfg2, o, device=where)(
+            p, o.init(p), batch)
+        got[where] = (float(m["loss"]), float(m["grad_norm"]))
+    (lg_, ng), (lc_, nc) = got["cuda"], got["cpu"]
+    print(f"2-layer full-width step, seq 128, batch 2: loss cuda {lg_:.6f} "
+          f"cpu {lc_:.6f} (rtol {TRAIN_LOSS_RTOL}); grad norm cuda "
+          f"{ng:.6f} cpu {nc:.6f} (rtol {TRAIN_GNORM_RTOL})", flush=True)
+    check(np.isfinite([lg_, ng]).all(), "card train step not finite")
+    check(abs(lg_ - lc_) <= TRAIN_LOSS_RTOL * abs(lc_),
+          "card and CPU training losses disagree")
+    check(abs(ng - nc) <= TRAIN_GNORM_RTOL * abs(nc),
+          "card and CPU gradient norms disagree")
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,225 @@
+"""Dense flash attention: CUDA forward kernel, plain PyTorch version, and
+the autograd Function whose backward is PyTorch.
+
+Counterpart of ``repro.kernels.flash_attention.flash_attention``.  The
+kernel (``csrc/flash_attention.cu``) runs one thread block per
+``(b * H + h, 64 query rows)``, loops over the reachable K/V tiles with an
+online softmax in f32, reads each query head's kv head ``h // (H / KV)``
+straight from the un-broadcast ``(B, S, KV, D)`` layout, and also writes
+the per-row logsumexp the backward needs.  See the source's header for its
+bound and design.
+
+``flash_attention`` dispatches on the device of ``q``: a CPU tensor goes
+through the plain version (``repro_torch.kernels.ref.attention_ref``), a
+CUDA tensor launches the kernel or raises.  ``flash_attention.launches``
+counts kernel launches only.
+
+The backward (``flash_attention_bwd``) is PyTorch on any device: the JAX
+package has no backward kernel (its gradient is XLA's autodiff of the jnp
+``attention.attend``), so there is no TPU kernel to port there.  It
+recomputes P per query chunk from the saved logsumexp, as the reference
+rematerialises each query chunk (``jax.checkpoint(chunk_body)``).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import attention_ref
+
+_fn = None
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 288
+
+
+def _entry():
+    global _fn
+    if _fn is None:
+        fn = _build.load("flash_attention").flash_attention_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _fold_heads(q, k, v):
+    """Model layout -> the oracle's (BH, S, D), K/V repeated per group."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+
+    def kv(t):
+        return t.permute(0, 2, 1, 3)[:, :, None].expand(
+            B, KV, G, Skv, D).reshape(B * H, Skv, D)
+
+    return q.permute(0, 2, 1, 3).reshape(B * H, Sq, D), kv(k), kv(v)
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          window: Optional[int] = None,
+                          softcap: Optional[float] = None,
+                          scale: Optional[float] = None):
+    """The plain PyTorch version at the kernel's layout (any device)."""
+    B, Sq, H, D = q.shape
+    out, lse = attention_ref(*_fold_heads(q, k, v), causal=causal,
+                             window=window, softcap=softcap, scale=scale,
+                             return_lse=True)
+    return (out.reshape(B, H, Sq, D).permute(0, 2, 1, 3).contiguous(),
+            lse.reshape(B, H, Sq))
+
+
+def _check_cuda(q, k, v):
+    """What the kernel takes: q (B, Sq, H, D), k and v (B, Skv, KV, D), all
+    on one device, contiguous, of one dtype (f32 or bf16); H a multiple of
+    KV; D a multiple of 32 and at most 288."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be 4-d, got {tuple(t.shape)}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {q.dtype}")
+    B, _, H, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} vs "
+                         f"q {tuple(q.shape)}")
+    if H % k.shape[2] != 0:
+        raise ValueError(f"H={H} is not a multiple of KV={k.shape[2]}")
+    if D % 32 != 0 or D > MAX_HEAD_DIM:
+        raise ValueError(f"kernel takes D a multiple of 32 up to "
+                         f"{MAX_HEAD_DIM}, got D={D}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    scale: Optional[float] = None):
+    """Dense attention with GQA, top-left causal mask, sliding window and
+    logit softcap.
+
+    q: (B, Sq, H, D); k, v: (B, Skv, KV, D), H = G * KV.
+    Returns (out (B, Sq, H, D) in q's dtype, lse (B, H, Sq) f32): lse is
+    the logsumexp of each row's masked scores, ``-inf`` for a row with no
+    valid key (whose output is zeros).
+    """
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    _check_cuda(q, k, v)
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    fn = _entry()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    lse.data_ptr(), _DTYPES[q.dtype], B, H, KV, Sq, Skv, D,
+                    float(scale), int(causal), int(window or 0),
+                    float(softcap or 0.0), stream)
+    _build.check(status, "flash_attention")
+    flash_attention.launches += 1
+    return out, lse
+
+
+flash_attention.launches = 0
+
+
+def flash_attention_bwd(q, k, v, lse, dout, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None,
+                        scale: Optional[float] = None, q_chunk: int = 512):
+    """Gradients of ``flash_attention``'s output, in PyTorch (any device).
+
+    Per chunk of ``q_chunk`` query rows, over only the keys the chunk can
+    reach (causal and window bounds), in f32: P = exp(S - lse) (masked to
+    0), dV = P^T dO, dP = dO V^T, dS = P * (dP - rowsum(P * dP)) times
+    ``1 - tanh^2`` under a softcap and times the scale, dQ = dS K,
+    dK = dS^T Q; dK and dV sum over the G query heads of each kv head.
+    rowsum(P * dP) equals rowsum(dO * O) with O in f32, so the output
+    itself (rounded to q's dtype) is not needed.
+    Returns (dq, dk, dv) in the dtypes of q, k, v.
+    """
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    dev = q.device
+    kf, vf = k.float(), v.float()
+    dq = torch.zeros_like(q)
+    dk = torch.zeros((B, Skv, KV, D), dtype=torch.float32, device=dev)
+    dv = torch.zeros_like(dk)
+    lse5 = lse.reshape(B, KV, G, Sq)
+    for c0 in range(0, Sq, q_chunk):
+        c1 = min(Sq, c0 + q_chunk)
+        t0 = max(0, c0 - window + 1) if window else 0
+        t1 = min(Skv, c1) if causal else Skv
+        if t1 <= t0:
+            continue                              # no reachable key: dq = 0
+        n = c1 - c0
+        qc = q[:, c0:c1].float().reshape(B, n, KV, G, D)
+        doc = dout[:, c0:c1].float().reshape(B, n, KV, G, D)
+        kc, vc = kf[:, t0:t1], vf[:, t0:t1]
+        s = torch.einsum("bqkgd,btkd->bkgqt", qc, kc) * scale
+        th = None
+        if softcap is not None:
+            th = torch.tanh(s / softcap)
+            s = softcap * th
+        qpos = torch.arange(c0, c1, device=dev)[:, None]
+        kpos = torch.arange(t0, t1, device=dev)[None, :]
+        mask = torch.ones((n, t1 - t0), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= kpos <= qpos
+        if window is not None:
+            mask &= (qpos - kpos) < window
+        p = torch.where(mask, torch.exp(s - lse5[..., c0:c1, None]),
+                        torch.zeros_like(s))
+        dv[:, t0:t1] += torch.einsum("bkgqt,bqkgd->btkd", p, doc)
+        dp = torch.einsum("bqkgd,btkd->bkgqt", doc, vc)
+        ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+        if th is not None:
+            ds = ds * (1.0 - th * th)
+        ds = ds * scale
+        dq[:, c0:c1] = torch.einsum("bkgqt,btkd->bqkgd", ds, kc).reshape(
+            B, n, H, D).to(q.dtype)
+        dk[:, t0:t1] += torch.einsum("bkgqt,bqkgd->btkd", ds, qc)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Forward through ``flash_attention`` (the kernel on the card, the
+    plain version on the CPU); backward through ``flash_attention_bwd``.
+    Saves q, k, v and the logsumexp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, scale=scale)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap,
+                        scale=scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, lse, dout.contiguous(),
+                                         **ctx.opts)
+        return dq, dk, dv, None, None, None, None

@@ -1,20 +1,41 @@
-"""Model-facing wrappers around the paged attention kernels.
+"""Model-facing wrappers around the attention kernels.
 
-Counterparts of ``repro.kernels.ops.paged_decode_attention`` and
-``paged_prefill_attention``: they do the same head folding (decode
+Counterparts of ``repro.kernels.ops.mha_flash_attention``,
+``paged_decode_attention`` and ``paged_prefill_attention``.  The paged
+wrappers do the reference's head folding (decode
 ``(B, 1, H, D) -> (B, KV, G, D)``; prefill ``(B, C, H, D) -> (B, KV, C*G, D)``
-with row ``c*G + g``) and hand the folded tensors to the kernel modules,
-which launch the CUDA kernel for a CUDA tensor and run the plain PyTorch
-version for a CPU tensor.
+with row ``c*G + g``); the flash kernel reads the model layout itself.  The
+kernel modules launch the CUDA kernel for a CUDA tensor and run the plain
+PyTorch version for a CPU tensor.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import math
+
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import paged_prefill as _pp
+
+
+def mha_flash_attention(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None,
+                        scale: Optional[float] = None):
+    """Model-layout flash attention, differentiable.
+
+    q: (B, Sq, H, D); k, v: (B, Skv, KV, D) with H = G * KV (GQA; K/V are
+    not repeated per group).  Returns (B, Sq, H, D) in q's dtype.  The
+    forward runs the flash kernel (plain version on the CPU); the backward
+    is ``flash_attention.flash_attention_bwd``."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _fa.FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal, window, softcap,
+                                    float(scale))
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,

@@ -1,10 +1,12 @@
-"""Plain PyTorch versions of the paged attention kernels (the allclose targets).
+"""Plain PyTorch versions of the attention kernels (the allclose targets).
 
-Counterparts of ``repro.kernels.ref.paged_attention_ref`` and
-``paged_prefill_ref``: gather every row's pages back into a dense
-``(B, T, KV, D)`` layout, then run naive masked softmax attention in f32.
-Fully masked rows return zeros (the kernels' semantics).  The mask
-sentinel is the kernels' ``-1e30``.
+Counterparts of ``repro.kernels.ref.attention_ref`` (dense attention, the
+flash kernel's oracle), ``paged_attention_ref`` and ``paged_prefill_ref``
+(gather every row's pages back into a dense ``(B, T, KV, D)`` layout):
+naive masked softmax attention in f32.  Fully masked rows return zeros
+(the kernels' semantics).  The mask sentinel is the kernels' ``-1e30``;
+the reference's jnp ``attention.attend`` masks with ``-2e38`` instead,
+which gives the same values wherever a row has a valid key.
 """
 from __future__ import annotations
 
@@ -26,6 +28,40 @@ def _gather(pages: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
 
 def _softcap(s: torch.Tensor, softcap: Optional[float]) -> torch.Tensor:
     return s if softcap is None else softcap * torch.tanh(s / softcap)
+
+
+def attention_ref(q, k, v, *, causal: bool = True,
+                  window: Optional[int] = None,
+                  softcap: Optional[float] = None,
+                  scale: Optional[float] = None, return_lse: bool = False):
+    """q: (BH, Sq, D); k, v: (BH, Skv, D).  Naive softmax attention with
+    top-left causal (``kpos <= qpos``), sliding-window
+    (``qpos - kpos < window``) and logit-softcap (``c * tanh(s / c)``,
+    before the mask) options.  Returns out (BH, Sq, D) in q's dtype and,
+    with ``return_lse``, also the per-row logsumexp of the masked scores
+    (BH, Sq) f32, ``-inf`` for a row with no valid key."""
+    Sq, Skv, D = q.shape[1], k.shape[1], q.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    s = _softcap(s, softcap)
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    s = torch.where(mask[None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    any_valid = mask.any(dim=1)[None]                    # (1, Sq)
+    out = torch.einsum("bqk,bkd->bqd", p, v.float())
+    out = torch.where(any_valid[..., None], out,
+                      torch.zeros_like(out)).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(s, dim=-1)
+    return out, torch.where(any_valid, lse, torch.full_like(lse, -math.inf))
 
 
 def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,

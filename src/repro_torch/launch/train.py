@@ -1,0 +1,118 @@
+"""Training launcher for the PyTorch port (one device).
+
+Counterpart of ``repro.launch.train``, with its flags plus ``--device``:
+random weights from the port's ``init_params`` at seed 0 held as f32
+masters, the synthetic Markov token source, the chosen optimizer with
+global-norm clipping at 1.0, and ``distributed.stepfn.make_train_step``.
+Prints the reference's step and summary lines, then step time, tokens/s,
+flash-kernel launches per step and, on the card, peak device memory.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
+      --seq-len 1024 --global-batch 8 --steps 8
+
+``--device`` defaults to ``cuda`` and fails without a card; ``--device
+cpu`` runs the kernels' plain PyTorch versions.  Only the ``dp`` strategy
+on one device is ported; ``dp_tp`` and ``fsdp_tp`` wait for ROADMAP
+Queue 1 item 10.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced smoke config (CPU-sized)")
+    ap.add_argument("--strategy", default="dp",
+                    choices=["dp", "dp_tp", "fsdp_tp"])
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--optimizer", default="adamw",
+                    choices=["adamw", "adam", "rmsprop", "sgd"])
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; 'cpu' runs the "
+                         "kernels' plain PyTorch versions)")
+    return ap
+
+
+def main(argv=None) -> dict:
+    """Runs the training loop; returns the run's numbers (losses, step
+    seconds, tokens/s, flash launches per step, peak memory on a card)."""
+    args = build_parser().parse_args(argv)
+    if args.strategy != "dp":
+        raise NotImplementedError(
+            f"--strategy {args.strategy} shards the model over a mesh, which "
+            "is ported with sharded training (ROADMAP Queue 1 item 10)")
+
+    import torch
+
+    from repro_torch import checkpoint as ck
+    from repro_torch import optim
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data import SyntheticTokenSource, TokenDatasetSpec
+    from repro_torch.distributed import stepfn
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import resolve_device
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    device = resolve_device(args.device)
+    opt = optim.get(args.optimizer, args.lr, clip_norm=1.0)
+    print(f"arch={cfg.name} family={cfg.family} strategy={args.strategy} "
+          f"device={device} params~{cfg.param_count()/1e6:.1f}M")
+
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device=device, weight_dtype=torch.float32)
+    opt_state = opt.init(params)
+    step_fn = stepfn.make_train_step(cfg, opt, device=device)
+    source = SyntheticTokenSource(TokenDatasetSpec(
+        cfg.vocab_size, args.seq_len, args.global_batch))
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+    losses, step_s, launches = [], [], []
+    t0 = time.time()
+    for i in range(args.steps):
+        t_step = time.perf_counter()
+        n0 = fa.flash_attention.launches
+        params, opt_state, m = step_fn(params, opt_state, source.batch(i))
+        loss = float(m["loss"])             # waits for the step
+        step_s.append(time.perf_counter() - t_step)
+        launches.append(fa.flash_attention.launches - n0)
+        losses.append(loss)
+        if i % 5 == 0 or i == args.steps - 1:
+            print(f"step {i:4d}  loss {loss:.4f}")
+        if args.ckpt_dir and args.ckpt_every and (i + 1) % args.ckpt_every == 0:
+            ck.save(args.ckpt_dir, i + 1, {"params": params, "opt": opt_state})
+    print(f"{args.steps} steps in {time.time()-t0:.1f}s; "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+
+    tokens = args.global_batch * args.seq_len
+    steady = step_s[1:] or step_s           # step 0 pays the kernel build
+    mean_s = sum(steady) / len(steady)
+    result = {"arch": cfg.name, "device": str(device), "losses": losses,
+              "step_s": step_s, "tokens_per_step": tokens,
+              "tokens_per_s": tokens / mean_s,
+              "flash_launches_per_step": launches}
+    print(f"step time {mean_s * 1e3:.1f} ms (mean of steps "
+          f"{1 if len(step_s) > 1 else 0}-{len(step_s) - 1}); "
+          f"{result['tokens_per_s']:.0f} tokens/s; flash kernel launches "
+          f"per step {launches}")
+    if device.type == "cuda":
+        result["device_name"] = torch.cuda.get_device_name(device)
+        result["max_memory_allocated"] = torch.cuda.max_memory_allocated(
+            device)
+        print(f"peak device memory {result['max_memory_allocated'] / 2**30:.2f}"
+              f" GiB on {result['device_name']}")
+    return result
+
+
+if __name__ == "__main__":
+    main()

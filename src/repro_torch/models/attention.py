@@ -1,11 +1,16 @@
-"""Attention: GQA + RoPE + sliding window + logit softcap over paged KV.
+"""Attention: GQA + RoPE + sliding window + logit softcap.
 
-Counterpart of ``repro.models.attention``.  This slice ports the *paged*
-branch of ``attention_block`` (the serving path): this step's K/V are
-scattered into block storage through the block tables, in place, and
-attention gathers them back through the CUDA paged kernels
-(``repro_torch.kernels.ops``).  The dense-cache and no-cache branches
-belong to the slice that ports dense-mode serving and ``forward``.
+Counterpart of ``repro.models.attention``.  Two branches of
+``attention_block`` are ported:
+- no cache (the full-sequence ``forward`` of training): projections, RoPE,
+  then the differentiable flash attention (``kernels.ops.
+  mha_flash_attention``: the CUDA flash kernel forward, a PyTorch
+  backward), where the reference runs the query-chunked jnp ``attend``;
+- paged KV (the serving path): this step's K/V are scattered into block
+  storage through the block tables, in place, and attention gathers them
+  back through the CUDA paged kernels.
+The dense-cache branch waits for dense-mode serving and cross-attention
+for the enc-dec family (ROADMAP Queue 1 items 6 and 11).
 """
 from __future__ import annotations
 
@@ -57,7 +62,11 @@ def attention_block(params, cfg, x: torch.Tensor, *,
                     q_lens: Optional[torch.Tensor] = None):
     """x: (B, S, d_model).  Returns (out, cache).
 
-    Paged mode only: ``cache`` holds one layer's block storage
+    No cache (``cache is None``): causal self-attention over the whole
+    sequence (top-left: query t sees keys <= t, within ``window``), with
+    ``cfg.attn_logit_softcap``; differentiable.
+
+    Paged mode: ``cache`` holds one layer's block storage
     ``{"k": (num_blocks, block_size, KV, D), "v": ...}`` and
     ``block_tables`` (B, blocks_per_slot) maps each row's positions to
     blocks.  S == 1 is single-token decode at position ``cache_index[b]``;
@@ -69,10 +78,14 @@ def attention_block(params, cfg, x: torch.Tensor, *,
     trash block ``num_blocks - 1``.  The returned cache is the same
     object.
     """
-    if cache is None or block_tables is None or kv_override is not None:
+    if kv_override is not None:
         raise NotImplementedError(
-            "dense-cache, no-cache and cross attention are ported with the "
-            "dense-mode serving slice; this slice runs the paged branch")
+            "cross-attention is ported with the enc-dec family (ROADMAP "
+            "Queue 1 item 11)")
+    if cache is not None and block_tables is None:
+        raise NotImplementedError(
+            "attention over a dense per-slot cache is ported with dense-mode "
+            "serving (ROADMAP Queue 1 item 6); pass block_tables (paged KV)")
     B, S, _ = x.shape
     h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     dt = getattr(torch, cfg.dtype)
@@ -88,6 +101,11 @@ def attention_block(params, cfg, x: torch.Tensor, *,
 
     scale = cfg.attn_scale or (1.0 / math.sqrt(dh))
     sc = cfg.attn_logit_softcap
+    if cache is None:
+        out = kops.mha_flash_attention(q, k, v, causal=True, window=window,
+                                       softcap=sc, scale=scale)
+        out = nn.linear(params["wo"], out.reshape(B, S, h * dh), dtype=dt)
+        return out, None
     kc, vc = cache["k"], cache["v"]
     npages, bs = kc.shape[0], kc.shape[1]
     bps = block_tables.shape[1]

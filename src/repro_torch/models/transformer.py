@@ -6,11 +6,13 @@ parameter tree keeps the reference's layout — per-layer leaves stacked as
 ``(L // pat, pat, ...)`` where ``pat = len(layer_pattern(cfg))`` — so
 ``repro_torch.bridge`` moves weights between the packages leaf for leaf.
 PyTorch runs eagerly: the reference's ``lax.scan`` over layer groups is a
-Python loop, and the paged KV storage is updated in place.
+Python loop (each group under ``torch.utils.checkpoint`` when
+``cfg.remat``), and the paged KV storage is updated in place.
 
-This slice ports the serving steps over paged KV (``decode_step``,
-``prefill_step``); ``forward``, the losses and the other families come
-with the slices that need them.
+Ported: the full-sequence ``forward`` and the losses of training
+(``lm_loss``, ``lm_loss_chunked``), and the serving steps over paged KV
+(``decode_step``, ``prefill_step``).  The other families come with the
+slices that need them.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import modules as nn
@@ -44,7 +47,7 @@ def _check_family(cfg) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is ported with a later slice; this "
-            "slice serves dense decoders")
+            "port runs dense decoders")
 
 
 # ---------------------------------------------------------------------------
@@ -125,10 +128,12 @@ def _cache_struct(cfg, batch: int, seq_len: int):
                        "v": (shape, torch.bfloat16)}}
 
 
-def _index(tree, gi: int, i: int):
+def _index(tree, *idx):
+    """Every leaf of a stacked tree indexed by ``idx`` (a layer group, or
+    a group and a layer in it)."""
     if isinstance(tree, dict):
-        return {k: _index(v, gi, i) for k, v in tree.items()}
-    return tree[gi, i]
+        return {k: _index(v, *idx) for k, v in tree.items()}
+    return tree[idx]
 
 
 # ---------------------------------------------------------------------------
@@ -192,14 +197,125 @@ def _run_layers(params, cfg, x, cache, *, positions, cache_index,
     return x
 
 
-def _logits(params, cfg, x):
-    x = nn.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+def _unembed(params, cfg, x):
+    """Final-norm hidden states -> f32 logits (final softcap applied)."""
     if cfg.tie_embeddings:
         logits = nn.unembed(params["embed"], x)
     else:
         logits = nn.linear(params["lm_head"], x,
                            dtype=_dtype(cfg.dtype)).float()
     return nn.softcap(logits, cfg.final_logit_softcap)
+
+
+def _logits(params, cfg, x):
+    return _unembed(params, cfg,
+                    nn.rmsnorm(params["final_norm"], x, cfg.norm_eps))
+
+
+# ---------------------------------------------------------------------------
+# Forward (train / prefill): the whole sequence, no cache
+# ---------------------------------------------------------------------------
+
+def _forward_group(gp, cfg, x):
+    """One layer group of the no-cache forward.  The residual enters the
+    group rounded (the reference's scan carry) and the ``x_sum`` rule of
+    ``_apply_layer`` holds inside it."""
+    x_sum = None
+    for i, win in enumerate(layer_pattern(cfg)):
+        x, x_sum = _apply_layer(_index(gp, i), cfg, x, x_sum,
+                                window=win, positions=None, cache=None,
+                                cache_index=None, block_tables=None)
+    return x
+
+
+def forward(params, cfg, batch: Dict[str, Any], *, last_only: bool = False,
+            return_hidden: bool = False
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence causal forward (training, prefill).  batch: tokens
+    (B, S).  Returns (logits (B, S, V) f32, aux_loss 0-d f32 (zero for
+    dense decoders)).
+
+    last_only: unembed only the final position.  return_hidden: return the
+    final-norm hidden states (B, S, d) in the compute dtype instead of
+    logits (the chunked loss unembeds them itself).  With ``cfg.remat``
+    each layer group runs under ``torch.utils.checkpoint`` (the
+    reference's rematted scan body): its activations are recomputed in
+    the backward, so attention runs twice per layer per training step."""
+    _check_family(cfg)
+    x = _embed(params, cfg, batch["tokens"])
+    groups = cfg.num_layers // len(layer_pattern(cfg))
+    for gi in range(groups):
+        gp = _index(params["layers"], gi)
+        if cfg.remat:
+            x = checkpoint(_forward_group, gp, cfg, x, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = _forward_group(gp, cfg, x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if last_only:
+        x = x[:, -1:]
+    x = nn.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if return_hidden:
+        return x, aux
+    return _unembed(params, cfg, x), aux
+
+
+def _trunk(params, cfg, batch):
+    """``forward`` up to (excluding) the unembedding: (hidden, aux)."""
+    return forward(params, cfg, batch, return_hidden=True)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def _loss_metrics(loss, aux):
+    return loss + aux, {"ce_loss": loss, "aux_loss": aux,
+                        "perplexity": torch.exp(loss)}
+
+
+def lm_loss(params, cfg, batch: Dict[str, Any]
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Next-token cross-entropy (logits[t] predicts labels[t + 1]) over
+    the full (B, S, V) f32 logits.  Returns (loss, metrics)."""
+    logits, aux = forward(params, cfg, batch)
+    lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    tgt = batch["labels"][:, 1:].long()
+    nll = -torch.gather(lp, -1, tgt[..., None])[..., 0]
+    return _loss_metrics(nll.mean(), aux)
+
+
+def lm_loss_chunked(params, cfg, batch: Dict[str, Any], *,
+                    seq_chunk: int = 512
+                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """The same loss without the (B, S, V) logits: the trunk runs once,
+    then each chunk of ``seq_chunk`` positions unembeds, takes
+    logsumexp - target logit, and is recomputed in the backward
+    (checkpointed), so the loss holds O(B * seq_chunk * V) at a time."""
+    x, aux = _trunk(params, cfg, batch)
+    B, S, _ = x.shape
+    x = x[:, :-1]
+    tgt = batch["labels"][:, 1:].long()
+    Sm = S - 1
+    pad = (-Sm) % seq_chunk
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        tgt = torch.nn.functional.pad(tgt, (0, pad))
+    valid = (torch.arange(Sm + pad, device=x.device) < Sm).float()
+
+    def chunk_nll(xc, tc, vc):
+        logits = _unembed(params, cfg, xc)
+        lse = torch.logsumexp(logits, dim=-1)
+        hit = torch.gather(logits, -1, tc[..., None])[..., 0]
+        return torch.sum((lse - hit) * vc)
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, Sm + pad, seq_chunk):
+        sl = slice(c0, c0 + seq_chunk)
+        total = total + checkpoint(chunk_nll, x[:, sl], tgt[:, sl],
+                                   valid[None, sl], use_reentrant=False,
+                                   preserve_rng_state=False)
+    return _loss_metrics(total / (B * Sm), aux)
 
 
 def _require_paged(batch, what: str):

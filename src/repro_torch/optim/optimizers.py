@@ -1,0 +1,176 @@
+"""Optimizers as plain functions over parameter dicts (counterpart of
+``repro.optim.optimizers``).
+
+``update(grads, state, params) -> (updates, state)`` as in the reference:
+states are nested dicts of f32 tensors plus an int32 step ``count``, laid
+out exactly as the reference's (``{"count", "mu", "nu"}`` for Adam), so a
+checkpoint of one package's optimizer state restores in the other.
+Updates come back in f32 and ``apply_updates`` adds them to the params in
+f32, then casts to each param's dtype.  The learning rate of an update is
+the schedule at the count *before* the increment, as in the reference.
+Nothing is updated in place: every call returns new tensors.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Optional, Tuple, Union
+
+import torch
+
+Schedule = Callable[[torch.Tensor], torch.Tensor]
+ScalarOrSchedule = Union[float, Schedule]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts (``rest`` shaped alike)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def _leaves(tree):
+    """Leaves in the reference's order (``jax.tree.leaves`` sorts dict
+    keys), so sums over leaves add in the same order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    else:
+        yield tree
+
+
+def _lr_at(lr: ScalarOrSchedule, count: torch.Tensor) -> torch.Tensor:
+    if callable(lr):
+        return lr(count)
+    return torch.tensor(lr, dtype=torch.float32, device=count.device)
+
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in _leaves(tree)))
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
+    return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
+
+
+@dataclass(frozen=True)
+class Optimizer:
+    init: Callable[[Any], Any]
+    update: Callable[[Any, Any, Any], Tuple[Any, Any]]
+
+
+def _zeros_like_f32(params):
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)
+
+
+def _count(params) -> torch.Tensor:
+    dev = next(_leaves(params)).device
+    return torch.zeros((), dtype=torch.int32, device=dev)
+
+
+def _f32(tree):
+    return tree_map(lambda g: g.float(), tree)
+
+
+# ---------------------------------------------------------------------------
+# SGD (+momentum)
+# ---------------------------------------------------------------------------
+
+def sgd(lr: ScalarOrSchedule, momentum: float = 0.0,
+        clip_norm: Optional[float] = None) -> Optimizer:
+    def init(params):
+        s = {"count": _count(params)}
+        if momentum:
+            s["mu"] = _zeros_like_f32(params)
+        return s
+
+    def update(grads, state, params):
+        if clip_norm:
+            grads, _ = clip_by_global_norm(grads, clip_norm)
+        step_lr = _lr_at(lr, state["count"])
+        g32 = _f32(grads)
+        if momentum:
+            mu = tree_map(lambda m, g: momentum * m + g, state["mu"], g32)
+            upd = tree_map(lambda m: -step_lr * m, mu)
+            return upd, {"count": state["count"] + 1, "mu": mu}
+        return tree_map(lambda g: -step_lr * g, g32), \
+            {"count": state["count"] + 1}
+
+    return Optimizer(init, update)
+
+
+# ---------------------------------------------------------------------------
+# RMSProp (the paper's 3DGAN optimizer)
+# ---------------------------------------------------------------------------
+
+def rmsprop(lr: ScalarOrSchedule, decay: float = 0.9, eps: float = 1e-8,
+            clip_norm: Optional[float] = None) -> Optimizer:
+    def init(params):
+        return {"count": _count(params), "nu": _zeros_like_f32(params)}
+
+    def update(grads, state, params):
+        if clip_norm:
+            grads, _ = clip_by_global_norm(grads, clip_norm)
+        step_lr = _lr_at(lr, state["count"])
+        g32 = _f32(grads)
+        nu = tree_map(lambda n, g: decay * n + (1 - decay) * g * g,
+                      state["nu"], g32)
+        upd = tree_map(lambda g, n: -step_lr * g / (torch.sqrt(n) + eps),
+                       g32, nu)
+        return upd, {"count": state["count"] + 1, "nu": nu}
+
+    return Optimizer(init, update)
+
+
+# ---------------------------------------------------------------------------
+# Adam / AdamW
+# ---------------------------------------------------------------------------
+
+def adamw(lr: ScalarOrSchedule, b1: float = 0.9, b2: float = 0.95,
+          eps: float = 1e-8, weight_decay: float = 0.0,
+          clip_norm: Optional[float] = None) -> Optimizer:
+    def init(params):
+        return {"count": _count(params), "mu": _zeros_like_f32(params),
+                "nu": _zeros_like_f32(params)}
+
+    def update(grads, state, params):
+        if clip_norm:
+            grads, _ = clip_by_global_norm(grads, clip_norm)
+        count = state["count"] + 1
+        step_lr = _lr_at(lr, state["count"])
+        g32 = _f32(grads)
+        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state["mu"], g32)
+        nu = tree_map(lambda n, g: b2 * n + (1 - b2) * g * g,
+                      state["nu"], g32)
+        c = count.float()
+        bc1 = 1 - b1 ** c
+        bc2 = 1 - b2 ** c
+
+        def u(m, n, p):
+            upd = -step_lr * (m / bc1) / (torch.sqrt(n / bc2) + eps)
+            if weight_decay:
+                upd = upd - step_lr * weight_decay * p.float()
+            return upd
+
+        upd = tree_map(u, mu, nu, params)
+        return upd, {"count": count, "mu": mu, "nu": nu}
+
+    return Optimizer(init, update)
+
+
+def adam(lr: ScalarOrSchedule, **kw) -> Optimizer:
+    return adamw(lr, weight_decay=0.0, **kw)
+
+
+def apply_updates(params, updates):
+    return tree_map(lambda p, u: (p.float() + u).to(p.dtype), params,
+                    updates)
+
+
+def get(name: str, lr: ScalarOrSchedule, **kw) -> Optimizer:
+    return {"sgd": sgd, "rmsprop": rmsprop, "adam": adam,
+            "adamw": adamw}[name](lr, **kw)

@@ -1,7 +1,9 @@
-"""Paged attention kernels: the port's plain versions, through
-``repro_torch.kernels.ops``, against the reference's Pallas kernels (in
-interpret mode off-TPU, as ``repro.kernels.ops`` chooses) and against
-``repro.kernels.ref``, on the same numpy inputs.
+"""Attention kernels (paged decode, paged prefill, flash): the port's
+plain versions, through ``repro_torch.kernels.ops``, against the
+reference's Pallas kernels (in interpret mode off-TPU, as
+``repro.kernels.ops`` chooses) and against ``repro.kernels.ref``, on the
+same numpy inputs; and the flash attention's PyTorch backward against
+autograd through its plain version.
 
 Tolerances: atol 1e-5 with f32 inputs (both sides compute in f32; only
 the summation order differs); atol 2e-2 with bf16 inputs (outputs are
@@ -13,8 +15,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import flash_attention as jfa
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as jref
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import paged_prefill as pp
@@ -162,6 +166,132 @@ def test_wrappers_refuse_devices_without_a_kernel():
         pa.paged_attention(q, pages, pages, tbl, lens)
     with pytest.raises(ValueError, match="no kernel"):
         pp.paged_prefill(q, pages, pages, tbl, lens, lens, group=2)
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.flash_attention(q, pages[:1], pages[:1])
+
+
+# ---------------------------------------------------------------------------
+# flash attention: plain version and PyTorch backward
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [
+    # B, S, H, KV, D, causal, window, softcap, dtype
+    (2, 37, 4, 2, 64, True, None, None, "f32"),   # GQA, S not a block mult.
+    (1, 150, 4, 4, 288, True, 40, 50.0, "f32"),   # gemma2 head dim, S > 128
+    (2, 20, 2, 1, 32, False, 7, None, "f32"),     # bidirectional window
+    (1, 130, 6, 2, 64, True, None, 30.0, "bf16"),  # softcap, G = 3
+    (2, 64, 2, 2, 288, True, 16, 50.0, "bf16"),   # window + softcap, D 288
+]
+
+
+def _gqa_fold(a, G):
+    """numpy (B, S, N, D) -> (B * N * G, S, D), each head repeated G times
+    (the reference's ``ops`` fold)."""
+    B, S, N, D = a.shape
+    return np.repeat(a.transpose(0, 2, 1, 3)[:, :, None], G, axis=2).reshape(
+        B * N * G, S, D)
+
+
+def _masked_lse(q, k, causal, window, softcap):
+    """float64 logsumexp of each row's masked scores, (BH, Sq)."""
+    s = np.einsum("bqd,bkd->bqk", q.astype(np.float64),
+                  k.astype(np.float64)) / np.sqrt(q.shape[-1])
+    if softcap is not None:
+        s = softcap * np.tanh(s / softcap)
+    qp, kp = np.arange(q.shape[1])[:, None], np.arange(k.shape[1])[None]
+    mask = np.ones_like(s[0], bool)
+    if causal:
+        mask &= kp <= qp
+    if window is not None:
+        mask &= (qp - kp) < window
+    s = np.where(mask[None], s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    return (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0]
+
+
+@pytest.mark.parametrize("B,S,H,KV,D,causal,window,softcap,dtype",
+                         FLASH_CASES)
+def test_flash_plain_matches_reference(B, S, H, KV, D, causal, window,
+                                       softcap, dtype):
+    rng = np.random.default_rng(B * 1000 + S + D)
+    G = H // KV
+    q = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, KV, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, KV, D)).astype(np.float32)
+    atol = F32_ATOL if dtype == "f32" else BF16_ATOL
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    # the oracle's layout: (BH, S, D) with K/V repeated per group
+    qf = q.reshape(B, S, KV, G, D).transpose(0, 2, 3, 1, 4).reshape(
+        B * H, S, D)
+    kf, vf = _gqa_fold(k, G), _gqa_fold(v, G)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (qf, kf, vf))
+    ours, lse = tref.attention_ref(tq, tk, tv, return_lse=True, **kw)
+    assert ours.dtype == tq.dtype and lse.dtype == torch.float32
+    _close(ours, jref.attention_ref(jq, jk, jv, **kw), atol)
+    _close(ours, jfa.flash_attention(jq, jk, jv, interpret=True, **kw),
+           atol)
+    np.testing.assert_allclose(
+        lse.numpy(), _masked_lse(tq.float().numpy(), tk.float().numpy(),
+                                 causal, window, softcap),
+        rtol=1e-5, atol=1e-5)
+    # the model-layout wrapper against the reference's ops wrapper
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (q, k, v))
+    out = ops.mha_flash_attention(tq, tk, tv, **kw)
+    assert out.shape == (B, S, H, D) and out.dtype == tq.dtype
+    _close(out, ref_ops.mha_flash_attention(jq, jk, jv, **kw), atol)
+
+
+def test_flash_rows_without_a_key_are_zero():
+    """A row no key can reach writes zeros and has lse -inf (the kernels'
+    semantics; the softmax itself would average the masked values)."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 5, 8)).astype(
+        np.float32)) for _ in range(3))
+    # causal, window 1 (each row sees only its own position), 3 keys:
+    # rows 3 and 4 reach none
+    out, lse = tref.attention_ref(q, k[:, :3], v[:, :3], causal=True,
+                                  window=1, return_lse=True)
+    assert (out[:, 3:] == 0).all() and torch.isinf(lse[:, 3:]).all()
+    assert (lse[:, 3:] < 0).all() and torch.isfinite(lse[:, :3]).all()
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_attention(q[None], k[None], v[None], window=0)
+
+
+@pytest.mark.parametrize("causal,window,softcap,G,q_chunk", [
+    (True, None, None, 2, 512),
+    (True, 9, 50.0, 3, 16),         # several query chunks, window bounds
+    (False, 5, None, 1, 7),         # bidirectional, ragged last chunk
+    (True, None, 30.0, 4, 13),
+])
+def test_flash_backward_matches_autograd(causal, window, softcap, G,
+                                         q_chunk):
+    """The autograd Function (plain forward here, PyTorch backward)
+    against torch autograd through the plain version, f32 at 1e-5."""
+    rng = np.random.default_rng(G + q_chunk)
+    B, S, KV, D = 2, 40, 2, 32
+    H = KV * G
+    arrays = [rng.standard_normal(s).astype(np.float32)
+              for s in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D))]
+    dout = torch.from_numpy(rng.standard_normal((B, S, H, D)).astype(
+        np.float32))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+
+    def leaves():
+        return [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+
+    ins = leaves()
+    got = torch.autograd.grad(ops.mha_flash_attention(*ins, **kw), ins, dout)
+    ins = leaves()
+    want = torch.autograd.grad(fa.flash_attention_plain(*ins, **kw)[0], ins,
+                               dout)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=F32_ATOL, rtol=0)
+    q, k, v = (torch.from_numpy(a) for a in arrays)
+    _, lse = fa.flash_attention_plain(q, k, v, **kw)
+    chunked = fa.flash_attention_bwd(q, k, v, lse, dout, q_chunk=q_chunk,
+                                     **kw)
+    for g, w in zip(chunked, want):
+        torch.testing.assert_close(g, w, atol=F32_ATOL, rtol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -213,6 +343,40 @@ def test_cuda_kernels_match_plain(cuda, G, D, page, window, softcap):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,D,causal,window,softcap,dtype",
+                         FLASH_CASES)
+def test_cuda_flash_matches_plain(cuda, B, S, H, KV, D, causal, window,
+                                  softcap, dtype):
+    """The flash kernel's output and lse, and the gradients through the
+    autograd Function (kernel forward), against the plain version."""
+    rng = np.random.default_rng(S + D)
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    mk = lambda *s: torch.tensor(rng.standard_normal(s), dtype=dt,
+                                 device=cuda)
+    q, k, v = mk(B, S, H, D), mk(B, S, KV, D), mk(B, S, KV, D)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    launches = fa.flash_attention.launches
+    out, lse = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == launches + 1
+    want, want_lse = fa.flash_attention_plain(q, k, v, **kw)
+    atol = 1e-4 if dtype == "f32" else BF16_ATOL
+    assert (out.float() - want.float()).abs().max().item() <= atol
+    assert torch.equal(torch.isfinite(lse), torch.isfinite(want_lse))
+    fin = torch.isfinite(want_lse)
+    assert (lse[fin] - want_lse[fin]).abs().max().item() <= 1e-4
+    dout = mk(B, S, H, D)
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(ops.mha_flash_attention(*ins, **kw), ins, dout)
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = torch.autograd.grad(fa.flash_attention_plain(*ins, **kw)[0], ins,
+                              dout)
+    for g, r in zip(got, ref):
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= atol * max(1.0, r.float().abs().max().item())
+
+
+@pytest.mark.gpu
 def test_cuda_wrappers_raise_on_wrong_inputs(cuda):
     q = torch.zeros((1, 2, 2, 8), dtype=torch.float32, device=cuda)
     pages = torch.zeros((2, 8, 2, 8), dtype=torch.bfloat16, device=cuda)
@@ -222,3 +386,12 @@ def test_cuda_wrappers_raise_on_wrong_inputs(cuda):
         pa.paged_attention(q, pages, pages, tbl, lens)
     with pytest.raises(ValueError):
         pa.paged_attention(q.bfloat16(), pages, pages, tbl.cpu(), lens)
+    kv = torch.zeros((1, 4, 1, 48), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        fa.flash_attention(kv, kv, kv)
+    with pytest.raises(TypeError):
+        fa.flash_attention(kv.half(), kv.half(), kv.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        qt = torch.zeros((1, 2, 4, 64), dtype=torch.bfloat16,
+                         device=cuda).transpose(1, 2)
+        fa.flash_attention(qt, qt, qt)

@@ -161,11 +161,20 @@ def test_paged_attention_block_matches_reference(model, S):
 
 
 def test_other_attention_branches_wait_for_their_slice(model):
+    """The dense-cache and cross-attention branches raise, naming their
+    ROADMAP items; the no-cache branch (training's forward) runs."""
     cfg, pcfg, _, pparams = model
     plp = PT._index(pparams["layers"], 0, 0)["attn"]
     x = torch.zeros((1, 2, pcfg.d_model), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        PA.attention_block(plp, pcfg, x)
+    kv = torch.zeros((1, 4, pcfg.num_kv_heads, pcfg.resolved_head_dim),
+                     dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        PA.attention_block(plp, pcfg, x, cache={"k": kv, "v": kv},
+                           cache_index=torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        PA.attention_block(plp, pcfg, x, kv_override=x)
+    out, cache = PA.attention_block(plp, pcfg, x)
+    assert out.shape == x.shape and cache is None
 
 
 # ---------------------------------------------------------------------------
