@@ -10,7 +10,8 @@ Phases (any failure exits nonzero):
 1. device   — the card's name, device count, and ``nvidia-smi``'s name and
               power limit;
 2. build    — nvcc builds every CUDA kernel from ``src/repro_torch/kernels/
-              csrc`` into the git-ignored ``build/`` (ptxas report printed);
+              csrc`` into the git-ignored ``build/``, one nvcc per source,
+              all started together (ptxas report printed);
 3. kernels  — each kernel against its plain PyTorch version on CUDA tensors.
               Paged kernels at qwen2-0.5b shapes (KV 2, G 7, D 64, page 16)
               and gemma2-2b shapes (KV 4, G 2, D 288, window 4096 with
@@ -20,33 +21,52 @@ Phases (any failure exits nonzero):
               D 64, causal) and gemma2-2b shapes (B 1, S 4150 — past the
               window and not a tile multiple — H 8, KV 4, D 288, window
               4096, softcap 50): output, logsumexp, and dQ/dK/dV through the
-              autograd Function against autograd through the plain version;
+              autograd Function against autograd through the plain version.
+              The SSD scan at mamba2-1.3b shapes (b 2, S 1024, H 64, P 64,
+              N 128, G 1, chunk 256) on what a fresh full-width layer feeds
+              it, and with G = 2 and S = 1000 (not a chunk multiple)
+              through ``ops.ssd``, output and gradients; a scan that drops
+              the carried state must fail the output check.
+              RMSNorm at d 896 / 2048 / 2304 / 4096, bf16 -> bf16 and
+              f32 -> bf16, a row count that is not a block multiple, and
+              its gradients;
 4. times    — each kernel at the main path's shapes (decode: B = 8,
               contexts 512-2048; prefill: B = 4, C = 64; flash: the
-              training shapes above) with CUDA events, L2 flushed before
-              every launch, beside its plain version, the library yardstick
-              (gather + scaled_dot_product_attention, used nowhere in the
-              port) and its bound (bytes at 3.35 TB/s or flops at 989
-              TFLOP/s, whichever is larger);
+              qwen2 training shapes above; SSD: mamba2-1.3b training, b 8;
+              RMSNorm: mamba2's gated norm, 8,192 x 4,096 f32 -> bf16) with
+              CUDA events, L2 flushed before every launch, beside its plain
+              version, the library yardstick (gather +
+              scaled_dot_product_attention; ``F.rms_norm``; none for the
+              SSD scan; used nowhere in the port) and its bound (bytes at
+              3.35 TB/s or flops at 989 TFLOP/s, whichever is larger);
 5. serving  — full-width qwen2-0.5b (random weights, seed 0): (a) the port's
               launcher ``repro_torch.launch.serve.main``; (b) the scheduler
               and engine driven directly with 12 prompts of 320-1024 tokens
               sharing a 256-token prefix.  Every kernel's launch counter is
-              zeroed just before each part and the paged kernels' must be
-              > 0 after it; every request completes, the prefix cache hits,
-              nothing leaks;
+              zeroed just before each part and the paged kernels' and
+              RMSNorm's must be > 0 after it; every request completes, the
+              prefix cache hits, nothing leaks;
 6. card vs CPU — the same weights on the CPU (plain kernel versions): one
               48-token prompt, last-position logits within tolerance and 4
               equal greedy tokens;
 7. training — full-width qwen2-0.5b through the port's launcher
               ``repro_torch.launch.train.main`` (seq 1024, batch 8, 8 AdamW
               steps): every loss finite, the last below the first, the
-              flash kernel launched on every layer of every step (counters
-              zeroed just before); then one step under ``torch.profiler``
-              for where the device time goes;
+              flash kernel launched on every layer of every step and
+              RMSNorm on every norm (counters zeroed just before); then one
+              step under ``torch.profiler`` for where the device time goes;
 8. training card vs CPU — one train step of a 2-layer full-width qwen2 at
               seq 128, batch 2, on the same weights on both: loss and the
-              gradient's global norm within tolerance.
+              gradient's global norm within tolerance;
+9. training mamba2-1.3b, full width, through the launcher (seq 1024,
+              batch 8, 8 AdamW steps): losses finite and falling, exactly
+              96 SSD launches (48 layers x 2 with remat) and 193 RMSNorm
+              launches in every step, step time, tokens/s, peak memory;
+              one step under ``torch.profiler``;
+10. mamba2 training card vs CPU — one step of a 2-layer full-width mamba2
+              at seq 512 (two chunks: the state carries), batch 2, on the
+              same weights on both: loss and gradient norm within
+              tolerance.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -79,6 +99,11 @@ GRAD_TOL = 2e-2                # max |grad err| / max |grad|: bf16 grads
 TRAIN_LOSS_RTOL = 1e-3         # one train step, card vs CPU: a mean over
                                # 254 token losses of bf16-computed logits
 TRAIN_GNORM_RTOL = 2e-2        # the gradient's global norm, same step
+# The SSD scan's and RMSNorm's bf16 outputs reach |y| ~ 20 and ~ 6, where
+# one bf16 ulp is 0.125 and 3.1e-2: their error is taken element by
+# element as |got - plain| / max(1, |plain|) against KERNEL_TOL (2.5-5
+# ulps relative above 1, 2e-2 absolute below; f32 sums in another order can
+# flip a rounding)
 
 
 class SmokeFailure(RuntimeError):
@@ -245,6 +270,83 @@ def prefill_cost(case):
     return nbytes, 4 * attended * KV * G * D
 
 
+def ssd_case(torch, rng, dev, *, b, S, H, P, G, N):
+    """SSD inputs in the model layout, x, B and C in bf16, dt and A f32:
+    N(0, 1) x, B and C, dt = softplus(z), A = -exp(z) (slow decays: the
+    carried state matters in every head)."""
+    import numpy as np
+    bf = lambda *sh: torch.tensor(rng.standard_normal(sh),
+                                  dtype=torch.bfloat16, device=dev)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    dt = np.logaddexp(rng.standard_normal((b, S, H)), 0.0)
+    A = -np.exp(rng.standard_normal(H))
+    return dict(x=bf(b, S, H, P), dt=f32(dt), A=f32(A), B=bf(b, S, G, N),
+                C=bf(b, S, G, N), dy=bf(b, S, H, P))
+
+
+def mamba_scan_case(torch, rng, dev, *, b, S, seed):
+    """What the first layer of a freshly initialised full-width
+    mamba2-1.3b feeds the SSD scan (``ssm.scan_inputs``: in_proj, causal
+    conv, softplus dt) for unit-rms rows of bf16 input, as its pre-norm
+    hands them over.  Its heads decay from A = -1 to -64: exp(cum)
+    underflows in most, the first ones carry the state across chunks."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    cfg = get_config("mamba2-1.3b")
+    gen = torch.Generator().manual_seed(seed)
+    p = ssm.init_mamba2(cfg, gen, device=dev, weight_dtype=torch.bfloat16)
+    u = torch.randn((b, S, cfg.d_model), generator=gen).to(dev,
+                                                           torch.bfloat16)
+    with torch.no_grad():
+        _, x, dt, A, B, C, _ = ssm.scan_inputs(p, cfg, u)
+    dy = torch.tensor(rng.standard_normal(x.shape), dtype=torch.bfloat16,
+                      device=dev)
+    return dict(x=x.contiguous(), dt=dt.contiguous(), A=A.contiguous(),
+                B=B.contiguous(), C=C.contiguous(), dy=dy)
+
+
+def ssd_cost(case, chunk):
+    """(bytes, flops): x, dt, A, B, C read once, y written once.  Per
+    chunk, 2 flops for each multiply-add: the masked C.B^T product
+    (L(L+1)/2 N, j <= i only) once per group, as every head of a group
+    shares it; per head the masked M.x product (L(L+1)/2 P), the state's
+    contribution to y and the state update (L N P each)."""
+    b, S, H, P = case["x"].shape
+    G, N = case["B"].shape[2], case["B"].shape[3]
+    L = min(chunk, S)
+    nc = -(-S // L)
+    tri = L * (L + 1) // 2
+    mac = b * nc * (G * tri * N + H * (tri * P + 2 * L * N * P))
+    nbytes = 2 * (b * S * H * P * 2) + 2 * (b * S * G * N * 2) \
+        + b * S * H * 4 + H * 4
+    return nbytes, 2 * mac
+
+
+def rmsnorm_cost(case):
+    """(bytes, flops): x read once, y written once, the scale read once;
+    4 flops per element (square-add, the two scalings, 1 + scale)."""
+    x, out_dtype = case["x"], case["out_dtype"]
+    n = x.numel()
+    out_bytes = 2 if out_dtype == "bfloat16" else 4
+    return n * (x.element_size() + out_bytes) + x.shape[-1] * 4, 4 * n
+
+
+def norm_err(got, ref) -> float:
+    """max |got - ref| / max(1, |ref|), element by element (bf16 outputs:
+    one ulp is at most 2**-7 of |ref| above 1, at most 3.9e-3 below)."""
+    r = ref.float()
+    return ((got.float() - r).abs() / r.abs().clamp(min=1.0)).max().item()
+
+
+def zero_counts(counters) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def read_counts(counters) -> dict:
+    return {name: fn.launches for name, fn in counters.items()}
+
+
 def time_ms(torch, fn, flush, reps: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn`` over ``reps`` launches, each timed with
     CUDA events after the L2 cache is flushed (a 128 MB write)."""
@@ -269,7 +371,8 @@ def profile_breakdown(prof, wall_ms: float) -> dict:
     events' time (``self_device_time_total``, in us) summed over kernels;
     busy share = total kernel time / the step's wall time (the profiler's
     own overhead is in that wall time)."""
-    fams = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
+    fams = {"flash_attention": 0.0, "ssd_scan": 0.0, "rmsnorm": 0.0,
+            "gemm": 0.0, "other": 0.0}
     top = []
     for e in prof.key_averages():
         if not str(getattr(e, "device_type", "")).endswith("CUDA"):
@@ -281,6 +384,8 @@ def profile_breakdown(prof, wall_ms: float) -> dict:
             continue
         key = e.key.lower()
         fam = ("flash_attention" if "flash_fwd" in key else
+               "ssd_scan" if "ssd_scan_kernel" in key else
+               "rmsnorm" if "rmsnorm_kernel" in key else
                "gemm" if any(t in key for t in ("gemm", "xmma", "cutlass",
                                                 "cublas")) else "other")
         fams[fam] += us / 1e3
@@ -292,6 +397,70 @@ def profile_breakdown(prof, wall_ms: float) -> dict:
             "by_family_ms": fams,
             "top": [{"ms": t, "kernel": k, "calls": c}
                     for t, k, c in top[:12]]}
+
+
+# ---------------------------------------------------------------------------
+# training helpers
+# ---------------------------------------------------------------------------
+
+def profile_train_step(torch, cfg, dev) -> dict:
+    """One full-width train step (seq 1024, batch 8, AdamW) under
+    ``torch.profiler``, after two unprofiled steps; device time by kernel
+    family."""
+    from repro_torch import optim
+    from repro_torch.data import SyntheticTokenSource, TokenDatasetSpec
+    from repro_torch.distributed import stepfn
+    from repro_torch.models import transformer as T
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device=dev, weight_dtype=torch.float32)
+    opt = optim.adamw(3e-4, clip_norm=1.0)
+    state = opt.init(params)
+    step = stepfn.make_train_step(cfg, opt, device=dev)
+    src = SyntheticTokenSource(TokenDatasetSpec(cfg.vocab_size, 1024, 8))
+    for i in range(2):
+        params, state, _ = step(params, state, src.batch(i))
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        params, state, _ = step(params, state, src.batch(2))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return profile_breakdown(prof, wall_ms)
+
+
+def train_card_vs_cpu(torch, cfg, *, seq: int, batch: int, dev) -> None:
+    """One train step of ``cfg`` on the card and on the CPU from the same
+    f32 weights and batch: loss and the gradient's global norm within
+    tolerance."""
+    import numpy as np
+    from repro_torch import optim
+    from repro_torch.data import SyntheticTokenSource, TokenDatasetSpec
+    from repro_torch.distributed import stepfn
+    from repro_torch.models import transformer as T
+    p_cpu = T.init_params(cfg, torch.Generator().manual_seed(1),
+                          weight_dtype=torch.float32)
+    data = SyntheticTokenSource(TokenDatasetSpec(
+        cfg.vocab_size, seq, batch)).batch(0)
+    got = {}
+    for where in (dev, "cpu"):
+        p = optim.tree_map(lambda t: t.to(where), p_cpu)
+        o = optim.adamw(3e-4, clip_norm=1.0)
+        _, _, m = stepfn.make_train_step(cfg, o, device=where)(
+            p, o.init(p), data)
+        got[str(where)] = (float(m["loss"]), float(m["grad_norm"]))
+        del p, o, m
+    (lg, ng), (lc, nc) = got[str(dev)], got["cpu"]
+    print(f"{cfg.name} {cfg.num_layers}-layer full-width step, seq {seq}, "
+          f"batch {batch}: loss cuda {lg:.6f} cpu {lc:.6f} (rtol "
+          f"{TRAIN_LOSS_RTOL}); grad norm cuda {ng:.6f} cpu {nc:.6f} (rtol "
+          f"{TRAIN_GNORM_RTOL})", flush=True)
+    check(np.isfinite([lg, ng]).all(), "card train step not finite")
+    check(abs(lg - lc) <= TRAIN_LOSS_RTOL * abs(lc),
+          f"{cfg.name}: card and CPU training losses disagree")
+    check(abs(ng - nc) <= TRAIN_GNORM_RTOL * abs(nc),
+          f"{cfg.name}: card and CPU gradient norms disagree")
 
 
 # ---------------------------------------------------------------------------
@@ -356,15 +525,15 @@ def main() -> int:
 
     # 1. device ------------------------------------------------------------
     phase("device")
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     smi_line = (smi.stdout.strip().splitlines() or ["unavailable"])[0]
-    print(f"device: {name}; device_count {count}; torch {torch.__version__} "
-          f"cuda {torch.version.cuda}")
+    print(f"device: {device_name}; device_count {count}; torch "
+          f"{torch.__version__} cuda {torch.version.cuda}")
     print(smi_line, flush=True)
 
     # 2. build -------------------------------------------------------------
@@ -374,6 +543,12 @@ def main() -> int:
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import paged_prefill as pp
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as ssd
+    counters = {"paged_decode_attention": pa.paged_attention,
+                "paged_prefill_attention": pp.paged_prefill,
+                "flash_attention": fa.flash_attention,
+                "ssd_scan": ssd.ssd_scan, "rmsnorm": rn.rmsnorm}
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.2f} s "
@@ -469,6 +644,84 @@ def main() -> int:
         worst["flash_attention"] = max(worst.get("flash_attention", 0.0), err)
         del fc, qkv, out, lse, ref, ref_lse, ins, got, want
     torch.cuda.empty_cache()
+
+    ssd_sets = {
+        "mamba2-1.3b": mamba_scan_case(torch, rng, dev, b=2, S=1024, seed=1),
+        "G 2, S 1000": ssd_case(torch, rng, dev, b=1, S=1000, H=64, P=64,
+                                G=2, N=128),
+    }
+    for label, sc in ssd_sets.items():
+        args = (sc["x"], sc["dt"], sc["A"], sc["B"], sc["C"])
+        got = kops.ssd(*args, chunk=256)
+        torch.cuda.synchronize()
+        ref = ssd.ssd_scan_plain(*args, 256)
+        err = (got.float() - ref.float()).abs().max().item()
+        rel = norm_err(got, ref)
+        ins = [t.clone().requires_grad_(True) for t in args]
+        g_got = torch.autograd.grad(kops.ssd(*ins, chunk=256), ins, sc["dy"])
+        torch.cuda.synchronize()
+        ins = [t.clone().requires_grad_(True) for t in args]
+        g_want = torch.autograd.grad(ssd.ssd_scan_plain(*ins, 256), ins,
+                                     sc["dy"])
+        gerr = [((g.float() - w.float()).abs().max()
+                 / w.float().abs().max()).item()
+                for g, w in zip(g_got, g_want)]
+        print(f"ssd     {label}: max_abs_err {err:.3e}, / max(1, |plain|) "
+              f"{rel:.3e} (tol {KERNEL_TOL}); max |plain| "
+              f"{ref.float().abs().max().item():.3e}; dx/ddt/dA/dB/dC max "
+              f"err / max |grad| {', '.join(f'{g:.1e}' for g in gerr)} "
+              f"(tol {GRAD_TOL})")
+        check(rel <= KERNEL_TOL, f"SSD kernel disagrees at {label}")
+        check(max(gerr) <= GRAD_TOL, f"SSD gradients disagree at {label}")
+        worst["ssd_scan"] = max(worst.get("ssd_scan", 0.0), err)
+        if label == "mamba2-1.3b":
+            # the check's power: a scan that drops the state carried
+            # across chunks, or takes dt 5% off, must fail it
+            chunks = args[0].shape[0] * args[0].shape[1] // 256
+            cut = lambda t: t.reshape(chunks, 256, *t.shape[2:])
+            for what, wrong in (
+                    ("without the carried state", lambda: ssd.ssd_scan_plain(
+                        cut(args[0]), cut(args[1]), args[2], cut(args[3]),
+                        cut(args[4]), 256).reshape(ref.shape)),
+                    ("with dt 5% off", lambda: ssd.ssd_scan_plain(
+                        args[0], 1.05 * args[1], *args[2:], 256))):
+                miss = norm_err(wrong(), ref)
+                print(f"ssd     {label}: a scan {what} would read "
+                      f"{miss:.3e} / max(1, |plain|)")
+                check(miss > KERNEL_TOL,
+                      f"the SSD check misses a scan {what}")
+        del sc, args, got, ref, ins, g_got, g_want
+    del ssd_sets
+    torch.cuda.empty_cache()
+
+    for d in (896, 2048, 2304, 4096):
+        sc_ = torch.tensor(0.1 * rng.standard_normal(d), dtype=torch.float32,
+                           device=dev)
+        for din in (torch.bfloat16, torch.float32):
+            x = torch.tensor(rng.standard_normal((1037, d)), dtype=din,
+                             device=dev)
+            got = rn.rmsnorm(x, sc_, out_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            ref = rn.rmsnorm_ref(x, sc_, out_dtype=torch.bfloat16)
+            err = (got.float() - ref.float()).abs().max().item()
+            rel = norm_err(got, ref)
+            print(f"rmsnorm d {d}, 1037 rows, {str(din)[6:]} -> bf16: "
+                  f"max_abs_err {err:.3e}, / max(1, |plain|) {rel:.3e} "
+                  f"(tol {KERNEL_TOL})")
+            check(rel <= KERNEL_TOL, f"RMSNorm disagrees at d {d}")
+            worst["rmsnorm"] = max(worst.get("rmsnorm", 0.0), err)
+    dy = torch.randn((1037, 4096), dtype=torch.bfloat16, device=dev)
+    ins = [t.clone().requires_grad_(True) for t in (x, sc_)]
+    g_got = torch.autograd.grad(kops.rmsnorm(*ins, out_dtype=torch.bfloat16),
+                                ins, dy)
+    ins = [t.clone().requires_grad_(True) for t in (x, sc_)]
+    g_want = torch.autograd.grad(
+        rn.rmsnorm_ref(*ins, out_dtype=torch.bfloat16), ins, dy)
+    gerr = [((g.float() - w.float()).abs().max() / w.float().abs().max())
+            .item() for g, w in zip(g_got, g_want)]
+    print(f"rmsnorm gradients (d 4096, f32 -> bf16): dx/dscale max err / max "
+          f"|grad| {', '.join(f'{g:.1e}' for g in gerr)} (tol {GRAD_TOL})")
+    check(max(gerr) <= GRAD_TOL, "RMSNorm gradients disagree")
     sys.stdout.flush()
 
     # 4. times at the main path's shapes -----------------------------------
@@ -487,6 +740,16 @@ def main() -> int:
     pkw = dict(group=pcase["group"])
     fcase = flash_case(torch, rng, dev, B=8, S=1024, H=14, KV=2, D=64)
     fargs = (fcase["q"], fcase["k"], fcase["v"])
+    scase = mamba_scan_case(torch, rng, dev, b=8, S=1024, seed=2)
+    sargs = (scase["x"], scase["dt"], scase["A"], scase["B"], scase["C"])
+    # mamba2-1.3b's gated norm at training shapes: the unrounded f32
+    # product in, bf16 out
+    ncase = dict(x=torch.randn((8192, 4096), dtype=torch.float32,
+                               device=dev),
+                 scale=0.1 * torch.randn((4096,), dtype=torch.float32,
+                                         device=dev),
+                 out_dtype="bfloat16")
+    gain = 1.0 + ncase["scale"]
     kernels = []
     for kname, fn, plain, lib, cost, case, src, tpu in (
             ("paged_decode_attention",
@@ -506,13 +769,35 @@ def main() -> int:
              lambda: fa.flash_attention_plain(*fargs)[0],
              lambda: library_flash(torch, F, fcase), flash_cost, fcase,
              "src/repro_torch/kernels/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:203")):
-        err = (fn().float() - plain().float()).abs().max().item()
-        lib_err = (lib().float() - plain().float()).abs().max().item()
-        check(err <= KERNEL_TOL, f"{kname} disagrees at timing shapes")
+             "src/repro/kernels/flash_attention.py:203"),
+            ("ssd_scan",
+             lambda: ssd.ssd_scan(*sargs, 256),
+             lambda: ssd.ssd_scan_plain(*sargs, 256),
+             None, lambda c: ssd_cost(c, 256), scase,
+             "src/repro_torch/kernels/csrc/ssd_scan.cu",
+             "src/repro/kernels/ssd_scan.py:70"),
+            ("rmsnorm",
+             lambda: rn.rmsnorm(ncase["x"], ncase["scale"],
+                                out_dtype=torch.bfloat16),
+             lambda: rn.rmsnorm_ref(ncase["x"], ncase["scale"],
+                                    out_dtype=torch.bfloat16),
+             lambda: F.rms_norm(ncase["x"], (4096,), weight=gain, eps=1e-6),
+             rmsnorm_cost, ncase,
+             "src/repro_torch/kernels/csrc/rmsnorm.cu",
+             "src/repro/kernels/rmsnorm.py:24")):
+        ref, out = plain().float(), fn().float()
+        err = (out - ref).abs().max().item()
+        if kname in ("ssd_scan", "rmsnorm"):
+            ok = norm_err(out, ref) <= KERNEL_TOL
+        else:
+            ok = err <= KERNEL_TOL
+        lib_err = (None if lib is None
+                   else (lib().float() - ref).abs().max().item())
+        del ref, out
+        check(ok, f"{kname} disagrees at timing shapes")
         ms = time_ms(torch, fn, flush)
         plain_ms = time_ms(torch, plain, flush, reps=5)
-        lib_ms = time_ms(torch, lib, flush)
+        lib_ms = None if lib is None else time_ms(torch, lib, flush)
         nbytes, flops = cost(case)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_flops = flops / BF16_FLOPS_PER_S * 1e3
@@ -524,10 +809,19 @@ def main() -> int:
                  "bound_ms": max(t_bytes, t_flops), "bound_by": bound_by,
                  "library_ms": lib_ms, "bytes": nbytes, "flops": flops}
         kernels.append(entry)
+        lib_txt = ("no single PyTorch call computes it" if lib is None else
+                   f"{lib_ms:.4f} ms (err vs plain {lib_err:.2e})")
         print(f"{kname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library {lib_ms:.4f} ms (SDPA, err vs plain "
-              f"{lib_err:.2e}), bound {entry['bound_ms']:.4f} ms by "
+              f"library {lib_txt}, bound {entry['bound_ms']:.4f} ms by "
               f"{bound_by} ({nbytes} B, {flops} flop)", flush=True)
+    by_name = {k["name"]: k for k in kernels}
+    xb = ncase["x"].bfloat16()
+    bf_ms = time_ms(torch, lambda: rn.rmsnorm(xb, ncase["scale"]), flush)
+    print(f"rmsnorm 8192 x 4096 bf16 -> bf16: kernel {bf_ms:.4f} ms, bound "
+          f"{(xb.numel() * 4 + 4096 * 4) / HBM_BYTES_PER_S * 1e3:.4f} ms "
+          "(bytes)", flush=True)
+    del scase, sargs, ncase, gain, xb
+    torch.cuda.empty_cache()
 
     # 5. serving at full width ---------------------------------------------
     phase("serving qwen2-0.5b, full width")
@@ -537,9 +831,7 @@ def main() -> int:
                                      ServingEngine)
     cfg = get_config("qwen2-0.5b")
     torch.cuda.reset_peak_memory_stats(dev)
-    pa.paged_attention.launches = 0
-    pp.paged_prefill.launches = 0
-    fa.flash_attention.launches = 0
+    zero_counts(counters)
     sched_a = launcher.main([
         "--arch", "qwen2-0.5b", "--paged", "--max-slots", "8",
         "--max-seq-len", "2048", "--prefill-batch", "4",
@@ -547,12 +839,13 @@ def main() -> int:
         "--shared-prefix", "256", "--requests", "12", "--max-new", "32",
         "--greedy", "--metrics-json", str(OUT / "serve_metrics.json")])
     torch.cuda.synchronize()
-    launches_a = {"paged_decode_attention": pa.paged_attention.launches,
-                  "paged_prefill_attention": pp.paged_prefill.launches}
+    launches_a = read_counts(counters)
     print(f"(a) launcher: kernel launches {launches_a}")
     rep_a = report_serving(torch, sched_a, "(a) launcher", dev)
     check(rep_a["requests"] == 12, "(a) not every request completed")
-    check(all(v > 0 for v in launches_a.values()),
+    serving_kernels = ("paged_decode_attention", "paged_prefill_attention",
+                       "rmsnorm")
+    check(all(launches_a[k] > 0 for k in serving_kernels),
           "(a) a kernel of the path was never launched")
     check(rep_a["prefix_hit_rate"] > 0, "(a) no prefix-cache hit")
     check_no_leaks(sched_a, "(a)")
@@ -570,16 +863,13 @@ def main() -> int:
                         prefix_cache_blocks=256, paged=True,
                         prefill_batch=4, device=dev)
     sched_b = Scheduler(eng, prefill_token_budget=512, profile=True)
-    pa.paged_attention.launches = 0
-    pp.paged_prefill.launches = 0
-    fa.flash_attention.launches = 0
+    zero_counts(counters)
     rids = [sched_b.submit(Request(p, SamplingParams(max_new_tokens=32,
                                                      greedy=True)))
             for p in prompts]
     sched_b.run()
     torch.cuda.synchronize()
-    launches_b = {"paged_decode_attention": pa.paged_attention.launches,
-                  "paged_prefill_attention": pp.paged_prefill.launches}
+    launches_b = read_counts(counters)
     print(f"(b) long prompts {[len(p) for p in prompts]}: kernel launches "
           f"{launches_b}")
     rep_b = report_serving(torch, sched_b, "(b) direct", dev)
@@ -587,14 +877,15 @@ def main() -> int:
     check(all(len(o) == 32 for o in outs), "(b) not every request completed")
     check(all(((o >= 0) & (o < cfg.vocab_size)).all() for o in outs),
           "(b) token ids out of range")
-    check(all(v > 0 for v in launches_b.values()),
+    check(all(launches_b[k] > 0 for k in serving_kernels),
           "(b) a kernel of the path was never launched")
     check(rep_b["prefix_hit_rate"] > 0, "(b) no prefix-cache hit")
     check_no_leaks(sched_b, "(b)")
-    for k in kernels[:2]:                 # the serving path's kernels
-        k["launches"] = launches_a[k["name"]] + launches_b[k["name"]]
-        k["launches_per_part"] = [launches_a[k["name"]],
-                                  launches_b[k["name"]]]
+    for name in ("paged_decode_attention", "paged_prefill_attention"):
+        k = by_name[name]                 # the serving path's own kernels
+        k["launches"] = launches_a[name] + launches_b[name]
+        k["launches_per_part"] = [launches_a[name], launches_b[name]]
+    rms_paths = {"serving": launches_a["rmsnorm"] + launches_b["rmsnorm"]}
     del sched_b, eng
     torch.cuda.empty_cache()
 
@@ -612,7 +903,7 @@ def main() -> int:
         "block_tables": dcase["block_tables"]}
     step_ms = time_ms(torch, lambda: T.decode_step(params, cfg, step_batch),
                       flush, reps=10)
-    attn_ms = cfg.num_layers * kernels[0]["ms"]
+    attn_ms = cfg.num_layers * by_name["paged_decode_attention"]["ms"]
     print(f"decode step, B=8, contexts 512-2048, full width: {step_ms:.3f} "
           f"ms; {cfg.num_layers} decode-kernel launches {attn_ms:.3f} ms "
           f"({attn_ms / step_ms:.1%})", flush=True)
@@ -648,83 +939,94 @@ def main() -> int:
 
     # 7. training at full width ---------------------------------------------
     phase("training qwen2-0.5b, full width")
-    from repro_torch import optim
-    from repro_torch.data import SyntheticTokenSource, TokenDatasetSpec
-    from repro_torch.distributed import stepfn
     from repro_torch.launch import train as train_launcher
-    pa.paged_attention.launches = 0
-    pp.paged_prefill.launches = 0
-    fa.flash_attention.launches = 0
+    zero_counts(counters)
     run = train_launcher.main(["--arch", "qwen2-0.5b", "--seq-len", "1024",
                                "--global-batch", "8", "--steps", "8"])
     torch.cuda.synchronize()
-    flash_launches = fa.flash_attention.launches
+    launches = read_counts(counters)
     losses = run["losses"]
-    per_step = run["flash_launches_per_step"]
+    per_step = run["launches_per_step"]
     summary = {k: run[k] for k in ("losses", "step_s", "tokens_per_s",
-                                   "flash_launches_per_step",
+                                   "launches_per_step",
                                    "max_memory_allocated")}
     print("training: " + json.dumps(summary), flush=True)
     check(all(np.isfinite(losses)), "a training loss is not finite")
     check(losses[-1] < losses[0], "the loss did not fall over 8 steps")
-    check(flash_launches > 0 and sum(per_step) == flash_launches,
-          "the flash kernel was never launched in training")
-    # remat: every layer's attention runs in the forward and again in the
-    # backward's recompute
-    check(all(n == 2 * cfg.num_layers for n in per_step),
-          f"flash launches per step {per_step}, want {2 * cfg.num_layers}")
-    kernels[2]["launches"] = flash_launches
+    for name in ("flash_attention", "rmsnorm"):
+        check(launches[name] > 0 and sum(per_step[name]) == launches[name],
+              f"{name} was never launched in training")
+    # remat: every layer's attention and norms run in the forward and again
+    # in the backward's recompute; the final norm once
+    check(all(n == 2 * cfg.num_layers for n in per_step["flash_attention"]),
+          f"flash launches per step {per_step['flash_attention']}, want "
+          f"{2 * cfg.num_layers}")
+    want_rms = 2 * 2 * cfg.num_layers + 1
+    check(all(n == want_rms for n in per_step["rmsnorm"]),
+          f"rmsnorm launches per step {per_step['rmsnorm']}, want {want_rms}")
+    by_name["flash_attention"]["launches"] = launches["flash_attention"]
+    rms_paths["training qwen2-0.5b"] = launches["rmsnorm"]
 
     # where one training step's device time goes (torch.profiler)
-    tparams = T.init_params(cfg, torch.Generator().manual_seed(0),
-                            device=dev, weight_dtype=torch.float32)
-    topt = optim.adamw(3e-4, clip_norm=1.0)
-    tstate = topt.init(tparams)
-    tstep = stepfn.make_train_step(cfg, topt, device=dev)
-    tsrc = SyntheticTokenSource(TokenDatasetSpec(cfg.vocab_size, 1024, 8))
-    for i in range(2):
-        tparams, tstate, _ = tstep(tparams, tstate, tsrc.batch(i))
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        tparams, tstate, m = tstep(tparams, tstate, tsrc.batch(2))
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    prof_out = profile_breakdown(prof, wall_ms)
+    prof_out = profile_train_step(torch, cfg, dev)
     print("train step profile: " + json.dumps(prof_out), flush=True)
-    del tparams, tstate, tstep, prof
     torch.cuda.empty_cache()
 
     # 8. training, card vs CPU ----------------------------------------------
     phase("training card vs CPU")
-    cfg2 = cfg.with_(num_layers=2)
-    p_cpu = T.init_params(cfg2, torch.Generator().manual_seed(1),
-                          weight_dtype=torch.float32)
-    batch = SyntheticTokenSource(TokenDatasetSpec(
-        cfg2.vocab_size, 128, 2)).batch(0)
-    got = {}
-    for where in ("cuda", "cpu"):
-        p = optim.tree_map(lambda t: t.to(where), p_cpu)
-        o = optim.adamw(3e-4, clip_norm=1.0)
-        _, _, m = stepfn.make_train_step(cfg2, o, device=where)(
-            p, o.init(p), batch)
-        got[where] = (float(m["loss"]), float(m["grad_norm"]))
-    (lg_, ng), (lc_, nc) = got["cuda"], got["cpu"]
-    print(f"2-layer full-width step, seq 128, batch 2: loss cuda {lg_:.6f} "
-          f"cpu {lc_:.6f} (rtol {TRAIN_LOSS_RTOL}); grad norm cuda "
-          f"{ng:.6f} cpu {nc:.6f} (rtol {TRAIN_GNORM_RTOL})", flush=True)
-    check(np.isfinite([lg_, ng]).all(), "card train step not finite")
-    check(abs(lg_ - lc_) <= TRAIN_LOSS_RTOL * abs(lc_),
-          "card and CPU training losses disagree")
-    check(abs(ng - nc) <= TRAIN_GNORM_RTOL * abs(nc),
-          "card and CPU gradient norms disagree")
+    train_card_vs_cpu(torch, cfg.with_(num_layers=2), seq=128, batch=2,
+                      dev=dev)
+    torch.cuda.empty_cache()
+
+    # 9. training mamba2-1.3b at full width -----------------------------------
+    phase("training mamba2-1.3b, full width")
+    mcfg = get_config("mamba2-1.3b")
+    zero_counts(counters)
+    run = train_launcher.main(["--arch", "mamba2-1.3b", "--seq-len", "1024",
+                               "--global-batch", "8", "--steps", "8"])
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    losses = run["losses"]
+    per_step = run["launches_per_step"]
+    summary = {k: run[k] for k in ("losses", "step_s", "tokens_per_s",
+                                   "launches_per_step",
+                                   "max_memory_allocated")}
+    print("training mamba2: " + json.dumps(summary), flush=True)
+    check(all(np.isfinite(losses)), "a mamba2 training loss is not finite")
+    check(losses[-1] < losses[0], "the mamba2 loss did not fall")
+    for name in ("ssd_scan", "rmsnorm"):
+        check(launches[name] > 0 and sum(per_step[name]) == launches[name],
+              f"{name} was never launched in mamba2 training")
+    # remat per layer: the scan runs in the forward and in the backward's
+    # recompute (its backward is the plain version's VJP: no launch); two
+    # norms per layer, both twice, plus the final norm
+    want_ssd = 2 * mcfg.num_layers
+    want_rms = 2 * 2 * mcfg.num_layers + 1
+    check(all(n == want_ssd for n in per_step["ssd_scan"]),
+          f"SSD launches per step {per_step['ssd_scan']}, want {want_ssd}")
+    check(all(n == want_rms for n in per_step["rmsnorm"]),
+          f"rmsnorm launches per step {per_step['rmsnorm']}, want {want_rms}")
+    check(launches["flash_attention"] == 0, "flash launched in mamba2")
+    by_name["ssd_scan"]["launches"] = launches["ssd_scan"]
+    by_name["rmsnorm"]["launches"] = launches["rmsnorm"]
+    rms_paths["training mamba2-1.3b"] = launches["rmsnorm"]
+    by_name["rmsnorm"]["launches_per_path"] = rms_paths
+    print(f"rmsnorm launches by path {rms_paths}", flush=True)
+    del run
+    torch.cuda.empty_cache()
+    prof_out = profile_train_step(torch, mcfg, dev)
+    print("mamba2 train step profile: " + json.dumps(prof_out), flush=True)
+    torch.cuda.empty_cache()
+
+    # 10. mamba2 training, card vs CPU ----------------------------------------
+    phase("mamba2 training card vs CPU")
+    train_card_vs_cpu(torch, mcfg.with_(num_layers=2), seq=512, batch=2,
+                      dev=dev)
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": count}}))
+        "platform": "gpu", "kind": device_name, "count": count}}))
     return 0
 
 

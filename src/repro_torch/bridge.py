@@ -17,8 +17,11 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-# leaves used as ``1 + scale`` in f32: never narrowed
-_F32_LEAVES = ("scale",)
+from repro_torch.models.ssm import F32_LEAVES as _SSM_F32_LEAVES
+
+# leaves the reference uses in f32 (norm scales as ``1 + scale``; the
+# mamba2 conv, dt bias, A_log and D): never narrowed
+_F32_LEAVES = ("scale",) + _SSM_F32_LEAVES
 
 
 def from_flat(flat: Mapping[str, np.ndarray], device="cpu",
@@ -28,8 +31,8 @@ def from_flat(flat: Mapping[str, np.ndarray], device="cpu",
     ``weight_dtype=None`` keeps every leaf's own dtype (the reference's
     f32 masters), so ``to_flat(from_flat(flat))`` is exact.  With a dtype
     (bf16), linear, bias and embedding leaves are held in it — the cast
-    the reference makes on every call, made once — while norm scales stay
-    f32."""
+    the reference makes on every call, made once — while norm scales and
+    the mamba2 leaves used in f32 stay f32."""
     tree: Dict[str, Any] = {}
     for path, arr in flat.items():
         keys = path.split("/")

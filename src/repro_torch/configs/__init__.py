@@ -3,8 +3,9 @@
 ``--arch <id>`` ids use the reference's names (dashes); modules use
 underscores.  Every entry exports CONFIG (the full-size numbers) and
 SMOKE_CONFIG (the reduced same-family variant for CPU tests), identical to
-the reference's.  The port carries the dense decoders its serving path
-runs; the other families join with the slices that port them.
+the reference's.  The port carries the dense decoders its serving and
+training paths run and the ssm family its training path runs; the other
+families join with the slices that port them.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from repro_torch.configs.base import ModelConfig
 _MODULES = {
     "gemma2-2b": "gemma2_2b",
     "qwen2-0.5b": "qwen2_0p5b",
+    "mamba2-1.3b": "mamba2_1p3b",
 }
 
 ARCHS: List[str] = list(_MODULES)

@@ -1,12 +1,13 @@
-"""Model-facing wrappers around the attention kernels.
+"""Model-facing wrappers around the kernels.
 
 Counterparts of ``repro.kernels.ops.mha_flash_attention``,
-``paged_decode_attention`` and ``paged_prefill_attention``.  The paged
+``paged_decode_attention``, ``paged_prefill_attention``, ``ssd`` and
+``rmsnorm``.  The paged
 wrappers do the reference's head folding (decode
 ``(B, 1, H, D) -> (B, KV, G, D)``; prefill ``(B, C, H, D) -> (B, KV, C*G, D)``
-with row ``c*G + g``); the flash kernel reads the model layout itself.  The
-kernel modules launch the CUDA kernel for a CUDA tensor and run the plain
-PyTorch version for a CPU tensor.
+with row ``c*G + g``); the flash and SSD kernels read the model layout
+themselves.  The kernel modules launch the CUDA kernel for a CUDA tensor
+and run the plain PyTorch version for a CPU tensor.
 """
 from __future__ import annotations
 
@@ -19,6 +20,9 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import paged_prefill as _pp
+from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels.ref import pad_to_chunks
 
 
 def mha_flash_attention(q, k, v, *, causal: bool = True,
@@ -78,3 +82,28 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, start_pos,
         q_lens.to(torch.int32).contiguous(), group=G, window=window,
         softcap=softcap, scale=scale)
     return out.reshape(B, KV, C, G, D).transpose(1, 2).reshape(B, C, H, D)
+
+
+def ssd(x, dt, A, B, C, *, chunk: int = 256):
+    """Model-layout SSD scan, differentiable.
+
+    x: (b, S, H, P); dt: (b, S, H) f32; A: (H,) f32; B, C: (b, S, G, N),
+    G | H (B and C are not repeated per head).  Returns y (b, S, H, P) in
+    x's dtype.  S is padded to a multiple of ``L = min(chunk, S)`` with
+    dt = 0, which leaves the state and the outputs unchanged (as
+    ``ssd_chunked`` pads), so the kernel keeps the TPU kernel's
+    ``S % L == 0`` contract.  The backward is the plain version's."""
+    S = x.shape[1]
+    L = min(chunk, S)
+    x, dt, B, C = pad_to_chunks(x, dt, B, C, L)
+    y = _ssd.SSDScan.apply(x.contiguous(), dt.contiguous(), A.contiguous(),
+                           B.contiguous(), C.contiguous(), L)
+    return y[:, :S]
+
+
+def rmsnorm(x, scale, *, eps: float = 1e-6,
+            out_dtype: Optional[torch.dtype] = None):
+    """x (..., d) * rsqrt(mean(x^2) + eps) * (1 + scale), in f32, out in
+    ``out_dtype`` (default: x's dtype); differentiable (PyTorch
+    backward)."""
+    return _rn.RMSNorm.apply(x, scale, float(eps), out_dtype or x.dtype)

@@ -1,12 +1,15 @@
-"""Plain PyTorch versions of the attention kernels (the allclose targets).
+"""Plain PyTorch versions of the kernels (the allclose targets).
 
-Counterparts of ``repro.kernels.ref.attention_ref`` (dense attention, the
-flash kernel's oracle), ``paged_attention_ref`` and ``paged_prefill_ref``
-(gather every row's pages back into a dense ``(B, T, KV, D)`` layout):
-naive masked softmax attention in f32.  Fully masked rows return zeros
-(the kernels' semantics).  The mask sentinel is the kernels' ``-1e30``;
-the reference's jnp ``attention.attend`` masks with ``-2e38`` instead,
-which gives the same values wherever a row has a valid key.
+Counterparts of ``repro.kernels.ref``: ``attention_ref`` (dense attention,
+the flash kernel's oracle), ``paged_attention_ref`` and
+``paged_prefill_ref`` (gather every row's pages back into a dense
+``(B, T, KV, D)`` layout): naive masked softmax attention in f32.  Fully
+masked rows return zeros (the kernels' semantics).  The mask sentinel is
+the kernels' ``-1e30``; the reference's jnp ``attention.attend`` masks
+with ``-2e38`` instead, which gives the same values wherever a row has a
+valid key.  ``ssd_scan_ref`` is the chunked SSD scan (the reference's
+``models.ssm.ssd_chunked``) and ``rmsnorm_ref`` the fused norm's
+function.
 """
 from __future__ import annotations
 
@@ -121,3 +124,83 @@ def paged_prefill_ref(q, k_pages, v_pages, block_tables, start_pos, q_lens,
     out = torch.einsum("bkgct,btkd->bckgd", p, v)
     any_valid = mask.any(dim=2)[:, :, None, None, None]
     return torch.where(any_valid, out, torch.zeros_like(out)).to(q.dtype)
+
+
+def pad_to_chunks(x, dt, B, C, L: int):
+    """Pad the sequence axis (1) of the SSD inputs to a multiple of ``L``
+    with zeros: dt = 0 is inert (decay exp(0) = 1, no input)."""
+    pad = (-x.shape[1]) % L
+    if not pad:
+        return x, dt, B, C
+    F = torch.nn.functional
+    return (F.pad(x, (0, 0, 0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad)),
+            F.pad(B, (0, 0, 0, 0, 0, pad)), F.pad(C, (0, 0, 0, 0, 0, pad)))
+
+
+def ssd_scan_ref(x, dt, A, B, C, chunk: int, initial_state=None):
+    """Chunked SSD scan, the reference's ``ssm.ssd_chunked``.
+
+    x: (b, S, H, P); dt: (b, S, H) positive step sizes; A: (H,) negative
+    decay rates; B, C: (b, S, G, N), head h reads group h // (H / G).
+    initial_state: (b, H, N, P) or None (zeros).  Returns (y (b, S, H, P)
+    in x's dtype, final_state (b, H, N, P) f32).  S is padded to a chunk
+    multiple with dt = 0 (decay exp(0) = 1, no input), which leaves the
+    state and the outputs unchanged.
+
+    The intra-chunk decay exp(cum_i - cum_j) is taken only where j <= i:
+    above the diagonal it overflows to inf once |dt * A| sums past ~88
+    inside a chunk, and autograd through ``where(mask, inf, 0)`` gives
+    0 * inf = NaN.  The selected values are the reference's.
+    """
+    S_orig = x.shape[1]
+    L = min(chunk, S_orig)
+    x, dt, B, C = pad_to_chunks(x, dt, B, C, L)
+    b, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    nc = S // L
+    rep = H // G
+    xc = x.float().reshape(b, nc, L, H, P)
+    dc = dt.float().reshape(b, nc, L, H)
+    Bc = B.float().repeat_interleave(rep, dim=2).reshape(b, nc, L, H, N)
+    Cc = C.float().repeat_interleave(rep, dim=2).reshape(b, nc, L, H, N)
+
+    cum = torch.cumsum(dc * A.float()[None, None, None, :], dim=2)
+    seg_total = cum[:, :, -1:, :]                           # (b, nc, 1, H)
+
+    # intra-chunk: M[i, j] = C_i . B_j * exp(cum_i - cum_j) * dt_j, j <= i
+    scores = torch.einsum("bclhn,bcmhn->bchlm", Cc, Bc)
+    cum_t = cum.permute(0, 1, 3, 2)                         # (b, nc, H, L)
+    diff = cum_t[..., :, None] - cum_t[..., None, :]
+    mask = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    zero = torch.zeros((), dtype=diff.dtype, device=x.device)
+    gates = torch.where(mask, torch.exp(torch.where(mask, diff, zero)), zero)
+    M = scores * gates * dc.permute(0, 1, 3, 2)[:, :, :, None, :]
+    y_intra = torch.einsum("bchlm,bcmhp->bclhp", M, xc)
+
+    # chunk states: sum_j exp(seg_total - cum_j) * dt_j * B_j x_j^T
+    w = torch.exp(seg_total - cum) * dc
+    states = torch.einsum("bclh,bclhn,bclhp->bchnp", w, Bc, xc)
+
+    # inter-chunk recurrence, sequential over the nc chunks
+    seg_decay = torch.exp(seg_total[:, :, 0, :])            # (b, nc, H)
+    h = (torch.zeros((b, H, N, P), dtype=torch.float32, device=x.device)
+         if initial_state is None else initial_state.float())
+    h_enter = []
+    for c in range(nc):
+        h_enter.append(h)
+        h = seg_decay[:, c, :, None, None] * h + states[:, c]
+    h_enter = torch.stack(h_enter, dim=1)                   # (b, nc, H, N, P)
+
+    y_inter = torch.einsum("bclhn,bchnp->bclhp",
+                           Cc * torch.exp(cum)[..., None], h_enter)
+    y = (y_intra + y_inter).reshape(b, S, H, P)[:, :S_orig]
+    return y.to(x.dtype), h
+
+
+def rmsnorm_ref(x, scale, eps: float = 1e-6, out_dtype=None):
+    """x (..., d); scale (d,).  x * rsqrt(mean(x^2) + eps) * (1 + scale),
+    in f32; the result in ``out_dtype`` (default: x's dtype)."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(out_dtype or x.dtype)

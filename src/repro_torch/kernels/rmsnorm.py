@@ -1,0 +1,113 @@
+"""Fused RMSNorm: CUDA kernel, plain PyTorch version, and the autograd
+Function whose backward is PyTorch.
+
+Counterpart of ``repro.kernels.rmsnorm.rmsnorm``, which computes the same
+function as the reference's jnp ``modules.rmsnorm``: x * rsqrt(mean(x^2) +
+eps) * (1 + scale) in f32.  The kernel (``csrc/rmsnorm.cu``) runs one warp
+per row; see the source's header for its bound and design.  Unlike the
+Pallas kernel, whose output takes x's dtype, it writes ``out_dtype`` (f32
+or bf16), so a norm can read the unrounded f32 residual and hand bf16 on.
+
+``rmsnorm`` dispatches on the device of ``x``: a CPU tensor goes through
+the plain version (``repro_torch.kernels.ref.rmsnorm_ref``), a CUDA tensor
+launches the kernel or raises.  ``rmsnorm.launches`` counts kernel launches
+only.
+
+The backward (``rmsnorm_bwd``) is PyTorch on any device: the JAX package
+has no backward kernel (its gradient is XLA's autodiff of the jnp norm).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import rmsnorm_ref
+
+_fn = None
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _entry():
+    global _fn
+    if _fn is None:
+        fn = _build.load("rmsnorm").rmsnorm_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def rmsnorm(x, scale, *, eps: float = 1e-6,
+            out_dtype: Optional[torch.dtype] = None):
+    """x (..., d) f32 or bf16; scale (d,).  Returns the norm of each row in
+    ``out_dtype`` (default: x's dtype)."""
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return rmsnorm_ref(x, scale, eps, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"rmsnorm: no kernel for device {x.device}")
+    d = x.shape[-1]
+    if x.dtype not in _DTYPES or out_dtype not in _DTYPES:
+        raise TypeError(f"kernel takes float32 or bfloat16 in and out, got "
+                        f"{x.dtype} -> {out_dtype}")
+    if scale.device != x.device or scale.shape != (d,):
+        raise ValueError(f"scale {tuple(scale.shape)} on {scale.device}; "
+                         f"want ({d},) on {x.device}")
+    if scale.dtype != torch.float32:
+        raise TypeError(f"scale must be float32, got {scale.dtype}")
+    x = x.contiguous()
+    scale = scale.contiguous()
+    rows = x.numel() // d if d else 0
+    out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    if rows == 0:
+        return out
+    vec = int(d % 8 == 0 and all(t.data_ptr() % 16 == 0
+                                 for t in (x, scale, out)))
+    fn = _entry()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(x.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                    _DTYPES[x.dtype], _DTYPES[out_dtype], rows, d, float(eps),
+                    vec, stream)
+    _build.check(status, "rmsnorm")
+    rmsnorm.launches += 1
+    return out
+
+
+rmsnorm.launches = 0
+
+
+def rmsnorm_bwd(x, scale, dy, eps: float = 1e-6):
+    """Gradients of ``rmsnorm`` (PyTorch, f32, any device).  With
+    r = rsqrt(mean(x^2) + eps) and g = 1 + scale:
+    dx = r * (dy g - x r^2 mean(dy g x)), dscale = sum over rows of
+    dy x r.  Returns (dx in x's dtype, dscale in scale's dtype)."""
+    xf, dyf = x.float(), dy.float()
+    g = 1.0 + scale.float()
+    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    dyg = dyf * g
+    dx = r * (dyg - xf * (r * r) * (dyg * xf).mean(dim=-1, keepdim=True))
+    dscale = (dyf * xf * r).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+class RMSNorm(torch.autograd.Function):
+    """Forward through ``rmsnorm`` (the kernel on the card, the plain
+    version on the CPU); backward through ``rmsnorm_bwd``.  Saves x and
+    scale."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps, out_dtype):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm(x, scale, eps=eps, out_dtype=out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd(x, scale, dy, ctx.eps)
+        return dx, dscale, None, None

@@ -5,9 +5,12 @@ random weights from the port's ``init_params`` at seed 0 held as f32
 masters, the synthetic Markov token source, the chosen optimizer with
 global-norm clipping at 1.0, and ``distributed.stepfn.make_train_step``.
 Prints the reference's step and summary lines, then step time, tokens/s,
-flash-kernel launches per step and, on the card, peak device memory.
+each kernel's launches per step and, on the card, peak device memory.
+The dense (qwen2-0.5b, gemma2-2b) and ssm (mamba2-1.3b) families train.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
+      --seq-len 1024 --global-batch 8 --steps 8
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \\
       --seq-len 1024 --global-batch 8 --steps 8
 
 ``--device`` defaults to ``cuda`` and fails without a card; ``--device
@@ -44,7 +47,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     """Runs the training loop; returns the run's numbers (losses, step
-    seconds, tokens/s, flash launches per step, peak memory on a card)."""
+    seconds, tokens/s, ``launches_per_step``: {kernel: [launches in each
+    step]}, peak memory on a card)."""
     args = build_parser().parse_args(argv)
     if args.strategy != "dp":
         raise NotImplementedError(
@@ -59,6 +63,8 @@ def main(argv=None) -> dict:
     from repro_torch.data import SyntheticTokenSource, TokenDatasetSpec
     from repro_torch.distributed import stepfn
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import resolve_device
 
@@ -77,15 +83,19 @@ def main(argv=None) -> dict:
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 
-    losses, step_s, launches = [], [], []
+    counters = {"flash_attention": fa.flash_attention,
+                "ssd_scan": ssd.ssd_scan, "rmsnorm": rn.rmsnorm}
+    losses, step_s = [], []
+    launches = {k: [] for k in counters}
     t0 = time.time()
     for i in range(args.steps):
         t_step = time.perf_counter()
-        n0 = fa.flash_attention.launches
+        n0 = {k: f.launches for k, f in counters.items()}
         params, opt_state, m = step_fn(params, opt_state, source.batch(i))
         loss = float(m["loss"])             # waits for the step
         step_s.append(time.perf_counter() - t_step)
-        launches.append(fa.flash_attention.launches - n0)
+        for k, f in counters.items():
+            launches[k].append(f.launches - n0[k])
         losses.append(loss)
         if i % 5 == 0 or i == args.steps - 1:
             print(f"step {i:4d}  loss {loss:.4f}")
@@ -100,11 +110,11 @@ def main(argv=None) -> dict:
     result = {"arch": cfg.name, "device": str(device), "losses": losses,
               "step_s": step_s, "tokens_per_step": tokens,
               "tokens_per_s": tokens / mean_s,
-              "flash_launches_per_step": launches}
+              "launches_per_step": launches}
     print(f"step time {mean_s * 1e3:.1f} ms (mean of steps "
           f"{1 if len(step_s) > 1 else 0}-{len(step_s) - 1}); "
-          f"{result['tokens_per_s']:.0f} tokens/s; flash kernel launches "
-          f"per step {launches}")
+          f"{result['tokens_per_s']:.0f} tokens/s; kernel launches per "
+          f"step {launches}")
     if device.type == "cuda":
         result["device_name"] = torch.cuda.get_device_name(device)
         result["max_memory_allocated"] = torch.cuda.max_memory_allocated(

@@ -15,6 +15,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import ops
+
 
 def truncated_normal_(t: torch.Tensor, stddev: float,
                       generator: torch.Generator) -> torch.Tensor:
@@ -54,12 +56,10 @@ def linear(p, x: torch.Tensor, dtype: Optional[torch.dtype] = None):
 def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6,
             out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """RMSNorm with the ``(1 + scale)`` gain, in f32; the result comes out
-    in ``out_dtype`` (default: x's dtype)."""
-    dt = out_dtype or x.dtype
-    xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    return (y * (1.0 + p["scale"].float())).to(dt)
+    in ``out_dtype`` (default: x's dtype).  Runs the fused kernel
+    (``kernels.ops.rmsnorm``) on a CUDA tensor, its plain version on a
+    CPU tensor."""
+    return ops.rmsnorm(x, p["scale"], eps=eps, out_dtype=out_dtype)
 
 
 # ---------------------------------------------------------------------------

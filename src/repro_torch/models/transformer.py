@@ -1,18 +1,22 @@
-"""The dense decoder stack (llama-style pre-norm GQA; qwen2 QKV bias; gemma2
-local/global windows, logit softcaps, post-block norms, scaled embeddings).
+"""The decoder stacks: dense (llama-style pre-norm GQA; qwen2 QKV bias;
+gemma2 local/global windows, logit softcaps, post-block norms, scaled
+embeddings) and ssm (mamba2, attention-free).
 
-Counterpart of ``repro.models.transformer`` for ``family="dense"``.  The
-parameter tree keeps the reference's layout — per-layer leaves stacked as
-``(L // pat, pat, ...)`` where ``pat = len(layer_pattern(cfg))`` — so
+Counterpart of ``repro.models.transformer`` for ``family="dense"`` and
+``family="ssm"``.  The parameter tree keeps the reference's layout —
+dense per-layer leaves stacked as ``(L // pat, pat, ...)`` where
+``pat = len(layer_pattern(cfg))``, ssm leaves as ``(L, ...)`` — so
 ``repro_torch.bridge`` moves weights between the packages leaf for leaf.
 PyTorch runs eagerly: the reference's ``lax.scan`` over layer groups is a
-Python loop (each group under ``torch.utils.checkpoint`` when
-``cfg.remat``), and the paged KV storage is updated in place.
+Python loop (each group, or each mamba layer, under
+``torch.utils.checkpoint`` when ``cfg.remat``), and the paged KV storage
+is updated in place.
 
 Ported: the full-sequence ``forward`` and the losses of training
-(``lm_loss``, ``lm_loss_chunked``), and the serving steps over paged KV
-(``decode_step``, ``prefill_step``).  The other families come with the
-slices that need them.
+(``lm_loss``, ``lm_loss_chunked``) for both families, and the serving
+steps over paged KV (``decode_step``, ``prefill_step``) for dense
+decoders.  The other families, and ssm decoding, come with the slices
+that need them.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import modules as nn
+from repro_torch.models import ssm as ssm_lib
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -43,11 +48,16 @@ def layer_pattern(cfg):
     return (cfg.sliding_window,)
 
 
-def _check_family(cfg) -> None:
-    if cfg.family != "dense":
+def _check_family(cfg, families=("dense",)) -> None:
+    """Raise for a family this entry point does not run yet: the training
+    path runs ``("dense", "ssm")``, the serving steps dense decoders."""
+    if cfg.family not in families:
         raise NotImplementedError(
-            f"family {cfg.family!r} is ported with a later slice; this "
-            "port runs dense decoders")
+            f"family {cfg.family!r} is ported with a later slice; here the "
+            f"port runs {', '.join(families)}")
+
+
+_TRAIN_FAMILIES = ("dense", "ssm")
 
 
 # ---------------------------------------------------------------------------
@@ -63,9 +73,12 @@ def init_params(cfg, generator: torch.Generator, device="cpu",
     bridge the reference's weights instead.  Draws happen on the CPU from
     ``generator`` (same weights whatever ``device``); linear, bias and
     embedding leaves are then held in ``weight_dtype`` (default: the
-    config's compute dtype), norm scales in f32."""
-    _check_family(cfg)
+    config's compute dtype), norm scales and the leaves the reference uses
+    in f32 (``ssm.F32_LEAVES``) in f32."""
+    _check_family(cfg, _TRAIN_FAMILIES)
     wdt = weight_dtype or _dtype(cfg.dtype)
+    if cfg.family == "ssm":
+        return _init_ssm_params(cfg, generator, device, wdt)
     d, h, kvh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     dh, dff, L = cfg.resolved_head_dim, cfg.d_ff, cfg.num_layers
     pat = len(layer_pattern(cfg))
@@ -110,6 +123,27 @@ def init_params(cfg, generator: torch.Generator, device="cpu",
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = {"w": normal((d, cfg.vocab_size), 1.0 / math.sqrt(d))}
+    return p
+
+
+def _init_ssm_params(cfg, generator, device, wdt):
+    """The ssm family's tree: tied embedding, final norm, and per-layer
+    ``{"ln1", "mamba"}`` leaves stacked as ``(L, ...)``."""
+    L, d = cfg.num_layers, cfg.d_model
+    table = nn.truncated_normal_(
+        torch.empty((cfg.vocab_size, d), dtype=torch.float32), 0.02,
+        generator).to(device, wdt)
+    p: Dict[str, Any] = {
+        "embed": {"table": table},
+        "final_norm": {"scale": torch.zeros((d,), dtype=torch.float32,
+                                            device=device)},
+        "layers": {
+            "ln1": {"scale": torch.zeros((L, d), dtype=torch.float32,
+                                         device=device)},
+            "mamba": ssm_lib.init_mamba2(cfg, generator, lead=(L,),
+                                         device=device, weight_dtype=wdt),
+        },
+    }
     return p
 
 
@@ -170,6 +204,14 @@ def _apply_layer(p, cfg, x, x_sum, *, window, positions, cache,
     if cfg.post_block_norm:
         m = nn.rmsnorm(p["post_ln2"], m, cfg.norm_eps, out_dtype=dt)
     return add(x, m)
+
+
+def _apply_mamba_layer(p, cfg, x):
+    """Pre-norm mamba2 block (no cache) plus the residual.  The residual
+    enters rounded to the compute dtype (each layer is a scan step of its
+    own in the reference), so there is no ``x_sum`` here."""
+    h = nn.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    return x + ssm_lib.mamba2_block(p["mamba"], cfg, h)[0]
 
 
 def _embed(params, cfg, tokens):
@@ -233,24 +275,29 @@ def forward(params, cfg, batch: Dict[str, Any], *, last_only: bool = False,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence causal forward (training, prefill).  batch: tokens
     (B, S).  Returns (logits (B, S, V) f32, aux_loss 0-d f32 (zero for
-    dense decoders)).
+    dense and ssm decoders)).
 
     last_only: unembed only the final position.  return_hidden: return the
     final-norm hidden states (B, S, d) in the compute dtype instead of
     logits (the chunked loss unembeds them itself).  With ``cfg.remat``
-    each layer group runs under ``torch.utils.checkpoint`` (the
-    reference's rematted scan body): its activations are recomputed in
-    the backward, so attention runs twice per layer per training step."""
-    _check_family(cfg)
+    each layer group (dense) or layer (ssm) runs under
+    ``torch.utils.checkpoint`` (the reference's rematted scan body): its
+    activations are recomputed in the backward, so attention or the SSD
+    scan runs twice per layer per training step."""
+    _check_family(cfg, _TRAIN_FAMILIES)
     x = _embed(params, cfg, batch["tokens"])
-    groups = cfg.num_layers // len(layer_pattern(cfg))
-    for gi in range(groups):
+    if cfg.family == "ssm":
+        body, steps = _apply_mamba_layer, cfg.num_layers
+    else:
+        body, steps = _forward_group, cfg.num_layers // len(
+            layer_pattern(cfg))
+    for gi in range(steps):
         gp = _index(params["layers"], gi)
         if cfg.remat:
-            x = checkpoint(_forward_group, gp, cfg, x, use_reentrant=False,
+            x = checkpoint(body, gp, cfg, x, use_reentrant=False,
                            preserve_rng_state=False)
         else:
-            x = _forward_group(gp, cfg, x)
+            x = body(gp, cfg, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if last_only:
         x = x[:, -1:]

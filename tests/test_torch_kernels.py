@@ -1,15 +1,18 @@
-"""Attention kernels (paged decode, paged prefill, flash): the port's
-plain versions, through ``repro_torch.kernels.ops``, against the
+"""Attention kernels (paged decode, paged prefill, flash) and RMSNorm: the
+port's plain versions, through ``repro_torch.kernels.ops``, against the
 reference's Pallas kernels (in interpret mode off-TPU, as
 ``repro.kernels.ops`` chooses) and against ``repro.kernels.ref``, on the
-same numpy inputs; and the flash attention's PyTorch backward against
-autograd through its plain version.
+same numpy inputs; and the PyTorch backwards of flash attention and
+RMSNorm against autograd through their plain versions.  (The SSD scan's
+are in ``test_torch_ssm.py``.)
 
 Tolerances: atol 1e-5 with f32 inputs (both sides compute in f32; only
 the summation order differs); atol 2e-2 with bf16 inputs (outputs are
-rounded to bf16: one bf16 ulp at |x| ~ 4).  The CUDA kernels themselves
-are held against the plain versions by the ``gpu`` tests at the end,
-which run on a machine with a card (``python -m pytest -m gpu tests/``)."""
+rounded to bf16: one bf16 ulp at |x| ~ 4); RMSNorm at
+``tests/test_kernels.py``'s 1e-5 (f32) and 5e-2 (bf16 out).  The CUDA
+kernels themselves are held against the plain versions by the ``gpu``
+tests at the end, which run on a machine with a card (``python -m pytest
+-m gpu tests/``)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,11 +21,14 @@ import torch
 from repro.kernels import flash_attention as jfa
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as jref
+from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import paged_prefill as pp
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import ssd_scan as ssd
 
 torch.set_num_threads(2)
 
@@ -168,6 +174,70 @@ def test_wrappers_refuse_devices_without_a_kernel():
         pp.paged_prefill(q, pages, pages, tbl, lens, lens, group=2)
     with pytest.raises(ValueError, match="no kernel"):
         fa.flash_attention(q, pages[:1], pages[:1])
+    with pytest.raises(ValueError, match="no kernel"):
+        rn.rmsnorm(q, torch.zeros((8,), device="meta"))
+    x = torch.zeros((1, 4, 2, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ssd.ssd_scan(x, x[..., 0], x[0, 0, :, 0], x, x, 4)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm: plain version and PyTorch backward
+# ---------------------------------------------------------------------------
+
+RMSNORM_CASES = [
+    # shape, in dtype, out dtype
+    ((64, 128), "f32", "f32"),
+    ((3, 37, 128), "bf16", "bf16"),      # 111 rows
+    ((2, 7, 11, 256), "f32", "f32"),
+    ((1, 512), "bf16", "bf16"),
+    ((300, 896), "bf16", "bf16"),        # qwen2 width, 300 rows: the last
+                                         # 256-row tile partial
+    ((2, 150, 2048), "f32", "bf16"),     # the unrounded residual in
+]
+
+
+@pytest.mark.parametrize("shape,din,dout", RMSNORM_CASES)
+def test_rmsnorm_plain_matches_pallas(shape, din, dout):
+    rng = np.random.default_rng(shape[-1] + len(shape))
+    x = rng.standard_normal(shape).astype(np.float32)
+    s = (0.1 * rng.standard_normal(shape[-1])).astype(np.float32)
+    jx, tx = _pair(x, din)
+    want = pallas_rmsnorm(jx, jnp.asarray(s), interpret=True)
+    if dout != din:                  # the Pallas kernel writes x's dtype
+        want = want.astype(jnp.bfloat16)
+    got = ops.rmsnorm(tx, torch.from_numpy(s),
+                      out_dtype=getattr(torch, dict(f32="float32",
+                                                    bf16="bfloat16")[dout]))
+    assert got.shape == shape
+    assert got.dtype == (torch.float32 if dout == "f32" else torch.bfloat16)
+    _close(got, want, 1e-5 if dout == "f32" else 5e-2)
+    _close(got, jref.rmsnorm_ref(jx, jnp.asarray(s)).astype(want.dtype),
+           1e-5 if dout == "f32" else 5e-2)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_backward_matches_autograd(out_dtype):
+    """The autograd Function (plain forward here, PyTorch backward)
+    against torch autograd through the plain version, f32 at 1e-5."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((3, 7, 96)).astype(np.float32)
+    s = (0.1 * rng.standard_normal(96)).astype(np.float32)
+    dy = torch.from_numpy(rng.standard_normal((3, 7, 96)).astype(
+        np.float32)).to(out_dtype)
+
+    def leaves():
+        return [torch.from_numpy(a).requires_grad_(True) for a in (x, s)]
+
+    ins = leaves()
+    got = torch.autograd.grad(ops.rmsnorm(ins[0], ins[1], out_dtype=out_dtype),
+                              ins, dy)
+    ins = leaves()
+    want = torch.autograd.grad(
+        rn.rmsnorm_ref(ins[0], ins[1], out_dtype=out_dtype), ins, dy)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        torch.testing.assert_close(g, w, atol=F32_ATOL, rtol=F32_ATOL)
 
 
 # ---------------------------------------------------------------------------
@@ -395,3 +465,50 @@ def test_cuda_wrappers_raise_on_wrong_inputs(cuda):
         qt = torch.zeros((1, 2, 4, 64), dtype=torch.bfloat16,
                          device=cuda).transpose(1, 2)
         fa.flash_attention(qt, qt, qt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,d,din,dout", [
+    (8, 896, torch.bfloat16, torch.bfloat16),
+    (300, 2048, torch.float32, torch.bfloat16),
+    (1000, 2304, torch.bfloat16, torch.float32),
+    (129, 4096, torch.float32, torch.float32),
+    (7, 100, torch.bfloat16, torch.bfloat16),     # d % 8 != 0: scalar path
+])
+def test_cuda_rmsnorm_matches_plain(cuda, rows, d, din, dout):
+    """The kernel (any row count, all four dtype pairs, the vector and the
+    scalar path) and the gradients through the Function against the plain
+    version."""
+    rng = np.random.default_rng(rows + d)
+    x = torch.tensor(rng.standard_normal((rows, d)), dtype=din, device=cuda)
+    s = torch.tensor(0.1 * rng.standard_normal(d), dtype=torch.float32,
+                     device=cuda)
+    launches = rn.rmsnorm.launches
+    got = rn.rmsnorm(x, s, out_dtype=dout)
+    torch.cuda.synchronize()
+    assert rn.rmsnorm.launches == launches + 1
+    want = rn.rmsnorm_ref(x, s, out_dtype=dout)
+    # |y| reaches ~6, where one bf16 ulp is 3.1e-2 and a sum of squares in
+    # another order can flip a rounding: error relative above |y| = 1
+    atol = 1e-5 if dout == torch.float32 else BF16_ATOL
+
+    def err(g, w):
+        w = w.float()
+        return ((g.float() - w).abs() / w.abs().clamp(min=1.0)).max().item()
+
+    assert got.dtype == dout
+    assert err(got, want) <= atol
+    # rows that start one element off 16-byte alignment take the scalar
+    # path
+    xv = x.reshape(-1)[1:1 + (rows - 1) * d].view(rows - 1, d)
+    got = rn.rmsnorm(xv, s, out_dtype=dout)
+    assert err(got, rn.rmsnorm_ref(xv, s, out_dtype=dout)) <= atol
+    dy = torch.randn((rows, d), dtype=dout, device=cuda)
+    ins = [t.clone().requires_grad_(True) for t in (x, s)]
+    g_got = torch.autograd.grad(ops.rmsnorm(*ins, out_dtype=dout), ins, dy)
+    ins = [t.clone().requires_grad_(True) for t in (x, s)]
+    g_want = torch.autograd.grad(rn.rmsnorm_ref(*ins, out_dtype=dout), ins,
+                                 dy)
+    for g, w in zip(g_got, g_want):
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= 2e-2 * max(1.0, w.float().abs().max().item())
