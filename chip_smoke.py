@@ -29,41 +29,60 @@ Phases (any failure exits nonzero):
               the carried state must fail the output check.
               RMSNorm at d 896 / 2048 / 2304 / 4096, bf16 -> bf16 and
               f32 -> bf16, a row count that is not a block multiple, and
-              its gradients;
+              its gradients.  The int8 flash kernel at the dense serving
+              path's decode shapes (q (8, 1, 14, 64) bf16, int8 K/V
+              (8, 2048, 2, 64) quantized by the model's quantizer, bf16
+              scales, lengths 1-2048), at gemma2-2b's D = 288 with window
+              and softcap, and at the TPU kernel's own test shapes (f32,
+              q_start 0, kv_len Skv), element by element; kernels that
+              ignored the scales or the per-row lengths, dropped each row's
+              last partial tile or its newest key, moved gemma2's window by
+              one key either way, or kept K unrounded must fail the check;
 4. times    — each kernel at the main path's shapes (decode: B = 8,
               contexts 512-2048; prefill: B = 4, C = 64; flash: the
-              qwen2 training shapes above; SSD: mamba2-1.3b training, b 8;
-              RMSNorm: mamba2's gated norm, 8,192 x 4,096 f32 -> bf16) with
-              CUDA events, L2 flushed before every launch, beside its plain
-              version, the library yardstick (gather +
-              scaled_dot_product_attention; ``F.rms_norm``; none for the
-              SSD scan; used nowhere in the port) and its bound (bytes at
-              3.35 TB/s or flops at 989 TFLOP/s, whichever is larger);
-5. serving  — full-width qwen2-0.5b (random weights, seed 0): (a) the port's
-              launcher ``repro_torch.launch.serve.main``; (b) the scheduler
-              and engine driven directly with 12 prompts of 320-1024 tokens
-              sharing a 256-token prefix.  Every kernel's launch counter is
-              zeroed just before each part and the paged kernels' and
-              RMSNorm's must be > 0 after it; every request completes, the
-              prefix cache hits, nothing leaks;
-6. card vs CPU — the same weights on the CPU (plain kernel versions): one
+              qwen2 training shapes above; int8 flash: the decode shapes
+              above; SSD: mamba2-1.3b training, b 8; RMSNorm: mamba2's
+              gated norm, 8,192 x 4,096 f32 -> bf16) with CUDA events, L2
+              flushed before every launch, beside its plain version, the
+              library yardstick (gather + scaled_dot_product_attention;
+              scaled_dot_product_attention on K/V dequantized beforehand;
+              ``F.rms_norm``; none for the SSD scan; used nowhere in the
+              port) and its bound (bytes at 3.35 TB/s or flops at 989
+              TFLOP/s, whichever is larger);
+5. serving  — full-width qwen2-0.5b (random weights, seed 0), paged: (a)
+              the port's launcher ``repro_torch.launch.serve.main``; (b)
+              the scheduler and engine driven directly with 8 prompts of
+              320-1024 tokens sharing a 256-token prefix.  Every kernel's
+              launch counter is zeroed just before each part and the paged
+              kernels' and RMSNorm's must be > 0 after it; every request
+              completes, the prefix cache hits, nothing leaks;
+6. dense int8 — the same weights in dense mode with the int8 KV cache
+              (8 slots, max_seq_len 1024, prefill chunk 16, 64 prefix
+              blocks): 12 greedy prompts of 32 shared + 16-96 own tokens,
+              32 new each, with exactly 24 x (decode steps + prefill tokens
+              executed) int8-kernel launches and no other attention kernel,
+              nothing leaked; then the first 4 with the bf16 dense cache
+              (no int8 launch), and the int8 / bf16 KV bytes ratio;
+7. card vs CPU — the same weights on the CPU (plain kernel versions): one
               48-token prompt, last-position logits within tolerance and 4
-              equal greedy tokens;
-7. training — full-width qwen2-0.5b through the port's launcher
+              equal greedy tokens through the paged engine (scheduler), 8
+              through the dense int8 engine (its decode steps driven
+              directly);
+8. training — full-width qwen2-0.5b through the port's launcher
               ``repro_torch.launch.train.main`` (seq 1024, batch 8, 8 AdamW
               steps): every loss finite, the last below the first, the
               flash kernel launched on every layer of every step and
               RMSNorm on every norm (counters zeroed just before); then one
               step under ``torch.profiler`` for where the device time goes;
-8. training card vs CPU — one train step of a 2-layer full-width qwen2 at
+9. training card vs CPU — one train step of a 2-layer full-width qwen2 at
               seq 128, batch 2, on the same weights on both: loss and the
               gradient's global norm within tolerance;
-9. training mamba2-1.3b, full width, through the launcher (seq 1024,
+10. training mamba2-1.3b, full width, through the launcher (seq 1024,
               batch 8, 8 AdamW steps): losses finite and falling, exactly
               96 SSD launches (48 layers x 2 with remat) and 193 RMSNorm
               launches in every step, step time, tokens/s, peak memory;
               one step under ``torch.profiler``;
-10. mamba2 training card vs CPU — one step of a 2-layer full-width mamba2
+11. mamba2 training card vs CPU — one step of a 2-layer full-width mamba2
               at seq 512 (two chunks: the state carries), batch 2, on the
               same weights on both: loss and gradient norm within
               tolerance.
@@ -93,6 +112,13 @@ KERNEL_TOL = 2e-2              # bf16 output: one bf16 ulp at |x| ~ 4, plus
 CPU_LOGIT_TOL = 5e-2           # 24 layers of bf16 GEMMs summed in another
                                # order (cuBLAS vs CPU), logits of std ~0.6
 LSE_TOL = 1e-3                 # f32 logsumexp, summed in another order
+INT8_BF16_RTOL = 2.0 ** -7     # the int8 kernel's bf16 output, element
+INT8_FLOOR = 2.0 ** -4         # by element: |got - plain| <= RTOL x
+                               # max(|plain|, FLOOR), one bf16 ulp (f32
+                               # sums in another order can flip a rounding;
+                               # 4.9e-4 absolute below |plain| 1/16)
+INT8_F32_TOL = 1e-5            # the int8 kernel with f32 q and scales,
+                               # absolute: f32 sums and exps in another order
 GRAD_TOL = 2e-2                # max |grad err| / max |grad|: bf16 grads
                                # (one ulp is 2**-8 = 3.9e-3 relative) from
                                # f32 sums in another order
@@ -115,8 +141,11 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -268,6 +297,84 @@ def prefill_cost(case):
     nbytes = 2 * q_bytes + hist * KV * D * 2 * 2 + B * 4 * (
         2 + case["block_tables"].shape[1])
     return nbytes, 4 * attended * KV * G * D
+
+
+def int8_case(torch, rng, dev, *, Sq, H, KV, D, Skv, q_start, kv_len,
+              window=None, softcap=None, dtype="bfloat16"):
+    """Inputs of the int8 attention: q (B, Sq, H, D) and K/V (B, Skv, KV,
+    D) drawn N(0, 1) in ``dtype``, K/V quantized per (token, kv head).
+    bf16: with the model's quantizer (``attention.quantize_kv``, bf16
+    scales), as the serving path writes its cache; f32: with f32 scales,
+    as the TPU kernel's own test quantizes."""
+    from repro_torch.models.attention import quantize_kv
+    dt = getattr(torch, dtype)
+    B = len(q_start)
+    mk = lambda *s: torch.tensor(rng.standard_normal(s), dtype=dt,
+                                 device=dev)
+
+    def quant(x):
+        if dt == torch.bfloat16:
+            return quantize_kv(x)
+        s = x.abs().amax(dim=-1) / 127.0 + 1e-8
+        return torch.round(x / s[..., None]).to(torch.int8), s
+
+    k8, ks = quant(mk(B, Skv, KV, D))
+    v8, vs = quant(mk(B, Skv, KV, D))
+    ints = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
+    return dict(q=mk(B, Sq, H, D), k8=k8, k_scale=ks, v8=v8, v_scale=vs,
+                q_start=ints(q_start), kv_len=ints(kv_len),
+                kw=dict(window=window, softcap=softcap))
+
+
+def int8_rel_err(got, ref) -> float:
+    """max |got - ref| / max(|ref|, INT8_FLOOR), element by element."""
+    g, r = got.float(), ref.float()
+    return ((g - r).abs() / r.abs().clamp(min=INT8_FLOOR)).max().item()
+
+
+def int8_args(case):
+    return (case["q"], case["k8"], case["k_scale"], case["v8"],
+            case["v_scale"], case["q_start"], case["kv_len"])
+
+
+def int8_cost(case):
+    """(bytes, flops): q and out once, and per row the int8 K and V codes
+    and their scales of the keys its queries can reach (the run's kv_len,
+    causal, the window) once per kv head; 4 flops per (query head,
+    attended key, dim), each query counting the keys it attends."""
+    B, Sq, H, D = case["q"].shape
+    Skv, KV = case["k8"].shape[1], case["k8"].shape[2]
+    w = case["kw"]["window"]
+    keys = attended = 0
+    for qs, n in zip(case["q_start"].tolist(), case["kv_len"].tolist()):
+        span = lambda p: (max(0, p - w + 1) if w else 0, min(n, Skv, p + 1))
+        lo, hi = span(qs)[0], span(qs + Sq - 1)[1]
+        keys += max(0, hi - lo)
+        attended += sum(max(0, b - a)
+                        for a, b in map(span, range(qs, qs + Sq)))
+    q_bytes = case["q"].numel() * case["q"].element_size()
+    nbytes = (2 * q_bytes + keys * KV * (2 * D + 2 * case["k_scale"]
+                                         .element_size()) + 8 * B)
+    return nbytes, 4 * H * D * attended
+
+
+def library_int8(torch, F, case, kd, vd):
+    """scaled_dot_product_attention over K/V dequantized beforehand (kd,
+    vd: (B, KV, Skv, D) in q's dtype, not timed) with the per-row length
+    and causal mask: one PyTorch call, a yardstick the port never makes."""
+    q = case["q"]
+    B, Sq, H, D = q.shape
+    Skv = kd.shape[2]
+    qpos = case["q_start"][:, None] + torch.arange(Sq, device=q.device)
+    kpos = torch.arange(Skv, device=q.device)
+    mask = (kpos[None, None, :] < case["kv_len"][:, None, None]) & (
+        kpos[None, None, :] <= qpos[:, :, None])
+    if case["kw"]["window"]:
+        mask &= (qpos[:, :, None] - kpos[None, None, :]) < case["kw"][
+            "window"]
+    out = F.scaled_dot_product_attention(
+        q.transpose(1, 2), kd, vd, attn_mask=mask[:, None], enable_gqa=True)
+    return out.transpose(1, 2)
 
 
 def ssd_case(torch, rng, dev, *, b, S, H, P, G, N):
@@ -545,9 +652,11 @@ def main() -> int:
     from repro_torch.kernels import paged_prefill as pp
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.ref import attention_int8kv_ref
     counters = {"paged_decode_attention": pa.paged_attention,
                 "paged_prefill_attention": pp.paged_prefill,
                 "flash_attention": fa.flash_attention,
+                "flash_attention_int8kv": fa.flash_attention_int8kv,
                 "ssd_scan": ssd.ssd_scan, "rmsnorm": rn.rmsnorm}
     t0 = time.perf_counter()
     libs = _build.build_all()
@@ -643,6 +752,88 @@ def main() -> int:
               f"flash gradients disagree at {label} shapes")
         worst["flash_attention"] = max(worst.get("flash_attention", 0.0), err)
         del fc, qkv, out, lse, ref, ref_lse, ins, got, want
+    torch.cuda.empty_cache()
+
+    # the int8 flash kernel: at the dense serving path's decode shapes
+    # (qwen2-0.5b: B 8, one query, H 14 over KV 2, D 64, 2048-position
+    # stripes, lengths 1-2048), at gemma2-2b's D = 288 with window and
+    # softcap, and at the TPU kernel's own test shapes (heads folded,
+    # q_start 0, kv_len Skv, f32 q and scales)
+    path_lens = [1, 293, 586, 878, 1171, 1464, 1756, 2048]
+    int8_sets = {
+        "qwen2-0.5b decode": dict(
+            Sq=1, H=14, KV=2, D=64, Skv=2048, kv_len=path_lens,
+            q_start=[n - 1 for n in path_lens]),
+        "gemma2-2b decode": dict(
+            Sq=1, H=8, KV=4, D=288, Skv=5000, q_start=[4096, 4999, 99, 0],
+            kv_len=[4097, 5000, 100, 1], window=4096, softcap=50.0),
+        "TPU test (2, 1, 256, 64)": dict(
+            Sq=1, H=1, KV=1, D=64, Skv=256, q_start=[0, 0],
+            kv_len=[256, 256], dtype="float32"),
+        "TPU test (2, 128, 128, 64)": dict(
+            Sq=128, H=1, KV=1, D=64, Skv=128, q_start=[0, 0],
+            kv_len=[128, 128], dtype="float32"),
+        "TPU test (1, 1, 300, 128), window 64": dict(
+            Sq=1, H=1, KV=1, D=128, Skv=300, q_start=[0], kv_len=[300],
+            window=64, dtype="float32"),
+    }
+    rng8 = np.random.default_rng(8)      # its own draws: the same inputs
+    for label, spec in int8_sets.items():   # whatever the phases before
+        ic = int8_case(torch, rng8, dev, **spec)
+        args, kw = int8_args(ic), ic["kw"]
+        got = fa.flash_attention_int8kv(*args, **kw)
+        torch.cuda.synchronize()
+        ref = attention_int8kv_ref(*args, **kw)
+        err = (got.float() - ref.float()).abs().max().item()
+        bf16 = spec.get("dtype") is None
+        rel, tol = ((int8_rel_err(got, ref), INT8_BF16_RTOL) if bf16
+                    else (err, INT8_F32_TOL))
+        what_tol = ("|err| / max(|plain|, 2^-4)" if bf16 else "|err|")
+        print(f"int8kv  {label}: max_abs_err {err:.3e}; max {what_tol} "
+              f"{rel:.3e} (tol {tol:.3e}); max |plain| "
+              f"{ref.float().abs().max().item():.3f}")
+        check(rel <= tol, f"int8 kernel disagrees at {label}")
+        worst["flash_attention_int8kv"] = max(
+            worst.get("flash_attention_int8kv", 0.0), err)
+        # the check's power: kernels that are wrong, grossly or by one key
+        # or one rounding, computed as plain versions on the same inputs,
+        # must each fail it
+        q, k8, ks, v8, vs, qs, n = args
+        wrongs = []
+        if label == "qwen2-0.5b decode":
+            full = torch.full_like(n, spec["Skv"])
+            tile = torch.where(n > 64, (n - 1) // 64 * 64, n)
+            wrongs = [
+                ("ignored the scales", lambda: attention_int8kv_ref(
+                    q, k8, torch.ones_like(ks), v8, torch.ones_like(vs), qs,
+                    n, **kw)),
+                ("ignored kv_len (the whole stripe)",
+                 lambda: attention_int8kv_ref(q, k8, ks, v8, vs, full - 1,
+                                              full, **kw)),
+                ("dropped each row's last partial 64-key tile",
+                 lambda: attention_int8kv_ref(q, k8, ks, v8, vs, qs, tile,
+                                              **kw)),
+                ("missed each row's newest key",
+                 lambda: attention_int8kv_ref(q, k8, ks, v8, vs, qs,
+                                              (n - 1).clamp(min=1), **kw))]
+        elif label == "gemma2-2b decode":
+            w = kw["window"]
+            wrongs = [
+                ("saw one key more than the window",
+                 lambda: attention_int8kv_ref(*args, **dict(kw,
+                                                            window=w + 1))),
+                ("saw one key less than the window",
+                 lambda: attention_int8kv_ref(*args, **dict(kw,
+                                                            window=w - 1))),
+                ("kept K in f32, unrounded to q's bf16",
+                 lambda: attention_int8kv_ref(q.float(), k8, ks.float(), v8,
+                                              vs.float(), qs, n, **kw))]
+        for what, wrong in wrongs:
+            miss = int8_rel_err(wrong(), ref)
+            print(f"int8kv  {label}: a kernel that {what} would read "
+                  f"{miss:.3e}")
+            check(miss > tol, f"the int8 check misses a kernel that {what}")
+        del ic, args, got, ref
     torch.cuda.empty_cache()
 
     ssd_sets = {
@@ -750,6 +941,15 @@ def main() -> int:
                                          device=dev),
                  out_dtype="bfloat16")
     gain = 1.0 + ncase["scale"]
+    # the int8 kernel at the dense serving path's decode shapes (B = 8,
+    # 2048-position stripes, lengths 1-2048); the yardstick reads K/V
+    # dequantized beforehand, (B, KV, Skv, D) bf16, untimed
+    icase = int8_case(torch, rng, dev, **int8_sets["qwen2-0.5b decode"])
+    iargs, ikw = int8_args(icase), icase["kw"]
+    kd, vd = (
+        (c.float() * s.float()[..., None]).bfloat16().transpose(1, 2)
+        .contiguous() for c, s in ((icase["k8"], icase["k_scale"]),
+                                   (icase["v8"], icase["v_scale"])))
     kernels = []
     for kname, fn, plain, lib, cost, case, src, tpu in (
             ("paged_decode_attention",
@@ -770,6 +970,12 @@ def main() -> int:
              lambda: library_flash(torch, F, fcase), flash_cost, fcase,
              "src/repro_torch/kernels/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:203"),
+            ("flash_attention_int8kv",
+             lambda: fa.flash_attention_int8kv(*iargs, **ikw),
+             lambda: attention_int8kv_ref(*iargs, **ikw),
+             lambda: library_int8(torch, F, icase, kd, vd), int8_cost, icase,
+             "src/repro_torch/kernels/csrc/flash_attention_int8kv.cu",
+             "src/repro/kernels/flash_attention.py:156"),
             ("ssd_scan",
              lambda: ssd.ssd_scan(*sargs, 256),
              lambda: ssd.ssd_scan_plain(*sargs, 256),
@@ -789,6 +995,8 @@ def main() -> int:
         err = (out - ref).abs().max().item()
         if kname in ("ssd_scan", "rmsnorm"):
             ok = norm_err(out, ref) <= KERNEL_TOL
+        elif kname == "flash_attention_int8kv":
+            ok = int8_rel_err(out, ref) <= INT8_BF16_RTOL
         else:
             ok = err <= KERNEL_TOL
         lib_err = (None if lib is None
@@ -820,7 +1028,7 @@ def main() -> int:
     print(f"rmsnorm 8192 x 4096 bf16 -> bf16: kernel {bf_ms:.4f} ms, bound "
           f"{(xb.numel() * 4 + 4096 * 4) / HBM_BYTES_PER_S * 1e3:.4f} ms "
           "(bytes)", flush=True)
-    del scase, sargs, ncase, gain, xb
+    del scase, sargs, ncase, gain, xb, icase, iargs, kd, vd
     torch.cuda.empty_cache()
 
     # 5. serving at full width ---------------------------------------------
@@ -857,7 +1065,7 @@ def main() -> int:
     shared = rs.integers(0, cfg.vocab_size, 256, dtype=np.int32)
     prompts = [np.concatenate([shared, rs.integers(
         0, cfg.vocab_size, int(rs.integers(64, 769)), dtype=np.int32)])
-        for _ in range(12)]
+        for _ in range(8)]
     torch.cuda.reset_peak_memory_stats(dev)
     eng = ServingEngine(cfg, params, max_seq_len=2048, max_slots=8,
                         prefix_cache_blocks=256, paged=True,
@@ -910,7 +1118,75 @@ def main() -> int:
     del step_batch, flush
     torch.cuda.empty_cache()
 
-    # 6. card vs CPU --------------------------------------------------------
+    # 6. dense-mode serving with the int8 KV cache -------------------------
+    phase("serving qwen2-0.5b, full width, dense, int8 KV")
+    cfg8 = cfg.with_(kv_cache_dtype="int8")
+    rs = np.random.default_rng(3)
+    shared = rs.integers(0, cfg.vocab_size, 32, dtype=np.int32)
+    dense_prompts = [np.concatenate([shared, rs.integers(
+        0, cfg.vocab_size, int(rs.integers(16, 97)), dtype=np.int32)])
+        for _ in range(12)]
+    dense_kw = dict(paged=False, max_slots=8, max_seq_len=1024,
+                    prefill_chunk=16, prefix_cache_blocks=64, device=dev)
+    dense = {}
+    for label, c, prompts_ in (("int8", cfg8, dense_prompts),
+                               ("bf16", cfg, dense_prompts[:4])):
+        torch.cuda.reset_peak_memory_stats(dev)
+        eng = ServingEngine(c, params, **dense_kw)
+        sched_d = Scheduler(eng, profile=True)
+        zero_counts(counters)
+        rids = [sched_d.submit(Request(p, SamplingParams(
+            max_new_tokens=32, greedy=True))) for p in prompts_]
+        sched_d.run()
+        torch.cuda.synchronize()
+        launches_d = read_counts(counters)
+        rep = report_serving(torch, sched_d, f"dense {label}", dev)
+        outs = [sched_d.output(r) for r in rids]
+        steps = eng.decode_steps + eng.prefill_tokens_executed
+        print(f"dense {label}: prompts {[len(p) for p in prompts_]}; "
+              f"kv_bytes {eng.kv.kv_bytes()}; decode_steps "
+              f"{eng.decode_steps}, prefill_tokens_executed "
+              f"{eng.prefill_tokens_executed}; kernel launches "
+              f"{launches_d}", flush=True)
+        check(all(len(o) == 32 for o in outs),
+              f"dense {label}: not every request completed")
+        check(all(((o >= 0) & (o < cfg.vocab_size)).all() for o in outs),
+              f"dense {label}: token ids out of range")
+        check(rep["prefix_hit_rate"] > 0, f"dense {label}: no prefix hit")
+        want = cfg.num_layers * steps if label == "int8" else 0
+        check(launches_d["flash_attention_int8kv"] == want,
+              f"dense {label}: {launches_d['flash_attention_int8kv']} int8 "
+              f"kernel launches, want {want} = {cfg.num_layers} x "
+              f"(decode steps + prefill tokens executed)")
+        check(all(launches_d[k] == 0 for k in (
+            "paged_decode_attention", "paged_prefill_attention",
+            "flash_attention")),
+            f"dense {label}: another attention kernel was launched")
+        check_no_leaks(sched_d, f"dense {label}")
+        dense[label] = dict(rep, kv_bytes=eng.kv.kv_bytes(),
+                            launches=launches_d["flash_attention_int8kv"],
+                            decode_steps=eng.decode_steps,
+                            prefill_tokens_executed=(
+                                eng.prefill_tokens_executed),
+                            rmsnorm=launches_d["rmsnorm"])
+        del sched_d, eng
+        torch.cuda.empty_cache()
+    ratio = dense["int8"]["kv_bytes"] / dense["bf16"]["kv_bytes"]
+    D = cfg.resolved_head_dim
+    print(f"dense int8 / bf16 KV bytes {ratio:.4f} (expected (2D + 4) / "
+          f"(4D) = {(2 * D + 4) / (4 * D):.4f}); tokens/s int8 (12 "
+          f"requests) {dense['int8']['tokens_per_s']:.1f}, bf16 (first 4) "
+          f"{dense['bf16']['tokens_per_s']:.1f}", flush=True)
+    check(abs(ratio - (2 * D + 4) / (4 * D)) < 1e-9,
+          "int8 / bf16 KV bytes off the layout's ratio")
+    by_name["flash_attention_int8kv"]["launches"] = dense["int8"]["launches"]
+    by_name["flash_attention_int8kv"]["launches_per_step"] = (
+        dense["int8"]["launches"] / (dense["int8"]["decode_steps"]
+                                     + dense["int8"]["prefill_tokens_executed"]))
+    rms_paths["dense serving"] = (dense["int8"]["rmsnorm"]
+                                  + dense["bf16"]["rmsnorm"])
+
+    # 7. card vs CPU --------------------------------------------------------
     phase("card vs CPU")
     prompt = np.random.default_rng(2).integers(0, cfg.vocab_size, 48,
                                                dtype=np.int32)
@@ -934,10 +1210,35 @@ def main() -> int:
           f"cuda {tg.tolist()} cpu {tc.tolist()}")
     check(diff <= CPU_LOGIT_TOL, "card and CPU logits disagree")
     check(tg.tolist() == tc.tolist(), "card and CPU greedy tokens differ")
+    # the dense int8 engine: the card's int8 kernel against the CPU's
+    # plain version under the whole model
+    results = {}
+    for where in ("cuda", "cpu"):
+        e = ServingEngine(cfg8, params, max_seq_len=64, max_slots=1,
+                          paged=False,
+                          device=dev if where == "cuda" else "cpu")
+        slot, last = e.prefill_into_slot(prompt)
+        logits, toks = torch.from_numpy(last)[None], []
+        for i in range(8):                      # greedy, one slot
+            t = e.sample_tokens(logits, np.ones(1, np.float32),
+                                np.ones(1, bool))
+            toks.append(int(t[0]))
+            logits = e.decode_once(t, np.array([len(prompt) + i], np.int32))
+        results[where] = (last, np.array(toks))
+    (lg, tg), (lc, tc) = results["cuda"], results["cpu"]
+    check(np.isfinite(lg).all() and lg.shape == (cfg.vocab_size,),
+          "dense int8: card logits not finite or of the wrong shape")
+    diff = float(np.abs(lg - lc).max())
+    print(f"dense int8, last-position logits: max |cuda - cpu| {diff:.3e} "
+          f"(tol {CPU_LOGIT_TOL}); greedy cuda {tg.tolist()} cpu "
+          f"{tc.tolist()}")
+    check(diff <= CPU_LOGIT_TOL, "dense int8: card and CPU logits disagree")
+    check(tg.tolist() == tc.tolist(),
+          "dense int8: card and CPU greedy tokens differ")
     del params
     torch.cuda.empty_cache()
 
-    # 7. training at full width ---------------------------------------------
+    # 8. training at full width ---------------------------------------------
     phase("training qwen2-0.5b, full width")
     from repro_torch.launch import train as train_launcher
     zero_counts(counters)
@@ -972,13 +1273,13 @@ def main() -> int:
     print("train step profile: " + json.dumps(prof_out), flush=True)
     torch.cuda.empty_cache()
 
-    # 8. training, card vs CPU ----------------------------------------------
+    # 9. training, card vs CPU ----------------------------------------------
     phase("training card vs CPU")
     train_card_vs_cpu(torch, cfg.with_(num_layers=2), seq=128, batch=2,
                       dev=dev)
     torch.cuda.empty_cache()
 
-    # 9. training mamba2-1.3b at full width -----------------------------------
+    # 10. training mamba2-1.3b at full width ---------------------------------
     phase("training mamba2-1.3b, full width")
     mcfg = get_config("mamba2-1.3b")
     zero_counts(counters)
@@ -1018,7 +1319,7 @@ def main() -> int:
     print("mamba2 train step profile: " + json.dumps(prof_out), flush=True)
     torch.cuda.empty_cache()
 
-    # 10. mamba2 training, card vs CPU ----------------------------------------
+    # 11. mamba2 training, card vs CPU --------------------------------------
     phase("mamba2 training card vs CPU")
     train_card_vs_cpu(torch, mcfg.with_(num_layers=2), seq=512, batch=2,
                       dev=dev)

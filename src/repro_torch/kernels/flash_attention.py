@@ -14,6 +14,14 @@ through the plain version (``repro_torch.kernels.ref.attention_ref``), a
 CUDA tensor launches the kernel or raises.  ``flash_attention.launches``
 counts kernel launches only.
 
+``flash_attention_int8kv`` is the counterpart of the reference's
+``flash_attention_int8kv``: the same attention over int8 K/V with
+per-token scales, dequantized after the load
+(``csrc/flash_attention_int8kv.cu``), plus per-row query positions
+(``q_start``, ``kv_len``) for the dense int8 decode cache.  It dispatches
+and counts the same way; its plain version is
+``ref.attention_int8kv_ref``.
+
 The backward (``flash_attention_bwd``) is PyTorch on any device: the JAX
 package has no backward kernel (its gradient is XLA's autodiff of the jnp
 ``attention.attend``), so there is no TPU kernel to port there.  It
@@ -29,9 +37,10 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels.ref import attention_int8kv_ref, attention_ref
 
 _fn = None
+_fn_int8kv = None
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 288
 
@@ -46,6 +55,18 @@ def _entry():
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def _entry_int8kv():
+    global _fn_int8kv
+    if _fn_int8kv is None:
+        fn = _build.load("flash_attention_int8kv").flash_attention_int8kv_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fn_int8kv = fn
+    return _fn_int8kv
 
 
 def _fold_heads(q, k, v):
@@ -223,3 +244,98 @@ class FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd(q, k, v, lse, dout.contiguous(),
                                          **ctx.opts)
         return dq, dk, dv, None, None, None, None
+
+
+def _check_int8kv_cuda(q, k8, k_scale, v8, v_scale, q_start, kv_len):
+    """What the int8 kernel takes: everything on q's device and
+    contiguous; q (B, Sq, H, D) f32 or bf16; k8, v8 (B, Skv, KV, D) int8
+    with 4-byte aligned rows; scales (B, Skv, KV) in q's dtype; q_start and kv_len (B,) int32; H a multiple of KV; D a multiple
+    of 4 and at most 288."""
+    ts = {"q": q, "k8": k8, "k_scale": k_scale, "v8": v8,
+          "v_scale": v_scale, "q_start": q_start, "kv_len": kv_len}
+    for name, t in ts.items():
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    for name in ("k_scale", "v_scale"):
+        if ts[name].dtype != q.dtype:
+            raise TypeError(f"{name} is {ts[name].dtype}, q is {q.dtype}: "
+                            "the kernel takes them in one dtype")
+    for name in ("k8", "v8"):
+        if ts[name].dtype != torch.int8:
+            raise TypeError(f"{name} must be int8, got {ts[name].dtype}")
+        if ts[name].data_ptr() % 4:
+            raise ValueError(f"{name} must be 4-byte aligned")
+    for name in ("q_start", "kv_len"):
+        if ts[name].dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {ts[name].dtype}")
+    if q.dim() != 4 or k8.dim() != 4:
+        raise ValueError(f"q {tuple(q.shape)} and k8 {tuple(k8.shape)} "
+                         "must be 4-d")
+    B, _, H, D = q.shape
+    Skv, KV = k8.shape[1], k8.shape[2]
+    if v8.shape != k8.shape or k8.shape[0] != B or k8.shape[3] != D:
+        raise ValueError(f"k8 {tuple(k8.shape)} / v8 {tuple(v8.shape)} vs "
+                         f"q {tuple(q.shape)}")
+    for name in ("k_scale", "v_scale"):
+        if tuple(ts[name].shape) != (B, Skv, KV):
+            raise ValueError(f"{name} {tuple(ts[name].shape)}, want "
+                             f"{(B, Skv, KV)}")
+    for name in ("q_start", "kv_len"):
+        if tuple(ts[name].shape) != (B,):
+            raise ValueError(f"{name} {tuple(ts[name].shape)}, B={B}")
+    if H % KV != 0:
+        raise ValueError(f"H={H} is not a multiple of KV={KV}")
+    if D % 4 != 0 or D > MAX_HEAD_DIM:
+        raise ValueError(f"kernel takes D a multiple of 4 up to "
+                         f"{MAX_HEAD_DIM}, got D={D}")
+
+
+def flash_attention_int8kv(q, k8, k_scale, v8, v_scale, q_start, kv_len, *,
+                           causal: bool = True,
+                           window: Optional[int] = None,
+                           softcap: Optional[float] = None,
+                           scale: Optional[float] = None):
+    """Attention over int8 K/V with per-token scales and per-row query
+    positions (forward only: the reference has no gradient through it).
+
+    q: (B, Sq, H, D); k8, v8: (B, Skv, KV, D) int8; k_scale, v_scale:
+    (B, Skv, KV), in q's dtype on the card; q_start, kv_len: (B,) int32 — query i of row b sits at
+    ``q_start[b] + i`` and keys at or past ``kv_len[b]`` are masked.
+    Returns (B, Sq, H, D) in q's dtype; see ``ref.attention_int8kv_ref``
+    for the function and its rounding.  A CPU tensor runs that plain
+    version; a CUDA tensor launches ``csrc/flash_attention_int8kv.cu`` or
+    raises."""
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    if q.device.type == "cpu":
+        return attention_int8kv_ref(q, k8, k_scale, v8, v_scale, q_start,
+                                    kv_len, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"flash_attention_int8kv: no kernel for device {q.device}")
+    _check_int8kv_cuda(q, k8, k_scale, v8, v_scale, q_start, kv_len)
+    B, Sq, H, D = q.shape
+    Skv, KV = k8.shape[1], k8.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    out = torch.empty_like(q)
+    fn = _entry_int8kv()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(q.data_ptr(), k8.data_ptr(), k_scale.data_ptr(),
+                    v8.data_ptr(), v_scale.data_ptr(), q_start.data_ptr(),
+                    kv_len.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
+                    B, Sq, H, KV, Skv, D,
+                    float(scale), int(causal), int(window or 0),
+                    float(softcap or 0.0), stream)
+    _build.check(status, "flash_attention_int8kv")
+    flash_attention_int8kv.launches += 1
+    return out
+
+
+flash_attention_int8kv.launches = 0

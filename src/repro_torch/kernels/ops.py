@@ -2,12 +2,14 @@
 
 Counterparts of ``repro.kernels.ops.mha_flash_attention``,
 ``paged_decode_attention``, ``paged_prefill_attention``, ``ssd`` and
-``rmsnorm``.  The paged
-wrappers do the reference's head folding (decode
-``(B, 1, H, D) -> (B, KV, G, D)``; prefill ``(B, C, H, D) -> (B, KV, C*G, D)``
-with row ``c*G + g``); the flash and SSD kernels read the model layout
-themselves.  The kernel modules launch the CUDA kernel for a CUDA tensor
-and run the plain PyTorch version for a CPU tensor.
+``rmsnorm``, and ``int8kv_attention`` (the reference has no ops wrapper
+for its int8 flash kernel; the port's dense int8 decode calls this).
+The paged wrappers do the reference's head folding (decode
+``(B, 1, H, D) -> (B, KV, G, D)``; prefill
+``(B, C, H, D) -> (B, KV, C*G, D)`` with row ``c*G + g``); the flash,
+int8 flash and SSD kernels read the model layout themselves.  The kernel
+modules launch the CUDA kernel for a CUDA tensor and run the plain
+PyTorch version for a CPU tensor.
 """
 from __future__ import annotations
 
@@ -40,6 +42,25 @@ def mha_flash_attention(q, k, v, *, causal: bool = True,
     return _fa.FlashAttention.apply(q.contiguous(), k.contiguous(),
                                     v.contiguous(), causal, window, softcap,
                                     float(scale))
+
+
+def int8kv_attention(q, k8, k_scale, v8, v_scale, q_start, kv_len, *,
+                     window: Optional[int] = None,
+                     softcap: Optional[float] = None,
+                     scale: Optional[float] = None):
+    """Model-layout causal attention over an int8 K/V cache (forward only).
+
+    q: (B, Sq, H, D), H = G * KV; k8, v8: (B, Skv, KV, D) int8 (not
+    repeated per group); k_scale, v_scale: (B, Skv, KV) per-token scales;
+    q_start: (B,) position of each row's first query; kv_len: (B,) keys
+    valid per row (decode: ``q_start = pos``, ``kv_len = pos + 1``).
+    Returns (B, Sq, H, D) in q's dtype.  The kernel takes the scales in
+    q's dtype: the cache's bf16 scales widen exactly for an f32 model."""
+    return _fa.flash_attention_int8kv(
+        q.contiguous(), k8, k_scale.to(q.dtype), v8, v_scale.to(q.dtype),
+        q_start.to(torch.int32).contiguous(),
+        kv_len.to(torch.int32).contiguous(), causal=True, window=window,
+        softcap=softcap, scale=scale)
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,

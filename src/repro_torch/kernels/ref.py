@@ -3,7 +3,9 @@
 Counterparts of ``repro.kernels.ref``: ``attention_ref`` (dense attention,
 the flash kernel's oracle), ``paged_attention_ref`` and
 ``paged_prefill_ref`` (gather every row's pages back into a dense
-``(B, T, KV, D)`` layout): naive masked softmax attention in f32.  Fully
+``(B, T, KV, D)`` layout) and ``attention_int8kv_ref`` (int8 K/V with
+per-token scales, per-row query positions): naive masked softmax
+attention in f32.  Fully
 masked rows return zeros (the kernels' semantics).  The mask sentinel is
 the kernels' ``-1e30``; the reference's jnp ``attention.attend`` masks
 with ``-2e38`` instead, which gives the same values wherever a row has a
@@ -124,6 +126,62 @@ def paged_prefill_ref(q, k_pages, v_pages, block_tables, start_pos, q_lens,
     out = torch.einsum("bkgct,btkd->bckgd", p, v)
     any_valid = mask.any(dim=2)[:, :, None, None, None]
     return torch.where(any_valid, out, torch.zeros_like(out)).to(q.dtype)
+
+
+def dequantize_kv(k8, k_scale, v8, v_scale, dtype):
+    """Per-token int8 codes (B, S, KV, D) times their scales (B, S, KV).
+
+    K comes out rounded to ``dtype`` (the compute dtype: q's), V in f32
+    unrounded.  That is what the reference's jitted int8 decode reads: it
+    writes ``k8.astype(dt) * k_scale.astype(dt)`` for both, but XLA
+    folds V's bf16 rounding into the f32 convert of the P.V product while
+    K's rounded product feeds the score dot.  With f32 q both are the
+    TPU kernel's f32 products."""
+    k = (k8.float() * k_scale.float()[..., None]).to(dtype).float()
+    v = v8.float() * v_scale.float()[..., None]
+    return k, v
+
+
+def attention_int8kv_ref(q, k8, k_scale, v8, v_scale, q_start, kv_len, *,
+                         causal: bool = True, window: Optional[int] = None,
+                         softcap: Optional[float] = None,
+                         scale: Optional[float] = None):
+    """Attention over an int8 K/V cache with per-row query positions.
+
+    q: (B, Sq, H, D) f32 or bf16; k8, v8: (B, Skv, KV, D) int8; k_scale,
+    v_scale: (B, Skv, KV), H = G * KV (GQA: head h reads kv head
+    h // G).  Query i of row b sits at position ``q_start[b] + i``; keys
+    at or past ``kv_len[b]`` (or ``Skv``) are masked, as are keys past the
+    query (``causal``) and keys ``window`` or more behind it.  K/V are
+    dequantized as in ``dequantize_kv``; softmax attention in f32.  Rows
+    with no valid key return zeros.  Returns (B, Sq, H, D) in q's dtype.
+    With ``q_start = 0`` and ``kv_len = Skv`` this is the function of the
+    TPU kernel ``flash_attention_int8kv`` (per folded head)."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k8.shape[1], k8.shape[2]
+    G = H // KV
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    dev = q.device
+    k, v = dequantize_kv(k8, k_scale, v8, v_scale, q.dtype)
+    qf = q.float().reshape(B, Sq, KV, G, D)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qf, k) * scale
+    s = _softcap(s, softcap)
+    qpos = (q_start.to(dev, torch.long)[:, None]
+            + torch.arange(Sq, device=dev)[None, :])[:, :, None]   # (B,Sq,1)
+    kpos = torch.arange(Skv, device=dev)[None, None, :]
+    mask = (kpos < kv_len.to(dev, torch.long)[:, None, None]).expand(
+        B, Sq, Skv)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & ((qpos - kpos) < window)
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqt,btkd->bqkgd", p, v)
+    any_valid = mask.any(dim=2)[:, :, None, None, None]
+    out = torch.where(any_valid, out, torch.zeros_like(out))
+    return out.reshape(B, Sq, H, D).to(q.dtype)
 
 
 def pad_to_chunks(x, dt, B, C, L: int):

@@ -1,15 +1,21 @@
 """Serving launcher for the PyTorch port (one replica).
 
 Counterpart of ``repro.launch.serve``: routes requests through the
-continuous-batching scheduler (admission queue -> budgeted paged prefill ->
+continuous-batching scheduler (admission queue -> budgeted prefill ->
 batched decode with per-request sampling -> early exit on each request's
 own ``max_new_tokens`` / EOS) and prints per-request outputs plus TTFT /
-throughput telemetry.  Weights are random, from the port's
-``init_params`` at seed 0.  Prompts are built as the reference's launcher
-builds them: ``--shared-prefix K`` shared tokens, then 4-11 random ones.
+throughput telemetry.  ``--paged`` serves from paged KV blocks (the CUDA
+paged kernels); without it, as in the reference, each slot owns a dense
+KV stripe (attended by the plain PyTorch attention, or by the int8 flash
+kernel for a config with ``kv_cache_dtype="int8"``).  Weights are
+random, from the port's ``init_params`` at seed 0.  Prompts are built as
+the reference's launcher builds them: ``--shared-prefix K`` shared
+tokens, then 4-11 random ones.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --paged --requests 8 --max-new 16 --shared-prefix 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
+      --smoke --device cpu --requests 4 --max-new 8   # dense mode
 
 The port drives one ``Scheduler`` directly; ``--replicas > 1`` and
 ``--fabric`` need the gateway, which is ported with the fleet slice.
@@ -86,9 +92,6 @@ def main(argv=None):
     if args.replicas > 1 or args.fabric:
         raise SystemExit("--replicas > 1 and --fabric need the replica "
                          "gateway, which is ported with the fleet slice")
-    if not args.paged:
-        raise SystemExit("dense-mode serving is ported with the dense-mode "
-                         "slice; pass --paged")
 
     import torch
 
@@ -107,7 +110,7 @@ def main(argv=None):
     engine = ServingEngine(cfg, params, max_seq_len=args.max_seq_len,
                            max_slots=args.max_slots,
                            prefix_cache_blocks=args.prefix_cache_blocks,
-                           paged=True, num_blocks=args.num_blocks,
+                           paged=args.paged, num_blocks=args.num_blocks,
                            prefill_batch=args.prefill_batch,
                            greedy_tie_eps=args.greedy_tie_eps,
                            device=device)
@@ -119,7 +122,7 @@ def main(argv=None):
     setup_s = time.perf_counter() - t0
     print(f"run config: arch={cfg.name} device={device} "
           f"max_slots={args.max_slots} max_seq_len={args.max_seq_len} "
-          f"paged=True num_blocks={engine.kv.pool.num_blocks} "
+          f"paged={args.paged} num_blocks={engine.kv.pool.num_blocks} "
           f"prefill_batch={engine.prefill_batch} "
           f"prefill_chunk={engine.prefill_chunk} "
           f"prefill_token_budget={args.prefill_token_budget} "

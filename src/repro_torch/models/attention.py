@@ -1,16 +1,20 @@
 """Attention: GQA + RoPE + sliding window + logit softcap.
 
-Counterpart of ``repro.models.attention``.  Two branches of
+Counterpart of ``repro.models.attention``.  Three branches of
 ``attention_block`` are ported:
 - no cache (the full-sequence ``forward`` of training): projections, RoPE,
   then the differentiable flash attention (``kernels.ops.
   mha_flash_attention``: the CUDA flash kernel forward, a PyTorch
   backward), where the reference runs the query-chunked jnp ``attend``;
-- paged KV (the serving path): this step's K/V are scattered into block
-  storage through the block tables, in place, and attention gathers them
-  back through the CUDA paged kernels.
-The dense-cache branch waits for dense-mode serving and cross-attention
-for the enc-dec family (ROADMAP Queue 1 items 6 and 11).
+- paged KV (the paged serving path): this step's K/V are scattered into
+  block storage through the block tables, in place, and attention gathers
+  them back through the CUDA paged kernels;
+- a dense per-slot cache (dense-mode serving): this step's K/V are
+  written at each row's position in place; a bf16 cache is attended by
+  the plain query-chunked ``attend`` (as in the reference, which runs no
+  kernel there), an int8 cache (``quantize_kv``) by the CUDA int8 flash
+  kernel (``kernels.ops.int8kv_attention``).
+Cross-attention waits for the enc-dec family (ROADMAP Queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import modules as nn
+
+NEG_INF = -2.0e38
 
 # ---------------------------------------------------------------------------
 # RoPE
@@ -50,7 +56,121 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Full attention block (projections + rope + paged attend)
+# Core chunked GQA attention (plain PyTorch)
+# ---------------------------------------------------------------------------
+
+def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
+               window: Optional[int]) -> torch.Tensor:
+    """Additive f32 bias.  q_pos: (Sq,) or (B, Sq); k_pos: (Skv,).
+    Returns (Sq, Skv) or (B, Sq, Skv)."""
+    qp = q_pos[..., :, None].long()
+    kp = k_pos[None, :].long()
+    m = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
+                   dtype=torch.bool, device=q_pos.device)
+    if causal:
+        m &= kp <= qp
+    if window is not None:
+        m &= (qp - kp) < window
+    zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
+    return torch.where(m, zero, torch.full_like(zero, NEG_INF))
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           scale: float, causal: bool, window: Optional[int] = None,
+           softcap_val: Optional[float] = None,
+           q_positions: Optional[torch.Tensor] = None,
+           k_positions: Optional[torch.Tensor] = None,
+           q_chunk: int = 512) -> torch.Tensor:
+    """Query-chunked softmax attention (the reference's ``attend``).
+
+    q: (B, Sq, KV, G, D); k, v: (B, Skv, KV, D).  q_positions: (Sq,) or
+    (B, Sq) absolute positions; k_positions: (Skv,).  Scores in f32 from
+    the operands' values, softmax in f32, P.V in f32, out in q's dtype.
+    Returns (B, Sq, KV, G, D)."""
+    Sq, Skv = q.shape[1], k.shape[1]
+    dev = q.device
+    if q_positions is None:
+        q_positions = torch.arange(Sq, device=dev)
+    if k_positions is None:
+        k_positions = torch.arange(Skv, device=dev)
+    kf, vf = k.float(), v.float()
+
+    def chunk_body(q_blk, qpos_blk):
+        s = torch.einsum("bqkgd,btkd->bkgqt", q_blk.float(), kf) * scale
+        s = nn.softcap(s, softcap_val)
+        bias = _mask_bias(qpos_blk, k_positions, causal=causal,
+                          window=window)
+        if bias.dim() == 3:                               # batched positions
+            bias = bias[:, None, None]                    # (B,1,1,Sq,Skv)
+        p = torch.softmax(s + bias, dim=-1)
+        return torch.einsum("bkgqt,btkd->bqkgd", p, vf).to(q.dtype)
+
+    if q_chunk <= 0 or Sq <= q_chunk or Sq % q_chunk != 0:
+        return chunk_body(q, q_positions)
+    outs = [chunk_body(q[:, c0:c0 + q_chunk],
+                       q_positions[..., c0:c0 + q_chunk])
+            for c0 in range(0, Sq, q_chunk)]
+    return torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# The dense decode cache
+# ---------------------------------------------------------------------------
+
+def quantize_kv(x: torch.Tensor):
+    """Per-(token, kv head) absmax int8 quantization, the reference's:
+    scale = max |x| / 127 + 1e-8 in f32, codes round(x / scale) (half to
+    even, as ``jnp.round``).  x: (..., D).  Returns (codes int8 (..., D),
+    scales bf16 (...))."""
+    xf = x.float()
+    s = xf.abs().amax(dim=-1) / 127.0 + 1e-8
+    return torch.round(xf / s[..., None]).to(torch.int8), \
+        s.to(torch.bfloat16)
+
+
+def _write_rows(cache, rows: torch.Tensor, idx: torch.Tensor,
+                vals) -> None:
+    """``cache[name][rows, idx] = val`` in place for each (name, val),
+    dropping rows whose ``idx`` is past the cache, as the reference's
+    scatter drops out-of-bounds updates (dense prefill replays its padding
+    tokens there).  No host sync."""
+    S = cache["k"].shape[1]
+    inside = idx < S
+    safe = idx.clamp(max=S - 1)
+    for name, val in vals:
+        leaf = cache[name]
+        mask = inside.reshape((-1,) + (1,) * (val.dim() - 1))
+        leaf.index_put_((rows, safe), torch.where(
+            mask, val.to(leaf.dtype), leaf[rows, safe]))
+
+
+def _dense_decode(cache, q, k, v, idx, *, scale, window, softcap, q_chunk):
+    """Write this step's k/v (B, 1, KV, D) at position ``idx[b]`` of each
+    row's stripe, in place, and attend the query (B, 1, H, D) over the
+    stripe.  Returns (B, 1, H, D)."""
+    B, _, KV, D = k.shape
+    rows = torch.arange(B, device=q.device)
+    if "k_scale" in cache:
+        k8, ks = quantize_kv(k[:, 0])
+        v8, vs = quantize_kv(v[:, 0])
+        _write_rows(cache, rows, idx, (("k", k8), ("v", v8),
+                                       ("k_scale", ks), ("v_scale", vs)))
+        return kops.int8kv_attention(
+            q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"],
+            idx, idx + 1, window=window, softcap=softcap, scale=scale)
+    _write_rows(cache, rows, idx, (("k", k[:, 0]), ("v", v[:, 0])))
+    H = q.shape[2]
+    out = attend(q.reshape(B, 1, KV, H // KV, D), cache["k"], cache["v"],
+                 scale=scale, causal=True, window=window,
+                 softcap_val=softcap, q_positions=idx[:, None],
+                 k_positions=torch.arange(cache["k"].shape[1],
+                                          device=q.device),
+                 q_chunk=q_chunk)
+    return out.reshape(B, 1, H, D)
+
+
+# ---------------------------------------------------------------------------
+# Full attention block (projections + rope + attend [+ cache])
 # ---------------------------------------------------------------------------
 
 def attention_block(params, cfg, x: torch.Tensor, *,
@@ -65,6 +185,13 @@ def attention_block(params, cfg, x: torch.Tensor, *,
     No cache (``cache is None``): causal self-attention over the whole
     sequence (top-left: query t sees keys <= t, within ``window``), with
     ``cfg.attn_logit_softcap``; differentiable.
+
+    Dense cache (``block_tables is None``): ``cache`` holds one layer's
+    per-slot stripes ``{"k": (B, Smax, KV, D), "v": ...}`` (bf16), or int8
+    codes plus ``k_scale`` / ``v_scale`` (B, Smax, KV) bf16; S must be 1
+    and this step's K/V land at ``cache_index[b]``, in place (quantized
+    first for int8), before the query at that position attends keys
+    ``<= cache_index[b]``.
 
     Paged mode: ``cache`` holds one layer's block storage
     ``{"k": (num_blocks, block_size, KV, D), "v": ...}`` and
@@ -82,10 +209,6 @@ def attention_block(params, cfg, x: torch.Tensor, *,
         raise NotImplementedError(
             "cross-attention is ported with the enc-dec family (ROADMAP "
             "Queue 1 item 11)")
-    if cache is not None and block_tables is None:
-        raise NotImplementedError(
-            "attention over a dense per-slot cache is ported with dense-mode "
-            "serving (ROADMAP Queue 1 item 6); pass block_tables (paged KV)")
     B, S, _ = x.shape
     h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     dt = getattr(torch, cfg.dtype)
@@ -106,6 +229,14 @@ def attention_block(params, cfg, x: torch.Tensor, *,
                                        softcap=sc, scale=scale)
         out = nn.linear(params["wo"], out.reshape(B, S, h * dh), dtype=dt)
         return out, None
+    if block_tables is None:
+        if S != 1:
+            raise ValueError("the dense cache is one-token decode")
+        out = _dense_decode(cache, q, k, v, cache_index.to(torch.long),
+                            scale=scale, window=window, softcap=sc,
+                            q_chunk=cfg.attn_q_chunk)
+        out = nn.linear(params["wo"], out.reshape(B, S, h * dh), dtype=dt)
+        return out, cache
     kc, vc = cache["k"], cache["v"]
     npages, bs = kc.shape[0], kc.shape[1]
     bps = block_tables.shape[1]

@@ -9,14 +9,15 @@ dense per-layer leaves stacked as ``(L // pat, pat, ...)`` where
 ``repro_torch.bridge`` moves weights between the packages leaf for leaf.
 PyTorch runs eagerly: the reference's ``lax.scan`` over layer groups is a
 Python loop (each group, or each mamba layer, under
-``torch.utils.checkpoint`` when ``cfg.remat``), and the paged KV storage
-is updated in place.
+``torch.utils.checkpoint`` when ``cfg.remat``), and the decode caches
+are updated in place.
 
 Ported: the full-sequence ``forward`` and the losses of training
-(``lm_loss``, ``lm_loss_chunked``) for both families, and the serving
-steps over paged KV (``decode_step``, ``prefill_step``) for dense
-decoders.  The other families, and ssm decoding, come with the slices
-that need them.
+(``lm_loss``, ``lm_loss_chunked``) for both families, and for dense
+decoders the serving steps: ``decode_step`` over a dense per-slot cache
+(``init_cache``: bf16, or int8 codes with per-token scales) or paged KV,
+and ``prefill_step`` over paged KV.  The other families, and ssm
+decoding, come with the slices that need them.
 """
 from __future__ import annotations
 
@@ -153,13 +154,31 @@ def _init_ssm_params(cfg, generator, device, wdt):
 
 def _cache_struct(cfg, batch: int, seq_len: int):
     """Nested dict of (shape, dtype) describing the dense-family decode
-    cache: ``(L // pat, pat, batch, seq_len, KV, D)`` bf16 per leaf."""
+    cache: ``(L // pat, pat, batch, seq_len, KV, D)`` per k/v leaf, bf16;
+    with ``cfg.kv_cache_dtype == "int8"`` the k/v leaves are int8 codes
+    and ``k_scale`` / ``v_scale`` ``(L // pat, pat, batch, seq_len, KV)``
+    bf16 hold one absmax scale per (token, kv head)."""
     _check_family(cfg)
     pat = len(layer_pattern(cfg))
-    shape = (cfg.num_layers // pat, pat, batch, seq_len, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+    lead = (cfg.num_layers // pat, pat, batch, seq_len, cfg.num_kv_heads)
+    shape = lead + (cfg.resolved_head_dim,)
+    if cfg.kv_cache_dtype == "int8":
+        return {"layers": {"k": (shape, torch.int8),
+                           "v": (shape, torch.int8),
+                           "k_scale": (lead, torch.bfloat16),
+                           "v_scale": (lead, torch.bfloat16)}}
     return {"layers": {"k": (shape, torch.bfloat16),
                        "v": (shape, torch.bfloat16)}}
+
+
+def init_cache(cfg, batch: int, seq_len: int, device="cpu"):
+    """Zeros of ``_cache_struct``: the dense per-slot decode cache."""
+    def zeros(node):
+        if isinstance(node, dict):
+            return {k: zeros(v) for k, v in node.items()}
+        shape, dtype = node
+        return torch.zeros(shape, dtype=dtype, device=device)
+    return zeros(_cache_struct(cfg, batch, seq_len))
 
 
 def _index(tree, *idx):
@@ -367,27 +386,28 @@ def lm_loss_chunked(params, cfg, batch: Dict[str, Any], *,
 
 def _require_paged(batch, what: str):
     if batch.get("block_tables") is None:
-        raise NotImplementedError(
-            f"{what} over a dense per-slot cache is ported with the "
-            "dense-mode serving slice; pass block_tables (paged KV)")
+        raise ValueError(
+            f"{what} runs over paged block storage only (as in the "
+            "reference); pass block_tables")
 
 
 # ---------------------------------------------------------------------------
-# Decode step (one token per row against paged KV)
+# Decode step (one token per row against a dense or paged cache)
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
 def decode_step(params, cfg, batch: Dict[str, Any]
                 ) -> Tuple[torch.Tensor, Any]:
-    """One-token decode.  batch: tokens (B, 1), positions (B,), cache
-    (paged block storage, updated in place), block_tables
-    (B, blocks_per_slot).  Returns (logits (B, 1, V) f32, cache)."""
+    """One-token decode.  batch: tokens (B, 1), positions (B,), cache,
+    and optionally block_tables (B, blocks_per_slot).  Without tables the
+    cache is the dense per-slot tree of ``init_cache`` (row b's token
+    written at ``positions[b]``); with them it is paged block storage.
+    Either is updated in place.  Returns (logits (B, 1, V) f32, cache)."""
     _check_family(cfg)
-    _require_paged(batch, "decode_step")
     tokens, idx, cache = batch["tokens"], batch["positions"], batch["cache"]
     x = _embed(params, cfg, tokens)
     x = _run_layers(params, cfg, x, cache, positions=idx[:, None],
-                    cache_index=idx, block_tables=batch["block_tables"])
+                    cache_index=idx, block_tables=batch.get("block_tables"))
     return _logits(params, cfg, x), cache
 
 

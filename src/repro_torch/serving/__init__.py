@@ -1,4 +1,5 @@
-"""Continuous-batching serving over paged KV (the port's serving stack)."""
+"""Continuous-batching serving over dense or paged KV (the port's serving
+stack)."""
 from repro_torch.serving.engine import (PrefillCursor, Request, SamplingParams,
                                         ServingEngine)
 from repro_torch.serving.kvcache import KVBlockPool, OutOfBlocks, PagedKVCache

@@ -1,22 +1,31 @@
 """Batched serving engine: slot-granular prefill/decode primitives.
 
-Counterpart of ``repro.serving.engine`` in paged mode.  The engine owns
-the pooled KV (a :class:`~repro_torch.serving.kvcache.PagedKVCache` over
-``max_slots`` sequences) and exposes the primitives the scheduler drives:
+Counterpart of ``repro.serving.engine``.  The engine owns the pooled KV
+(a :class:`~repro_torch.serving.kvcache.PagedKVCache` over ``max_slots``
+sequences, dense per-slot stripes by default or paged blocks with
+``paged=True``) and exposes the primitives the scheduler drives:
 
 * ``begin_prefill`` / ``advance_prefill`` / ``cancel_prefill`` — the
-  resumable co-prefill.  ``begin_prefill`` claims slots (and loads cached
-  prefix blocks) and registers one :class:`PrefillCursor` per prompt;
-  ``advance_prefill`` runs ``(prefill_batch, prefill_chunk)`` chunk rounds
-  FIFO under a token budget (executed token positions), each round's K/V
-  written straight into the rows' pool blocks and attended through the
-  CUDA paged-prefill kernel; unfinished cursors stay parked between
-  scheduler steps.  ``prefill_into_slots`` / ``prefill_into_slot`` run a
-  batch to completion.
-* ``decode_once`` — one token for every slot against the pooled KV
-  through the paged-decode kernel; mid-prefill slots' table rows are
-  masked to the trash block.  Logits stay **on the device** until
-  ``sample_tokens``, the one host sync of a step.
+  resumable co-prefill.  ``begin_prefill`` claims slots and registers one
+  :class:`PrefillCursor` per prompt; ``advance_prefill`` runs chunk rounds
+  FIFO under a token budget (executed token positions); unfinished
+  cursors stay parked between scheduler steps.  Paged: each round is a
+  ``(prefill_batch, prefill_chunk)`` tile whose K/V go straight into the
+  rows' pool blocks through the CUDA paged-prefill kernel, and cached
+  prefix blocks load block to block at ``begin_prefill``.  Dense: each
+  chunk of ``prefill_chunk`` tokens (padding included) is replayed one
+  token at a time through ``decode_step`` at batch 1 into the cursor's
+  batch-1 staging cache (made at its first chunk, with the cached prefix
+  loaded), which ``write_prefill`` copies into the slot when done.
+  ``prefill_into_slots`` / ``prefill_into_slot`` run a batch to
+  completion.
+* ``decode_once`` — one token for every slot against the pooled KV.
+  Paged: through the paged-decode kernel, with mid-prefill slots' table
+  rows masked to the trash block.  Dense: each row writes its own stripe
+  (a free or mid-prefill slot's dummy write lands where its next prefill
+  overwrites it) and attends it, through the int8 flash kernel for the
+  int8 cache.  Logits stay **on the device** until ``sample_tokens``, the
+  one host sync of a step.
 
 PyTorch runs eagerly: the reference's jitted, buffer-donating step
 programs become plain calls that update the KV storage in place.
@@ -28,8 +37,8 @@ sample with the Gumbel-max trick from a ``torch.Generator`` seeded with
 Telemetry matches the reference: ``prefill_tokens`` (real prompt
 tokens), ``prefill_tokens_executed`` (every position a round ran, padding
 included), ``prefill_tokens_padding``, ``cached_prefix_tokens``,
-``decode_steps`` and ``transient_prefill_bytes`` (always 0: paged prefill
-never stages a dense stripe).
+``decode_steps`` and ``transient_prefill_bytes`` (the largest batch-1
+staging cache a dense prefill made; 0 in paged mode, which stages none).
 """
 from __future__ import annotations
 
@@ -78,6 +87,7 @@ class PrefillCursor:
     encoder_input: Optional[np.ndarray] = None
     prefix_blocks: Tuple[int, ...] = ()
     last_logits: object = None
+    dense_cache: object = None               # dense mode's staging cache
 
     @property
     def remaining(self) -> int:
@@ -106,8 +116,7 @@ def _to_device(tree, device: torch.device):
 
 
 class ServingEngine:
-    """Fixed-slot batched engine (continuous batching over ``max_slots``)
-    over paged KV.
+    """Fixed-slot batched engine (continuous batching over ``max_slots``).
 
     ``prefix_cache_blocks > 0`` turns on the prefix cache: the KV cache
     grows a prefix store of that many blocks and ``self.prefix_cache``
@@ -115,24 +124,21 @@ class ServingEngine:
     ``num_blocks`` sizes the KV pool (default: worst case); below
     ``max_slots * ceil(max_seq_len / block_size)`` ``OutOfBlocks`` becomes
     a real event the scheduler handles by deferring admissions and
-    preempting decode.  ``paged=False`` (the dense per-slot layout) is
-    ported with the dense-mode slice and raises here.
+    preempting decode.  ``paged=False`` (the default, as the reference's)
+    keeps one worst-case stripe per slot; it is the layout that takes
+    ``cfg.kv_cache_dtype == "int8"``.
 
     ``device`` defaults to ``"cuda"``: on a machine without a card the
     constructor raises; the CPU runs only when asked (``device="cpu"``),
-    and then the paged kernels run as their plain PyTorch versions.
+    and then the kernels run as their plain PyTorch versions.
     """
 
     def __init__(self, cfg, params, max_seq_len: int, max_slots: int = 8,
                  rng_seed: int = 0, kv_block_size: int = 16,
                  prefix_cache_blocks: int = 0, prefill_chunk: int = 16,
-                 paged: bool = True, num_blocks: Optional[int] = None,
+                 paged: bool = False, num_blocks: Optional[int] = None,
                  prefill_batch: int = 4, greedy_tie_eps: float = 1e-2,
                  device="cuda"):
-        if not paged:
-            raise NotImplementedError(
-                "dense-mode serving (paged=False) is ported with the "
-                "dense-mode slice; use paged=True")
         T._check_family(cfg)
         self.device = resolve_device(device)
         # numerics as the reference's: f32 matmuls in full f32 (no TF32),
@@ -152,13 +158,14 @@ class ServingEngine:
         # logit is within eps of the max is eligible and the LOWEST id
         # wins; 0.0 is raw argmax
         self.greedy_tie_eps = float(greedy_tie_eps)
-        # rows per paged-prefill round (co-admission width)
+        # rows per paged-prefill round (co-admission width); dense mode
+        # prefills serially whatever the batch size
         self.prefill_batch = max(1, min(prefill_batch, max_slots))
-        self.paged = True
+        self.paged = paged
         self.kv = PagedKVCache(
             cfg, max_slots, max_seq_len, block_size=kv_block_size,
             prefix_blocks=prefix_cache_blocks, num_blocks=num_blocks,
-            device=self.device)
+            paged=paged, device=self.device)
         self.prefix_cache = None
         if self.kv.prefix_pool is not None:
             from repro_torch.serving.prefix_cache import PrefixCache
@@ -168,7 +175,7 @@ class ServingEngine:
         self.prefill_tokens_executed = 0     # incl. padding (FLOPs proxy)
         self.prefill_tokens_padding = 0      # executed - real
         self.cached_prefix_tokens = 0        # tokens served from the store
-        self.transient_prefill_bytes = 0     # paged: never a staging stripe
+        self.transient_prefill_bytes = 0     # peak batch-1 staging cache
         # bound by the scheduler that drives this engine (one tracer per
         # replica); None until then
         self.tracer = None
@@ -242,7 +249,10 @@ class ServingEngine:
                                     prefix_blocks=tuple(pb))
                 self._begin_seq += 1
                 cursors.append(cur)
-                if sp:
+                # dense mode loads the prefix into the staging cache made
+                # at the cursor's first chunk, so co-admitted prompts that
+                # wait their FIFO turn hold no stripe yet
+                if sp and self.paged:
                     self.kv.load_prefix_blocks_paged(slot, pb)
         except Exception:
             for cur in cursors:              # all-or-nothing
@@ -253,14 +263,58 @@ class ServingEngine:
         self.cached_prefix_tokens += sum(start_pos)
         return cursors
 
+    def _materialize_dense(self, cur: PrefillCursor) -> None:
+        """Build the cursor's batch-1 staging cache (dense mode only): a
+        fresh ``init_cache`` stripe with the cached prefix loaded."""
+        cache1 = T.init_cache(self.cfg, 1, self.max_seq_len,
+                              device=self.device)
+        self.transient_prefill_bytes = max(
+            self.transient_prefill_bytes,
+            sum(t.numel() * t.element_size()
+                for t in cache1["layers"].values()))
+        if cur.start_pos:
+            cache1 = self.kv.load_prefix_blocks(cache1, cur.prefix_blocks)
+        cur.dense_cache = cache1
+
+    def _dense_chunk(self, cur: PrefillCursor) -> None:
+        """One dense prefill chunk: ``prefill_chunk`` tokens from
+        ``cur.pos`` (zero-padded past the prompt) replayed one at a time
+        through ``decode_step`` at batch 1 into the staging cache, as the
+        reference's scanned chunk program does.  Sets ``last_logits`` (on
+        the device) when the prompt's last token runs in this chunk."""
+        if cur.dense_cache is None:
+            self._materialize_dense(cur)
+        C = self.prefill_chunk
+        ql = min(cur.remaining, C)
+        chunk = np.zeros((C, 1, 1), np.int32)
+        chunk[:ql, 0, 0] = cur.tokens[cur.pos:cur.pos + ql]
+        self.recompiles.observe("prefill_chunk", (1, C), tracer=self.tracer)
+        toks = self._upload(chunk)
+        pos = self._upload(np.arange(cur.pos, cur.pos + C, dtype=np.int32))
+        li = (len(cur.tokens) - 1) - cur.pos    # last real token's step
+        for t in range(C):
+            logits, _ = T.decode_step(self.params, self.cfg, {
+                "tokens": toks[t], "positions": pos[t:t + 1],
+                "cache": cur.dense_cache})
+            if t == li:
+                cur.last_logits = logits[0, 0]
+        cur.pos += ql
+        self.prefill_tokens += ql
+        self.prefill_tokens_executed += C
+        self.prefill_tokens_padding += C - ql
+        tr = self.tracer
+        if tr is not None and tr.enabled:
+            tr.prefill_advance(cur.slot, ql, cur.pos, len(cur.tokens))
+
     def advance_prefill(self, cursors: Optional[Sequence[PrefillCursor]]
                         = None, token_budget: Optional[int] = None,
                         ) -> List[PrefillCursor]:
         """Run chunk rounds against in-flight prefills (``cursors``
         defaults to every cursor on the engine) until all complete or
-        ``token_budget`` *executed* token positions have run (a round
-        costs ``prefill_batch * prefill_chunk``).  The first round always
-        runs; rounds are FIFO by begin order.
+        ``token_budget`` *executed* token positions have run (a paged
+        round costs ``prefill_batch * prefill_chunk``, a dense chunk
+        ``prefill_chunk``).  The first round always runs; rounds are FIFO
+        by begin order.
 
         Returns the cursors that **completed during this call**, each
         with on-device ``last_logits``; unfinished cursors stay parked.
@@ -290,47 +344,59 @@ class ServingEngine:
             if self.fault_injector is not None:
                 self.fault_injector.on_engine_op("prefill")
             working.sort(key=lambda c: c.seq)    # FIFO by begin order
-            while working and budget_left():
-                sel = working[:Bp]
-                tables = np.full((Bp, self.kv.blocks_per_slot),
-                                 self.kv.trash_block, np.int32)
-                toks = np.zeros((Bp, C), np.int32)
-                starts = np.zeros(Bp, np.int32)
-                qlens = np.zeros(Bp, np.int32)
-                for r, cur in enumerate(sel):
-                    tables[r] = self.kv.table_row(cur.slot)
-                    ql = min(cur.remaining, C)
-                    toks[r, :ql] = cur.tokens[cur.pos:cur.pos + ql]
-                    starts[r] = cur.pos
-                    qlens[r] = ql
-                self.recompiles.observe(
-                    "prefill_paged", (toks.shape, tables.shape), tracer=tr)
-                batch = {"tokens": self._upload(toks),
-                         "positions": self._upload(starts),
-                         "q_lens": self._upload(qlens),
-                         "cache": self.kv.cache,
-                         "block_tables": self._upload(tables)}
-                # writes the round's K/V into the pool storage in place
-                # (the reference donates the cache to its jitted program)
-                logits, _ = T.prefill_step(self.params, self.cfg, batch)
-                real = int(qlens.sum())
-                # FLOPs proxy: every row of the (Bp, C) round executes,
-                # dummy rows included
-                spent += Bp * C
-                self.prefill_tokens += real
-                self.prefill_tokens_executed += Bp * C
-                self.prefill_tokens_padding += Bp * C - real
-                for r, cur in enumerate(sel):
-                    cur.pos += int(qlens[r])
-                    if tr is not None and tr.enabled and qlens[r]:
-                        tr.prefill_advance(cur.slot, int(qlens[r]),
-                                           cur.pos, len(cur.tokens))
+            if not self.paged:
+                for cur in working:
+                    while not cur.done and budget_left():
+                        self._dense_chunk(cur)
+                        spent += C
                     if cur.done:
-                        # on-device slice: no host sync inside the round
-                        # loop, so rounds keep dispatching
-                        cur.last_logits = logits[r, int(qlens[r]) - 1]
+                        self.kv.write_prefill(cur.slot, cur.dense_cache)
+                        cur.dense_cache = None
                         finished.append(cur)
-                working = [c for c in working if not c.done]
+                    if not budget_left():
+                        break
+            else:
+                while working and budget_left():
+                    sel = working[:Bp]
+                    tables = np.full((Bp, self.kv.blocks_per_slot),
+                                     self.kv.trash_block, np.int32)
+                    toks = np.zeros((Bp, C), np.int32)
+                    starts = np.zeros(Bp, np.int32)
+                    qlens = np.zeros(Bp, np.int32)
+                    for r, cur in enumerate(sel):
+                        tables[r] = self.kv.table_row(cur.slot)
+                        ql = min(cur.remaining, C)
+                        toks[r, :ql] = cur.tokens[cur.pos:cur.pos + ql]
+                        starts[r] = cur.pos
+                        qlens[r] = ql
+                    self.recompiles.observe(
+                        "prefill_paged", (toks.shape, tables.shape), tracer=tr)
+                    batch = {"tokens": self._upload(toks),
+                             "positions": self._upload(starts),
+                             "q_lens": self._upload(qlens),
+                             "cache": self.kv.cache,
+                             "block_tables": self._upload(tables)}
+                    # writes the round's K/V into the pool storage in place
+                    # (the reference donates the cache to its jitted program)
+                    logits, _ = T.prefill_step(self.params, self.cfg, batch)
+                    real = int(qlens.sum())
+                    # FLOPs proxy: every row of the (Bp, C) round executes,
+                    # dummy rows included
+                    spent += Bp * C
+                    self.prefill_tokens += real
+                    self.prefill_tokens_executed += Bp * C
+                    self.prefill_tokens_padding += Bp * C - real
+                    for r, cur in enumerate(sel):
+                        cur.pos += int(qlens[r])
+                        if tr is not None and tr.enabled and qlens[r]:
+                            tr.prefill_advance(cur.slot, int(qlens[r]),
+                                               cur.pos, len(cur.tokens))
+                        if cur.done:
+                            # on-device slice: no host sync inside the round
+                            # loop, so rounds keep dispatching
+                            cur.last_logits = logits[r, int(qlens[r]) - 1]
+                            finished.append(cur)
+                    working = [c for c in working if not c.done]
         except Exception:
             # all-or-nothing per call: release every slot this call
             # touched, so one failed round can never leak slots or blocks
@@ -358,22 +424,26 @@ class ServingEngine:
     def decode_once(self, tokens: np.ndarray,
                     positions: np.ndarray) -> torch.Tensor:
         """One decode step over all slots.  ``tokens``/``positions`` are
-        (max_slots,); rows of free slots carry dummies that land in the
-        trash block.  Returns logits (max_slots, V) **on the device** —
-        pass them straight to ``sample_tokens``."""
+        (max_slots,); rows of free slots carry dummies whose cache writes
+        land in the trash block (paged) or in the slot's own stripe, which
+        its next prefill overwrites (dense).  Returns logits (max_slots,
+        V) **on the device** — pass them straight to ``sample_tokens``."""
         if self.fault_injector is not None:
             # before any state mutation: a decode-site fault leaves the
             # cache untouched, so the scheduler can retry the same step
             self.fault_injector.on_engine_op("decode")
-        # free slots' rows point at the trash block; a mid-prefill slot's
-        # table maps real blocks already, so its row is masked to the
-        # trash block too — its dummy decode write at position 0 must not
-        # corrupt KV the prefill just produced
         batch = {"tokens": self._upload(np.asarray(tokens, np.int32)[:, None]),
                  "positions": self._upload(np.asarray(positions, np.int32)),
-                 "cache": self.kv.cache,
-                 "block_tables": self.kv.device_block_tables(
-                     mask_slots=self._inflight)}
+                 "cache": self.kv.cache}
+        if self.paged:
+            # free slots' rows point at the trash block; a mid-prefill
+            # slot's table maps real blocks already, so its row is masked
+            # to the trash block too — its dummy decode write at position
+            # 0 must not corrupt KV the prefill just produced.  (A dense
+            # mid-prefill slot prefills into its own staging cache, which
+            # replaces the whole stripe when it is done.)
+            batch["block_tables"] = self.kv.device_block_tables(
+                mask_slots=self._inflight)
         self.recompiles.observe(
             "decode_step", (np.shape(tokens), np.shape(positions)),
             tracer=self.tracer)

@@ -1,15 +1,24 @@
-"""Paged KV-cache pool: block accounting + block-resident storage.
+"""Paged KV-cache pool: block accounting + block- or slot-resident storage.
 
-Counterpart of ``repro.serving.kvcache`` in its paged layout: attention KV
-lives in *block* storage — every cache leaf is
-``(L // pat, pat, num_blocks + 1, block_size, KV, D)`` bf16 — and a
-``(max_slots, blocks_per_slot)`` block-table tensor maps each slot's
-token positions to blocks, which the CUDA paged kernels gather through.
-The pool may be sized **smaller than worst case** via ``num_blocks``, so
-``OutOfBlocks`` is a real, schedulable event.  The extra physical block
-is the *trash block*: free slots' dummy decode rows and unbacked table
-entries point there, so stray writes and speculative reads never touch a
-live sequence's KV.
+Counterpart of ``repro.serving.kvcache``.  Two physical layouts share one
+ledger:
+
+* **dense** (default) — the model's ``init_cache`` tree with a
+  ``max_slots`` batch axis: every slot owns its worst-case
+  ``max_seq_len`` stripe (bf16, or int8 codes plus per-token bf16 scales
+  with ``kv_cache_dtype="int8"``), so the pool never runs dry and the
+  block tables are accounting only.  ``write_prefill`` copies a
+  prefilled batch-1 cache into a slot.
+* **paged** (``paged=True``) — attention KV lives in *block* storage:
+  every cache leaf is ``(L // pat, pat, num_blocks + 1, block_size, KV,
+  D)`` bf16, and a ``(max_slots, blocks_per_slot)`` block-table tensor
+  maps each slot's token positions to blocks, which the CUDA paged
+  kernels gather through.  The pool may be sized **smaller than worst
+  case** via ``num_blocks``, so ``OutOfBlocks`` is a real, schedulable
+  event.  The extra physical block is the *trash block*: free slots'
+  dummy decode rows and unbacked table entries point there, so stray
+  writes and speculative reads never touch a live sequence's KV.  As in
+  the reference, paged mode refuses the int8 cache.
 
 * ``KVBlockPool`` — a fixed budget of KV blocks handed out from a free
   ring (freed blocks go to the tail, recycled from the head), each with a
@@ -18,19 +27,21 @@ live sequence's KV.
   double-free, unref of a dead block and ``free`` of a shared block are
   hard errors.  (A verbatim copy of the reference's ledger.)
 * ``PagedKVCache`` — per-slot block tables, grown one block at a time as
-  a sequence decodes, plus the optional *prefix store*: a second block
-  tensor of ``prefix_blocks`` blocks holding KV snapshots of cached prompt
-  prefixes, copied block-to-block in both directions.
+  a sequence decodes, plus the optional *prefix store*: a cache-shaped
+  tree whose batch axis indexes ``prefix_blocks`` blocks and whose
+  sequence axis is one block wide, holding KV snapshots of cached prompt
+  prefixes in the live cache's dtypes (int8 leaves included), so a save
+  and load round trip is bit-identical.
 
-PyTorch runs eagerly: where the reference donated the storage to a jitted
-copy program, the port copies blocks in place (``copy_`` into the
-storage tensors).  The dense per-slot layout (``paged=False``) is ported
-with the dense-mode serving slice.
+The batch and sequence axis of every leaf are found by diffing the
+model's cache spec at two sizes, as the reference does.  PyTorch runs
+eagerly: where the reference donated the storage to a jitted copy
+program, the port copies in place (``copy_`` into the storage tensors).
 """
 from __future__ import annotations
 
 from collections import deque
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -115,50 +126,60 @@ class KVBlockPool:
             self._free.append(b)          # ring: recycled oldest-freed first
 
 
-class PagedKVCache:
-    """Block storage + per-slot block tables (paged layout).
+def _leaves(tree, path: Tuple[str, ...] = ()):
+    """``[(path, leaf)]`` of a nested dict, keys in sorted order (the
+    reference's pytree order)."""
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree) for kv in _leaves(tree[k],
+                                                          path + (k,))]
+    return [(path, tree)]
 
-    ``cache`` is ``{"layers": {"k": storage, "v": storage}}`` with storage
-    ``(L // pat, pat, num_blocks + 1, block_size, KV, D)`` bf16 on
-    ``device``; prefill chunks and decode steps write straight into it
-    through the tables.  ``device_block_tables()`` feeds the paged kernels.
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+class PagedKVCache:
+    """Pooled decode-cache storage + per-slot block tables.
+
+    ``cache`` is the decode step's cache tree on ``device``.  Dense mode:
+    the model's ``init_cache`` tree with a ``max_slots`` batch axis;
+    ``write_prefill`` copies a batch-1 prefilled cache into one slot.
+    Paged mode: ``{"layers": {"k": storage, "v": storage}}`` with storage
+    ``(L // pat, pat, num_blocks + 1, block_size, KV, D)`` bf16; prefill
+    chunks and decode steps write straight into it through the tables,
+    and ``device_block_tables()`` feeds the paged kernels.
 
     With ``prefix_blocks > 0``, ``prefix_store`` holds block-granular KV
-    snapshots of cached prompt prefixes (same leaf layout with
-    ``prefix_blocks`` blocks), allocated from ``prefix_pool`` — a second
+    snapshots of cached prompt prefixes (the cache's leaves with the
+    batch axis indexing ``prefix_blocks`` blocks and the sequence axis one
+    block wide), allocated from ``prefix_pool`` — a second
     ``KVBlockPool`` whose refcounts let the radix tree and in-flight
     requests share them.
     """
 
-    BLOCK_AXIS = 2              # (L // pat, pat, blocks, block_size, KV, D)
-
     def __init__(self, cfg, max_slots: int, max_seq_len: int,
                  block_size: int = 16, prefix_blocks: int = 0,
-                 num_blocks: Optional[int] = None, paged: bool = True,
+                 num_blocks: Optional[int] = None, paged: bool = False,
                  device="cuda"):
-        if not paged:
-            raise NotImplementedError(
-                "the dense per-slot KV layout is ported with the dense-mode "
-                "serving slice; use paged=True")
         self.cfg = cfg
         self.device = torch.device(device)
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len
         self.block_size = block_size
-        self.paged = True
+        self.paged = paged
         self.blocks_per_slot = -(-max_seq_len // block_size)  # ceil
+        worst_case = max_slots * self.blocks_per_slot
         if num_blocks is None:
-            num_blocks = max_slots * self.blocks_per_slot
+            num_blocks = worst_case
+        if not paged and num_blocks != worst_case:
+            raise ValueError(
+                "dense layout physically allocates the worst case; the "
+                "num_blocks knob needs paged=True")
         if num_blocks <= 0:
             raise ValueError(f"num_blocks must be positive, got {num_blocks}")
-        if cfg.kv_cache_dtype == "int8":
-            raise ValueError(
-                "paged attention does not support the int8 KV cache "
-                "yet — use kv_cache_dtype='bfloat16'")
-        if max_seq_len % block_size != 0:
-            raise ValueError(
-                f"paged mode needs max_seq_len ({max_seq_len}) to be "
-                f"a multiple of block_size ({block_size})")
         self.pool = KVBlockPool(num_blocks, block_size)
         # bound by the scheduler (tracing.Tracer); ledger events — block
         # alloc/grow/free and OutOfBlocks — land in the replica's trace
@@ -166,14 +187,28 @@ class PagedKVCache:
         self._free_slots = deque(range(max_slots))
         self.block_table: Dict[int, List[int]] = {}
         self.seq_len_of: Dict[int, int] = {}
-        # +1 physical block: the trash block free/dummy rows write to
-        self.trash_block = num_blocks
-        self.cache = self._init_store(num_blocks + 1)
-        self._tables = np.full((max_slots, self.blocks_per_slot),
-                               self.trash_block, np.int32)
-        self._tables_dev = None
-        self._masked_dev = None           # masked-table upload cache
-        self._masked_key = ()
+        self._axes = self._batch_axes(cfg, max_seq_len)
+        self._seq_axes = self._seq_axis_per_leaf(cfg, max_slots)
+        if paged:
+            if cfg.kv_cache_dtype == "int8":
+                raise ValueError(
+                    "paged attention does not support the int8 KV cache "
+                    "yet — use kv_cache_dtype='bfloat16'")
+            if max_seq_len % block_size != 0:
+                raise ValueError(
+                    f"paged mode needs max_seq_len ({max_seq_len}) to be "
+                    f"a multiple of block_size ({block_size})")
+            # +1 physical block: the trash block free/dummy rows write to
+            self.trash_block = num_blocks
+            self.cache = self._init_store(num_blocks + 1)
+            self._tables = np.full((max_slots, self.blocks_per_slot),
+                                   self.trash_block, np.int32)
+            self._tables_dev = None
+            self._masked_dev = None       # masked-table upload cache
+            self._masked_key = ()
+        else:
+            self.cache = T.init_cache(cfg, max_slots, max_seq_len,
+                                      device=self.device)
 
         # -- prefix store (optional) ----------------------------------------
         self.prefix_pool: Optional[KVBlockPool] = None
@@ -182,55 +217,117 @@ class PagedKVCache:
             self.prefix_pool = KVBlockPool(prefix_blocks, block_size)
             self.prefix_store = self._init_store(prefix_blocks)
 
+    # -- batch- and sequence-axis detection ----------------------------------
+
+    @staticmethod
+    def _struct_leaves(cfg, batch, seq_len):
+        return [leaf for _, leaf in _leaves(T._cache_struct(cfg, batch,
+                                                            seq_len))]
+
+    @classmethod
+    def _batch_axes(cls, cfg, seq_len: int) -> List[int]:
+        """Per-leaf index of the batch axis, found by diffing the cache
+        spec at batch=1 vs batch=2 (leaf order matches ``_leaves``)."""
+        axes = []
+        for (sh1, _), (sh2, _) in zip(cls._struct_leaves(cfg, 1, seq_len),
+                                      cls._struct_leaves(cfg, 2, seq_len)):
+            diff = [i for i, (a, b) in enumerate(zip(sh1, sh2)) if a != b]
+            assert len(diff) == 1, (sh1, sh2)
+            axes.append(diff[0])
+        return axes
+
+    @classmethod
+    def _seq_axis_per_leaf(cls, cfg, batch: int) -> List[Optional[int]]:
+        """Per-leaf index of the token-position axis, found by diffing the
+        cache spec at two sequence lengths (``None`` for a leaf with no
+        positional extent)."""
+        axes: List[Optional[int]] = []
+        for (sh1, _), (sh2, _) in zip(cls._struct_leaves(cfg, batch, 8),
+                                      cls._struct_leaves(cfg, batch, 16)):
+            diff = [i for i, (a, b) in enumerate(zip(sh1, sh2)) if a != b]
+            assert len(diff) <= 1, (sh1, sh2)
+            axes.append(diff[0] if diff else None)
+        return axes
+
     @property
     def supports_prefix_cache(self) -> bool:
-        """Dense decoders' KV is positional and depends on the token ids
-        alone, so token-keyed reuse is sound."""
-        return self.cfg.family == "dense"
+        """Every cache leaf is positional (sliceable per token) and dense
+        decoders' KV depends on the token ids alone, so token-keyed reuse
+        is sound."""
+        return all(ax is not None for ax in self._seq_axes)
 
     def _init_store(self, n_blocks: int):
         """Cache-shaped tree whose batch axis indexes ``n_blocks`` blocks
-        and whose sequence axis is one block wide."""
-        (shape, dtype) = T._cache_struct(self.cfg, 1, 1)["layers"]["k"]
-        shape = list(shape)
-        shape[self.BLOCK_AXIS] = n_blocks
-        shape[self.BLOCK_AXIS + 1] = self.block_size
-        return {"layers": {
-            name: torch.zeros(tuple(shape), dtype=dtype, device=self.device)
-            for name in ("k", "v")}}
+        and whose sequence axis is one block wide, in the live cache's
+        dtypes (so a save/load round trip is bit-identical)."""
+        store: Dict = {}
+        struct = _leaves(T._cache_struct(self.cfg, 1, self.max_seq_len))
+        for ((path, (shape, dtype)), bax, sax) in zip(struct, self._axes,
+                                                       self._seq_axes):
+            shape = list(shape)
+            shape[bax] = n_blocks
+            shape[sax] = self.block_size
+            node = store
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = torch.zeros(tuple(shape), dtype=dtype,
+                                         device=self.device)
+        return store
 
     def _copy_block(self, dst_tree, src_tree, src: int, dst: int) -> None:
-        """dst_tree[.., dst, ..] <- src_tree[.., src, ..] for every leaf,
-        in place (the reference's donated block-copy program)."""
-        ax = self.BLOCK_AXIS
-        for name, dst_leaf in dst_tree["layers"].items():
-            src_leaf = src_tree["layers"][name]
-            dst_leaf.select(ax, dst).copy_(src_leaf.select(ax, src))
+        """dst_tree[.., dst, ..] <- src_tree[.., src, ..] along every
+        leaf's batch axis (paged storage blocks or prefix blocks), in
+        place (the reference's donated block-copy program)."""
+        for (path, dst_leaf), ax in zip(_leaves(dst_tree), self._axes):
+            dst_leaf.select(ax, dst).copy_(_get(src_tree, path).select(ax,
+                                                                        src))
 
     # -- prefix-store operations ---------------------------------------------
 
     def save_prefix_block(self, slot: int, pos0: int,
                           into: Optional[int] = None) -> int:
-        """Snapshot positions ``[pos0, pos0+block_size)`` of ``slot`` — in
-        the paged layout exactly one pool block — into a prefix block
-        (freshly allocated unless ``into`` is given).  Returns its id."""
+        """Snapshot positions ``[pos0, pos0+block_size)`` of ``slot`` into
+        a prefix block (freshly allocated unless ``into`` is given).  In
+        the paged layout the window is exactly one pool block of the slot.
+        Returns the block id."""
         assert self.prefix_pool is not None, "prefix store not enabled"
         assert pos0 + self.block_size <= self.max_seq_len, \
             f"prefix block [{pos0}, {pos0 + self.block_size}) overruns cache"
-        assert pos0 % self.block_size == 0, pos0
         # ownership transfers to the PrefixCache radix tree: its node
         # release/_remove paths unref this block, not this class
         bid = self.prefix_pool.alloc() if into is None else into  # repro-lint: disable=RL005
-        src = self.block_table[slot][pos0 // self.block_size]
-        self._copy_block(self.prefix_store, self.cache, src, bid)
+        if self.paged:
+            assert pos0 % self.block_size == 0, pos0
+            src = self.block_table[slot][pos0 // self.block_size]
+            self._copy_block(self.prefix_store, self.cache, src, bid)
+            return bid
+        for (path, st), bax, sax in zip(_leaves(self.prefix_store),
+                                        self._axes, self._seq_axes):
+            piece = _get(self.cache, path).narrow(bax, slot, 1).narrow(
+                sax, pos0, self.block_size)
+            st.narrow(bax, bid, 1).copy_(piece)
         return bid
+
+    def load_prefix_blocks(self, cache1, blocks: Sequence[int]):
+        """Dense resume path: copy stored prefix blocks into a batch-1
+        cache at their aligned positions (block k of the list covers
+        ``[k*bs, (k+1)*bs)``), in place.  Returns ``cache1``."""
+        assert self.prefix_pool is not None, "prefix store not enabled"
+        bs = self.block_size
+        for k, bid in enumerate(blocks):
+            for (path, st), bax, sax in zip(_leaves(self.prefix_store),
+                                            self._axes, self._seq_axes):
+                _get(cache1, path).narrow(sax, k * bs, bs).copy_(
+                    st.narrow(bax, bid, 1))
+        return cache1
 
     def load_prefix_blocks_paged(self, slot: int,
                                  blocks: Sequence[int]) -> None:
-        """Resume path: copy stored prefix blocks straight into ``slot``'s
-        pool blocks (block k of the list covers positions
+        """Paged resume path: copy stored prefix blocks straight into
+        ``slot``'s pool blocks (block k of the list covers positions
         ``[k*bs, (k+1)*bs)``).  The slot must already back those positions
         (``alloc_slot`` with the full prompt length does)."""
+        assert self.paged, "block-to-block prefix load needs paged mode"
         assert self.prefix_pool is not None, "prefix store not enabled"
         table = self.block_table[slot]
         assert len(blocks) <= len(table), (len(blocks), len(table))
@@ -240,6 +337,7 @@ class PagedKVCache:
     def table_row(self, slot: int) -> np.ndarray:
         """The slot's padded block-table row (unbacked entries name the
         trash block) — what a batched-prefill program row gathers through."""
+        assert self.paged, "block tables are device-resident in paged mode"
         return self._tables[slot]
 
     def fork_prefix_block(self, src: int) -> int:
@@ -288,8 +386,9 @@ class PagedKVCache:
             raise
         self.block_table[slot] = blocks
         self.seq_len_of[slot] = prompt_len
-        self._tables[slot, :len(blocks)] = blocks
-        self._tables_dev = self._masked_dev = None
+        if self.paged:
+            self._tables[slot, :len(blocks)] = blocks
+            self._tables_dev = self._masked_dev = None
         if tr is not None and tr.enabled:
             tr.block_alloc(slot, len(blocks), self.pool.available)
         return slot
@@ -310,8 +409,9 @@ class PagedKVCache:
                 if tr is not None and tr.enabled:
                     tr.out_of_blocks("decode_grow", slot)
                 raise
-            self._tables[slot, len(table) - 1] = table[-1]
-            self._tables_dev = self._masked_dev = None
+            if self.paged:
+                self._tables[slot, len(table) - 1] = table[-1]
+                self._tables_dev = self._masked_dev = None
             if tr is not None and tr.enabled:
                 tr.block_grow(slot, self.pool.available)
         self.seq_len_of[slot] = max(self.seq_len_of[slot], n_tokens)
@@ -322,8 +422,9 @@ class PagedKVCache:
         self.pool.free(blocks)
         del self.seq_len_of[slot]
         self._free_slots.append(slot)
-        self._tables[slot, :] = self.trash_block
-        self._tables_dev = self._masked_dev = None
+        if self.paged:
+            self._tables[slot, :] = self.trash_block
+            self._tables_dev = self._masked_dev = None
         tr = self.tracer
         if tr is not None and tr.enabled:
             tr.block_free(slot, len(blocks), self.pool.available)
@@ -340,6 +441,7 @@ class PagedKVCache:
         masked upload is cached too (keyed by the mask), so steady
         interleaved decode pays one host-to-device copy per ledger or
         mask change, not one per step."""
+        assert self.paged, "block tables are device-resident in paged mode"
         key = tuple(sorted(mask_slots))
         if not key:
             if self._tables_dev is None:
@@ -353,12 +455,24 @@ class PagedKVCache:
             self._masked_key = key
         return self._masked_dev
 
+    def write_prefill(self, slot: int, single_cache) -> None:
+        """Copy a batch-1 prefilled cache into ``slot``'s stripe of the
+        dense storage, in place.  Paged prefill never stages a batch-1
+        cache — chunks land straight in pool blocks."""
+        assert not self.paged, (
+            "paged prefill writes chunks straight into pool blocks; "
+            "there is no batch-1 cache to scatter")
+        for (path, leaf), ax in zip(_leaves(self.cache), self._axes):
+            leaf.select(ax, slot).copy_(_get(single_cache, path).select(ax,
+                                                                        0))
+
     # -- telemetry -----------------------------------------------------------
 
     def kv_bytes(self) -> int:
-        """Physical bytes resident for the decode KV storage."""
+        """Physical bytes resident for the decode KV storage (codes and
+        scales for the int8 cache)."""
         return sum(t.numel() * t.element_size()
-                   for t in self.cache["layers"].values())
+                   for _, t in _leaves(self.cache))
 
     def occupancy(self) -> Dict[str, float]:
         occ = {

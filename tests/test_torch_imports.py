@@ -72,9 +72,16 @@ def test_launcher_defaults_to_cuda_and_refuses_without_a_card():
 
 
 def test_launcher_rejects_what_later_slices_port():
+    """The replica gateway waits for the fleet slice; without ``--paged``
+    the launcher serves in dense mode, as the reference's does."""
     from repro_torch.launch import serve
     for argv in (["--replicas", "2", "--paged"], ["--fabric", "mock",
-                                                   "--paged"], []):
+                                                   "--paged"]):
         with pytest.raises(SystemExit):
             serve.main(["--arch", "qwen2-0.5b", "--smoke", "--device", "cpu",
                         *argv])
+    sched = serve.main(["--arch", "qwen2-0.5b", "--smoke", "--device", "cpu",
+                        "--requests", "2", "--max-new", "2", "--greedy",
+                        "--max-seq-len", "32"])
+    assert not sched.engine.paged
+    assert sched.metrics.summary()["requests_completed"] == 2

@@ -179,6 +179,10 @@ def test_wrappers_refuse_devices_without_a_kernel():
     x = torch.zeros((1, 4, 2, 8), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         ssd.ssd_scan(x, x[..., 0], x[0, 0, :, 0], x, x, 4)
+    k8 = torch.zeros((1, 4, 1, 8), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.flash_attention_int8kv(q, k8, k8[..., 0], k8, k8[..., 0], lens,
+                                  lens)
 
 
 # ---------------------------------------------------------------------------

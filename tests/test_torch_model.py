@@ -161,16 +161,23 @@ def test_paged_attention_block_matches_reference(model, S):
 
 
 def test_other_attention_branches_wait_for_their_slice(model):
-    """The dense-cache and cross-attention branches raise, naming their
-    ROADMAP items; the no-cache branch (training's forward) runs."""
+    """Cross-attention raises, naming its ROADMAP item; the no-cache
+    branch (training's forward) runs; the dense-cache branch runs too
+    (one-token decode, this step's k/v written at the row's position in
+    place) and refuses a multi-token tile."""
     cfg, pcfg, _, pparams = model
     plp = PT._index(pparams["layers"], 0, 0)["attn"]
-    x = torch.zeros((1, 2, pcfg.d_model), dtype=torch.bfloat16)
+    x = torch.ones((1, 2, pcfg.d_model), dtype=torch.bfloat16)
     kv = torch.zeros((1, 4, pcfg.num_kv_heads, pcfg.resolved_head_dim),
                      dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        PA.attention_block(plp, pcfg, x, cache={"k": kv, "v": kv},
-                           cache_index=torch.zeros(1, dtype=torch.int32))
+    cache = {"k": kv, "v": kv.clone()}
+    idx = torch.full((1,), 2, dtype=torch.int32)
+    out, got = PA.attention_block(plp, pcfg, x[:, :1], cache=cache,
+                                  cache_index=idx, positions=idx[:, None])
+    assert got is cache and out.shape == (1, 1, pcfg.d_model)
+    assert cache["k"][0, 2].any() and not cache["k"][0, :2].any()
+    with pytest.raises(ValueError, match="one-token"):
+        PA.attention_block(plp, pcfg, x, cache=cache, cache_index=idx)
     with pytest.raises(NotImplementedError, match="item 11"):
         PA.attention_block(plp, pcfg, x, kv_override=x)
     out, cache = PA.attention_block(plp, pcfg, x)

@@ -115,12 +115,25 @@ def test_scheduler_greedy_tokens_match_reference(weights, case):
 
 
 def test_engine_rejects_what_later_slices_port():
+    """MoE waits for its slice; the dense layout (the default, as the
+    reference's) is served now: one worst-case stripe per slot, bf16 or
+    int8 with per-token scales, and paged mode refuses int8 as the
+    reference does."""
+    from repro_torch.models import transformer as PT
     cfg = port_smoke_config("qwen2-0.5b")
-    with pytest.raises(NotImplementedError):
-        ServingEngine(cfg, {}, max_seq_len=16, paged=False, device="cpu")
     moe = cfg.with_(family="moe")
     with pytest.raises(NotImplementedError):
         ServingEngine(moe, {}, max_seq_len=16, device="cpu")
+    params = PT.init_params(cfg, torch.Generator().manual_seed(0))
+    for kv_dtype, leaves in (("bfloat16", {"k", "v"}),
+                             ("int8", {"k", "v", "k_scale", "v_scale"})):
+        eng = ServingEngine(cfg.with_(kv_cache_dtype=kv_dtype), params,
+                            max_seq_len=16, max_slots=2, device="cpu")
+        assert not eng.paged and set(eng.kv.cache["layers"]) == leaves
+        assert eng.kv.cache["layers"]["k"].shape[2:4] == (2, 16)
+    with pytest.raises(ValueError, match="int8"):
+        ServingEngine(cfg.with_(kv_cache_dtype="int8"), params,
+                      max_seq_len=16, paged=True, device="cpu")
 
 
 def test_sampling_tie_break_and_temperature():
