@@ -18,10 +18,21 @@ Phases (any failure exits nonzero):
               longer contexts, softcap 50), with ragged lengths,
               trash/garbage table entries and q_len == 0 rows.  The flash
               kernel at qwen2-0.5b training shapes (B 8, S 1024, H 14, KV 2,
-              D 64, causal) and gemma2-2b shapes (B 1, S 4150 — past the
-              window and not a tile multiple — H 8, KV 4, D 288, window
-              4096, softcap 50): output, logsumexp, and dQ/dK/dV through the
-              autograd Function against autograd through the plain version.
+              D 64, causal: the tensor-core kernel) and gemma2-2b shapes
+              (B 1, S 4150 — past the window and not a tile multiple — H 8,
+              KV 4, D 288, window 4096, softcap 50: the CUDA-core kernel):
+              output, logsumexp, and dQ/dK/dV through the autograd Function
+              against autograd through the plain version.  The flash and
+              paged decode outputs are held element by element to a bound
+              derived from each kernel's rounding of P (``ref.
+              rounding_bound_ratio``: 2^-8 (|P| @ |V|) / l for P in bf16 on
+              the tensor cores, 2^-14 for P in f32, plus one bf16 ulp of the
+              plain output), and broken kernels must fail it: flash with the
+              causal mask one key late, each row's last partial tile
+              dropped, kv head h % KV, l not rescaled, gemma2's window one
+              key wider or narrower; decode with a split's partial left out
+              of the combine, each row's newest key missed, a trash entry
+              read unmasked, gemma2's window one key wider or narrower.
               The SSD scan at mamba2-1.3b shapes (b 2, S 1024, H 64, P 64,
               N 128, G 1, chunk 256) on what a fresh full-width layer feeds
               it, and with G = 2 and S = 1000 (not a chunk multiple)
@@ -43,7 +54,9 @@ Phases (any failure exits nonzero):
               qwen2 training shapes above; int8 flash: the decode shapes
               above; SSD: mamba2-1.3b training, b 8; RMSNorm: mamba2's
               gated norm, 8,192 x 4,096 f32 -> bf16) with CUDA events, L2
-              flushed before every launch, beside its plain version, the
+              flushed before every launch and a spin kernel after the
+              flush so the host's enqueue is not timed, the same element-
+              wise checks as phase 3, beside its plain version, the
               library yardstick (gather + scaled_dot_product_attention;
               scaled_dot_product_attention on K/V dequantized beforehand;
               ``F.rms_norm``; none for the SSD scan; used nowhere in the
@@ -71,8 +84,9 @@ Phases (any failure exits nonzero):
 8. training — full-width qwen2-0.5b through the port's launcher
               ``repro_torch.launch.train.main`` (seq 1024, batch 8, 8 AdamW
               steps): every loss finite, the last below the first, the
-              flash kernel launched on every layer of every step and
-              RMSNorm on every norm (counters zeroed just before); then one
+              flash kernel launched on every layer of every step, each
+              launch on the tensor-core kernel, and RMSNorm on every norm
+              (counters zeroed just before); then one
               step under ``torch.profiler`` for where the device time goes;
 9. training card vs CPU — one train step of a 2-layer full-width qwen2 at
               seq 128, batch 2, on the same weights on both: loss and the
@@ -95,6 +109,7 @@ printing any result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -445,6 +460,108 @@ def norm_err(got, ref) -> float:
     return ((got.float() - r).abs() / r.abs().clamp(min=1.0)).max().item()
 
 
+def flash_bound(fa, q, k, v, kw):
+    """What the flash check needs beside the kernel's output: the plain
+    output, (|P| @ |V|) / l (the same attention over |V| in f32) and the
+    relative rounding of P of the kernel that (dtype, D) routes to."""
+    plain = fa.flash_attention_plain(q, k, v, **kw)[0]
+    mix = fa.flash_attention_plain(q.float(), k.float(), v.float().abs(),
+                                   **kw)[0]
+    return plain, mix, fa.p_rounding(q.dtype, q.shape[-1])
+
+
+def flash_wrongs(torch, fa, ref, q, k, v, kw, tile: int = 64):
+    """Broken flash kernels, as plain versions on changed inputs (and the
+    kernel's tile loop without rescaling l): [(what, () -> out)].  The
+    causal ones where ``kw`` is causal without a window, the window ones
+    where it has a window."""
+    S, H, KV = q.shape[1], q.shape[2], k.shape[2]
+    plain = lambda qq, kk, vv, **o: fa.flash_attention_plain(
+        qq, kk, vv, **dict(kw, **o))[0]
+    if kw.get("window"):
+        w = kw["window"]
+        return [("saw one key more than the window",
+                 lambda: plain(q, k, v, window=w + 1)),
+                ("saw one key less than the window",
+                 lambda: plain(q, k, v, window=w - 1))]
+
+    def late():
+        # row i sees keys 0..i+1: row i + 1 of a query one row longer
+        return plain(torch.cat([q[:, :1], q], dim=1), k, v)[:, 1:]
+
+    def drop_tile():
+        # a row with n keys, n > tile and not a tile multiple, drops its
+        # last partial tile: rows 64m..64m+62 see keys [0, 64m) only
+        out = plain(q, k, v).clone()
+        for k1 in range(tile, S, tile):
+            r1 = min(k1 + tile - 1, S)
+            out[:, k1:r1] = plain(q[:, k1:r1], k[:, :k1], v[:, :k1],
+                                  causal=False)
+        return out
+
+    def head():
+        idx = torch.arange(H, device=k.device) % KV
+        return plain(q, k[:, :, idx].contiguous(), v[:, :, idx].contiguous())
+
+    return [("applied the causal mask one key late", late),
+            ("dropped each row's last partial kv tile", drop_tile),
+            ("read kv head h % KV instead of h // G", head),
+            ("did not rescale the running sum l",
+             lambda: ref.flash_tiles_ref(q, k, v, **kw, block_k=tile,
+                                         rescale_l=False)[0])]
+
+
+def decode_args(case):
+    return (case["q"], case["k_pages"], case["v_pages"],
+            case["block_tables"], case["lengths"])
+
+
+def decode_bound(pa, case):
+    """The plain output and (|P| @ |V|) / l for the decode check."""
+    q, kp, vp, tb, ln = decode_args(case)
+    kw = dict(window=case["window"], softcap=case["softcap"])
+    return (pa.paged_attention_plain(q, kp, vp, tb, ln, **kw),
+            pa.paged_attention_plain(q.float(), kp.float(), vp.float().abs(),
+                                     tb, ln, **kw))
+
+
+def decode_wrongs(torch, pa, ref, case):
+    """Broken decode kernels, as plain versions on changed inputs and the
+    split-and-combine version with a partial left out: [(what, () ->
+    out)].  The window ones where the case has a window; the newest-key
+    and trash-entry ones where it has none."""
+    q, kp, vp, tb, ln = decode_args(case)
+    w, sc = case["window"], case["softcap"]
+    B, KV, _, D = q.shape
+    page, pps = kp.shape[1], tb.shape[1]
+    plain = lambda lengths=ln, window=w: pa.paged_attention_plain(
+        q, kp, vp, tb, lengths, window=window, softcap=sc)
+    per, splits = pa.split_plan(B, KV, pps, page, D)
+    live = [[i for i, r in enumerate(ref.paged_split_ranges(
+        n, per, splits, page, pps, w)) if r is not None]
+        for n in ln.tolist()]
+    multi = any(len(x) > 1 for x in live)
+    keep = torch.ones((B, splits), dtype=torch.bool)
+    for b, x in enumerate(live):
+        if x and (len(x) > 1 or not multi):
+            keep[b, x[0]] = False        # each row's first live partial
+    out = [("dropped one split's partial from the combine",
+            lambda: ref.paged_attention_split_ref(
+                q, kp, vp, tb, ln, pages_per_split=per, window=w,
+                softcap=sc, keep=keep))]
+    if w:
+        return out + [("saw one key more than the window",
+                       lambda: plain(window=w + 1)),
+                      ("saw one key less than the window",
+                       lambda: plain(window=w - 1))]
+    used = (ln + page - 1) // page
+    trash = torch.where((ln % page == 0) & (used < pps), ln + page, ln)
+    return out + [("missed each row's newest key",
+                   lambda: plain(lengths=(ln - 1).clamp(min=0))),
+                  ("read the trash-block entry past a row unmasked",
+                   lambda: plain(lengths=trash))]
+
+
 def zero_counts(counters) -> None:
     for fn in counters.values():
         fn.launches = 0
@@ -454,15 +571,22 @@ def read_counts(counters) -> dict:
     return {name: fn.launches for name, fn in counters.items()}
 
 
+HOST_AHEAD_CYCLES = 2_000_000  # ~1 ms of device spin after the flush
+
+
 def time_ms(torch, fn, flush, reps: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn`` over ``reps`` launches, each timed with
-    CUDA events after the L2 cache is flushed (a 128 MB write)."""
+    CUDA events after the L2 cache is flushed (a 128 MB write).  A spin
+    kernel (``torch.cuda._sleep``) after the flush keeps the card busy while
+    the host enqueues the events and ``fn``'s launches, so the host's
+    dispatch time (tens of microseconds for a wrapper) is not timed."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(HOST_AHEAD_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -652,10 +776,13 @@ def main() -> int:
     from repro_torch.kernels import paged_prefill as pp
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels import ref as kref
     from repro_torch.kernels.ref import attention_int8kv_ref
     counters = {"paged_decode_attention": pa.paged_attention,
                 "paged_prefill_attention": pp.paged_prefill,
                 "flash_attention": fa.flash_attention,
+                "flash_attention_tensor_core": fa.flash_fwd_tensor_core,
+                "flash_attention_cuda_core": fa.flash_fwd_cuda_core,
                 "flash_attention_int8kv": fa.flash_attention_int8kv,
                 "ssd_scan": ssd.ssd_scan, "rmsnorm": rn.rmsnorm}
     t0 = time.perf_counter()
@@ -687,21 +814,29 @@ def main() -> int:
                          G=s["G"], D=s["D"], page=s["page"],
                          lengths=s["lengths"], window=s["window"],
                          softcap=s["softcap"])
-        got = pa.paged_attention(dc["q"], dc["k_pages"], dc["v_pages"],
-                                 dc["block_tables"], dc["lengths"],
-                                 window=dc["window"], softcap=dc["softcap"])
+        got = pa.paged_attention(*decode_args(dc), window=dc["window"],
+                                 softcap=dc["softcap"])
         torch.cuda.synchronize()
-        ref = pa.paged_attention_plain(
-            dc["q"], dc["k_pages"], dc["v_pages"], dc["block_tables"],
-            dc["lengths"], window=dc["window"], softcap=dc["softcap"])
-        err = (got.float() - ref.float()).abs().max().item()
+        ref_, mix = decode_bound(pa, dc)
+        err = (got.float() - ref_.float()).abs().max().item()
+        ratio = kref.rounding_bound_ratio(got, ref_, mix, pa.P_ROUNDING)
         zero_ok = bool((got[3] == 0).all()) if 0 in s["lengths"] else True
-        print(f"decode  {label}: max_abs_err {err:.3e} (tol {KERNEL_TOL}); "
-              f"length-0 row zeros: {zero_ok}")
-        check(err <= KERNEL_TOL and zero_ok,
+        print(f"decode  {label}: max_abs_err {err:.3e}; max |err| / bound "
+              f"{ratio:.3e} (bound 2^-14 (|P| @ |V|) / l + 2^-7 |plain|, "
+              f"fails above 1); length-0 row zeros: {zero_ok}")
+        check(ratio <= 1.0 and zero_ok,
               f"decode kernel disagrees at {label} shapes")
         worst["paged_decode_attention"] = max(
             worst.get("paged_decode_attention", 0.0), err)
+        # the check's power: broken decode kernels, as plain versions on
+        # changed inputs, must each fail it
+        for what, wrong in decode_wrongs(torch, pa, kref, dc):
+            miss = kref.rounding_bound_ratio(wrong(), ref_, mix,
+                                             pa.P_ROUNDING)
+            print(f"decode  {label}: a kernel that {what} would read "
+                  f"{miss:.3e}")
+            check(miss > 1.0, f"the decode check misses a kernel that {what}")
+        del dc, got, ref_, mix
 
         pc_ = prefill_case(torch, rng, dev, B=len(s["starts"]), KV=s["KV"],
                            G=s["G"], D=s["D"], page=s["page"], C=s["C"],
@@ -728,10 +863,17 @@ def main() -> int:
     for label, s in flash_sets.items():
         fc = flash_case(torch, rng, dev, **s)
         qkv, kw = (fc["q"], fc["k"], fc["v"]), fc["kw"]
+        n_tc = fa.flash_fwd_tensor_core.launches
         out, lse = fa.flash_attention(*qkv, **kw)
         torch.cuda.synchronize()
-        ref, ref_lse = fa.flash_attention_plain(*qkv, **kw)
+        tc = fa.flash_fwd_tensor_core.launches > n_tc
+        route = "tensor cores" if tc else "CUDA cores"
+        check(tc == fa.tensor_core_route(out.dtype, out.shape[-1]),
+              f"the flash call at {label} shapes took the wrong kernel")
+        _, ref_lse = fa.flash_attention_plain(*qkv, **kw)
+        ref, mix, p_rel = flash_bound(fa, *qkv, kw)
         err = (out.float() - ref.float()).abs().max().item()
+        ratio = kref.rounding_bound_ratio(out, ref, mix, p_rel)
         lse_err = (lse - ref_lse).abs().max().item()
         ins = [t.clone().requires_grad_(True) for t in qkv]
         got = torch.autograd.grad(kops.mha_flash_attention(*ins, **kw), ins,
@@ -742,16 +884,25 @@ def main() -> int:
                                    ins, fc["dout"])
         gerr = [((g.float() - r.float()).abs().max()
                  / r.float().abs().max()).item() for g, r in zip(got, want)]
-        print(f"flash   {label}: out max_abs_err {err:.3e} (tol "
-              f"{KERNEL_TOL}); lse {lse_err:.3e} (tol {LSE_TOL}); "
-              f"dq/dk/dv max err / max |grad| "
+        print(f"flash   {label} ({route}): out max_abs_err {err:.3e}; max "
+              f"|err| / bound {ratio:.3e} (bound 2^{int(math.log2(p_rel))} "
+              f"(|P| @ |V|) / l + 2^-7 |plain|, fails above 1); lse "
+              f"{lse_err:.3e} (tol {LSE_TOL}); dq/dk/dv max err / max |grad| "
               f"{', '.join(f'{g:.3e}' for g in gerr)} (tol {GRAD_TOL})")
-        check(err <= KERNEL_TOL and lse_err <= LSE_TOL,
+        check(ratio <= 1.0 and lse_err <= LSE_TOL,
               f"flash kernel disagrees at {label} shapes")
         check(max(gerr) <= GRAD_TOL,
               f"flash gradients disagree at {label} shapes")
         worst["flash_attention"] = max(worst.get("flash_attention", 0.0), err)
-        del fc, qkv, out, lse, ref, ref_lse, ins, got, want
+        del ins, got, want, out, lse, ref_lse
+        # the check's power: broken flash kernels, as plain versions on
+        # changed inputs, must each fail it
+        for what, wrong in flash_wrongs(torch, fa, kref, *qkv, kw):
+            miss = kref.rounding_bound_ratio(wrong(), ref, mix, p_rel)
+            print(f"flash   {label}: a kernel that {what} would read "
+                  f"{miss:.3e}")
+            check(miss > 1.0, f"the flash check misses a kernel that {what}")
+        del fc, qkv, ref, mix
     torch.cuda.empty_cache()
 
     # the int8 flash kernel: at the dense serving path's decode shapes
@@ -991,17 +1142,27 @@ def main() -> int:
              rmsnorm_cost, ncase,
              "src/repro_torch/kernels/csrc/rmsnorm.cu",
              "src/repro/kernels/rmsnorm.py:24")):
-        ref, out = plain().float(), fn().float()
+        ref_t, got_t = plain(), fn()
+        ref, out = ref_t.float(), got_t.float()
         err = (out - ref).abs().max().item()
         if kname in ("ssd_scan", "rmsnorm"):
             ok = norm_err(out, ref) <= KERNEL_TOL
         elif kname == "flash_attention_int8kv":
             ok = int8_rel_err(out, ref) <= INT8_BF16_RTOL
+        elif kname == "flash_attention":
+            _, mix, p_rel = flash_bound(fa, *fargs, fcase["kw"])
+            ok = kref.rounding_bound_ratio(got_t, ref_t, mix, p_rel) <= 1.0
+            del mix
+        elif kname == "paged_decode_attention":
+            mix = decode_bound(pa, dcase)[1]
+            ok = kref.rounding_bound_ratio(got_t, ref_t, mix,
+                                           pa.P_ROUNDING) <= 1.0
+            del mix
         else:
             ok = err <= KERNEL_TOL
         lib_err = (None if lib is None
                    else (lib().float() - ref).abs().max().item())
-        del ref, out
+        del ref, out, ref_t, got_t
         check(ok, f"{kname} disagrees at timing shapes")
         ms = time_ms(torch, fn, flush)
         plain_ms = time_ms(torch, plain, flush, reps=5)
@@ -1265,6 +1426,14 @@ def main() -> int:
     want_rms = 2 * 2 * cfg.num_layers + 1
     check(all(n == want_rms for n in per_step["rmsnorm"]),
           f"rmsnorm launches per step {per_step['rmsnorm']}, want {want_rms}")
+    # every flash launch of the run went to the tensor-core kernel
+    print(f"training flash launches: {launches['flash_attention']}, tensor "
+          f"cores {launches['flash_attention_tensor_core']}, CUDA cores "
+          f"{launches['flash_attention_cuda_core']}", flush=True)
+    check(launches["flash_attention_tensor_core"]
+          == launches["flash_attention"]
+          and launches["flash_attention_cuda_core"] == 0,
+          "a training flash launch missed the tensor-core kernel")
     by_name["flash_attention"]["launches"] = launches["flash_attention"]
     rms_paths["training qwen2-0.5b"] = launches["rmsnorm"]
 

@@ -1,4 +1,6 @@
-// Dense flash-attention forward (online softmax) for Hopper (sm_90a).
+// Dense flash-attention forward (online softmax) for Hopper (sm_90a): a
+// tensor-core kernel for bf16 with D <= 128, and a CUDA-core kernel for f32
+// and for D up to 288.
 //
 // Replaces: src/repro/kernels/flash_attention.py :: flash_attention (Pallas
 // body _flash_kernel), reached through repro.kernels.ops.mha_flash_attention.
@@ -6,42 +8,75 @@
 // What bounds it on the H100: causal attention over S positions does
 // 4 * S * (S + 1) / 2 * D flops per head against 2 bytes per element of q,
 // k, v and out, i.e. ~S / 2 flops per byte at bf16: at the training shapes
-// (S = 1024) that is ~500 flop/byte, above the H100's ~295 flop/byte bf16
-// ridge, so the flops bound it (989 TFLOP/s on the tensor cores).  This
-// simple version runs the flops in f32 on the CUDA cores (67 TFLOP/s peak),
-// so it sits at least ~15x above that bound.
+// (qwen2-0.5b, B 8, S 1024, H 14, KV 2, D 64: 15.05 GFLOP, 0.0152 ms at
+// 989 TFLOP/s) that is ~500 flop/byte, above the H100's ~295 flop/byte bf16
+// ridge, so the flops bound it, on the tensor cores.
 //
-// Design: one thread block per (b * H + h, tile of BQ = 64 query rows); the
-// Pallas grid's sequential kv axis with (m, l, acc) in VMEM scratch becomes
-// a loop over kv tiles of BK rows inside the block.  256 threads form a
-// 16 x 16 grid: thread (tx, ty) owns query rows ty + 16 i (i < 4), score
-// columns tx + 16 j of each kv tile, and output columns 2 tx + 32 j (float2
-// pairs) of D.  Its m, l and acc stay in registers in f32; a row's m and l
-// are reduced over the 16 threads of a half-warp with shuffles.  Q stays in
-// shared memory for the whole loop; each kv tile's K and V are staged in
-// shared memory once and read by all 64 rows; P goes through shared memory
-// from the score layout to the P.V layout.  Rows are padded by 4 floats so
-// the float4 reads of 16 different K rows fall in different banks.
+// Routing (kernels/flash_attention.py, by dtype and D, never by a failed
+// build or launch): bf16 with D <= 128 (D a multiple of 32) takes the
+// tensor-core kernel flash_fwd_tc_kernel; f32, and bf16 with D > 128
+// (gemma2-2b's D = 288), take the CUDA-core kernel flash_fwd_kernel.
 //
-// GQA: q is (B, Sq, H, D) and k, v are (B, Skv, KV, D), un-broadcast; head
-// h reads kv head h / (H / KV), so K/V are never materialised per query
-// head.  Masks as in the Pallas kernel: kpos < Skv, causal (top-left)
-// kpos <= qpos, window qpos - kpos < window; the softcap c * tanh(s / c) is
-// applied before the mask.  Tiles that no row of the block can reach under
-// the causal and window bounds are skipped.  A row with no valid key keeps
+// Tensor-core kernel (flash_fwd_tc_kernel<D, MT>), FlashAttention-2 style
+// with mma.sync.m16n8k16 (bf16 operands, f32 accumulators): one block of 4
+// warps per (b * H + h, 64 MT query rows), longest rows first; each warp
+// owns 16 MT query rows (MT = 2 for D <= 64, so every K and V fragment read
+// from shared memory feeds two row tiles; MT = 1 above, where the
+// accumulators would not fit in registers).  Q is loaded once (ldmatrix
+// into A fragments kept in registers).  K and V tiles of 64 keys stay bf16
+// in a two-stage ring in shared memory, filled with 16-byte cp.async: tile
+// n + 1 is in flight while tile n is multiplied.  Rows are padded by 8 bf16
+// (16 bytes), so the eight row addresses of every ldmatrix fall in
+// different banks.  S = Q K^T runs on the tensor cores (K read with
+// ldmatrix as the col-major B operand); the online softmax runs on S's
+// accumulator fragments in registers (row max and sum over 4 independent
+// chains, then over the 4 threads of a quad with shuffles; p = 2^(s * scale
+// * log2 e - m) is one FFMA and one ex2.approx); P is converted in registers
+// into the A operand of O += P V (V read with ldmatrix.trans).  Causal,
+// window and length masks are applied only on tiles that cross a boundary
+// (two compares per element against per-row bounds); tiles no row of the
+// block can reach are skipped.  The output is staged through shared memory
+// for 16-byte stores.  Shared memory: (64 MT + 4 * 64) * (D + 8) * 2 bytes,
+// 55,296 at D = 64.  No wgmma, TMA or warp specialisation yet: mma.sync was
+// the design that could be made right and checked within one change.
+//
+// Numerics of the tensor-core kernel: S from bf16 inputs is exact products
+// summed in f32 (as the plain version); m, l, the rescaling and the output
+// accumulator are f32; P is rounded to bf16 (round to nearest, relative error
+// <= 2^-9) as the A operand of the PV product, as SDPA does, while l sums the
+// unrounded f32 P.  So |out - plain| <= 2^-9 * (|P| @ |V|) / l before the
+// output's own bf16 rounding; chip_smoke.py holds it element by element to
+// 2^-8 * (|P| @ |V|) / l + 2^-7 * |plain| (ref.rounding_bound_ratio).
+//
+// CUDA-core kernel (flash_fwd_kernel): one thread block per (b * H + h, tile
+// of BQ = 64 query rows); the Pallas grid's sequential kv axis with
+// (m, l, acc) in VMEM scratch becomes a loop over kv tiles of BK rows inside
+// the block.  256 threads form a 16 x 16 grid: thread (tx, ty) owns query
+// rows ty + 16 i (i < 4), score columns tx + 16 j of each kv tile, and output
+// columns 2 tx + 32 j (float2 pairs) of D.  Its m, l and acc stay in
+// registers in f32; a row's m and l are reduced over the 16 threads of a
+// half-warp with shuffles.  Q stays in shared memory for the whole loop; each
+// kv tile's K and V are staged in shared memory once and read by all 64 rows;
+// P goes through shared memory from the score layout to the P.V layout, in
+// f32.  Rows are padded by 4 floats so the float4 reads of 16 different K
+// rows fall in different banks.  D <= 64 takes BK = 64 (69 KB of shared
+// memory at D = 64); 64 < D <= 288 takes BK = 32 (158 KB at D = 288), both
+// opted in above 48 KB.  It runs its flops in f32 on the CUDA cores (67
+// TFLOP/s peak); P stays f32, so its error is f32 summation order only.
+//
+// Both kernels: GQA: q is (B, Sq, H, D) and k, v are (B, Skv, KV, D),
+// un-broadcast; head h reads kv head h / (H / KV), so K/V are never
+// materialised per query head.  Masks as in the Pallas kernel: kpos < Skv,
+// causal (top-left) kpos <= qpos, window qpos - kpos < window; the softcap
+// c * tanh(s / c) is applied before the mask.  A row with no valid key keeps
 // p = 0 and writes zeros.  A second output, the per-row logsumexp m + log l
 // (B, H, Sq) f32 (-inf for a row with no valid key), feeds the backward.
-//
-// Tiles by head dim: D <= 64 takes BK = 64 (69 KB of shared memory at
-// D = 64); 64 < D <= 288 takes BK = 32 (158 KB at D = 288, gemma2-2b), both
-// opted in above 48 KB.  D must be a multiple of 32.
-//
-// Simple first: f32 FMA on CUDA cores, no tensor cores, no cp.async or TMA,
-// no double buffering.  Those are later work.
+// D must be a multiple of 32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -274,6 +309,411 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core kernel (bf16, D in {32, 64, 96, 128})
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int BK = 64;                 // keys per tile
+constexpr int THREADS = 128;           // 4 warps
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+__host__ __device__ constexpr int smem_bytes(int D, int BQ) {
+  return (BQ + 4 * BK) * (D + 8) * 2;  // Q, two K and two V stages, bf16
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16-byte asynchronous copy; src_bytes 0 fills the destination with zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1,
+                                        uint32_t& r2, uint32_t& r3,
+                                        uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t& r0, uint32_t& r1,
+                                          uint32_t& r2, uint32_t& r3,
+                                          uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(addr));
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x, one MUFU op (relative error ~2^-22; results below 2^-126 flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// rows [row0, row0 + R) of one head of a (B, S, heads, D) tensor into an
+// (R, D + 8) bf16 tile; rows at or past `valid` are zero-filled
+template <int D, int R>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* base,
+                                          const __nv_bfloat16* row0_ptr,
+                                          int valid, size_t row_stride,
+                                          int tid) {
+  constexpr int CH = D / 8;            // 16-byte chunks per row
+  constexpr int DP = D + 8;
+  if constexpr (THREADS % CH == 0) {
+    // each thread keeps one chunk column: a fixed stride between its rows
+    constexpr int RS = THREADS / CH;   // rows per pass
+    const int r0 = tid / CH, c = tid - (tid / CH) * CH;
+    const __nv_bfloat16* src = row0_ptr + r0 * row_stride + c * 8;
+    const uint32_t d0 = smem_u32(dst + r0 * DP + c * 8);
+#pragma unroll
+    for (int i = 0; i < R / RS; ++i) {
+      const bool ok = r0 + i * RS < valid;
+      cp_async16(d0 + i * RS * DP * 2, ok ? src + i * RS * row_stride : base,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int i = tid; i < R * CH; i += THREADS) {
+      const int r = i / CH, c = i - r * CH;
+      const bool ok = r < valid;
+      cp_async16(smem_u32(dst + r * DP + c * 8),
+                 ok ? row0_ptr + r * row_stride + c * 8 : base, ok ? 16 : 0);
+    }
+  }
+}
+
+template <int D, int MT>
+__global__ void __launch_bounds__(THREADS) flash_fwd_tc_kernel(
+    const __nv_bfloat16* __restrict__ q,   // (B, Sq, H, D)
+    const __nv_bfloat16* __restrict__ k,   // (B, Skv, KV, D)
+    const __nv_bfloat16* __restrict__ v,   // (B, Skv, KV, D)
+    __nv_bfloat16* __restrict__ out,       // (B, Sq, H, D)
+    float* __restrict__ lse,               // (B, H, Sq)
+    int H, int KV, int Sq, int Skv, float scale, int causal, int window,
+    float softcap) {
+  constexpr int BQ = 64 * MT;          // query rows per block, 16 MT a warp
+  constexpr int DP = D + 8;            // padded smem row (bf16 elements)
+  constexpr int KS = D / 16;           // k-steps of Q K^T
+  constexpr int ND = D / 8;            // 8-wide column tiles of O
+  constexpr int NK = BK / 8;           // 8-key column tiles of S
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* k_s = q_s + BQ * DP;  // 2 stages of BK x DP
+  __nv_bfloat16* v_s = k_s + 2 * BK * DP;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int kvh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // longest rows first
+
+  int kt_lo = 0;
+  int kt_hi = (Skv + BK - 1) / BK;
+  if (causal) kt_hi = min(kt_hi, (q0 + BQ - 1) / BK + 1);
+  if (window > 0) {
+    const int lo = q0 - (window - 1);  // oldest row's window start
+    if (lo > 0) kt_lo = lo / BK;
+  }
+
+  const size_t qs = (size_t)H * D, kvs = (size_t)KV * D;
+  const __nv_bfloat16* kb = k + ((size_t)b * Skv * KV + kvh) * D;
+  const __nv_bfloat16* vb = v + ((size_t)b * Skv * KV + kvh) * D;
+  load_tile<D, BQ>(q_s, q, q + (((size_t)b * Sq + q0) * H + h) * D, Sq - q0,
+                   qs, tid);
+  if (kt_lo < kt_hi) {
+    const int k0 = kt_lo * BK;
+    load_tile<D, BK>(k_s, k, kb + k0 * kvs, Skv - k0, kvs, tid);
+    load_tile<D, BK>(v_s, v, vb + k0 * kvs, Skv - k0, kvs, tid);
+  }
+  cp_async_commit();
+
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = warp * 16 * MT;                 // the warp's first row
+  float o[MT][ND][4];
+  float m_r[MT][2], l_r[MT][2];                    // l_r: this thread's share
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mt][j][e] = 0.0f;
+    m_r[mt][0] = m_r[mt][1] = NEG_INF;
+    l_r[mt][0] = l_r[mt][1] = 0.0f;
+  }
+  uint32_t qf[MT][KS][4];
+  const float sl2 = softcap > 0.0f ? 1.0f : scale * LOG2E;
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int st = (kt - kt_lo) & 1;
+    cp_async_wait<0>();                          // tile kt (and Q) landed
+    // one barrier a tile: it publishes tile kt and tells that every warp
+    // is done with tile kt - 1, whose stage the prefetch below refills
+    __syncthreads();
+    if (kt + 1 < kt_hi) {                        // prefetch the next tile
+      const int k1 = (kt + 1) * BK;
+      load_tile<D, BK>(k_s + (st ^ 1) * BK * DP, k, kb + k1 * kvs, Skv - k1,
+                       kvs, tid);
+      load_tile<D, BK>(v_s + (st ^ 1) * BK * DP, v, vb + k1 * kvs, Skv - k1,
+                       kvs, tid);
+    }
+    cp_async_commit();
+
+    if (kt == kt_lo) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks)
+          ldsm_x4(qf[mt][ks][0], qf[mt][ks][1], qf[mt][ks][2], qf[mt][ks][3],
+                  smem_u32(q_s + (wrow + mt * 16 + (lane & 15)) * DP +
+                           ks * 16 + (lane >> 4) * 8));
+    }
+
+    // S = Q K^T: 16 MT rows x 64 keys per warp; each K fragment feeds the
+    // warp's MT row tiles
+    const __nv_bfloat16* ks_ = k_s + st * BK * DP;
+    float s[MT][NK][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int j = 0; j < NK; j += 2) {
+        const int mi = lane >> 3;
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4(b0, b1, b2, b3,
+                smem_u32(ks_ + (j * 8 + (mi >> 1) * 8 + (lane & 7)) * DP +
+                         ks * 16 + (mi & 1) * 8));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(s[mt][j], qf[mt][ks], b0, b1);
+          mma_bf16(s[mt][j + 1], qf[mt][ks], b2, b3);
+        }
+      }
+    }
+
+    // online softmax on the accumulator fragments.  m is kept in the units
+    // of s; p = 2^(s * sl2 - m * sl2) is one FFMA and one MUFU op, with
+    // sl2 = scale * log2(e) (the softcap's tanh, when on, is applied first
+    // and already scaled, so sl2 = 1 there)
+    const int k0 = kt * BK;
+    const bool need_mask = (k0 + BK > Skv) || (causal && k0 + BK - 1 > q0) ||
+                           (window > 0 && q0 + BQ - 1 - k0 >= window);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      if (softcap > 0.0f) {
+        const float cs = scale / softcap, cl = softcap * LOG2E;
+#pragma unroll
+        for (int j = 0; j < NK; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[mt][j][e] = cl * tanhf(s[mt][j][e] * cs);
+      }
+      if (need_mask) {
+        // key j * 8 + 2 t + (e & 1) of the tile is valid for row r iff its
+        // offset lies in [lo_r, hi_r]
+        int lo[2], hi[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int qpos = q0 + wrow + mt * 16 + g + 8 * r;
+          hi[r] = Skv - 1 - k0;
+          if (causal) hi[r] = min(hi[r], qpos - k0);
+          lo[r] = window > 0 ? qpos - window + 1 - k0 : -BK;
+          hi[r] -= 2 * t;
+          lo[r] -= 2 * t;
+        }
+#pragma unroll
+        for (int j = 0; j < NK; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int off = j * 8 + (e & 1);
+            const int r = e >> 1;
+            s[mt][j][e] = off >= lo[r] && off <= hi[r] ? s[mt][j][e] : NEG_INF;
+          }
+      }
+      // row max and sum over 4 independent chains each (ILP), then the quad
+      float mx4[2][4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) mx4[0][c] = mx4[1][c] = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          mx4[e >> 1][(j & 1) * 2 + (e & 1)] =
+              fmaxf(mx4[e >> 1][(j & 1) * 2 + (e & 1)], s[mt][j][e]);
+      float mx[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        mx[r] = fmaxf(fmaxf(mx4[r][0], mx4[r][1]), fmaxf(mx4[r][2], mx4[r][3]));
+      float alpha[2], m_sc[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_r[mt][r], mx[r]);
+        // m_r = NEG_INF (no key yet) gives alpha = 0 against a finite m_new
+        alpha[r] = ex2((m_r[mt][r] - m_new) * sl2);
+        m_r[mt][r] = m_new;
+        // a row with no valid key yet keeps p = 2^(-1e30 sl2) = 0, not 2^0
+        m_sc[r] = m_new == NEG_INF ? 0.0f : m_new * sl2;
+      }
+      float sum4[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2(fmaf(s[mt][j][e], sl2, -m_sc[e >> 1]));
+          s[mt][j][e] = p;
+          sum4[e >> 1][(j & 1) * 2 + (e & 1)] += p;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        l_r[mt][r] = alpha[r] * l_r[mt][r] +
+                     ((sum4[r][0] + sum4[r][1]) + (sum4[r][2] + sum4[r][3]));
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        o[mt][j][0] *= alpha[0];
+        o[mt][j][1] *= alpha[0];
+        o[mt][j][2] *= alpha[1];
+        o[mt][j][3] *= alpha[1];
+      }
+    }
+
+    // O += P V: P rounded to bf16 in registers as the A operand; each V
+    // fragment feeds the warp's MT row tiles
+    const __nv_bfloat16* vs_ = v_s + st * BK * DP;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        a[mt][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
+        a[mt][1] = pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+        a[mt][2] = pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
+        a[mt][3] = pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+      }
+#pragma unroll
+      for (int jd = 0; jd < ND; jd += 2) {
+        const int mi = lane >> 3;
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4_t(b0, b1, b2, b3,
+                  smem_u32(vs_ + (kk * 16 + (mi & 1) * 8 + (lane & 7)) * DP +
+                           jd * 8 + (mi >> 1) * 8));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(o[mt][jd], a[mt], b0, b1);
+          mma_bf16(o[mt][jd + 1], a[mt], b2, b3);
+        }
+      }
+    }
+  }
+
+  cp_async_wait<0>();
+  __syncthreads();                     // Q's tile is free for the output
+  __nv_bfloat16* stage = q_s + wrow * DP;          // this warp's rows
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_r[mt][r] += __shfl_xor_sync(0xffffffffu, l_r[mt][r], 1);
+      l_r[mt][r] += __shfl_xor_sync(0xffffffffu, l_r[mt][r], 2);
+      inv[r] = l_r[mt][r] > 0.0f ? 1.0f / l_r[mt][r] : 0.0f;
+    }
+    __nv_bfloat16* st_r = stage + (mt * 16 + g) * DP + 2 * t;
+#pragma unroll
+    for (int jd = 0; jd < ND; ++jd) {
+      *reinterpret_cast<uint32_t*>(st_r + jd * 8) =
+          pack_bf16(o[mt][jd][0] * inv[0], o[mt][jd][1] * inv[0]);
+      *reinterpret_cast<uint32_t*>(st_r + 8 * DP + jd * 8) =
+          pack_bf16(o[mt][jd][2] * inv[1], o[mt][jd][3] * inv[1]);
+    }
+    if (t == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + wrow + mt * 16 + g + 8 * r;
+        if (row < Sq)
+          lse[(size_t)bh * Sq + row] =
+              l_r[mt][r] > 0.0f ? m_r[mt][r] * sl2 * LN2 + logf(l_r[mt][r])
+                                : -INFINITY;
+      }
+    }
+  }
+  __syncwarp();
+  constexpr int CH = D / 8;
+  for (int i = lane; i < 16 * MT * CH; i += 32) {
+    const int r = i / CH, c = i - r * CH;
+    const int row = q0 + wrow + r;
+    if (row < Sq)
+      *reinterpret_cast<uint4*>(out + (((size_t)b * Sq + row) * H + h) * D +
+                                c * 8) =
+          *reinterpret_cast<const uint4*>(stage + r * DP + c * 8);
+  }
+}
+
+// MT = 2 row tiles a warp (128 query rows a block) where the registers
+// allow it (D <= 64), else 1
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, void* lse,
+           int B, int H, int KV, int Sq, int Skv, float scale, int causal,
+           int window, float softcap, cudaStream_t stream) {
+  constexpr int MT = D <= 64 ? 2 : 1;
+  constexpr int BQ = 64 * MT;
+  auto kernel = flash_fwd_tc_kernel<D, MT>;
+  constexpr int smem = smem_bytes(D, BQ);
+  static int smem_opted = 48 * 1024;   // one per instantiation
+  if (smem > smem_opted) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_opted = smem;
+  }
+  const int q_tiles = (Sq + BQ - 1) / BQ;
+  if (B * H > 0 && q_tiles > 0) {
+    dim3 grid(B * H, q_tiles);
+    kernel<<<grid, THREADS, smem, stream>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+        (const __nv_bfloat16*)v, (__nv_bfloat16*)out, (float*)lse, H, KV, Sq,
+        Skv, scale, causal, window, softcap);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // Shared memory (bytes) one block uses at head dim D.
@@ -307,4 +747,31 @@ extern "C" int flash_attention_fwd(
                                 scale, causal, window, softcap, s);
   return launch<float, 32, 9>(q, k, v, out, lse, B, H, KV, Sq, Skv, D, scale,
                               causal, window, softcap, s);
+}
+
+// The tensor-core kernel: bf16 q, k, v and out, D in {32, 64, 96, 128}.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// a shape it does not take.
+extern "C" int flash_attention_fwd_tc(
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    int B, int H, int KV, int Sq, int Skv, int D, float scale, int causal,
+    int window, float softcap, void* stream) {
+  if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (D) {
+    case 32:
+      return tc::launch<32>(q, k, v, out, lse, B, H, KV, Sq, Skv, scale,
+                            causal, window, softcap, s);
+    case 64:
+      return tc::launch<64>(q, k, v, out, lse, B, H, KV, Sq, Skv, scale,
+                            causal, window, softcap, s);
+    case 96:
+      return tc::launch<96>(q, k, v, out, lse, B, H, KV, Sq, Skv, scale,
+                            causal, window, softcap, s);
+    case 128:
+      return tc::launch<128>(q, k, v, out, lse, B, H, KV, Sq, Skv, scale,
+                             causal, window, softcap, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,72 +1,120 @@
-// Paged single-token decode attention over block tables, for Hopper (sm_90a).
+// Paged single-token decode attention over block tables, for Hopper (sm_90a):
+// a split-context (flash-decoding) kernel and its combine step.
 //
 // Replaces: src/repro/kernels/paged_attention.py :: paged_attention (Pallas
 // body _paged_kernel), reached through repro.kernels.ops.paged_decode_attention.
 //
 // What bounds it on the H100: bytes.  One decode step reads, per sequence
-// and KV head, every reachable K and V page once (2 * length * D bf16 values)
-// and does 4 * G * D flops per position, about G flops per byte (G = 7 for
-// qwen2-0.5b), far below the ~295 flop/byte at which the tensor cores
-// would bound it.  So the only lever is moving each K/V byte exactly once.
+// and KV head, every reachable K and V position once (2 * length * D bf16
+// values) and does 4 * G * D flops per position, about G flops per byte
+// (G = 7 for qwen2-0.5b), below even the CUDA cores' ~20 flop/byte ridge and
+// far below the tensor cores' ~295: tensor cores would buy nothing.  At the
+// timing shapes (B 8, KV 2, contexts 512-2048, D 64) the K/V bytes are
+// 4.95 MB, 0.0015 ms at 3.35 TB/s.  So the design moves each K/V byte once
+// and keeps enough loads in flight on all 132 SMs to reach that rate.
 //
-// Design: one thread block per (batch row b, KV head h).  The block loads the
-// G query heads of its KV group into shared memory once, then walks only the
-// reachable pages of row b in order (from the sliding window's first page to
-// ceil(length / page) - 1), so each K/V page is read from device memory once
-// per KV head and shared by all G query heads, as on the TPU.  The Pallas
-// grid's sequential page axis with (m, l, acc) in VMEM scratch becomes this
-// loop inside one block, with m, l and acc in shared memory in f32: blocks
-// run in no order on the GPU and carry nothing between them.  Table entries
-// are clamped to [0, NP - 1]; positions past `length` or outside the window
-// are masked to NEG_INF, so a garbage or trash-block entry never contributes.
-// Rows with length 0 read no page and write zeros.
+// Design.  One call issues two CUDA kernels on the caller's stream:
 //
-// Simple first: plain f32 FMA on CUDA cores, no tensor cores, no cp.async or
-// TMA, no split over the context.  Those are later work.
+// 1. paged_decode_split_kernel, grid (splits, KV, B), 128 threads.  The host
+//    cuts every row's page list into `splits` contiguous ranges of
+//    `pages_per_split` pages, from shapes only (B, KV, pps, page, D; never
+//    `lengths`, which would need a device sync), so that B * KV * splits
+//    covers the SMs about four times over.  A block clips its range to the
+//    row's reachable pages (from the window's first page to
+//    (length - 1) / page); a block whose range is empty (past the length,
+//    or before the window) writes a neutral partial, m = -1e30 and l = 0,
+//    and exits.  Otherwise it issues 16-byte cp.async copies of all its K
+//    pages (one group) and then all its V pages (a second group) into
+//    shared memory, bf16, so every load of the range is in flight at once;
+//    the V copies land while the scores are computed.  Scores: each warp
+//    takes one key per group of 8 lanes (4 keys per warp, 16 per pass of
+//    the block); a lane holds 16 bytes (8 bf16) of the key per step and
+//    dots them with the same 8 dims of each of the G query heads of the
+//    group (q in shared memory in f32, laid out so 8 lanes read 128
+//    contiguous bytes), then a 3-step shuffle sums the 8 lanes: the G query
+//    heads share every K read.  The softmax over the block's keys runs one
+//    warp per query head (lanes over keys, shuffle max and sum).  P V: each
+//    warp takes every fourth key, each lane a pair of output dims for all
+//    G heads, and the 4 warps' sums meet in shared memory.  The block
+//    writes its partial (m, l, acc) unnormalised, in f32, to scratch that
+//    the wrapper allocates.
+// 2. paged_decode_combine_kernel, one block of 64 threads per (b, kv head,
+//    query head): out = sum_i exp(m_i - m) acc_i / sum_i exp(m_i - m) l_i
+//    over the partials with l_i > 0 (m their max), rounded to bf16; a row
+//    with no non-neutral partial (length 0) writes zeros.  The splits'
+//    (m, l) are read once, in parallel, into shared memory, and each
+//    thread's loads of acc over the splits are independent of each other:
+//    the combine costs a few dependent memory round trips, whatever the
+//    number of splits.  (Merging in the last split block of each row, by
+//    an atomic ticket, was tried and was slower: one block then walks the
+//    whole row's G x D outputs.)
+//
+// Table entries are clamped to [0, NP - 1]; positions past `length` or
+// outside the window are masked to -1e30 before the softmax, so a garbage
+// or trash-block entry never contributes.  The softcap c * tanh(s / c)
+// comes before the mask.  Numerics: q, K and V bf16 widened to f32; scores,
+// P, the sums and the combine in f32 (no bf16 rounding of P); only the
+// output is rounded to bf16.  D must be a multiple of 8 (16-byte copies)
+// and at most 288; page at most 32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr float NEG_INF = -1.0e30f;
-constexpr int THREADS = 128;
+constexpr int THREADS = 128;           // 4 warps
+constexpr int NW = THREADS / 32;
+constexpr int GB = 8;                  // query heads per pass of the loops
 
-__global__ void paged_decode_kernel(
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(dst), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Shared memory of one split block, in bytes: K and V (keys x D bf16 each),
+// q (G x D f32), scores (G x keys f32), the 4 warps' P V sums (4 x G x D
+// f32) and (m, l) per head.
+__host__ __device__ inline int split_smem_bytes(int G, int D, int keys) {
+  return 4 * keys * D + 4 * (G * D + G * keys + NW * G * D + 2 * G);
+}
+
+// NPR: output dim pairs per lane in the P V pass, ceil(D / 64).
+template <int NPR>
+__global__ void __launch_bounds__(THREADS) paged_decode_split_kernel(
     const __nv_bfloat16* __restrict__ q,        // (B, KV, G, D)
     const __nv_bfloat16* __restrict__ k_pages,  // (NP, page, KV, D)
     const __nv_bfloat16* __restrict__ v_pages,  // (NP, page, KV, D)
     const int* __restrict__ tables,             // (B, pps)
     const int* __restrict__ lengths,            // (B,)
-    __nv_bfloat16* __restrict__ out,            // (B, KV, G, D)
-    int KV, int G, int D, int NP, int page, int pps,
+    float* __restrict__ part_ml,                // (B, KV, splits, G, 2)
+    float* __restrict__ part_acc,               // (B, KV, splits, G, D)
+    int KV, int G, int D, int NP, int page, int pps, int pages_per_split,
     float scale, int window, float softcap) {
-  extern __shared__ float smem[];
-  const int Dk = D + 1;                  // padded K row: no bank conflicts
-  float* q_s = smem;                     // G * D
-  float* k_s = q_s + G * D;              // page * Dk
-  float* v_s = k_s + page * Dk;          // page * D
-  float* s_s = v_s + page * D;           // G * page
-  float* acc_s = s_s + G * page;         // G * D
-  float* m_s = acc_s + G * D;            // G
-  float* l_s = m_s + G;                  // G
-  float* a_s = l_s + G;                  // G (rescale factor of this page)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int keys_max = pages_per_split * page;
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* v_s = k_s + keys_max * D;
+  float* q_s = reinterpret_cast<float*>(v_s + keys_max * D);   // G x D
+  float* s_s = q_s + G * D;                    // G x keys_max
+  float* red = s_s + G * keys_max;             // NW x G x D
+  float* ml_s = red + NW * G * D;              // G x 2
 
-  const int bh = blockIdx.x;
-  const int b = bh / KV;
-  const int h = bh % KV;
-  const int tid = threadIdx.x;
-  const int GD = G * D;
-
-  const __nv_bfloat16* qb = q + (size_t)bh * GD;
-  for (int i = tid; i < GD; i += THREADS) {
-    q_s[i] = __bfloat162float(qb[i]);
-    acc_s[i] = 0.0f;
-  }
-  for (int g = tid; g < G; g += THREADS) {
-    m_s[g] = NEG_INF;
-    l_s[g] = 0.0f;
-  }
+  const int sp = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int splits = gridDim.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const size_t part = ((size_t)(b * KV + h) * splits + sp) * G;
 
   const int length = lengths[b];
   const int q_pos = length - 1;
@@ -77,101 +125,332 @@ __global__ void paged_decode_kernel(
   }
   int last = length > 0 ? (length - 1) / page : -1;
   if (last > pps - 1) last = pps - 1;
+  const int p_lo = max(sp * pages_per_split, first);
+  const int p_hi = min(sp * pages_per_split + pages_per_split - 1, last);
+  if (p_lo > p_hi) {                           // neutral partial
+    for (int g = tid; g < G; g += THREADS) {
+      part_ml[(part + g) * 2] = NEG_INF;
+      part_ml[(part + g) * 2 + 1] = 0.0f;
+    }
+    return;
+  }
+  const int n_keys = (p_hi - p_lo + 1) * page;
+  const int CH = D >> 3;                       // 16-byte chunks per key row
+
+  // all K pages of the range, then all V pages: two cp.async groups
+  for (int pass = 0; pass < 2; ++pass) {
+    const __nv_bfloat16* src = pass == 0 ? k_pages : v_pages;
+    __nv_bfloat16* dst = pass == 0 ? k_s : v_s;
+    for (int i = tid; i < n_keys * CH; i += THREADS) {
+      const int t = i / CH, c = i - t * CH;
+      const int pg = p_lo + t / page, tok = t - (t / page) * page;
+      int blk = tables[(size_t)b * pps + pg];
+      blk = blk < 0 ? 0 : (blk > NP - 1 ? NP - 1 : blk);
+      cp_async16(smem_u32(dst + t * D + c * 8),
+                 src + (((size_t)blk * page + tok) * KV + h) * D + c * 8);
+    }
+    cp_async_commit();
+  }
+
+  // q in f32, chunk-major: element (g, c * 8 + e) at
+  // ((g * 2 + e / 4) * CH + c) * 4 + e % 4, so lanes reading chunks c..c+7
+  // of one half read 128 contiguous bytes
+  const __nv_bfloat16* qb = q + (size_t)(b * KV + h) * G * D;
+  for (int i = tid; i < G * D; i += THREADS) {
+    const int g = i / D, d = i - g * D;
+    const int c = d >> 3, e = d & 7;
+    q_s[((g * 2 + (e >> 2)) * CH + c) * 4 + (e & 3)] = __bfloat162float(qb[i]);
+  }
+  cp_async_wait<1>();                          // K landed
   __syncthreads();
 
-  for (int p = first; p <= last; ++p) {
-    int blk = tables[(size_t)b * pps + p];
-    blk = blk < 0 ? 0 : (blk > NP - 1 ? NP - 1 : blk);
-    const size_t base = ((size_t)blk * page * KV + h) * D;  // (blk, 0, h, 0)
-    const size_t tstride = (size_t)KV * D;
-    for (int i = tid; i < page * D; i += THREADS) {
-      const int t = i / D, d = i % D;
-      const size_t off = base + t * tstride + d;
-      k_s[t * Dk + d] = __bfloat162float(k_pages[off]);
-      v_s[t * D + d] = __bfloat162float(v_pages[off]);
-    }
-    __syncthreads();
-
-    const int k_start = p * page;
-    for (int i = tid; i < G * page; i += THREADS) {
-      const int g = i / page, t = i % page;
-      const float* qr = q_s + g * D;
-      const float* kr = k_s + t * Dk;
-      float s = 0.0f;
-      for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
-      s *= scale;
-      if (softcap > 0.0f) s = softcap * tanhf(s / softcap);
-      const int kpos = k_start + t;
-      bool ok = kpos < length;
-      if (window > 0) ok = ok && (q_pos - kpos) < window;
-      s_s[i] = ok ? s : NEG_INF;
-    }
-    __syncthreads();
-
-    for (int g = tid; g < G; g += THREADS) {
-      float* sr = s_s + g * page;
-      const float m_prev = m_s[g];
-      float m_cur = NEG_INF;
-      for (int t = 0; t < page; ++t) m_cur = fmaxf(m_cur, sr[t]);
-      const float m_new = fmaxf(m_prev, m_cur);
-      float sum = 0.0f;
-      for (int t = 0; t < page; ++t) {
-        // a fully masked row keeps p = 0 rather than exp(0) = 1
-        const float pv = m_new == NEG_INF ? 0.0f : expf(sr[t] - m_new);
-        sr[t] = pv;
-        sum += pv;
+  // scores: one key per 8-lane group, 16 keys per pass of the block
+  const int grp = lane >> 3, l8 = lane & 7;
+  const int k_start = p_lo * page;
+  for (int t0 = warp * 4; t0 < n_keys; t0 += 4 * NW) {
+    const int t = t0 + grp;
+    const bool valid = t < n_keys;
+    for (int g0 = 0; g0 < G; g0 += GB) {
+      float acc[GB];
+#pragma unroll
+      for (int gi = 0; gi < GB; ++gi) acc[gi] = 0.0f;
+      if (valid) {
+        for (int c = l8; c < CH; c += 8) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(k_s + t * D + c * 8);
+          const __nv_bfloat162* kp =
+              reinterpret_cast<const __nv_bfloat162*>(&raw);
+          float kf[8];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 f = __bfloat1622float2(kp[e]);
+            kf[2 * e] = f.x;
+            kf[2 * e + 1] = f.y;
+          }
+#pragma unroll
+          for (int gi = 0; gi < GB; ++gi) {
+            if (g0 + gi < G) {
+              const float4 a = *reinterpret_cast<const float4*>(
+                  q_s + (((g0 + gi) * 2) * CH + c) * 4);
+              const float4 bq = *reinterpret_cast<const float4*>(
+                  q_s + (((g0 + gi) * 2 + 1) * CH + c) * 4);
+              float x = acc[gi];
+              x = fmaf(a.x, kf[0], x);
+              x = fmaf(a.y, kf[1], x);
+              x = fmaf(a.z, kf[2], x);
+              x = fmaf(a.w, kf[3], x);
+              x = fmaf(bq.x, kf[4], x);
+              x = fmaf(bq.y, kf[5], x);
+              x = fmaf(bq.z, kf[6], x);
+              x = fmaf(bq.w, kf[7], x);
+              acc[gi] = x;
+            }
+          }
+        }
       }
-      const float alpha = m_prev == NEG_INF ? 0.0f : expf(m_prev - m_new);
-      l_s[g] = alpha * l_s[g] + sum;
-      m_s[g] = m_new;
-      a_s[g] = alpha;
+#pragma unroll
+      for (int gi = 0; gi < GB; ++gi) {
+        acc[gi] += __shfl_xor_sync(0xffffffffu, acc[gi], 4);
+        acc[gi] += __shfl_xor_sync(0xffffffffu, acc[gi], 2);
+        acc[gi] += __shfl_xor_sync(0xffffffffu, acc[gi], 1);
+      }
+      // lane l8 of the group writes head g0 + l8
+      float mine = acc[0];
+#pragma unroll
+      for (int gi = 1; gi < GB; ++gi) mine = l8 == gi ? acc[gi] : mine;
+      if (valid && g0 + l8 < G) {
+        float x = mine * scale;
+        if (softcap > 0.0f) x = softcap * tanhf(x / softcap);
+        const int kpos = k_start + t;
+        bool ok = kpos < length;
+        if (window > 0) ok = ok && (q_pos - kpos) < window;
+        s_s[(g0 + l8) * keys_max + t] = ok ? x : NEG_INF;
+      }
+    }
+  }
+  __syncthreads();
+
+  // softmax over the block's keys: one warp per query head
+  for (int g = warp; g < G; g += NW) {
+    float* sr = s_s + g * keys_max;
+    float mx = NEG_INF;
+    for (int t = lane; t < n_keys; t += 32) mx = fmaxf(mx, sr[t]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    float sum = 0.0f;
+    for (int t = lane; t < n_keys; t += 32) {
+      // a head with no valid key in the range keeps p = 0
+      const float p = mx == NEG_INF ? 0.0f : expf(sr[t] - mx);
+      sr[t] = p;
+      sum += p;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (lane == 0) {
+      ml_s[2 * g] = mx;
+      ml_s[2 * g + 1] = sum;
+    }
+  }
+  cp_async_wait<0>();                          // V landed
+  __syncthreads();
+
+  // P V: warp w sums keys t = w mod 4, lane owns dim pairs lane + 32 j
+  const int DH = D >> 1;
+  const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(v_s);
+  for (int g0 = 0; g0 < G; g0 += GB) {
+    float acc[GB][NPR][2];
+#pragma unroll
+    for (int gi = 0; gi < GB; ++gi)
+#pragma unroll
+      for (int j = 0; j < NPR; ++j) acc[gi][j][0] = acc[gi][j][1] = 0.0f;
+    for (int t = warp; t < n_keys; t += NW) {
+      float p[GB];
+#pragma unroll
+      for (int gi = 0; gi < GB; ++gi)
+        p[gi] = g0 + gi < G ? s_s[(g0 + gi) * keys_max + t] : 0.0f;
+#pragma unroll
+      for (int j = 0; j < NPR; ++j) {
+        const int dp = lane + 32 * j;
+        if (dp < DH) {
+          const float2 vf = __bfloat1622float2(v2[t * DH + dp]);
+#pragma unroll
+          for (int gi = 0; gi < GB; ++gi) {
+            acc[gi][j][0] = fmaf(p[gi], vf.x, acc[gi][j][0]);
+            acc[gi][j][1] = fmaf(p[gi], vf.y, acc[gi][j][1]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int gi = 0; gi < GB; ++gi) {
+      if (g0 + gi < G) {
+#pragma unroll
+        for (int j = 0; j < NPR; ++j) {
+          const int dp = lane + 32 * j;
+          if (dp < DH) {
+            float* r = red + ((size_t)warp * G + g0 + gi) * D + 2 * dp;
+            r[0] = acc[gi][j][0];
+            r[1] = acc[gi][j][1];
+          }
+        }
+      }
     }
     __syncthreads();
-
-    for (int i = tid; i < GD; i += THREADS) {
-      const int g = i / D, d = i % D;
-      const float* pr = s_s + g * page;
-      float o = 0.0f;
-      for (int t = 0; t < page; ++t) o = fmaf(pr[t], v_s[t * D + d], o);
-      acc_s[i] = acc_s[i] * a_s[g] + o;
+    const int gn = min(GB, G - g0);
+    for (int i = tid; i < gn * D; i += THREADS) {
+      const int g = g0 + i / D, d = i - (i / D) * D;
+      float x = 0.0f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) x += red[((size_t)w * G + g) * D + d];
+      part_acc[(part + g) * D + d] = x;
     }
-    __syncthreads();
+    __syncthreads();                           // red is reused by g0 + GB
   }
+  for (int g = tid; g < G; g += THREADS) {
+    part_ml[(part + g) * 2] = ml_s[2 * g];
+    part_ml[(part + g) * 2 + 1] = ml_s[2 * g + 1];
+  }
+}
 
-  __nv_bfloat16* ob = out + (size_t)bh * GD;
-  for (int i = tid; i < GD; i += THREADS) {
-    const float l = l_s[i / D];
-    ob[i] = __float2bfloat16(l == 0.0f ? 0.0f : acc_s[i] / l);
+// One block of 64 threads per (b, kv head, query head) merges the row's
+// partials.  The splits' (m, l) are read once, in parallel, into shared
+// memory; the weights exp(m_i - m) follow from there; each thread then
+// sums its output dims over the splits with independent loads (a neutral
+// partial's acc, never written, is read but selected away, never
+// multiplied in).
+constexpr int COMBINE_THREADS = 64;
+
+__device__ __forceinline__ float block_reduce(float x, bool is_max,
+                                              float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float y = __shfl_xor_sync(0xffffffffu, x, o);
+    x = is_max ? fmaxf(x, y) : x + y;
   }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();                       // red's last readers are done
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  x = red[0];
+#pragma unroll
+  for (int w = 1; w < COMBINE_THREADS / 32; ++w)
+    x = is_max ? fmaxf(x, red[w]) : x + red[w];
+  return x;
+}
+
+__global__ void __launch_bounds__(COMBINE_THREADS)
+paged_decode_combine_kernel(
+    const float* __restrict__ part_ml,   // (B, KV, splits, G, 2)
+    const float* __restrict__ part_acc,  // (B, KV, splits, G, D)
+    __nv_bfloat16* __restrict__ out,     // (B, KV, G, D)
+    int G, int D, int splits) {
+  extern __shared__ float ml_s[];        // 2 x splits: m (then w), l
+  __shared__ float red[COMBINE_THREADS / 32];
+  float* w_s = ml_s;
+  float* l_s = ml_s + splits;
+  const int bhg = blockIdx.x;            // (b * KV + h) * G + g
+  const int g = bhg % G;
+  const size_t row = (size_t)(bhg / G) * splits;
+  const int tid = threadIdx.x;
+  float mx = NEG_INF;
+  for (int i = tid; i < splits; i += COMBINE_THREADS) {
+    const size_t j = ((row + i) * G + g) * 2;
+    const float m = part_ml[j], l = part_ml[j + 1];
+    w_s[i] = m;
+    l_s[i] = l;
+    if (l > 0.0f) mx = fmaxf(mx, m);
+  }
+  const float M = block_reduce(mx, true, red);
+  float den = 0.0f;
+  for (int i = tid; i < splits; i += COMBINE_THREADS) {
+    const float l = l_s[i];
+    const float w = l > 0.0f ? expf(w_s[i] - M) : 0.0f;
+    w_s[i] = w;
+    den += w * l;
+  }
+  den = block_reduce(den, false, red);   // its barriers publish w_s
+  for (int d = tid; d < D; d += COMBINE_THREADS) {
+    const float* a = part_acc + (row * G + g) * D + d;
+    const size_t stride = (size_t)G * D;
+    float num = 0.0f;
+#pragma unroll 16
+    for (int i = 0; i < splits; ++i) {
+      const float x = a[i * stride];
+      const float w = w_s[i];
+      num += w > 0.0f ? w * x : 0.0f;
+    }
+    out[(size_t)bhg * D + d] = __float2bfloat16(den > 0.0f ? num / den : 0.0f);
+  }
+}
+
+template <int NPR>
+int launch_split(dim3 grid, int smem, cudaStream_t stream,
+                 const void* q, const void* k_pages, const void* v_pages,
+                 const void* tables, const void* lengths, void* part_ml,
+                 void* part_acc, int KV, int G, int D, int NP, int page,
+                 int pps, int pages_per_split, float scale, int window,
+                 float softcap) {
+  auto kernel = paged_decode_split_kernel<NPR>;
+  static int smem_opted = 48 * 1024;   // one per instantiation
+  if (smem > smem_opted) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_opted = smem;
+  }
+  kernel<<<grid, THREADS, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pages,
+      (const __nv_bfloat16*)v_pages, (const int*)tables, (const int*)lengths,
+      (float*)part_ml, (float*)part_acc, KV, G, D, NP, page, pps,
+      pages_per_split, scale, window, softcap);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int paged_decode_smem_bytes(int G, int D, int page) {
-  return (int)sizeof(float) *
-         (2 * G * D + page * (D + 1) + page * D + G * page + 3 * G);
+// Shared memory (bytes) of one split block.
+extern "C" int paged_decode_smem_bytes(int G, int D, int page,
+                                       int pages_per_split) {
+  return split_smem_bytes(G, D, page * pages_per_split);
 }
 
+// q (B, KV, G, D), pages (NP, page, KV, D), out (B, KV, G, D): bf16; tables
+// (B, pps) and lengths (B,) int32; part_ml (B, KV, splits, G, 2) and
+// part_acc (B, KV, splits, G, D) f32 scratch.  Launches the split kernel
+// and the combine kernel; returns cudaGetLastError() after each, or
+// cudaErrorInvalidValue for a shape the kernels do not take.
 extern "C" int paged_decode_bf16(
     const void* q, const void* k_pages, const void* v_pages,
-    const void* tables, const void* lengths, void* out,
-    int B, int KV, int G, int D, int NP, int page, int pps,
-    float scale, int window, float softcap, void* stream) {
-  const int smem = paged_decode_smem_bytes(G, D, page);
-  static int smem_opted = 48 * 1024;
-  if (smem > smem_opted) {
-    cudaError_t e = cudaFuncSetAttribute(
-        paged_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return (int)e;
-    smem_opted = smem;
-  }
-  if (B * KV > 0) {
-    paged_decode_kernel<<<B * KV, THREADS, smem, (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pages,
-        (const __nv_bfloat16*)v_pages, (const int*)tables,
-        (const int*)lengths, (__nv_bfloat16*)out, KV, G, D, NP, page, pps,
-        scale, window, softcap);
-  }
+    const void* tables, const void* lengths, void* out, void* part_ml,
+    void* part_acc, int B, int KV, int G, int D, int NP, int page, int pps,
+    int pages_per_split, int splits, float scale, int window, float softcap,
+    void* stream) {
+  if (D <= 0 || D % 8 != 0 || D > 288 || page <= 0 || page > 32 ||
+      pages_per_split <= 0 || splits <= 0 || G <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (B * KV == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  const int smem = split_smem_bytes(G, D, page * pages_per_split);
+  dim3 grid(splits, KV, B);
+  const int npr = (D + 63) / 64;
+  int e;
+  if (npr <= 1)
+    e = launch_split<1>(grid, smem, s, q, k_pages, v_pages, tables, lengths,
+                        part_ml, part_acc, KV, G, D, NP, page, pps,
+                        pages_per_split, scale, window, softcap);
+  else if (npr == 2)
+    e = launch_split<2>(grid, smem, s, q, k_pages, v_pages, tables, lengths,
+                        part_ml, part_acc, KV, G, D, NP, page, pps,
+                        pages_per_split, scale, window, softcap);
+  else
+    e = launch_split<5>(grid, smem, s, q, k_pages, v_pages, tables, lengths,
+                        part_ml, part_acc, KV, G, D, NP, page, pps,
+                        pages_per_split, scale, window, softcap);
+  if (e != 0) return e;
+  paged_decode_combine_kernel<<<B * KV * G, COMBINE_THREADS,
+                                2 * sizeof(float) * splits, s>>>(
+      (const float*)part_ml, (const float*)part_acc, (__nv_bfloat16*)out, G,
+      D, splits);
   return (int)cudaGetLastError();
 }

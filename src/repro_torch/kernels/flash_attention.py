@@ -1,18 +1,23 @@
 """Dense flash attention: CUDA forward kernel, plain PyTorch version, and
 the autograd Function whose backward is PyTorch.
 
-Counterpart of ``repro.kernels.flash_attention.flash_attention``.  The
-kernel (``csrc/flash_attention.cu``) runs one thread block per
-``(b * H + h, 64 query rows)``, loops over the reachable K/V tiles with an
-online softmax in f32, reads each query head's kv head ``h // (H / KV)``
-straight from the un-broadcast ``(B, S, KV, D)`` layout, and also writes
-the per-row logsumexp the backward needs.  See the source's header for its
-bound and design.
+Counterpart of ``repro.kernels.flash_attention.flash_attention``.  Both
+kernels of ``csrc/flash_attention.cu`` run one thread block per
+``(b * H + h, tile of 64 or 128 query rows)``, loop over the reachable K/V
+tiles with an online softmax in f32, read each query head's kv head
+``h // (H / KV)`` straight from the un-broadcast ``(B, S, KV, D)`` layout,
+and also write the per-row logsumexp the backward needs.  See the source's header for
+their bound and design.
 
 ``flash_attention`` dispatches on the device of ``q``: a CPU tensor goes
 through the plain version (``repro_torch.kernels.ref.attention_ref``), a
-CUDA tensor launches the kernel or raises.  ``flash_attention.launches``
-counts kernel launches only.
+CUDA tensor launches a kernel or raises.  Which kernel is a rule on dtype
+and head dim (:func:`tensor_core_route`): bf16 with ``D <= 128`` runs the
+tensor-core kernel (mma.sync, P rounded to bf16 for the PV product), f32
+and ``D > 128`` the CUDA-core kernel (P in f32).
+``flash_attention.launches`` counts every launch;
+``flash_fwd_tensor_core.launches`` and ``flash_fwd_cuda_core.launches``
+count each kernel's.
 
 ``flash_attention_int8kv`` is the counterpart of the reference's
 ``flash_attention_int8kv``: the same attention over int8 K/V with
@@ -40,9 +45,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import attention_int8kv_ref, attention_ref
 
 _fn = None
+_fn_tc = None
 _fn_int8kv = None
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 288
+TENSOR_CORE_MAX_HEAD_DIM = 128
 
 
 def _entry():
@@ -55,6 +62,72 @@ def _entry():
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def _entry_tc():
+    global _fn_tc
+    if _fn_tc is None:
+        fn = _build.load("flash_attention").flash_attention_fwd_tc
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fn_tc = fn
+    return _fn_tc
+
+
+def tensor_core_route(dtype: torch.dtype, D: int) -> bool:
+    """The routing rule: bf16 with ``D <= 128`` runs the tensor-core
+    kernel; f32, and bf16 with ``D > 128`` (gemma2-2b's 288), the
+    CUDA-core kernel.  (``D`` is a multiple of 32 either way.)"""
+    return dtype == torch.bfloat16 and D <= TENSOR_CORE_MAX_HEAD_DIM
+
+
+def p_rounding(dtype: torch.dtype, D: int) -> float:
+    """The relative error of P in the PV product of the kernel that
+    ``(dtype, D)`` routes to, the element-wise check's relative term:
+    2^-8 where P is rounded to bf16 (2^-9, doubled for headroom), 2^-14
+    where it stays f32 (2^10 f32 roundings of headroom for sums taken in
+    another order)."""
+    return 2.0 ** -8 if tensor_core_route(dtype, D) else 2.0 ** -14
+
+
+def flash_fwd_tensor_core(q, k, v, out, lse, scale, causal, window,
+                          softcap):
+    """Launch the tensor-core kernel into ``out`` and ``lse``."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    fn = _entry_tc()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    lse.data_ptr(), B, H, KV, Sq, Skv, D, float(scale),
+                    int(causal), int(window or 0), float(softcap or 0.0),
+                    stream)
+    _build.check(status, "flash_attention (tensor cores)")
+    flash_fwd_tensor_core.launches += 1
+
+
+def flash_fwd_cuda_core(q, k, v, out, lse, scale, causal, window, softcap):
+    """Launch the CUDA-core kernel into ``out`` and ``lse``."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    fn = _entry()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    lse.data_ptr(), _DTYPES[q.dtype], B, H, KV, Sq, Skv, D,
+                    float(scale), int(causal), int(window or 0),
+                    float(softcap or 0.0), stream)
+    _build.check(status, "flash_attention (CUDA cores)")
+    flash_fwd_cuda_core.launches += 1
+
+
+flash_fwd_tensor_core.launches = 0
+flash_fwd_cuda_core.launches = 0
 
 
 def _entry_int8kv():
@@ -142,19 +215,13 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     _check_cuda(q, k, v)
     B, Sq, H, D = q.shape
-    Skv, KV = k.shape[1], k.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    fn = _entry()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    lse.data_ptr(), _DTYPES[q.dtype], B, H, KV, Sq, Skv, D,
-                    float(scale), int(causal), int(window or 0),
-                    float(softcap or 0.0), stream)
-    _build.check(status, "flash_attention")
+    launch = (flash_fwd_tensor_core if tensor_core_route(q.dtype, D)
+              else flash_fwd_cuda_core)
+    launch(q, k, v, out, lse, scale, causal, window, softcap)
     flash_attention.launches += 1
     return out, lse
 

@@ -1,16 +1,20 @@
 """Paged single-token decode attention: CUDA kernel + plain PyTorch version.
 
 Counterpart of ``repro.kernels.paged_attention.paged_attention``.  The
-kernel (``csrc/paged_attention.cu``) runs one thread block per
-``(b, kv_head)``, walks only the row's reachable pages through the block
-table with an online softmax in f32, and shares each K/V page read by all
-G query heads of the group.  See the source's header for its bound and
-design.
+kernel (``csrc/paged_attention.cu``) splits every row's context: a grid of
+``(splits, KV, B)`` blocks, each over a contiguous range of
+``pages_per_split`` pages clipped to the row's reachable pages, shares each
+K/V page read by all G query heads of the group and writes a partial
+``(m, l, acc)`` in f32; a second kernel of the same call merges the
+partials.  :func:`split_plan` picks the split from shapes only (never
+``lengths``: reading them would sync the host with the device on the
+decode path).  See the source's header for its bound and design.
 
 ``paged_attention`` dispatches on the device of ``q``: a CPU tensor goes
 through the plain version (``repro_torch.kernels.ref``), a CUDA tensor
-launches the kernel or raises.  ``paged_attention.launches`` counts kernel
-launches only.
+launches the kernels or raises.  ``paged_attention.launches`` counts
+wrapper calls that launched (each issues two CUDA kernels: split and
+combine).
 """
 from __future__ import annotations
 
@@ -24,18 +28,39 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import paged_attention_ref
 
 _fn = None
+SM_COUNT = 132                  # H100 (and H200) SXM streaming multiprocessors
+BLOCKS_PER_SM = 4               # the split aims at this many blocks per SM
+KV_SMEM_BYTES = 48 * 1024       # a split's K and V in shared memory, at most
+P_ROUNDING = 2.0 ** -14         # the kernel keeps P in f32: the element-wise
+                                # check's relative term, 2^10 f32 roundings
+                                # (2^-24 each) of headroom for sums taken in
+                                # another order
 
 
 def _entry():
     global _fn
     if _fn is None:
         fn = _build.load("paged_attention").paged_decode_bf16
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def split_plan(B: int, KV: int, pps: int, page: int, D: int):
+    """``(pages_per_split, splits)`` for a decode call, from shapes only.
+
+    Enough splits that ``B * KV * splits`` covers the ``SM_COUNT`` SMs about
+    ``BLOCKS_PER_SM`` times over, each split at most ``KV_SMEM_BYTES`` of
+    K and V (``4 * page * D`` bytes a page) and at least one page;
+    ``splits * pages_per_split >= pps`` covers the whole table.  Which of
+    a row's pages a split reads is :func:`ref.paged_split_ranges`."""
+    cap = max(1, KV_SMEM_BYTES // (4 * page * D))
+    want = -(-BLOCKS_PER_SM * SM_COUNT // max(1, B * KV))
+    per = max(1, min(cap, -(-pps // want)))
+    return per, -(-pps // per)
 
 
 def paged_attention_plain(q, k_pages, v_pages, block_tables, lengths, *,
@@ -101,17 +126,29 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
         raise ValueError(f"paged_attention: no kernel for device {q.device}")
     _check_cuda(q, k_pages, v_pages, block_tables, lengths=lengths)
     B, KV, G, D = q.shape
+    # the split kernel copies K/V rows in 16-byte pieces
+    if D % 8:
+        raise ValueError(f"decode kernel takes D a multiple of 8, got D={D}")
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     NP, page = k_pages.shape[0], k_pages.shape[1]
     pps = block_tables.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(D)
+    per, splits = split_plan(B, KV, pps, page, D)
     out = torch.empty_like(q)
+    part_ml = torch.empty((B, KV, splits, G, 2), dtype=torch.float32,
+                          device=q.device)
+    part_acc = torch.empty((B, KV, splits, G, D), dtype=torch.float32,
+                           device=q.device)
     fn = _entry()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                     block_tables.data_ptr(), lengths.data_ptr(),
-                    out.data_ptr(), B, KV, G, D, NP, page, pps, float(scale),
+                    out.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
+                    B, KV, G, D, NP, page, pps, per, splits, float(scale),
                     int(window or 0), float(softcap or 0.0), stream)
     _build.check(status, "paged_attention")
     paged_attention.launches += 1

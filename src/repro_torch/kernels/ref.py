@@ -12,6 +12,14 @@ with ``-2e38`` instead, which gives the same values wherever a row has a
 valid key.  ``ssd_scan_ref`` is the chunked SSD scan (the reference's
 ``models.ssm.ssd_chunked``) and ``rmsnorm_ref`` the fused norm's
 function.
+
+Used by the tests and ``chip_smoke.py`` only, to hold the kernels'
+designs and stated rounding: ``paged_split_ranges`` and
+``paged_attention_split_ref`` (the split-context decode kernel's page
+ranges and its split-and-combine, in f32), ``flash_tiles_ref`` (the
+tensor-core flash kernel's tile loop, with P rounded to bf16 for the PV
+product) and ``rounding_bound_ratio`` (the element-wise check derived from
+that rounding).
 """
 from __future__ import annotations
 
@@ -96,6 +104,84 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
     return torch.where(any_valid, out, torch.zeros_like(out)).to(q.dtype)
 
 
+def paged_split_ranges(length: int, pages_per_split: int, splits: int,
+                       page: int, pps: int, window: Optional[int] = None):
+    """The pages ``[lo, hi]`` each split of a decode row reads, or None
+    where its block writes a neutral partial: split ``s`` covers pages
+    ``[s * pages_per_split, (s + 1) * pages_per_split)`` clipped to the
+    row's reachable pages, from the window's first page to
+    ``(length - 1) // page`` (and ``pps - 1``).  The CUDA split kernel
+    clips the same way."""
+    q_pos = length - 1
+    first = max(0, q_pos - (window - 1)) // page if window else 0
+    last = min((length - 1) // page, pps - 1) if length > 0 else -1
+    out = []
+    for s in range(splits):
+        lo = max(s * pages_per_split, first)
+        hi = min(s * pages_per_split + pages_per_split - 1, last)
+        out.append((lo, hi) if lo <= hi else None)
+    return out
+
+
+def paged_attention_split_ref(q, k_pages, v_pages, block_tables, lengths, *,
+                              pages_per_split: int,
+                              scale: Optional[float] = None,
+                              window: Optional[int] = None,
+                              softcap: Optional[float] = None, keep=None,
+                              return_partials: bool = False):
+    """``paged_attention_ref`` computed as the split kernel does, in f32:
+    the table cut into ``ceil(pps / pages_per_split)`` ranges of
+    ``pages_per_split`` pages, a partial
+    ``(m, l, acc)`` per range (``m = -1e30, l = 0`` where the range holds
+    no valid key: a neutral partial), then the combine
+    ``sum_i exp(m_i - m) acc_i / sum_i exp(m_i - m) l_i`` over the partials
+    with ``l_i > 0``.  ``keep``: an optional (B, n_splits) bool mask of
+    partials the combine takes (a broken combine, for the checks' power).
+    Returns out (B, KV, G, D) in q's dtype, and with ``return_partials``
+    also (m, l), each (B, KV, n_splits, G)."""
+    B, KV, G, D = q.shape
+    NP, page = k_pages.shape[0], k_pages.shape[1]
+    pps = block_tables.shape[1]
+    per = pages_per_split
+    n = -(-pps // per)
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    T = n * per * page
+    pad = T - pps * page
+    k = torch.nn.functional.pad(_gather(k_pages, block_tables).float(),
+                                (0, 0, 0, 0, 0, pad))
+    v = torch.nn.functional.pad(_gather(v_pages, block_tables).float(),
+                                (0, 0, 0, 0, 0, pad))
+    s = torch.einsum("bkgd,btkd->bkgt", q.float(), k) * scale
+    s = _softcap(s, softcap)
+    kpos = torch.arange(T, device=q.device)[None, :]
+    lens = lengths.to(torch.long).to(q.device)[:, None]
+    mask = (kpos < lens) & (kpos < pps * page)
+    if window is not None:
+        mask &= (lens - 1) - kpos < window
+    mask = mask[:, None, None, :].expand(B, KV, G, T).reshape(
+        B, KV, G, n, per * page)
+    s = torch.where(mask, s.reshape(mask.shape), torch.full_like(
+        mask, NEG_INF, dtype=torch.float32))
+    m = s.amax(dim=-1)                                   # (B, KV, G, n)
+    p = torch.where(mask, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgnt,bntkd->bkgnd", p,
+                       v.reshape(B, n, per * page, KV, D))
+    use = l > 0
+    if keep is not None:
+        use &= keep.to(q.device)[:, None, None, :]
+    m_all = torch.where(use, m, torch.full_like(m, NEG_INF)).amax(dim=-1)
+    w = torch.where(use, torch.exp(m - m_all[..., None]), torch.zeros_like(m))
+    den = (w * l).sum(dim=-1)
+    num = (w[..., None] * acc).sum(dim=-2)
+    out = torch.where(den[..., None] > 0, num / den.clamp(min=1e-30)[..., None],
+                      torch.zeros_like(num)).to(q.dtype)
+    if not return_partials:
+        return out
+    return out, (m.permute(0, 1, 3, 2), l.permute(0, 1, 3, 2))
+
+
 def paged_prefill_ref(q, k_pages, v_pages, block_tables, start_pos, q_lens,
                       *, scale: Optional[float] = None,
                       window: Optional[int] = None,
@@ -126,6 +212,71 @@ def paged_prefill_ref(q, k_pages, v_pages, block_tables, start_pos, q_lens,
     out = torch.einsum("bkgct,btkd->bckgd", p, v)
     any_valid = mask.any(dim=2)[:, :, None, None, None]
     return torch.where(any_valid, out, torch.zeros_like(out)).to(q.dtype)
+
+
+def flash_tiles_ref(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    scale: Optional[float] = None, block_k: int = 64,
+                    p_dtype: torch.dtype = torch.bfloat16,
+                    rescale_l: bool = True):
+    """The tensor-core flash kernel's loop, in PyTorch, at the model layout
+    (q (B, Sq, H, D), k/v (B, Skv, KV, D)): kv tiles of ``block_k`` keys,
+    S = Q K^T in f32, the online softmax in f32 (running max m, sum l of
+    the unrounded P, accumulator rescaled by exp(m_old - m_new)), and P
+    rounded to ``p_dtype`` before the PV product.  ``rescale_l=False`` is a
+    broken kernel that forgets to rescale l.  Returns (out in q's dtype,
+    lse (B, H, Sq) f32, -inf for a row with no valid key)."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    dev = q.device
+    qf = q.float().reshape(B, Sq, KV, G, D)
+    qpos = torch.arange(Sq, device=dev)[:, None]
+    m = torch.full((B, KV, G, Sq), NEG_INF, device=dev)
+    l = torch.zeros((B, KV, G, Sq), device=dev)
+    acc = torch.zeros((B, KV, G, Sq, D), device=dev)
+    for k0 in range(0, Skv, block_k):
+        kt = k[:, k0:k0 + block_k].float()
+        vt = v[:, k0:k0 + block_k].float()
+        s = torch.einsum("bqkgd,btkd->bkgqt", qf, kt) * scale
+        s = _softcap(s, softcap)
+        kpos = torch.arange(k0, k0 + kt.shape[1], device=dev)[None, :]
+        mask = torch.ones((Sq, kt.shape[1]), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= kpos <= qpos
+        if window is not None:
+            mask &= (qpos - kpos) < window
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.where((m_new == NEG_INF)[..., None], torch.zeros_like(s),
+                        torch.exp(s - m_new[..., None]))
+        l = (alpha * l if rescale_l else l) + p.sum(dim=-1)
+        acc = alpha[..., None] * acc + torch.einsum(
+            "bkgqt,btkd->bkgqd", p.to(p_dtype).float(), vt)
+        m = m_new
+    out = torch.where(l[..., None] > 0, acc / l.clamp(min=1e-30)[..., None],
+                      torch.zeros_like(acc))
+    lse = torch.where(l > 0, m + torch.log(l.clamp(min=1e-30)),
+                      torch.full_like(l, -math.inf))
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+    return out, lse.reshape(B, H, Sq)
+
+
+def rounding_bound_ratio(got, plain, mix_abs, p_rel: float) -> float:
+    """max over elements of ``|got - plain| / bound``, with
+    ``bound = p_rel * mix_abs + ulp_rel * |plain| + 2^-30``: ``mix_abs`` is
+    (|P| @ |V|) / l, the same attention over |V| in f32 (the most a
+    relative error ``p_rel`` in each P can move an output), and
+    ``ulp_rel * |plain|`` one ulp of the output's dtype (2^-7 for bf16,
+    2^-23 for f32) for its final rounding.  A reading above 1 fails."""
+    ulp = 2.0 ** -7 if got.dtype == torch.bfloat16 else 2.0 ** -23
+    r = plain.float()
+    bound = p_rel * mix_abs.float() + ulp * r.abs() + 2.0 ** -30
+    return ((got.float() - r).abs() / bound).max().item()
 
 
 def dequantize_kv(k8, k_scale, v8, v_scale, dtype):
