@@ -27,7 +27,13 @@ Phases (any failure exits nonzero):
               derived from each kernel's rounding of P (``ref.
               rounding_bound_ratio``: 2^-8 (|P| @ |V|) / l for P in bf16 on
               the tensor cores, 2^-14 for P in f32, plus one bf16 ulp of the
-              plain output), and broken kernels must fail it: flash with the
+              plain output), and broken kernels must fail it: paged prefill
+              (the tensor-core kernel at qwen2's D = 64, the CUDA-core one at
+              gemma2's 288, each checked to be the one launched) with a
+              split's partial left out of the combine (tensor cores), the
+              causal mask one key late, each row's last partial page
+              dropped, the padding rows written as queries, gemma2's window
+              one key wider or narrower; flash with the
               causal mask one key late, each row's last partial tile
               dropped, kv head h % KV, l not rescaled, gemma2's window one
               key wider or narrower; decode with a split's partial left out
@@ -46,13 +52,16 @@ Phases (any failure exits nonzero):
               scales, lengths 1-2048), at gemma2-2b's D = 288 with window
               and softcap, and at the TPU kernel's own test shapes (f32,
               q_start 0, kv_len Skv), element by element; kernels that
-              ignored the scales or the per-row lengths, dropped each row's
-              last partial tile or its newest key, moved gemma2's window by
-              one key either way, or kept K unrounded must fail the check;
+              left a split's partial out of the combine, ignored the scales
+              or the per-row lengths, dropped each row's last partial tile
+              or its newest key, moved gemma2's window by one key either
+              way, or kept K unrounded must fail the check;
 4. times    — each kernel at the main path's shapes (decode: B = 8,
-              contexts 512-2048; prefill: B = 4, C = 64; flash: the
-              qwen2 training shapes above; int8 flash: the decode shapes
-              above; SSD: mamba2-1.3b training, b 8; RMSNorm: mamba2's
+              contexts 512-2048; prefill: B = 4, C = 64, and the launcher's
+              B = 4, C = 16; flash: the qwen2 training shapes above; int8
+              flash: the decode shapes above, and the dense prefill
+              replay's B = 1 against a 1,024-position stripe, kv_len
+              1-128; SSD: mamba2-1.3b training, b 8; RMSNorm: mamba2's
               gated norm, 8,192 x 4,096 f32 -> bf16) with CUDA events, L2
               flushed before every launch and a spin kernel after the
               flush so the host's enqueue is not timed, the same element-
@@ -67,7 +76,8 @@ Phases (any failure exits nonzero):
               the scheduler and engine driven directly with 8 prompts of
               320-1024 tokens sharing a 256-token prefix.  Every kernel's
               launch counter is zeroed just before each part and the paged
-              kernels' and RMSNorm's must be > 0 after it; every request
+              kernels' and RMSNorm's must be > 0 after it, and every
+              prefill launch must be the tensor-core kernel's; every request
               completes, the prefix cache hits, nothing leaks;
 6. dense int8 — the same weights in dense mode with the int8 KV cache
               (8 slots, max_seq_len 1024, prefill chunk 16, 64 prefix
@@ -392,6 +402,13 @@ def library_int8(torch, F, case, kd, vd):
     return out.transpose(1, 2)
 
 
+def dequantized_kv(case):
+    """The yardstick's K/V: codes times scales, (B, KV, Skv, D) bf16."""
+    return tuple((c.float() * s.float()[..., None]).bfloat16().transpose(1, 2)
+                 .contiguous() for c, s in ((case["k8"], case["k_scale"]),
+                                            (case["v8"], case["v_scale"])))
+
+
 def ssd_case(torch, rng, dev, *, b, S, H, P, G, N):
     """SSD inputs in the model layout, x, B and C in bf16, dt and A f32:
     N(0, 1) x, B and C, dt = softplus(z), A = -exp(z) (slow decays: the
@@ -511,6 +528,24 @@ def flash_wrongs(torch, fa, ref, q, k, v, kw, tile: int = 64):
                                          rescale_l=False)[0])]
 
 
+def sm_count(pa, t) -> int:
+    """The SMs the split plans size a call on ``t``'s device by."""
+    return pa.device_sm_count(t.device) if t.is_cuda else pa.SM_COUNT
+
+
+def drop_first_live(torch, ranges):
+    """A (B, splits) keep-mask for a broken combine: each batch row's first
+    live partial (a split whose range is not None) left out, where the row
+    has more than one (or where no row has: then every row's only one)."""
+    live = [[i for i, r in enumerate(rs) if r is not None] for rs in ranges]
+    multi = any(len(x) > 1 for x in live)
+    keep = torch.ones((len(ranges), len(ranges[0])), dtype=torch.bool)
+    for b, x in enumerate(live):
+        if x and (len(x) > 1 or not multi):
+            keep[b, x[0]] = False
+    return keep
+
+
 def decode_args(case):
     return (case["q"], case["k_pages"], case["v_pages"],
             case["block_tables"], case["lengths"])
@@ -536,15 +571,9 @@ def decode_wrongs(torch, pa, ref, case):
     page, pps = kp.shape[1], tb.shape[1]
     plain = lambda lengths=ln, window=w: pa.paged_attention_plain(
         q, kp, vp, tb, lengths, window=window, softcap=sc)
-    per, splits = pa.split_plan(B, KV, pps, page, D)
-    live = [[i for i, r in enumerate(ref.paged_split_ranges(
-        n, per, splits, page, pps, w)) if r is not None]
-        for n in ln.tolist()]
-    multi = any(len(x) > 1 for x in live)
-    keep = torch.ones((B, splits), dtype=torch.bool)
-    for b, x in enumerate(live):
-        if x and (len(x) > 1 or not multi):
-            keep[b, x[0]] = False        # each row's first live partial
+    per, splits = pa.split_plan(B, KV, pps, page, D, sm_count(pa, q))
+    keep = drop_first_live(torch, [ref.paged_split_ranges(
+        n, per, splits, page, pps, w) for n in ln.tolist()])
     out = [("dropped one split's partial from the combine",
             lambda: ref.paged_attention_split_ref(
                 q, kp, vp, tb, ln, pages_per_split=per, window=w,
@@ -560,6 +589,89 @@ def decode_wrongs(torch, pa, ref, case):
                    lambda: plain(lengths=(ln - 1).clamp(min=0))),
                   ("read the trash-block entry past a row unmasked",
                    lambda: plain(lengths=trash))]
+
+
+def prefill_args(case):
+    return (case["q"], case["k_pages"], case["v_pages"],
+            case["block_tables"], case["start_pos"], case["q_lens"])
+
+
+def prefill_bound(pp, case):
+    """The plain output, (|P| @ |V|) / l and the relative rounding of P
+    of the prefill kernel that (dtype, D) routes to."""
+    q, kp, vp, tb, st, ql = prefill_args(case)
+    kw = dict(group=case["group"], window=case["window"],
+              softcap=case["softcap"])
+    return (pp.paged_prefill_plain(q, kp, vp, tb, st, ql, **kw),
+            pp.paged_prefill_plain(q.float(), kp.float(), vp.float().abs(),
+                                   tb, st, ql, **kw),
+            pp.p_rounding(q.dtype, q.shape[-1]))
+
+
+def prefill_wrongs(torch, pa, pp, ref, case):
+    """Broken prefill kernels, as plain versions on changed inputs and, on
+    the tensor-core route, the split-and-combine version with a partial
+    left out: [(what, () -> out)].  The window ones where the case has a
+    window."""
+    q, kp, vp, tb, st, ql = prefill_args(case)
+    G, w, sc = case["group"], case["window"], case["softcap"]
+    page = kp.shape[1]
+    B, _, CG, _ = q.shape
+    C = CG // G
+    plain = lambda starts=st, lens=ql, window=w: pp.paged_prefill_plain(
+        q, kp, vp, tb, starts, lens, group=G, window=window, softcap=sc)
+
+    def drop_page():
+        # query c of row b at position p sees keys up to p; a kernel that
+        # drops its last partial page sees keys up to p - cut, cut = p %
+        # page + 1, with its window's first key unmoved: the plain version
+        # one query at a time at position p - cut, window w - cut
+        out = plain().clone()
+        for b, (s, n) in enumerate(zip(st.tolist(), ql.tolist())):
+            for c in range(n):
+                p = s + c
+                cut = p % page + 1
+                if cut == page:
+                    continue                      # its last page is full
+                rows = slice(c * G, (c + 1) * G)
+                if p - cut < 0 or (w is not None and w - cut < 1):
+                    out[b, :, rows] = 0
+                    continue
+                out[b:b + 1, :, rows] = pp.paged_prefill_plain(
+                    q[b:b + 1, :, rows].contiguous(), kp, vp, tb[b:b + 1],
+                    st.new_tensor([p - cut]), ql.new_tensor([1]), group=G,
+                    window=None if w is None else w - cut, softcap=sc)
+        return out
+
+    out = []
+    if pp.tensor_core_route(q.dtype, q.shape[-1]):
+        per, splits = pp.split_plan(B, q.shape[1], tb.shape[1], page,
+                                    q.shape[-1], CG, sm_count(pa, q))
+        keep = drop_first_live(torch, [ref.prefill_split_ranges(
+            s_, n, tb.shape[1] * page, G, per, splits, row0=0, rows=CG,
+            window=w) for s_, n in zip(st.tolist(), ql.tolist())])
+        out.append(("dropped one split's partial from the combine",
+                    lambda: ref.paged_prefill_tiles_ref(
+                        q, kp, vp, tb, st, ql, group=G, keys_per_split=per,
+                        window=w, softcap=sc, keep=keep)))
+    out += [("applied the causal mask one key late",
+            lambda: plain(starts=st + 1, window=None if w is None else w + 1)),
+           ("dropped each row's last partial page", drop_page),
+           ("wrote the padding rows (c >= q_len) as queries",
+            lambda: plain(lens=torch.full_like(ql, C)))]
+    if w:
+        out += [("saw one key more than the window",
+                 lambda: plain(window=w + 1)),
+                ("saw one key less than the window",
+                 lambda: plain(window=w - 1))]
+    return out
+
+
+def padding_rows_zero(got, case) -> bool:
+    """Every padding row (c >= q_len) of the prefill output is zero."""
+    G = case["group"]
+    return all(bool((got[b, :, n * G:] == 0).all())
+               for b, n in enumerate(case["q_lens"].tolist()))
 
 
 def zero_counts(counters) -> None:
@@ -780,6 +892,8 @@ def main() -> int:
     from repro_torch.kernels.ref import attention_int8kv_ref
     counters = {"paged_decode_attention": pa.paged_attention,
                 "paged_prefill_attention": pp.paged_prefill,
+                "paged_prefill_tensor_core": pp.prefill_tensor_core,
+                "paged_prefill_cuda_core": pp.prefill_cuda_core,
                 "flash_attention": fa.flash_attention,
                 "flash_attention_tensor_core": fa.flash_fwd_tensor_core,
                 "flash_attention_cuda_core": fa.flash_fwd_cuda_core,
@@ -842,18 +956,33 @@ def main() -> int:
                            G=s["G"], D=s["D"], page=s["page"], C=s["C"],
                            starts=s["starts"], q_lens=s["q_lens"],
                            window=s["window"], softcap=s["softcap"])
-        args = (pc_["q"], pc_["k_pages"], pc_["v_pages"],
-                pc_["block_tables"], pc_["start_pos"], pc_["q_lens"])
         kw = dict(group=pc_["group"], window=pc_["window"],
                   softcap=pc_["softcap"])
-        got = pp.paged_prefill(*args, **kw)
+        n_tc = pp.prefill_tensor_core.launches
+        got = pp.paged_prefill(*prefill_args(pc_), **kw)
         torch.cuda.synchronize()
-        ref = pp.paged_prefill_plain(*args, **kw)
-        err = (got.float() - ref.float()).abs().max().item()
-        print(f"prefill {label}: max_abs_err {err:.3e} (tol {KERNEL_TOL})")
-        check(err <= KERNEL_TOL, f"prefill kernel disagrees at {label}")
+        tc = pp.prefill_tensor_core.launches > n_tc
+        check(tc == pp.tensor_core_route(got.dtype, got.shape[-1]),
+              f"the prefill call at {label} shapes took the wrong kernel")
+        ref_, mix, p_rel = prefill_bound(pp, pc_)
+        err = (got.float() - ref_.float()).abs().max().item()
+        ratio = kref.rounding_bound_ratio(got, ref_, mix, p_rel)
+        pad_ok = padding_rows_zero(got, pc_)
+        print(f"prefill {label} ({'tensor' if tc else 'CUDA'} cores): "
+              f"max_abs_err {err:.3e}; max |err| / bound "
+              f"{ratio:.3e} (bound 2^{int(math.log2(p_rel))} (|P| @ |V|) / l "
+              f"+ 2^-7 |plain|, fails above 1); padding rows zeros: {pad_ok}")
+        check(ratio <= 1.0 and pad_ok, f"prefill kernel disagrees at {label}")
         worst["paged_prefill_attention"] = max(
             worst.get("paged_prefill_attention", 0.0), err)
+        # the check's power: broken prefill kernels, as plain versions on
+        # changed inputs, must each fail it
+        for what, wrong in prefill_wrongs(torch, pa, pp, kref, pc_):
+            miss = kref.rounding_bound_ratio(wrong(), ref_, mix, p_rel)
+            print(f"prefill {label}: a kernel that {what} would read "
+                  f"{miss:.3e}")
+            check(miss > 1.0, f"the prefill check misses a kernel that {what}")
+        del pc_, got, ref_, mix
 
     flash_sets = {
         "qwen2-0.5b": dict(B=8, S=1024, H=14, KV=2, D=64),
@@ -954,7 +1083,17 @@ def main() -> int:
         if label == "qwen2-0.5b decode":
             full = torch.full_like(n, spec["Skv"])
             tile = torch.where(n > 64, (n - 1) // 64 * 64, n)
+            B8, _, H8, D8 = q.shape
+            G8 = H8 // spec["KV"]
+            per, splits = fa.int8_split_plan(B8, spec["KV"], spec["Skv"], D8,
+                                             G8, sm_count(pa, q))
+            keep = drop_first_live(torch, [kref.int8kv_split_ranges(
+                a, b, spec["Skv"], G8, per, splits, row0=0, rows=G8)
+                for a, b in zip(qs.tolist(), n.tolist())])
             wrongs = [
+                ("dropped one split's partial from the combine",
+                 lambda: kref.int8kv_split_ref(*args, keys_per_split=per,
+                                               keep=keep, **kw)),
                 ("ignored the scales", lambda: attention_int8kv_ref(
                     q, k8, torch.ones_like(ks), v8, torch.ones_like(vs), qs,
                     n, **kw)),
@@ -1097,10 +1236,7 @@ def main() -> int:
     # dequantized beforehand, (B, KV, Skv, D) bf16, untimed
     icase = int8_case(torch, rng, dev, **int8_sets["qwen2-0.5b decode"])
     iargs, ikw = int8_args(icase), icase["kw"]
-    kd, vd = (
-        (c.float() * s.float()[..., None]).bfloat16().transpose(1, 2)
-        .contiguous() for c, s in ((icase["k8"], icase["k_scale"]),
-                                   (icase["v8"], icase["v_scale"])))
+    kd, vd = dequantized_kv(icase)
     kernels = []
     for kname, fn, plain, lib, cost, case, src, tpu in (
             ("paged_decode_attention",
@@ -1159,7 +1295,9 @@ def main() -> int:
                                            pa.P_ROUNDING) <= 1.0
             del mix
         else:
-            ok = err <= KERNEL_TOL
+            _, mix, p_rel = prefill_bound(pp, pcase)
+            ok = kref.rounding_bound_ratio(got_t, ref_t, mix, p_rel) <= 1.0
+            del mix
         lib_err = (None if lib is None
                    else (lib().float() - ref).abs().max().item())
         del ref, out, ref_t, got_t
@@ -1184,6 +1322,73 @@ def main() -> int:
               f"library {lib_txt}, bound {entry['bound_ms']:.4f} ms by "
               f"{bound_by} ({nbytes} B, {flops} flop)", flush=True)
     by_name = {k["name"]: k for k in kernels}
+
+    # the int8 kernel and paged prefill also at the shapes their paths run
+    # most: the dense prefill replay (B = 1, one query, a 1,024-position
+    # staging stripe, kv_len 1-128: eight calls, one per length) and the
+    # launcher's prefill round (B = 4 x C = 16, starts 0-1,024); means over
+    # the calls
+    def int8_fns(case):
+        a, kw = int8_args(case), case["kw"]
+        kd_, vd_ = dequantized_kv(case)
+        return (lambda: fa.flash_attention_int8kv(*a, **kw),
+                lambda: attention_int8kv_ref(*a, **kw),
+                lambda: library_int8(torch, F, case, kd_, vd_))
+
+    def prefill_fns(case):
+        a, kw = prefill_args(case), dict(group=case["group"])
+        return (lambda: pp.paged_prefill(*a, **kw),
+                lambda: pp.paged_prefill_plain(*a, **kw),
+                lambda: library_prefill(torch, F, case))
+
+    def int8_ok(case, got, want):
+        return int8_rel_err(got, want) <= INT8_BF16_RTOL
+
+    def prefill_ok(case, got, want):
+        _, mix, p_rel = prefill_bound(pp, case)
+        return (kref.rounding_bound_ratio(got, want, mix, p_rel) <= 1.0
+                and padding_rows_zero(got, case))
+
+    replay_lens = [1, 19, 37, 55, 74, 92, 110, 128]
+    for kname, what, cases, fns, ok_of, cost in (
+            ("flash_attention_int8kv",
+             "q (1, 1, 14, 64) bf16, int8 K/V (1, 1024, 2, 64), kv_len "
+             f"{replay_lens} (one call each)",
+             [int8_case(torch, rng, dev, Sq=1, H=14, KV=2, D=64, Skv=1024,
+                        q_start=[n - 1], kv_len=[n]) for n in replay_lens],
+             int8_fns, int8_ok, int8_cost),
+            ("paged_prefill_attention",
+             "q (4, 2, 16*7, 64) bf16, C = 16, starts [0, 341, 683, 1024]",
+             [prefill_case(torch, rng, dev, B=4, KV=2, G=7, D=64, page=16,
+                           C=16, starts=[0, 341, 683, 1024],
+                           q_lens=[16, 16, 16, 16])],
+             prefill_fns, prefill_ok, prefill_cost)):
+        t = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+        err, by = 0.0, set()
+        for case in cases:
+            fn, plain, lib = fns(case)
+            want, got = plain(), fn()
+            err = max(err, (got.float() - want.float()).abs().max().item())
+            check(ok_of(case, got, want),
+                  f"{kname} disagrees at its path shapes")
+            del want, got
+            nbytes, flops = cost(case)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_flops = flops / BF16_FLOPS_PER_S * 1e3
+            by.add("bytes" if t_bytes >= t_flops else "operations")
+            for key, f, reps in (("ms", fn, 20), ("plain_ms", plain, 5),
+                                 ("library_ms", lib, 20)):
+                t[key] += time_ms(torch, f, flush, reps=reps) / len(cases)
+            t["bound_ms"] += max(t_bytes, t_flops) / len(cases)
+        entry = by_name[kname]
+        entry["path_shapes"] = dict(t, shapes=what, calls=len(cases),
+                                    bound_by="/".join(sorted(by)))
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        print(f"{kname} at {what}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.5f} ms by {'/'.join(sorted(by))} "
+              f"(means over {len(cases)} calls)", flush=True)
+        del cases
     xb = ncase["x"].bfloat16()
     bf_ms = time_ms(torch, lambda: rn.rmsnorm(xb, ncase["scale"]), flush)
     print(f"rmsnorm 8192 x 4096 bf16 -> bf16: kernel {bf_ms:.4f} ms, bound "
@@ -1217,6 +1422,9 @@ def main() -> int:
     check(all(launches_a[k] > 0 for k in serving_kernels),
           "(a) a kernel of the path was never launched")
     check(rep_a["prefix_hit_rate"] > 0, "(a) no prefix-cache hit")
+    check(launches_a["paged_prefill_tensor_core"]
+          == launches_a["paged_prefill_attention"],
+          "(a) a prefill launch missed the tensor-core kernel")
     check_no_leaks(sched_a, "(a)")
     params = sched_a.engine.params
     del sched_a
@@ -1249,6 +1457,9 @@ def main() -> int:
     check(all(launches_b[k] > 0 for k in serving_kernels),
           "(b) a kernel of the path was never launched")
     check(rep_b["prefix_hit_rate"] > 0, "(b) no prefix-cache hit")
+    check(launches_b["paged_prefill_tensor_core"]
+          == launches_b["paged_prefill_attention"],
+          "(b) a prefill launch missed the tensor-core kernel")
     check_no_leaks(sched_b, "(b)")
     for name in ("paged_decode_attention", "paged_prefill_attention"):
         k = by_name[name]                 # the serving path's own kernels
@@ -1344,6 +1555,12 @@ def main() -> int:
     by_name["flash_attention_int8kv"]["launches_per_step"] = (
         dense["int8"]["launches"] / (dense["int8"]["decode_steps"]
                                      + dense["int8"]["prefill_tokens_executed"]))
+    # the launches split by part of the path (the count above is exact, so
+    # 24 a step splits it): prompt tokens replayed at B = 1, decode steps
+    by_name["flash_attention_int8kv"]["launches_per_part"] = {
+        "prefill replay, B = 1": cfg.num_layers
+        * dense["int8"]["prefill_tokens_executed"],
+        "decode": cfg.num_layers * dense["int8"]["decode_steps"]}
     rms_paths["dense serving"] = (dense["int8"]["rmsnorm"]
                                   + dense["bf16"]["rmsnorm"])
 

@@ -7,8 +7,9 @@ PyTorch headers), compiled for Hopper with
          -Xcompiler -fPIC -Xptxas -v -o <build>/<name>-<hash>.so <source>
 
 into ``build/repro_torch_kernels/`` at the repository root (git-ignored) at
-first use.  The file name carries a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is reused.  All sources that
+first use.  The file name carries a hash of the source, of every
+``csrc/*.cuh`` header and of the flags, so an edited source or header is
+rebuilt and an unchanged one is reused.  All sources that
 need building compile in parallel, one ``nvcc`` process each.  ``ptxas``'s
 report (registers, shared memory, spills) is kept per source in
 :data:`ptxas_log`.
@@ -62,7 +63,13 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
+    """The library ``src`` builds to, named by a hash of the source, every
+    header in ``csrc/`` (any source may include any of them) and the
+    flags."""
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 

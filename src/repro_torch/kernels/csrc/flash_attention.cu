@@ -35,9 +35,10 @@
 // into the A operand of O += P V (V read with ldmatrix.trans).  Causal,
 // window and length masks are applied only on tiles that cross a boundary
 // (two compares per element against per-row bounds); tiles no row of the
-// block can reach are skipped.  The output is staged through shared memory
-// for 16-byte stores.  Shared memory: (64 MT + 4 * 64) * (D + 8) * 2 bytes,
-// 55,296 at D = 64.  No wgmma, TMA or warp specialisation yet: mma.sync was
+// block can reach are skipped.  The fragment, ldmatrix and softmax code is
+// tc_attention.cuh's, shared with the paged prefill kernel.  The output is
+// staged through shared memory for 16-byte stores.  Shared memory: (64 MT +
+// 4 * 64) * (D + 8) * 2 bytes, 55,296 at D = 64.  No wgmma, TMA or warp specialisation yet: mma.sync was
 // the design that could be made right and checked within one change.
 //
 // Numerics of the tensor-core kernel: S from bf16 inputs is exact products
@@ -77,6 +78,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tc_attention.cuh"
 
 namespace {
 
@@ -314,100 +317,19 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
 // ---------------------------------------------------------------------------
 namespace tc {
 
-constexpr int BK = 64;                 // keys per tile
-constexpr int THREADS = 128;           // 4 warps
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
+// the shared tensor-core building blocks (tc_attention.cuh)
+using tc_attn::BK;
+using tc_attn::THREADS;
+using tc_attn::LOG2E;
+using tc_attn::LN2;
+using tc_attn::smem_u32;
+using tc_attn::cp_async_commit;
+using tc_attn::cp_async_wait;
+using tc_attn::pack_bf16;
+using tc_attn::load_tile;
 
 __host__ __device__ constexpr int smem_bytes(int D, int BQ) {
   return (BQ + 4 * BK) * (D + 8) * 2;  // Q, two K and two V stages, bf16
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16-byte asynchronous copy; src_bytes 0 fills the destination with zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1,
-                                        uint32_t& r2, uint32_t& r3,
-                                        uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t& r0, uint32_t& r1,
-                                          uint32_t& r2, uint32_t& r3,
-                                          uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(addr));
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x, one MUFU op (relative error ~2^-22; results below 2^-126 flush to 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// rows [row0, row0 + R) of one head of a (B, S, heads, D) tensor into an
-// (R, D + 8) bf16 tile; rows at or past `valid` are zero-filled
-template <int D, int R>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* base,
-                                          const __nv_bfloat16* row0_ptr,
-                                          int valid, size_t row_stride,
-                                          int tid) {
-  constexpr int CH = D / 8;            // 16-byte chunks per row
-  constexpr int DP = D + 8;
-  if constexpr (THREADS % CH == 0) {
-    // each thread keeps one chunk column: a fixed stride between its rows
-    constexpr int RS = THREADS / CH;   // rows per pass
-    const int r0 = tid / CH, c = tid - (tid / CH) * CH;
-    const __nv_bfloat16* src = row0_ptr + r0 * row_stride + c * 8;
-    const uint32_t d0 = smem_u32(dst + r0 * DP + c * 8);
-#pragma unroll
-    for (int i = 0; i < R / RS; ++i) {
-      const bool ok = r0 + i * RS < valid;
-      cp_async16(d0 + i * RS * DP * 2, ok ? src + i * RS * row_stride : base,
-                 ok ? 16 : 0);
-    }
-  } else {
-    for (int i = tid; i < R * CH; i += THREADS) {
-      const int r = i / CH, c = i - r * CH;
-      const bool ok = r < valid;
-      cp_async16(smem_u32(dst + r * DP + c * 8),
-                 ok ? row0_ptr + r * row_stride + c * 8 : base, ok ? 16 : 0);
-    }
-  }
 }
 
 template <int D, int MT>
@@ -488,157 +410,31 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_tc_kernel(
     }
     cp_async_commit();
 
-    if (kt == kt_lo) {
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks)
-          ldsm_x4(qf[mt][ks][0], qf[mt][ks][1], qf[mt][ks][2], qf[mt][ks][3],
-                  smem_u32(q_s + (wrow + mt * 16 + (lane & 15)) * DP +
-                           ks * 16 + (lane >> 4) * 8));
-    }
+    if (kt == kt_lo) tc_attn::load_q_frags<D, MT>(qf, q_s, wrow, lane);
 
-    // S = Q K^T: 16 MT rows x 64 keys per warp; each K fragment feeds the
-    // warp's MT row tiles
-    const __nv_bfloat16* ks_ = k_s + st * BK * DP;
+    // S = Q K^T: 16 MT rows x 64 keys per warp
     float s[MT][NK][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int j = 0; j < NK; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.0f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-      for (int j = 0; j < NK; j += 2) {
-        const int mi = lane >> 3;
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4(b0, b1, b2, b3,
-                smem_u32(ks_ + (j * 8 + (mi >> 1) * 8 + (lane & 7)) * DP +
-                         ks * 16 + (mi & 1) * 8));
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(s[mt][j], qf[mt][ks], b0, b1);
-          mma_bf16(s[mt][j + 1], qf[mt][ks], b2, b3);
-        }
-      }
-    }
+    tc_attn::qk_tile<D, MT>(s, qf, k_s + st * BK * DP, lane);
 
-    // online softmax on the accumulator fragments.  m is kept in the units
-    // of s; p = 2^(s * sl2 - m * sl2) is one FFMA and one MUFU op, with
-    // sl2 = scale * log2(e) (the softcap's tanh, when on, is applied first
-    // and already scaled, so sl2 = 1 there)
+    // online softmax on the accumulator fragments, masked only on tiles that
+    // cross a boundary: key offset j * 8 + 2 t + (e & 1) of the tile is
+    // valid for row r iff it lies in [lo_r, hi_r]
     const int k0 = kt * BK;
     const bool need_mask = (k0 + BK > Skv) || (causal && k0 + BK - 1 > q0) ||
                            (window > 0 && q0 + BQ - 1 - k0 >= window);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      if (softcap > 0.0f) {
-        const float cs = scale / softcap, cl = softcap * LOG2E;
-#pragma unroll
-        for (int j = 0; j < NK; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            s[mt][j][e] = cl * tanhf(s[mt][j][e] * cs);
-      }
-      if (need_mask) {
-        // key j * 8 + 2 t + (e & 1) of the tile is valid for row r iff its
-        // offset lies in [lo_r, hi_r]
-        int lo[2], hi[2];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int qpos = q0 + wrow + mt * 16 + g + 8 * r;
-          hi[r] = Skv - 1 - k0;
-          if (causal) hi[r] = min(hi[r], qpos - k0);
-          lo[r] = window > 0 ? qpos - window + 1 - k0 : -BK;
-          hi[r] -= 2 * t;
-          lo[r] -= 2 * t;
-        }
-#pragma unroll
-        for (int j = 0; j < NK; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int off = j * 8 + (e & 1);
-            const int r = e >> 1;
-            s[mt][j][e] = off >= lo[r] && off <= hi[r] ? s[mt][j][e] : NEG_INF;
-          }
-      }
-      // row max and sum over 4 independent chains each (ILP), then the quad
-      float mx4[2][4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) mx4[0][c] = mx4[1][c] = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < NK; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          mx4[e >> 1][(j & 1) * 2 + (e & 1)] =
-              fmaxf(mx4[e >> 1][(j & 1) * 2 + (e & 1)], s[mt][j][e]);
-      float mx[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        mx[r] = fmaxf(fmaxf(mx4[r][0], mx4[r][1]), fmaxf(mx4[r][2], mx4[r][3]));
-      float alpha[2], m_sc[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(m_r[mt][r], mx[r]);
-        // m_r = NEG_INF (no key yet) gives alpha = 0 against a finite m_new
-        alpha[r] = ex2((m_r[mt][r] - m_new) * sl2);
-        m_r[mt][r] = m_new;
-        // a row with no valid key yet keeps p = 2^(-1e30 sl2) = 0, not 2^0
-        m_sc[r] = m_new == NEG_INF ? 0.0f : m_new * sl2;
-      }
-      float sum4[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
-#pragma unroll
-      for (int j = 0; j < NK; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = ex2(fmaf(s[mt][j][e], sl2, -m_sc[e >> 1]));
-          s[mt][j][e] = p;
-          sum4[e >> 1][(j & 1) * 2 + (e & 1)] += p;
-        }
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        l_r[mt][r] = alpha[r] * l_r[mt][r] +
-                     ((sum4[r][0] + sum4[r][1]) + (sum4[r][2] + sum4[r][3]));
-#pragma unroll
-      for (int j = 0; j < ND; ++j) {
-        o[mt][j][0] *= alpha[0];
-        o[mt][j][1] *= alpha[0];
-        o[mt][j][2] *= alpha[1];
-        o[mt][j][3] *= alpha[1];
-      }
-    }
+    auto bounds = [&](int mt, int r, int& lo, int& hi) {
+      const int qpos = q0 + wrow + mt * 16 + g + 8 * r;
+      hi = Skv - 1 - k0;
+      if (causal) hi = min(hi, qpos - k0);
+      lo = window > 0 ? qpos - window + 1 - k0 : -BK;
+      hi -= 2 * t;
+      lo -= 2 * t;
+    };
+    tc_attn::softmax_tile<D, MT>(s, o, m_r, l_r, sl2, scale, softcap,
+                                 need_mask, bounds);
 
-    // O += P V: P rounded to bf16 in registers as the A operand; each V
-    // fragment feeds the warp's MT row tiles
-    const __nv_bfloat16* vs_ = v_s + st * BK * DP;
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        a[mt][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
-        a[mt][1] = pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
-        a[mt][2] = pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
-        a[mt][3] = pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
-      }
-#pragma unroll
-      for (int jd = 0; jd < ND; jd += 2) {
-        const int mi = lane >> 3;
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4_t(b0, b1, b2, b3,
-                  smem_u32(vs_ + (kk * 16 + (mi & 1) * 8 + (lane & 7)) * DP +
-                           jd * 8 + (mi >> 1) * 8));
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(o[mt][jd], a[mt], b0, b1);
-          mma_bf16(o[mt][jd + 1], a[mt], b2, b3);
-        }
-      }
-    }
+    // O += P V, P rounded to bf16
+    tc_attn::pv_tile<D, MT>(o, s, v_s + st * BK * DP, lane);
   }
 
   cp_async_wait<0>();
@@ -649,8 +445,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_tc_kernel(
     float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      l_r[mt][r] += __shfl_xor_sync(0xffffffffu, l_r[mt][r], 1);
-      l_r[mt][r] += __shfl_xor_sync(0xffffffffu, l_r[mt][r], 2);
+      l_r[mt][r] = tc_attn::quad_sum(l_r[mt][r]);
       inv[r] = l_r[mt][r] > 0.0f ? 1.0f / l_r[mt][r] : 0.0f;
     }
     __nv_bfloat16* st_r = stage + (mt * 16 + g) * DP + 2 * t;

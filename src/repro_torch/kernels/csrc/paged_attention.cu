@@ -38,10 +38,11 @@
 //    G heads, and the 4 warps' sums meet in shared memory.  The block
 //    writes its partial (m, l, acc) unnormalised, in f32, to scratch that
 //    the wrapper allocates.
-// 2. paged_decode_combine_kernel, one block of 64 threads per (b, kv head,
-//    query head): out = sum_i exp(m_i - m) acc_i / sum_i exp(m_i - m) l_i
-//    over the partials with l_i > 0 (m their max), rounded to bf16; a row
-//    with no non-neutral partial (length 0) writes zeros.  The splits'
+// 2. split_combine::combine_kernel (split_combine.cuh, shared with paged
+//    prefill and the int8 flash kernel), one block of 64 threads per (b, kv
+//    head, query head): out = sum_i exp(m_i - m) acc_i / sum_i exp(m_i - m)
+//    l_i over the partials with l_i > 0 (m their max), rounded to bf16; a
+//    row with no non-neutral partial (length 0) writes zeros.  The splits'
 //    (m, l) are read once, in parallel, into shared memory, and each
 //    thread's loads of acc over the splits are independent of each other:
 //    the combine costs a few dependent memory round trips, whatever the
@@ -61,6 +62,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "split_combine.cuh"
 
 namespace {
 
@@ -313,77 +316,6 @@ __global__ void __launch_bounds__(THREADS) paged_decode_split_kernel(
   }
 }
 
-// One block of 64 threads per (b, kv head, query head) merges the row's
-// partials.  The splits' (m, l) are read once, in parallel, into shared
-// memory; the weights exp(m_i - m) follow from there; each thread then
-// sums its output dims over the splits with independent loads (a neutral
-// partial's acc, never written, is read but selected away, never
-// multiplied in).
-constexpr int COMBINE_THREADS = 64;
-
-__device__ __forceinline__ float block_reduce(float x, bool is_max,
-                                              float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float y = __shfl_xor_sync(0xffffffffu, x, o);
-    x = is_max ? fmaxf(x, y) : x + y;
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();                       // red's last readers are done
-  if (lane == 0) red[warp] = x;
-  __syncthreads();
-  x = red[0];
-#pragma unroll
-  for (int w = 1; w < COMBINE_THREADS / 32; ++w)
-    x = is_max ? fmaxf(x, red[w]) : x + red[w];
-  return x;
-}
-
-__global__ void __launch_bounds__(COMBINE_THREADS)
-paged_decode_combine_kernel(
-    const float* __restrict__ part_ml,   // (B, KV, splits, G, 2)
-    const float* __restrict__ part_acc,  // (B, KV, splits, G, D)
-    __nv_bfloat16* __restrict__ out,     // (B, KV, G, D)
-    int G, int D, int splits) {
-  extern __shared__ float ml_s[];        // 2 x splits: m (then w), l
-  __shared__ float red[COMBINE_THREADS / 32];
-  float* w_s = ml_s;
-  float* l_s = ml_s + splits;
-  const int bhg = blockIdx.x;            // (b * KV + h) * G + g
-  const int g = bhg % G;
-  const size_t row = (size_t)(bhg / G) * splits;
-  const int tid = threadIdx.x;
-  float mx = NEG_INF;
-  for (int i = tid; i < splits; i += COMBINE_THREADS) {
-    const size_t j = ((row + i) * G + g) * 2;
-    const float m = part_ml[j], l = part_ml[j + 1];
-    w_s[i] = m;
-    l_s[i] = l;
-    if (l > 0.0f) mx = fmaxf(mx, m);
-  }
-  const float M = block_reduce(mx, true, red);
-  float den = 0.0f;
-  for (int i = tid; i < splits; i += COMBINE_THREADS) {
-    const float l = l_s[i];
-    const float w = l > 0.0f ? expf(w_s[i] - M) : 0.0f;
-    w_s[i] = w;
-    den += w * l;
-  }
-  den = block_reduce(den, false, red);   // its barriers publish w_s
-  for (int d = tid; d < D; d += COMBINE_THREADS) {
-    const float* a = part_acc + (row * G + g) * D + d;
-    const size_t stride = (size_t)G * D;
-    float num = 0.0f;
-#pragma unroll 16
-    for (int i = 0; i < splits; ++i) {
-      const float x = a[i * stride];
-      const float w = w_s[i];
-      num += w > 0.0f ? w * x : 0.0f;
-    }
-    out[(size_t)bhg * D + d] = __float2bfloat16(den > 0.0f ? num / den : 0.0f);
-  }
-}
-
 template <int NPR>
 int launch_split(dim3 grid, int smem, cudaStream_t stream,
                  const void* q, const void* k_pages, const void* v_pages,
@@ -448,9 +380,7 @@ extern "C" int paged_decode_bf16(
                         part_ml, part_acc, KV, G, D, NP, page, pps,
                         pages_per_split, scale, window, softcap);
   if (e != 0) return e;
-  paged_decode_combine_kernel<<<B * KV * G, COMBINE_THREADS,
-                                2 * sizeof(float) * splits, s>>>(
-      (const float*)part_ml, (const float*)part_acc, (__nv_bfloat16*)out, G,
-      D, splits);
-  return (int)cudaGetLastError();
+  return split_combine::launch_combine(
+      (const float*)part_ml, (const float*)part_acc, (__nv_bfloat16*)out, B,
+      KV, G, D, splits, 1, (long long)KV * G * D, (long long)G * D, D, s);
 }

@@ -1,4 +1,7 @@
-// Paged chunked-prefill attention over block tables, for Hopper (sm_90a).
+// Paged chunked-prefill attention over block tables, for Hopper (sm_90a): a
+// tensor-core kernel split over the context (bf16 with D in {32, 64, 96,
+// 128}) with the shared combine step, and a CUDA-core kernel for the other
+// head dims (gemma2-2b's 288).
 //
 // Replaces: src/repro/kernels/paged_prefill.py :: paged_prefill (Pallas body
 // _paged_prefill_kernel), reached through
@@ -8,29 +11,59 @@
 // whole history; with the query chunk folded to C*G rows per KV head, each
 // K/V page read once feeds 4 * C * G * D flops per position against 4 * D
 // bytes, i.e. C * G flops per byte.  At the engine's default chunk (C = 16,
-// G = 7: 112 flop/byte) that is below the H100's ~295 flop/byte bf16 ridge,
-// so the bytes of K/V bound it; at C = 64 (448 flop/byte) the flops do.  This
-// simple version runs the flops in f32 on CUDA cores and re-reads each page
-// once per row tile, so it sits far above either bound.
+// G = 7: 112 flop/byte) that is near the H100's ~295 flop/byte bf16 ridge,
+// at C = 64 (448 flop/byte) above it: the kernel belongs on tensor cores,
+// reading each page once.
 //
-// Design: one thread block per (batch row b, KV head h, tile of R query
-// rows).  Query rows are the chunk-folded rows r = c * G + g of q
-// (B, KV, C*G, D), so all G heads of a KV group share one page read.  The
-// Pallas grid's sequential page axis with (m, l, acc) in VMEM scratch becomes
-// a loop over pages inside the block, with per-row m, l and acc in shared
-// memory in f32.  The loop runs from the window's first page (bounded by the
+// Tensor-core kernel (paged_prefill_tc_kernel<D, MT>), grid (splits x row
+// tiles, KV, B), 4 warps.  A block holds 64 MT folded query rows (row
+// r = c * G + g of q (B, KV, C*G, D): query token c for head g of the kv
+// group; MT = 2 for D <= 64), so the 112 rows of a C = 16, G = 7 chunk are
+// one row tile and all G heads share every page read.  The host cuts each
+// row's key axis (the table's pps * page positions) into `splits` ranges of
+// `keys_per_split` keys, a multiple of 64, from shapes only (never
+// start_pos or q_lens, which live on the card), so that the grid covers the
+// SMs.  A block clips its range to the keys its valid rows can see: from
+// the window's first key of its oldest query to its newest query (c <
+// q_len); a block with no valid row or an empty range writes neutral
+// partials (m = -1e30, l = 0) and exits.  It walks its range in 64-key
+// tiles (four 16-token pages), each staged through the block table with
+// 16-byte cp.async into a two-stage bf16 ring in shared memory (tile n + 1
+// in flight while tile n is multiplied, one barrier a tile; each page read
+// once per block; table entries clamped to [0, NP - 1]).  S = Q K^T, the
+// online softmax and O += P V are tc_attention.cuh's, shared with the flash
+// forward: mma.sync.m16n8k16 in bf16 with f32 accumulators, P rounded to
+// bf16 for the PV product (as the flash kernel and SDPA), l summing the
+// unrounded f32 P.  Masks only on tiles that cross a boundary: causal from
+// start_pos + c, the window, and keys past the table (the softcap comes
+// before the mask).  The block writes its rows' partial (m, l, acc)
+// unnormalised in f32; padding rows (c >= q_len) write neutral partials.
+// split_combine::combine_kernel (split_combine.cuh) then merges the
+// partials of each row into the bf16 output; a row with none (padding, or a
+// q_len = 0 batch row) writes zeros.  Shared memory (64 MT + 4 * 64) *
+// (D + 8) * 2 bytes, 55,296 at D = 64.
+//
+// CUDA-core kernel (paged_prefill_kernel), for the other head dims (D >
+// 128): one thread block per (batch row b, KV head h, tile of 16 folded
+// query rows), walking the row's reachable pages through the block table
+// with an online softmax in f32 (f32 FMA, P in f32), per-row m, l and acc in
+// shared memory.  The loop runs from the window's first page (bounded by the
 // oldest query, position start) to the page holding the newest query
 // (start + q_len - 1); rows are masked causally with c = r / G, rows with
 // c >= q_len are padding, and a fully masked row keeps p = 0 and writes
-// zeros.  A row of the batch with q_len == 0 reads no page at all.  Table
-// entries are clamped to [0, NP - 1] and every position past the causal
-// bound is masked, so trash or garbage entries never contribute.
+// zeros.  A row of the batch with q_len == 0 reads no page at all.  It
+// re-reads each page once per row tile; moving D = 288 onto tensor cores is
+// later work.
 //
-// Simple first: f32 FMA on CUDA cores, no tensor cores, no cp.async or TMA,
-// each page re-read once per row tile.  Those are later work.
+// Both kernels clamp table entries to [0, NP - 1] and mask every position
+// past the causal bound, so trash or garbage entries never contribute.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "split_combine.cuh"
+#include "tc_attention.cuh"
 
 namespace {
 
@@ -155,6 +188,231 @@ __global__ void paged_prefill_kernel(
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// Tensor-core kernel (bf16, D in {32, 64, 96, 128}), split over the context
+// ---------------------------------------------------------------------------
+namespace tcp {
+
+using tc_attn::BK;
+using tc_attn::THREADS;
+using tc_attn::LN2;
+using tc_attn::LOG2E;
+
+__host__ __device__ constexpr int smem_bytes(int D, int BQ) {
+  return (BQ + 4 * BK) * (D + 8) * 2;  // Q, two K and two V stages, bf16
+}
+
+// keys [k0, k0 + 64) of kv head h of one row's pages, through its table,
+// into a (BK, D + 8) bf16 tile; keys at or past k_end are zero-filled
+template <int D>
+__device__ __forceinline__ void load_page_tile(
+    __nv_bfloat16* dst, const __nv_bfloat16* pages, const int* table,
+    int k0, int k_end, int page, int NP, int KV, int h, int tid) {
+  constexpr int CH = D / 8;            // 16-byte chunks per key row
+  constexpr int DP = D + 8;
+#pragma unroll
+  for (int i = tid; i < BK * CH; i += THREADS) {
+    const int t = i / CH, c = i - t * CH;
+    const int pos = k0 + t;
+    const bool ok = pos < k_end;
+    const __nv_bfloat16* src = pages;
+    if (ok) {
+      const int pg = pos / page;
+      int blk = table[pg];
+      blk = blk < 0 ? 0 : (blk > NP - 1 ? NP - 1 : blk);
+      src = pages + (((size_t)blk * page + (pos - pg * page)) * KV + h) * D +
+            c * 8;
+    }
+    tc_attn::cp_async16(tc_attn::smem_u32(dst + t * DP + c * 8), src,
+                        ok ? 16 : 0);
+  }
+}
+
+template <int D, int MT>
+__global__ void __launch_bounds__(THREADS) paged_prefill_tc_kernel(
+    const __nv_bfloat16* __restrict__ q,        // (B, KV, CG, D)
+    const __nv_bfloat16* __restrict__ k_pages,  // (NP, page, KV, D)
+    const __nv_bfloat16* __restrict__ v_pages,  // (NP, page, KV, D)
+    const int* __restrict__ tables,             // (B, pps)
+    const int* __restrict__ start_pos,          // (B,)
+    const int* __restrict__ q_lens,             // (B,)
+    float* __restrict__ part_ml,                // (B, KV, splits, CG, 2)
+    float* __restrict__ part_acc,               // (B, KV, splits, CG, D)
+    int KV, int CG, int G, int NP, int page, int pps, int keys_per_split,
+    int splits, float scale, int window, float softcap) {
+  constexpr int BQ = 64 * MT;          // folded rows per block, 16 MT a warp
+  constexpr int DP = D + 8;            // padded smem row (bf16 elements)
+  constexpr int ND = D / 8;            // 8-wide column tiles of O
+  constexpr int NK = BK / 8;           // 8-key column tiles of S
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* k_s = q_s + BQ * DP;  // 2 stages of BK x DP
+  __nv_bfloat16* v_s = k_s + 2 * BK * DP;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int sp = blockIdx.x % splits;
+  const int row0 = (blockIdx.x / splits) * BQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int nrows = min(BQ, CG - row0);
+  const int start = start_pos[b], q_len = q_lens[b];
+  const int T = pps * page;            // positions the table covers
+  const size_t part = ((size_t)(b * KV + h) * splits + sp) * CG + row0;
+
+  // the block's valid queries c_lo..c_hi (c < q_len) see keys from the
+  // oldest one's window start to the newest one's position; clipped to the
+  // table and to the split's range
+  const int c_lo = row0 / G;
+  const int c_hi = min((row0 + nrows - 1) / G, q_len - 1);
+  int k_lo = 0, k_hi = 0;
+  if (c_lo <= c_hi) {
+    const int lo = window > 0 ? max(0, start + c_lo - (window - 1)) : 0;
+    k_lo = max(lo, sp * keys_per_split);
+    k_hi = min(min(start + c_hi + 1, T), sp * keys_per_split + keys_per_split);
+  }
+  if (k_lo >= k_hi) {                  // neutral partials
+    for (int r = tid; r < nrows; r += THREADS) {
+      part_ml[(part + r) * 2] = NEG_INF;
+      part_ml[(part + r) * 2 + 1] = 0.0f;
+    }
+    return;
+  }
+
+  const int* table = tables + (size_t)b * pps;
+  const int kt_lo = k_lo / BK, kt_hi = (k_hi + BK - 1) / BK;
+  tc_attn::load_tile<D, BQ>(q_s, q, q + ((size_t)(b * KV + h) * CG + row0) * D,
+                            nrows, D, tid);
+  load_page_tile<D>(k_s, k_pages, table, kt_lo * BK, k_hi, page, NP, KV, h,
+                    tid);
+  load_page_tile<D>(v_s, v_pages, table, kt_lo * BK, k_hi, page, NP, KV, h,
+                    tid);
+  tc_attn::cp_async_commit();
+
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = warp * 16 * MT;                 // the warp's first row
+  // row c = row / G sees keys [qpos - window + 1, qpos], qpos = start + c,
+  // and none past the table
+  int qlo[MT][2], qhi[MT][2];
+  float o[MT][ND][4];
+  float m_r[MT][2], l_r[MT][2];                    // l_r: this thread's share
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qpos = start + (row0 + wrow + mt * 16 + g + 8 * r) / G;
+      qhi[mt][r] = min(qpos, T - 1);
+      qlo[mt][r] = window > 0 ? qpos - window + 1 : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mt][j][e] = 0.0f;
+    m_r[mt][0] = m_r[mt][1] = NEG_INF;
+    l_r[mt][0] = l_r[mt][1] = 0.0f;
+  }
+  // a tile needs masks where it reaches past the oldest valid query's
+  // position (or the table's end), or before the newest one's window start
+  const int min_hi = min(start + c_lo, T - 1);
+  const int max_lo = window > 0 ? start + c_hi - window + 1 : 0;
+  uint32_t qf[MT][D / 16][4];
+  const float sl2 = softcap > 0.0f ? 1.0f : scale * LOG2E;
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int st = (kt - kt_lo) & 1;
+    tc_attn::cp_async_wait<0>();                 // tile kt (and Q) landed
+    // one barrier a tile: it publishes tile kt and tells that every warp
+    // is done with tile kt - 1, whose stage the prefetch below refills
+    __syncthreads();
+    if (kt + 1 < kt_hi) {                        // prefetch the next tile
+      load_page_tile<D>(k_s + (st ^ 1) * BK * DP, k_pages, table,
+                        (kt + 1) * BK, k_hi, page, NP, KV, h, tid);
+      load_page_tile<D>(v_s + (st ^ 1) * BK * DP, v_pages, table,
+                        (kt + 1) * BK, k_hi, page, NP, KV, h, tid);
+    }
+    tc_attn::cp_async_commit();
+
+    if (kt == kt_lo) tc_attn::load_q_frags<D, MT>(qf, q_s, wrow, lane);
+
+    float s[MT][NK][4];
+    tc_attn::qk_tile<D, MT>(s, qf, k_s + st * BK * DP, lane);
+
+    const int k0 = kt * BK;
+    const bool need_mask = k0 + BK - 1 > min_hi || k0 < max_lo;
+    auto bounds = [&](int mt, int r, int& lo, int& hi) {
+      lo = qlo[mt][r] - k0 - 2 * t;
+      hi = qhi[mt][r] - k0 - 2 * t;
+    };
+    tc_attn::softmax_tile<D, MT>(s, o, m_r, l_r, sl2, scale, softcap,
+                                 need_mask, bounds);
+    tc_attn::pv_tile<D, MT>(o, s, v_s + st * BK * DP, lane);
+  }
+  tc_attn::cp_async_wait<0>();
+
+  // the partials: (m in the natural units of the scaled score, l) and the
+  // unnormalised acc; padding rows (c >= q_len) and rows that saw no key
+  // write neutral ones
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float l = tc_attn::quad_sum(l_r[mt][r]);
+      const int row = row0 + wrow + mt * 16 + g + 8 * r;
+      if (row < CG) {
+        const bool valid = row / G < q_len && l > 0.0f;
+        const size_t pr = part + (row - row0);
+        if (t == 0) {
+          part_ml[pr * 2] = valid ? m_r[mt][r] * sl2 * LN2 : NEG_INF;
+          part_ml[pr * 2 + 1] = valid ? l : 0.0f;
+        }
+        if (valid) {
+#pragma unroll
+          for (int jd = 0; jd < ND; ++jd)
+            *reinterpret_cast<float2*>(part_acc + pr * D + jd * 8 + 2 * t) =
+                make_float2(o[mt][jd][2 * r], o[mt][jd][2 * r + 1]);
+        }
+      }
+    }
+}
+
+// MT = 2 row tiles a warp (128 folded rows a block) where the registers
+// allow it (D <= 64), else 1
+template <int D>
+int launch(const void* q, const void* k_pages, const void* v_pages,
+           const void* tables, const void* start_pos, const void* q_lens,
+           void* out, void* part_ml, void* part_acc, int B, int KV, int CG,
+           int G, int NP, int page, int pps, int keys_per_split, int splits,
+           float scale, int window, float softcap, cudaStream_t stream) {
+  constexpr int MT = D <= 64 ? 2 : 1;
+  constexpr int BQ = 64 * MT;
+  auto kernel = paged_prefill_tc_kernel<D, MT>;
+  constexpr int smem = smem_bytes(D, BQ);
+  static int smem_opted = 48 * 1024;   // one per instantiation
+  if (smem > smem_opted) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_opted = smem;
+  }
+  const int tiles = (CG + BQ - 1) / BQ;
+  if (B * KV * tiles == 0) return (int)cudaGetLastError();
+  dim3 grid(splits * tiles, KV, B);
+  kernel<<<grid, THREADS, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pages,
+      (const __nv_bfloat16*)v_pages, (const int*)tables,
+      (const int*)start_pos, (const int*)q_lens, (float*)part_ml,
+      (float*)part_acc, KV, CG, G, NP, page, pps, keys_per_split, splits,
+      scale, window, softcap);
+  const int e = (int)cudaGetLastError();
+  if (e != 0) return e;
+  return split_combine::launch_combine(
+      (const float*)part_ml, (const float*)part_acc, (__nv_bfloat16*)out, B,
+      KV, CG, D, splits, 1, (long long)KV * CG * D, (long long)CG * D, D,
+      stream);
+}
+
+}  // namespace tcp
+
 }  // namespace
 
 extern "C" int paged_prefill_smem_bytes(int D, int page) {
@@ -188,4 +446,35 @@ extern "C" int paged_prefill_bf16(
         CG, G, D, NP, page, pps, scale, window, softcap);
   }
   return (int)cudaGetLastError();
+}
+
+// The tensor-core kernel: q (B, KV, CG, D), pages (NP, page, KV, D) and out
+// bf16, D in {32, 64, 96, 128}; tables (B, pps), start_pos and q_lens (B,)
+// int32; part_ml (B, KV, splits, CG, 2) and part_acc (B, KV, splits, CG, D)
+// f32 scratch; keys_per_split a multiple of 64 with keys_per_split * splits
+// >= pps * page.  Launches the split kernel and the combine kernel; returns
+// cudaGetLastError() after each, or cudaErrorInvalidValue for a shape they
+// do not take.
+extern "C" int paged_prefill_tc_bf16(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* tables, const void* start_pos, const void* q_lens,
+    void* out, void* part_ml, void* part_acc, int B, int KV, int CG, int G,
+    int D, int NP, int page, int pps, int keys_per_split, int splits,
+    float scale, int window, float softcap, void* stream) {
+  if (G <= 0 || CG % G != 0 || page <= 0 || keys_per_split <= 0 ||
+      keys_per_split % tcp::BK != 0 || splits <= 0 ||
+      (long long)keys_per_split * splits < (long long)pps * page)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define PREFILL_TC_ARGS q, k_pages, v_pages, tables, start_pos, q_lens, out, \
+    part_ml, part_acc, B, KV, CG, G, NP, page, pps, keys_per_split, splits,  \
+    scale, window, softcap, s
+  switch (D) {
+    case 32: return tcp::launch<32>(PREFILL_TC_ARGS);
+    case 64: return tcp::launch<64>(PREFILL_TC_ARGS);
+    case 96: return tcp::launch<96>(PREFILL_TC_ARGS);
+    case 128: return tcp::launch<128>(PREFILL_TC_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef PREFILL_TC_ARGS
 }

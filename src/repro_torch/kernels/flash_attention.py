@@ -21,11 +21,12 @@ count each kernel's.
 
 ``flash_attention_int8kv`` is the counterpart of the reference's
 ``flash_attention_int8kv``: the same attention over int8 K/V with
-per-token scales, dequantized after the load
-(``csrc/flash_attention_int8kv.cu``), plus per-row query positions
-(``q_start``, ``kv_len``) for the dense int8 decode cache.  It dispatches
-and counts the same way; its plain version is
-``ref.attention_int8kv_ref``.
+per-token scales, dequantized after the load, plus per-row query positions
+(``q_start``, ``kv_len``) for the dense int8 decode cache.  Its kernel
+(``csrc/flash_attention_int8kv.cu``) splits the key axis by
+:func:`int8_split_plan` (shapes only) and merges the splits' partials in a
+second kernel of the same call.  It dispatches and counts the same way; its
+plain version is ``ref.attention_int8kv_ref``.
 
 The backward (``flash_attention_bwd``) is PyTorch on any device: the JAX
 package has no backward kernel (its gradient is XLA's autodiff of the jnp
@@ -42,6 +43,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.paged_attention import (BLOCKS_PER_SM, SM_COUNT,
+                                                 device_sm_count)
 from repro_torch.kernels.ref import attention_int8kv_ref, attention_ref
 
 _fn = None
@@ -50,6 +53,9 @@ _fn_int8kv = None
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 288
 TENSOR_CORE_MAX_HEAD_DIM = 128
+INT8_ROWS = 16                  # folded query rows per row tile (int8 kernel)
+INT8_KEY_UNIT = 16              # an int8 split's keys are a multiple of this
+INT8_SMEM_BYTES = 64 * 1024     # an int8 split block's shared memory, at most
 
 
 def _entry():
@@ -134,12 +140,47 @@ def _entry_int8kv():
     global _fn_int8kv
     if _fn_int8kv is None:
         fn = _build.load("flash_attention_int8kv").flash_attention_int8kv_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn_int8kv = fn
     return _fn_int8kv
+
+
+def int8_smem_bytes(D: int, keys: int) -> int:
+    """Shared memory of one int8 split block (the kernel's
+    ``split_smem_bytes``): K and V codes in rows of an odd number of 16-byte
+    units, their scales, q and the scores in f32, (m, l) per row."""
+    Dp = -(-D // 16) * 16
+    KP = Dp + 16 if (Dp // 16) % 2 == 0 else Dp
+    return 2 * keys * KP + 4 * (2 * keys + INT8_ROWS * Dp + INT8_ROWS * keys
+                                + 2 * INT8_ROWS)
+
+
+def int8_split_plan(B: int, KV: int, Skv: int, D: int, rows: int,
+                    sm_count: int = SM_COUNT):
+    """``(keys_per_split, splits)`` for an int8 call, from shapes only
+    (never ``q_start`` or ``kv_len``: reading them would sync the host with
+    the device on the decode path); ``rows`` is Sq * G, the folded query
+    rows per kv head.
+
+    Enough splits that the grid, ``splits`` x ``ceil(rows / INT8_ROWS)``
+    row tiles x ``KV`` x ``B`` blocks, covers the ``sm_count`` SMs about
+    ``BLOCKS_PER_SM`` times over, at B = 8 decode and at B = 1 prompt
+    replay alike; a split is a multiple of ``INT8_KEY_UNIT`` keys within
+    ``INT8_SMEM_BYTES`` of shared memory; ``keys_per_split * splits >=
+    Skv``.  Which keys a split's block reads is
+    :func:`ref.int8kv_split_ranges`."""
+    unit = INT8_KEY_UNIT
+    tiles = -(-rows // INT8_ROWS)
+    fixed = int8_smem_bytes(D, 0)
+    cap = max(unit, (INT8_SMEM_BYTES - fixed)
+              // (int8_smem_bytes(D, 1) - fixed) // unit * unit)
+    want = -(-BLOCKS_PER_SM * sm_count // max(1, B * KV * tiles))
+    per = -(-Skv // want)                # keys a split, to give `want`
+    per = min(cap, max(unit, -(-per // unit) * unit))
+    return per, max(1, -(-Skv // per))
 
 
 def _fold_heads(q, k, v):
@@ -390,16 +431,23 @@ def flash_attention_int8kv(q, k8, k_scale, v8, v_scale, q_start, kv_len, *,
     Skv, KV = k8.shape[1], k8.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(D)
+    R = Sq * (H // KV)
+    per, splits = int8_split_plan(B, KV, Skv, D, R,
+                                  device_sm_count(q.device))
     out = torch.empty_like(q)
+    part_ml = torch.empty((B, KV, splits, R, 2), dtype=torch.float32,
+                          device=q.device)
+    part_acc = torch.empty((B, KV, splits, R, D), dtype=torch.float32,
+                           device=q.device)
     fn = _entry_int8kv()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(q.data_ptr(), k8.data_ptr(), k_scale.data_ptr(),
                     v8.data_ptr(), v_scale.data_ptr(), q_start.data_ptr(),
-                    kv_len.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
-                    B, Sq, H, KV, Skv, D,
-                    float(scale), int(causal), int(window or 0),
-                    float(softcap or 0.0), stream)
+                    kv_len.data_ptr(), out.data_ptr(), part_ml.data_ptr(),
+                    part_acc.data_ptr(), _DTYPES[q.dtype], B, Sq, H, KV, Skv,
+                    D, per, splits, float(scale), int(causal),
+                    int(window or 0), float(softcap or 0.0), stream)
     _build.check(status, "flash_attention_int8kv")
     flash_attention_int8kv.launches += 1
     return out

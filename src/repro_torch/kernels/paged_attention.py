@@ -28,7 +28,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import paged_attention_ref
 
 _fn = None
-SM_COUNT = 132                  # H100 (and H200) SXM streaming multiprocessors
+SM_COUNT = 132                  # H100 (and H200) SXM streaming multiprocessors:
+                                # the split plans' default, for the CPU tests
 BLOCKS_PER_SM = 4               # the split aims at this many blocks per SM
 KV_SMEM_BYTES = 48 * 1024       # a split's K and V in shared memory, at most
 P_ROUNDING = 2.0 ** -14         # the kernel keeps P in f32: the element-wise
@@ -49,16 +50,33 @@ def _entry():
     return _fn
 
 
-def split_plan(B: int, KV: int, pps: int, page: int, D: int):
+_sm_counts = {}
+
+
+def device_sm_count(device) -> int:
+    """The streaming multiprocessors of a CUDA ``device``, read once per
+    device (the split plans size their grids by it)."""
+    idx = torch.device(device).index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    n = _sm_counts.get(idx)
+    if n is None:
+        n = _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return n
+
+
+def split_plan(B: int, KV: int, pps: int, page: int, D: int,
+               sm_count: int = SM_COUNT):
     """``(pages_per_split, splits)`` for a decode call, from shapes only.
 
-    Enough splits that ``B * KV * splits`` covers the ``SM_COUNT`` SMs about
-    ``BLOCKS_PER_SM`` times over, each split at most ``KV_SMEM_BYTES`` of
+    Enough splits that ``B * KV * splits`` covers the ``sm_count`` SMs
+    about ``BLOCKS_PER_SM`` times over, each split at most ``KV_SMEM_BYTES`` of
     K and V (``4 * page * D`` bytes a page) and at least one page;
     ``splits * pages_per_split >= pps`` covers the whole table.  Which of
     a row's pages a split reads is :func:`ref.paged_split_ranges`."""
     cap = max(1, KV_SMEM_BYTES // (4 * page * D))
-    want = -(-BLOCKS_PER_SM * SM_COUNT // max(1, B * KV))
+    want = -(-BLOCKS_PER_SM * sm_count // max(1, B * KV))
     per = max(1, min(cap, -(-pps // want)))
     return per, -(-pps // per)
 
@@ -136,7 +154,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     pps = block_tables.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(D)
-    per, splits = split_plan(B, KV, pps, page, D)
+    per, splits = split_plan(B, KV, pps, page, D, device_sm_count(q.device))
     out = torch.empty_like(q)
     part_ml = torch.empty((B, KV, splits, G, 2), dtype=torch.float32,
                           device=q.device)

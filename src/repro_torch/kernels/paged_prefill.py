@@ -1,16 +1,27 @@
-"""Paged chunked-prefill attention: CUDA kernel + plain PyTorch version.
+"""Paged chunked-prefill attention: CUDA kernels + plain PyTorch version.
 
 Counterpart of ``repro.kernels.paged_prefill.paged_prefill``.  The query
-chunk is folded to ``CG = chunk * group`` rows per KV head (row ``c*G+g``);
-the kernel (``csrc/paged_prefill.cu``) runs one thread block per
-``(b, kv_head, tile of query rows)``, walks the row's reachable pages
-through the block table with an online softmax in f32, and masks causally
-per query row.  See the source's header for its bound and design.
+chunk is folded to ``CG = chunk * group`` rows per KV head (row ``c*G+g``),
+so all G heads of a group share every page read.  ``csrc/paged_prefill.cu``
+holds two kernels, chosen by :func:`tensor_core_route` (dtype and head dim,
+never a failed build or launch):
+
+- bf16 with ``D`` in {32, 64, 96, 128}: a tensor-core kernel (mma.sync, P
+  rounded to bf16 for the PV product) split over the context: a grid of
+  ``(splits x row tiles, KV, B)`` blocks, each over a range of
+  ``keys_per_split`` keys from :func:`split_plan` (shapes only), walked in
+  64-key tiles staged through the block table, writing a partial
+  ``(m, l, acc)`` per row; a second kernel of the same call merges them;
+- other head dims (gemma2-2b's 288): a CUDA-core kernel, one block per
+  ``(b, kv_head, 16 rows)``, walking the row's pages with P in f32.
+
+See the source's header for their bound and design.
 
 ``paged_prefill`` dispatches on the device of ``q``: a CPU tensor goes
 through the plain version (``repro_torch.kernels.ref``), a CUDA tensor
-launches the kernel or raises.  ``paged_prefill.launches`` counts kernel
-launches only.
+launches a kernel or raises.  ``paged_prefill.launches`` counts every
+launch; ``prefill_tensor_core.launches`` and ``prefill_cuda_core.launches``
+count each kernel's.
 """
 from __future__ import annotations
 
@@ -21,10 +32,15 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.paged_attention import _check_cuda
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels.paged_attention import (BLOCKS_PER_SM, SM_COUNT,
+                                                 _check_cuda,
+                                                 device_sm_count)
 from repro_torch.kernels.ref import paged_prefill_ref
 
 _fn = None
+_fn_tc = None
+TILE_KEYS = 64                  # keys per tile of the tensor-core kernel
 
 
 def _entry():
@@ -37,6 +53,52 @@ def _entry():
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def _entry_tc():
+    global _fn_tc
+    if _fn_tc is None:
+        fn = _build.load("paged_prefill").paged_prefill_tc_bf16
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fn_tc = fn
+    return _fn_tc
+
+
+def tensor_core_route(dtype: torch.dtype, D: int) -> bool:
+    """The flash kernel's rule (bf16 with ``D <= 128``), for the head dims
+    the tensor-core prefill kernel is built for (multiples of 32); every
+    other ``D`` (gemma2-2b's 288) runs the CUDA-core kernel."""
+    return _fa.tensor_core_route(dtype, D) and D % 32 == 0
+
+
+def p_rounding(dtype: torch.dtype, D: int) -> float:
+    """The relative error of P in the PV product of the kernel that
+    ``(dtype, D)`` routes to, the element-wise check's relative term:
+    2^-8 where P is rounded to bf16 (2^-9, doubled for headroom), 2^-14
+    where it stays f32 (2^10 f32 roundings of headroom for sums taken in
+    another order)."""
+    return 2.0 ** -8 if tensor_core_route(dtype, D) else 2.0 ** -14
+
+
+def split_plan(B: int, KV: int, pps: int, page: int, D: int, rows: int,
+               sm_count: int = SM_COUNT):
+    """``(keys_per_split, splits)`` for a tensor-core prefill call, from
+    shapes only (never ``start_pos`` or ``q_lens``, which live on the
+    card); ``rows`` is C * G, the folded rows per kv head.
+
+    Enough splits that the grid, ``splits`` x row tiles (128 rows for
+    ``D <= 64``, else 64) x ``KV`` x ``B`` blocks, covers the ``sm_count``
+    SMs about ``BLOCKS_PER_SM`` times over, each split a whole number of
+    64-key tiles; ``keys_per_split * splits >= pps * page``.  Which keys a
+    split's block reads is :func:`ref.prefill_split_ranges`."""
+    tiles = -(-rows // (128 if D <= 64 else 64))
+    n_tiles = max(1, -(-pps * page // TILE_KEYS))
+    want = -(-BLOCKS_PER_SM * sm_count // max(1, B * KV * tiles))
+    per = -(-n_tiles // want)
+    return per * TILE_KEYS, -(-n_tiles // per)
 
 
 def paged_prefill_plain(q, k_pages, v_pages, block_tables, start_pos,
@@ -81,11 +143,54 @@ def paged_prefill(q, k_pages, v_pages, block_tables, start_pos, q_lens, *,
         raise ValueError(f"paged_prefill: no kernel for device {q.device}")
     _check_cuda(q, k_pages, v_pages, block_tables, start_pos=start_pos,
                 q_lens=q_lens)
-    NP, page = k_pages.shape[0], k_pages.shape[1]
-    pps = block_tables.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
+    launch = (prefill_tensor_core if tensor_core_route(q.dtype, D)
+              else prefill_cuda_core)
+    launch(q, k_pages, v_pages, block_tables, start_pos, q_lens, out, group,
+           scale, window, softcap)
+    paged_prefill.launches += 1
+    return out
+
+
+paged_prefill.launches = 0
+
+
+def prefill_tensor_core(q, k_pages, v_pages, block_tables, start_pos, q_lens,
+                        out, group, scale, window, softcap):
+    """Launch the tensor-core split kernel and its combine into ``out``."""
+    B, KV, CG, D = q.shape
+    NP, page = k_pages.shape[0], k_pages.shape[1]
+    pps = block_tables.shape[1]
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    per, splits = split_plan(B, KV, pps, page, D, CG,
+                             device_sm_count(q.device))
+    part_ml = torch.empty((B, KV, splits, CG, 2), dtype=torch.float32,
+                          device=q.device)
+    part_acc = torch.empty((B, KV, splits, CG, D), dtype=torch.float32,
+                           device=q.device)
+    fn = _entry_tc()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                    block_tables.data_ptr(), start_pos.data_ptr(),
+                    q_lens.data_ptr(), out.data_ptr(), part_ml.data_ptr(),
+                    part_acc.data_ptr(), B, KV, CG, group, D, NP, page, pps,
+                    per, splits, float(scale), int(window or 0),
+                    float(softcap or 0.0), stream)
+    _build.check(status, "paged_prefill (tensor cores)")
+    prefill_tensor_core.launches += 1
+
+
+def prefill_cuda_core(q, k_pages, v_pages, block_tables, start_pos, q_lens,
+                      out, group, scale, window, softcap):
+    """Launch the CUDA-core kernel into ``out``."""
+    B, KV, CG, D = q.shape
+    NP, page = k_pages.shape[0], k_pages.shape[1]
+    pps = block_tables.shape[1]
     fn = _entry()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -94,9 +199,9 @@ def paged_prefill(q, k_pages, v_pages, block_tables, start_pos, q_lens, *,
                     q_lens.data_ptr(), out.data_ptr(), B, KV, CG, group, D,
                     NP, page, pps, float(scale), int(window or 0),
                     float(softcap or 0.0), stream)
-    _build.check(status, "paged_prefill")
-    paged_prefill.launches += 1
-    return out
+    _build.check(status, "paged_prefill (CUDA cores)")
+    prefill_cuda_core.launches += 1
 
 
-paged_prefill.launches = 0
+prefill_tensor_core.launches = 0
+prefill_cuda_core.launches = 0

@@ -16,10 +16,14 @@ function.
 Used by the tests and ``chip_smoke.py`` only, to hold the kernels'
 designs and stated rounding: ``paged_split_ranges`` and
 ``paged_attention_split_ref`` (the split-context decode kernel's page
-ranges and its split-and-combine, in f32), ``flash_tiles_ref`` (the
-tensor-core flash kernel's tile loop, with P rounded to bf16 for the PV
-product) and ``rounding_bound_ratio`` (the element-wise check derived from
-that rounding).
+ranges and its split-and-combine, in f32), ``int8kv_split_ranges`` and
+``int8kv_split_ref`` (the same for the int8 kernel's key ranges),
+``prefill_split_ranges`` and ``paged_prefill_tiles_ref`` (the tensor-core
+prefill kernel's key ranges and its tile loop over pages, splits and
+combine, P rounded to bf16), ``flash_tiles_ref`` (the tensor-core flash
+kernel's tile loop, with P rounded to bf16 for the PV product) and
+``rounding_bound_ratio`` (the element-wise check derived from that
+rounding).
 """
 from __future__ import annotations
 
@@ -171,12 +175,7 @@ def paged_attention_split_ref(q, k_pages, v_pages, block_tables, lengths, *,
     use = l > 0
     if keep is not None:
         use &= keep.to(q.device)[:, None, None, :]
-    m_all = torch.where(use, m, torch.full_like(m, NEG_INF)).amax(dim=-1)
-    w = torch.where(use, torch.exp(m - m_all[..., None]), torch.zeros_like(m))
-    den = (w * l).sum(dim=-1)
-    num = (w[..., None] * acc).sum(dim=-2)
-    out = torch.where(den[..., None] > 0, num / den.clamp(min=1e-30)[..., None],
-                      torch.zeros_like(num)).to(q.dtype)
+    out = _combine(m, l, acc, use).to(q.dtype)
     if not return_partials:
         return out
     return out, (m.permute(0, 1, 3, 2), l.permute(0, 1, 3, 2))
@@ -333,6 +332,183 @@ def attention_int8kv_ref(q, k8, k_scale, v8, v_scale, q_start, kv_len, *,
     any_valid = mask.any(dim=2)[:, :, None, None, None]
     out = torch.where(any_valid, out, torch.zeros_like(out))
     return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def int8kv_split_ranges(q_start: int, kv_len: int, Skv: int, G: int,
+                        keys_per_split: int, splits: int, *, row0: int,
+                        rows: int, causal: bool = True,
+                        window: Optional[int] = None):
+    """The keys ``[lo, hi)`` each split's block of one row tile (folded
+    rows ``[row0, row0 + rows)``, row ``i * G + g`` at position
+    ``q_start + i``) reads, or None where it writes a neutral partial: split
+    ``s`` covers keys ``[s * keys_per_split, (s + 1) * keys_per_split)``
+    clipped to the keys the tile's rows can see, from the window's first
+    key of its oldest row to ``min(kv_len, Skv)`` and, causal, its newest
+    row's position.  The CUDA split kernel clips the same way."""
+    qpos_lo = q_start + row0 // G
+    qpos_hi = q_start + (row0 + rows - 1) // G
+    hi = min(kv_len, Skv)
+    if causal:
+        hi = min(hi, qpos_hi + 1)
+    lo = max(0, qpos_lo - (window - 1)) if window else 0
+    out = []
+    for s in range(splits):
+        a = max(lo, s * keys_per_split)
+        b = min(hi, (s + 1) * keys_per_split)
+        out.append((a, b) if a < b else None)
+    return out
+
+
+def _combine(m, l, acc, use):
+    """Merge split partials (m, l (..., n), acc (..., n, D)) over the ones
+    ``use`` selects: sum exp(m_i - m) acc_i / sum exp(m_i - m) l_i, zeros
+    where none is selected."""
+    m_all = torch.where(use, m, torch.full_like(m, NEG_INF)).amax(dim=-1)
+    w = torch.where(use, torch.exp(m - m_all[..., None]), torch.zeros_like(m))
+    den = (w * l).sum(dim=-1)
+    num = (w[..., None] * acc).sum(dim=-2)
+    return torch.where(den[..., None] > 0,
+                       num / den.clamp(min=1e-30)[..., None],
+                       torch.zeros_like(num))
+
+
+def int8kv_split_ref(q, k8, k_scale, v8, v_scale, q_start, kv_len, *,
+                     keys_per_split: int, causal: bool = True,
+                     window: Optional[int] = None,
+                     softcap: Optional[float] = None,
+                     scale: Optional[float] = None, keep=None):
+    """``attention_int8kv_ref`` computed as the split kernel does, in f32:
+    the key axis cut into ``ceil(Skv / keys_per_split)`` ranges, a partial
+    ``(m, l, acc)`` per range and folded row (neutral where the range holds
+    no valid key for the row), then the combine over the partials with
+    ``l > 0``.  ``keep``: an optional (B, n_splits) bool mask of partials
+    the combine takes (a broken combine, for the checks' power).  Returns
+    (B, Sq, H, D) in q's dtype."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k8.shape[1], k8.shape[2]
+    G = H // KV
+    per = keys_per_split
+    n = -(-Skv // per)
+    T = n * per
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    dev = q.device
+    k, v = dequantize_kv(k8, k_scale, v8, v_scale, q.dtype)
+    pad = (0, 0, 0, 0, 0, T - Skv)
+    k = torch.nn.functional.pad(k, pad)
+    v = torch.nn.functional.pad(v, pad)
+    qf = q.float().reshape(B, Sq, KV, G, D)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qf, k) * scale
+    s = _softcap(s, softcap)
+    qpos = (q_start.to(dev, torch.long)[:, None]
+            + torch.arange(Sq, device=dev)[None, :])[:, :, None]
+    kpos = torch.arange(T, device=dev)[None, None, :]
+    mask = (kpos < kv_len.to(dev, torch.long)[:, None, None]) & (kpos < Skv)
+    mask = mask.expand(B, Sq, T)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & ((qpos - kpos) < window)
+    mask = mask[:, None, None].expand(B, KV, G, Sq, T).reshape(
+        B, KV, G, Sq, n, per)
+    s = torch.where(mask, s.reshape(mask.shape),
+                    torch.full(mask.shape, NEG_INF, device=dev))
+    m = s.amax(dim=-1)                                   # (B, KV, G, Sq, n)
+    p = torch.where(mask, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgqnt,bntkd->bkgqnd", p, v.reshape(B, n, per, KV, D))
+    use = l > 0
+    if keep is not None:
+        use = use & keep.to(dev)[:, None, None, None, :]
+    out = _combine(m, l, acc, use)                       # (B, KV, G, Sq, D)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def prefill_split_ranges(start: int, q_len: int, T: int, G: int,
+                         keys_per_split: int, splits: int, *, row0: int,
+                         rows: int, window: Optional[int] = None):
+    """The keys ``[lo, hi)`` each split's block of one prefill row tile
+    (folded rows ``[row0, row0 + rows)``, row ``c * G + g`` at position
+    ``start + c``) reads, or None where it writes neutral partials: split
+    ``s`` covers keys ``[s * keys_per_split, (s + 1) * keys_per_split)``
+    clipped to what the tile's valid queries (c < q_len) can see, from the
+    oldest one's window start to the newest one's position and the table's
+    ``T`` positions.  The CUDA split kernel clips the same way."""
+    c_lo = row0 // G
+    c_hi = min((row0 + rows - 1) // G, q_len - 1)
+    out = []
+    for s in range(splits):
+        r = None
+        if c_lo <= c_hi:
+            lo = max(0, start + c_lo - (window - 1)) if window else 0
+            a = max(lo, s * keys_per_split)
+            b = min(start + c_hi + 1, T, (s + 1) * keys_per_split)
+            r = (a, b) if a < b else None
+        out.append(r)
+    return out
+
+
+def paged_prefill_tiles_ref(q, k_pages, v_pages, block_tables, start_pos,
+                            q_lens, *, group: int, keys_per_split: int,
+                            scale: Optional[float] = None,
+                            window: Optional[int] = None,
+                            softcap: Optional[float] = None,
+                            p_dtype: torch.dtype = torch.bfloat16,
+                            keep=None):
+    """The tensor-core prefill kernel's loop, in PyTorch, at the kernel's
+    layout (q (B, KV, C*G, D), row ``c * G + g``): the table's ``pps *
+    page`` keys cut into splits of ``keys_per_split`` (a multiple of 64),
+    each walked in 64-key tiles with S = Q K^T in f32, the online softmax in
+    f32 (running max m, sum l of the unrounded P, accumulator rescaled by
+    exp(m_old - m_new)) and P rounded to ``p_dtype`` for the PV product; a
+    partial per split and row, then the combine over the partials with
+    ``l > 0``.  ``keep``: an optional (B, n_splits) bool mask of partials
+    the combine takes (a broken combine, for the checks' power).  Padding
+    rows (c >= q_len) are zeros.  Returns (B, KV, C*G, D) in q's dtype."""
+    B, KV, CG, D = q.shape
+    G = group
+    C = CG // G
+    page, pps = k_pages.shape[1], block_tables.shape[1]
+    T = pps * page
+    per = keys_per_split
+    n = -(-T // per)
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    dev = q.device
+    pad = (0, 0, 0, 0, 0, n * per - T)
+    k = torch.nn.functional.pad(_gather(k_pages, block_tables).float(), pad)
+    v = torch.nn.functional.pad(_gather(v_pages, block_tables).float(), pad)
+    qf = q.float().reshape(B, KV, C, G, D)
+    cidx = torch.arange(C, device=dev)
+    qpos = start_pos.to(dev, torch.long)[:, None] + cidx[None, :]   # (B, C)
+    valid = cidx[None, :] < q_lens.to(dev, torch.long)[:, None]
+    m = torch.full((B, KV, C, G, n), NEG_INF, device=dev)
+    l = torch.zeros((B, KV, C, G, n), device=dev)
+    acc = torch.zeros((B, KV, C, G, n, D), device=dev)
+    for k0 in range(0, n * per, 64):
+        j = k0 // per                                    # the tile's split
+        kt, vt = k[:, k0:k0 + 64], v[:, k0:k0 + 64]
+        s = torch.einsum("bkcgd,btkd->bkcgt", qf, kt) * scale
+        s = _softcap(s, softcap)
+        kpos = torch.arange(k0, k0 + 64, device=dev)[None, None, :]
+        mask = (kpos <= qpos[:, :, None]) & (kpos < T) & valid[:, :, None]
+        if window is not None:
+            mask &= (qpos[:, :, None] - kpos) < window
+        s = torch.where(mask[:, None, :, None], s, torch.full_like(s, NEG_INF))
+        m_old = m[..., j]
+        m_new = torch.maximum(m_old, s.amax(dim=-1))
+        alpha = torch.exp(m_old - m_new)
+        p = torch.where((m_new == NEG_INF)[..., None], torch.zeros_like(s),
+                        torch.exp(s - m_new[..., None]))
+        l[..., j] = alpha * l[..., j] + p.sum(dim=-1)
+        acc[..., j, :] = alpha[..., None] * acc[..., j, :] + torch.einsum(
+            "bkcgt,btkd->bkcgd", p.to(p_dtype).float(), vt)
+        m[..., j] = m_new
+    use = l > 0
+    if keep is not None:
+        use = use & keep.to(dev)[:, None, None, None, :]
+    out = _combine(m, l, acc, use)                       # (B, KV, C, G, D)
+    return out.reshape(B, KV, CG, D).to(q.dtype)
 
 
 def pad_to_chunks(x, dt, B, C, L: int):

@@ -555,6 +555,8 @@ def cuda():
     # qwen2 decode: positions 0, Skv - 1 and a middle one; a row with no key
     (1, 14, 2, 64, 300, None, None, "bf16", [0, 299, 150, 7], [1, 300, 151,
                                                                 0]),
+    # the dense prompt replay: B = 1 against a 1,024-position stripe
+    (1, 14, 2, 64, 1024, None, None, "bf16", [77], [78]),
     # gemma2 decode, window and softcap
     (1, 8, 4, 288, 200, 64, 50.0, "bf16", [0, 199, 100], [1, 200, 101]),
     # the TPU kernel's function: q_start 0, kv_len Skv (its test's shapes)

@@ -417,8 +417,16 @@ def test_cuda_kernels_match_plain(cuda, G, D, page, window, softcap):
     torch.cuda.synchronize()
     want = pp.paged_prefill_plain(q2, kp, vp, tbl, starts, qlens, group=G,
                                   window=window, softcap=softcap)
-    assert (got.float() - want.float()).abs().max().item() <= BF16_ATOL
-    assert (got[2] == 0).all()
+    # element by element within the bound of the routed kernel's rounding
+    # of P (bf16 on the tensor cores, f32 on the CUDA cores); padding rows
+    # (c >= q_len) and the q_len 0 row zeros
+    mix = pp.paged_prefill_plain(q2.float(), kp.float(), vp.float().abs(),
+                                 tbl, starts, qlens, group=G, window=window,
+                                 softcap=softcap)
+    assert tref.rounding_bound_ratio(got, want, mix,
+                                     pp.p_rounding(q2.dtype, D)) <= 1.0
+    for b, n in enumerate(qlens.tolist()):
+        assert (got[b, :, n * G:] == 0).all()
 
 
 @pytest.mark.gpu

@@ -1,10 +1,19 @@
-"""The redesigned flash forward and paged decode kernels: what their designs
-and stated rounding promise, checked on the CPU.
+"""The redesigned kernels (flash forward, paged decode, the int8 flash
+kernel, paged prefill): what their designs and stated rounding promise,
+checked on the CPU.
 
 - The split-context decode kernel's page ranges (``split_plan`` from shapes,
   ``ref.paged_split_ranges``) cover every reachable page of every row
   exactly once, and its split-and-combine (``ref.paged_attention_split_ref``)
   equals ``paged_attention_ref`` to f32 rounding, neutral partials included.
+- The same for the int8 kernel's key ranges (``int8_split_plan``,
+  ``ref.int8kv_split_ranges``; its split-and-combine ``ref.int8kv_split_ref``
+  within one bf16 ulp of ``attention_int8kv_ref``) and paged prefill's
+  (``paged_prefill.split_plan``, ``ref.prefill_split_ranges``); the prefill
+  kernel's tile loop (``ref.paged_prefill_tiles_ref``: bf16 P, 64-key tiles
+  over pages, splits, combine) stays inside its bound and every broken
+  variant ``chip_smoke.py`` builds falls outside it.
+- ``_build._target`` names a new library when a header changes.
 - The tensor-core flash kernel's loop with P rounded to bf16
   (``ref.flash_tiles_ref``) stays inside the element-wise bound
   ``chip_smoke.py`` holds the kernel to (``ref.rounding_bound_ratio``), on
@@ -15,6 +24,7 @@ and stated rounding promise, checked on the CPU.
 - The ``gpu`` tests at the end hold the CUDA kernels to the same bounds on
   a machine with a card (``python -m pytest -m gpu tests/``).
 """
+import shutil
 import sys
 from pathlib import Path
 
@@ -24,8 +34,10 @@ import pytest
 import torch
 
 from repro.kernels import flash_attention as jfa
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import paged_prefill as pp
 from repro_torch.kernels import ref
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -261,6 +273,278 @@ def test_decode_broken_variants_exceed_the_bound(label, which):
 
 
 # ---------------------------------------------------------------------------
+# the int8 kernel split over the key axis
+# ---------------------------------------------------------------------------
+
+
+def _visible_keys(q_start, kv_len, Skv, G, row0, rows, window):
+    """The keys any folded row of the tile can see (causal)."""
+    seen = set()
+    for r in range(row0, row0 + rows):
+        qpos = q_start + r // G
+        lo = max(0, qpos - window + 1) if window else 0
+        seen |= set(range(lo, min(kv_len, Skv, qpos + 1)))
+    return seen
+
+
+@pytest.mark.parametrize("window", [None, 1, 17, 64])
+@pytest.mark.parametrize("Sq,G", [(1, 7), (5, 2), (40, 1)])
+def test_int8_split_ranges_cover_each_visible_key_once(window, Sq, G):
+    """For every kv_len 0..Skv (queries ending at kv_len - 1, or at the
+    stripe's start), every row tile, and every split the plan gives at B 8
+    and B 1, the splits' key ranges are disjoint and their union is exactly
+    the keys the tile's rows can see."""
+    Skv, ROWS = 200, fa.INT8_ROWS
+    R = Sq * G
+    plans = {fa.int8_split_plan(B, 2, Skv, 64, R) for B in (1, 8)}
+    plans |= {(16, -(-Skv // 16)), (Skv + 16, 1)}
+    for per, splits in plans:
+        for kv_len in range(0, Skv + 1):
+            for q_start in {max(0, kv_len - Sq), 0}:
+                for row0 in range(0, R, ROWS):
+                    rows = min(ROWS, R - row0)
+                    seen = []
+                    for s, rg in enumerate(ref.int8kv_split_ranges(
+                            q_start, kv_len, Skv, G, per, splits, row0=row0,
+                            rows=rows, window=window)):
+                        if rg is not None:
+                            a, b = rg
+                            assert s * per <= a < b <= (s + 1) * per
+                            seen.extend(range(a, b))
+                    assert len(seen) == len(set(seen))
+                    assert set(seen) == _visible_keys(
+                        q_start, kv_len, Skv, G, row0, rows, window), \
+                        (per, kv_len, q_start, row0)
+
+
+@pytest.mark.parametrize("B,KV,Skv,D,rows,want", [
+    (8, 2, 2048, 64, 7, (64, 32)),    # dense decode timing shapes: 512 blocks
+    (1, 2, 1024, 64, 7, (16, 64)),    # prompt replay at B = 1: 128 blocks
+    (2, 1, 128, 64, 128, (16, 8)),    # the TPU test's Sq = 128: 8 row tiles
+    (4, 4, 5000, 288, 2, (64, 79)),   # gemma2-2b: shared memory caps it
+    (1, 2, 1, 64, 7, (16, 1)),
+])
+def test_int8_split_plan_from_shapes(B, KV, Skv, D, rows, want):
+    """The plan covers the stripe with splits of one size, a multiple of
+    16 keys within the shared-memory budget, and gives the grid about 4
+    blocks per SM of an H100 unless the 16-key minimum is the limit."""
+    per, splits = fa.int8_split_plan(B, KV, Skv, D, rows)
+    assert (per, splits) == want
+    assert per * splits >= Skv > per * (splits - 1)
+    assert per % fa.INT8_KEY_UNIT == 0
+    assert fa.int8_smem_bytes(D, per) <= fa.INT8_SMEM_BYTES
+    tiles = -(-rows // fa.INT8_ROWS)
+    assert per == fa.INT8_KEY_UNIT or \
+        2 * B * KV * tiles * splits > pa.BLOCKS_PER_SM * pa.SM_COUNT
+
+
+INT8_SETS = {
+    # dense decode: positions 0, Skv - 1 and a middle one; a row with no key
+    "decode": dict(Sq=1, H=14, KV=2, D=64, Skv=300, q_start=[0, 299, 150, 7],
+                   kv_len=[1, 300, 151, 0]),
+    # several queries per row, window and softcap
+    "Sq 5, window": dict(Sq=5, H=4, KV=2, D=32, Skv=70, q_start=[10, 65],
+                         kv_len=[15, 70], window=9, softcap=30.0),
+    # the TPU kernel's function in f32: q_start 0, kv_len Skv
+    "TPU (2, 128, 128, 64)": dict(Sq=128, H=1, KV=1, D=64, Skv=128,
+                                  q_start=[0, 0], kv_len=[128, 128],
+                                  dtype="float32"),
+}
+
+
+def _int8_set(label):
+    c = cs.int8_case(torch, np.random.default_rng(len(label)), "cpu",
+                     **INT8_SETS[label])
+    return cs.int8_args(c), c["kw"]
+
+
+def _int8_err(got, want):
+    if got.dtype == torch.bfloat16:
+        return cs.int8_rel_err(got, want), cs.INT8_BF16_RTOL
+    return (got - want).abs().max().item(), cs.INT8_F32_TOL
+
+
+@pytest.mark.parametrize("splits", [1, 2, 7, 32])
+@pytest.mark.parametrize("label", list(INT8_SETS))
+def test_int8_split_and_combine_within_one_ulp(label, splits):
+    """The int8 kernel's split-and-combine in f32 against its plain version:
+    bf16 within one ulp element by element, f32 within 1e-5, for splits 1,
+    2, 7 and 32 (ranges of 16-key multiples)."""
+    args, kw = _int8_set(label)
+    want = ref.attention_int8kv_ref(*args, **kw)
+    Skv = args[1].shape[1]
+    per = -(-(-(-Skv // splits)) // 16) * 16
+    got = ref.int8kv_split_ref(*args, keys_per_split=per, **kw)
+    err, tol = _int8_err(got, want)
+    assert err <= tol
+    for b, n in enumerate(args[6].tolist()):
+        if n == 0:
+            assert (got[b] == 0).all()
+
+
+def test_int8_dropped_split_partial_breaks_the_rule():
+    """A combine that leaves out each row's first live partial (the broken
+    variant ``chip_smoke.py`` adds) fails the one-ulp rule."""
+    args, kw = _int8_set("decode")
+    q, _, _, _, _, qs, n = args
+    B, Sq, H, D = q.shape
+    KV, Skv = args[1].shape[2], args[1].shape[1]
+    G = H // KV
+    per, splits = fa.int8_split_plan(B, KV, Skv, D, Sq * G)
+    keep = cs.drop_first_live(torch, [ref.int8kv_split_ranges(
+        a, b, Skv, G, per, splits, row0=0, rows=Sq * G)
+        for a, b in zip(qs.tolist(), n.tolist())])
+    wrong = ref.int8kv_split_ref(*args, keys_per_split=per, keep=keep, **kw)
+    want = ref.attention_int8kv_ref(*args, **kw)
+    assert _int8_err(wrong, want)[0] > cs.INT8_BF16_RTOL
+
+
+# ---------------------------------------------------------------------------
+# paged prefill on tensor cores, split over the context
+# ---------------------------------------------------------------------------
+
+PREFILL_SETS = {
+    # chip_smoke.py's qwen2-0.5b prefill set: ragged q_lens, a q_len 0 row
+    "qwen2-0.5b": dict(KV=2, G=7, D=64, page=16, window=None, softcap=None,
+                       starts=[0, 40, 129, 300], C=16, q_lens=[16, 9, 0, 1]),
+    # gemma2-2b's head shapes with a window shorter than the history
+    "gemma2-2b": dict(KV=4, G=2, D=288, page=16, window=256, softcap=50.0,
+                      starts=[250, 300, 0, 280], C=16, q_lens=[16, 5, 16, 0]),
+}
+
+
+def _prefill_set(label):
+    s = dict(PREFILL_SETS[label])
+    return cs.prefill_case(torch, np.random.default_rng(len(label) + 1),
+                           "cpu", B=len(s["starts"]), **s)
+
+
+@pytest.mark.parametrize("window", [None, 1, 17, 100])
+def test_prefill_split_ranges_cover_each_visible_key_once(window):
+    """For every start 0..200, every q_len 0..C, every row tile of a
+    C = 16 chunk at G = 7 (one tile of 128 rows) and G = 2 with 64-row
+    tiles, and splits of 1, 2 and 4 tiles, the splits' key ranges are
+    disjoint and their union is exactly what the tile's valid queries can
+    see."""
+    page, pps, C = 16, 15, 16
+    T = pps * page
+    for G, tile in ((7, 128), (2, 64), (2, 16)):
+        for per in (64, 128, 256):
+            splits = -(-T // per)
+            for start in range(0, T - C + 1, 7):
+                for q_len in range(0, C + 1):
+                    for row0 in range(0, C * G, tile):
+                        rows = min(tile, C * G - row0)
+                        seen = []
+                        for s, rg in enumerate(ref.prefill_split_ranges(
+                                start, q_len, T, G, per, splits, row0=row0,
+                                rows=rows, window=window)):
+                            if rg is not None:
+                                a, b = rg
+                                assert s * per <= a < b <= (s + 1) * per
+                                seen.extend(range(a, b))
+                        want = set()
+                        for c in range(row0 // G,
+                                       min((row0 + rows - 1) // G + 1, q_len)):
+                            p = start + c
+                            lo = max(0, p - window + 1) if window else 0
+                            want |= set(range(lo, min(p + 1, T)))
+                        assert len(seen) == len(set(seen))
+                        assert set(seen) == want, (G, per, start, q_len)
+
+
+@pytest.mark.parametrize("B,KV,pps,page,D,rows,want", [
+    (4, 2, 68, 16, 64, 112, (64, 17)),   # the launcher's C = 16 round
+    (4, 2, 68, 16, 64, 448, (64, 17)),   # C = 64: four row tiles
+    (1, 2, 64, 16, 128, 16, (64, 16)),
+    (64, 2, 64, 16, 64, 112, (256, 4)),  # large batch: few splits
+])
+def test_prefill_split_plan_from_shapes(B, KV, pps, page, D, rows, want):
+    """The plan covers the table with splits of whole 64-key tiles and
+    gives the grid about 4 blocks per SM of an H100 unless one tile a split
+    is the limit."""
+    per, splits = pp.split_plan(B, KV, pps, page, D, rows)
+    assert (per, splits) == want
+    assert per % pp.TILE_KEYS == 0
+    assert per * splits >= pps * page > per * (splits - 1)
+    tiles = -(-rows // (128 if D <= 64 else 64))
+    assert per == pp.TILE_KEYS or \
+        2 * B * KV * tiles * splits > pa.BLOCKS_PER_SM * pa.SM_COUNT
+
+
+def test_prefill_route_is_a_rule_on_dtype_and_head_dim():
+    for D in (32, 64, 96, 128):
+        assert pp.tensor_core_route(torch.bfloat16, D)
+        assert pp.p_rounding(torch.bfloat16, D) == 2.0 ** -8
+    for dt, D in ((torch.float32, 64), (torch.bfloat16, 48),
+                  (torch.bfloat16, 160), (torch.bfloat16, 288)):
+        assert not pp.tensor_core_route(dt, D)
+        assert pp.p_rounding(dt, D) == 2.0 ** -14
+
+
+@pytest.mark.parametrize("label", list(PREFILL_SETS))
+def test_prefill_tile_loop_stays_inside_the_bound(label):
+    """The tensor-core kernel's loop (bf16 P, 64-key tiles over pages,
+    splits at the card's plan and at one split, combine) against the plain
+    version: inside the bound at p = 2^-8, padding rows zero; with P kept in
+    f32, inside the 2^-14 bound the CUDA-core kernel is held to."""
+    case = _prefill_set(label)
+    plain, mix, _ = cs.prefill_bound(pp, case)
+    q, kp, vp, tb, st, ql = cs.prefill_args(case)
+    B, KV, CG, D = q.shape
+    T = tb.shape[1] * kp.shape[1]
+    per, _ = pp.split_plan(B, KV, tb.shape[1], kp.shape[1], D, CG)
+    kw = dict(group=case["group"], window=case["window"],
+              softcap=case["softcap"])
+    for kps in sorted({per, -(-T // 64) * 64}):
+        got = ref.paged_prefill_tiles_ref(*cs.prefill_args(case),
+                                          keys_per_split=kps, **kw)
+        assert got.dtype == torch.bfloat16
+        assert ref.rounding_bound_ratio(got, plain, mix, 2.0 ** -8) <= 1.0
+        assert cs.padding_rows_zero(got, case)
+    got32 = ref.paged_prefill_tiles_ref(*cs.prefill_args(case),
+                                        keys_per_split=per,
+                                        p_dtype=torch.float32, **kw)
+    assert ref.rounding_bound_ratio(got32, plain, mix, 2.0 ** -14) <= 1.0
+
+
+PREFILL_WRONGS = [("qwen2-0.5b", i) for i in range(4)] + [
+    ("gemma2-2b", i) for i in range(5)]
+
+
+@pytest.mark.parametrize("label,which", PREFILL_WRONGS)
+def test_prefill_broken_variants_exceed_the_bound(label, which):
+    """Each broken prefill kernel ``chip_smoke.py`` builds (on the
+    tensor-core route a split's partial left out of the combine; causal mask
+    one key late, each row's last partial page dropped, the padding rows
+    written as queries; gemma2's window one key wider and narrower) reads
+    above the bound of the kernel its shapes route to."""
+    case = _prefill_set(label)
+    plain, mix, p_rel = cs.prefill_bound(pp, case)
+    what, wrong = cs.prefill_wrongs(torch, pa, pp, ref, case)[which]
+    assert ref.rounding_bound_ratio(wrong(), plain, mix, p_rel) > 1.0, what
+
+
+def test_build_target_changes_when_a_header_changes(tmp_path):
+    """A kernel's library is named by a hash of its source and of every
+    header beside it: editing or adding a header names a new library, so a
+    stale one is never reused."""
+    csrc = Path(_build.__file__).resolve().parent / "csrc"
+    for f in (*csrc.glob("*.cu"), *csrc.glob("*.cuh")):
+        shutil.copy(f, tmp_path / f.name)
+    src = tmp_path / "paged_prefill.cu"
+    first = _build._target(src)
+    assert first == _build._target(src)
+    assert first.name == _build._target(csrc / "paged_prefill.cu").name
+    header = tmp_path / "split_combine.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    second = _build._target(src)
+    assert second != first
+    (tmp_path / "new.cuh").write_text("#pragma once\n")
+    assert _build._target(src) not in (first, second)
+
+
+# ---------------------------------------------------------------------------
 # on the card: the redesigned kernels at their bounds
 # ---------------------------------------------------------------------------
 
@@ -308,3 +592,73 @@ def test_cuda_tensor_core_flash_within_bound(cuda, B, Sq, Skv, H, KV, D,
     assert torch.equal(torch.isfinite(lse), fin)
     assert (lse[fin] - want_lse[fin]).abs().max().item() <= 1e-4
     assert (out.float()[~fin.permute(0, 2, 1)] == 0).all()
+
+
+INT8_CARD_CASES = {
+    # B = 8 decode against 2,048-position stripes
+    "B 8 decode": dict(Sq=1, H=14, KV=2, D=64, Skv=2048,
+                       q_start=[0, 63, 64, 500, 1023, 1500, 2000, 2047],
+                       kv_len=[1, 64, 65, 501, 1024, 1501, 2001, 2048]),
+    # the dense prompt replay: B = 1 against a 1,024-position stripe
+    "B 1 replay": dict(Sq=1, H=14, KV=2, D=64, Skv=1024, q_start=[100],
+                       kv_len=[101]),
+    # gemma2-2b's D = 288 with window and softcap; 4-byte copies at D 20
+    "gemma2-2b": dict(Sq=1, H=8, KV=4, D=288, Skv=700, q_start=[600, 0],
+                      kv_len=[601, 1], window=256, softcap=50.0),
+    "D 20": dict(Sq=3, H=4, KV=2, D=20, Skv=90, q_start=[10, 80],
+                 kv_len=[13, 83], window=7),
+    "TPU (2, 128, 128, 64)": INT8_SETS["TPU (2, 128, 128, 64)"],
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", list(INT8_CARD_CASES))
+def test_cuda_int8kv_split_kernel_within_one_ulp(cuda, label):
+    """The split int8 kernel against its plain version: bf16 within one ulp
+    element by element, f32 within 1e-5; one launch counted."""
+    c = cs.int8_case(torch, np.random.default_rng(len(label)), cuda,
+                     **INT8_CARD_CASES[label])
+    args, kw = cs.int8_args(c), c["kw"]
+    n = fa.flash_attention_int8kv.launches
+    got = fa.flash_attention_int8kv(*args, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_int8kv.launches == n + 1
+    err, tol = _int8_err(got, ref.attention_int8kv_ref(*args, **kw))
+    assert err <= tol
+
+
+PREFILL_CARD_CASES = {
+    "qwen2-0.5b": PREFILL_SETS["qwen2-0.5b"],
+    "gemma2-2b": PREFILL_SETS["gemma2-2b"],
+    # the launcher's round: B = 4 x C = 16, starts 0-1,024
+    "B 4 x C 16": dict(KV=2, G=7, D=64, page=16, window=None, softcap=None,
+                       starts=[0, 341, 683, 1024], C=16, q_lens=[16] * 4),
+    # C = 64 (four row tiles), and B = 1 with D = 128 and a window
+    "C 64": dict(KV=2, G=7, D=64, page=16, window=None, softcap=None,
+                 starts=[0, 256, 640, 1024], C=64, q_lens=[64, 3, 64, 0]),
+    "B 1, D 128": dict(KV=2, G=4, D=128, page=16, window=100, softcap=30.0,
+                       starts=[333], C=16, q_lens=[11]),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", list(PREFILL_CARD_CASES))
+def test_cuda_prefill_within_bound(cuda, label):
+    """Paged prefill on the card: the kernel its shapes route to (its own
+    counter), within that kernel's bound element by element, padding rows
+    and q_len 0 rows zero."""
+    s = dict(PREFILL_CARD_CASES[label])
+    case = cs.prefill_case(torch, np.random.default_rng(len(label)), cuda,
+                           B=len(s["starts"]), **s)
+    q = case["q"]
+    tc = pp.tensor_core_route(q.dtype, q.shape[-1])
+    n_tc, n_cc = (pp.prefill_tensor_core.launches,
+                  pp.prefill_cuda_core.launches)
+    got = pp.paged_prefill(*cs.prefill_args(case), group=case["group"],
+                           window=case["window"], softcap=case["softcap"])
+    torch.cuda.synchronize()
+    assert pp.prefill_tensor_core.launches == n_tc + tc
+    assert pp.prefill_cuda_core.launches == n_cc + (not tc)
+    plain, mix, p_rel = cs.prefill_bound(pp, case)
+    assert ref.rounding_bound_ratio(got, plain, mix, p_rel) <= 1.0
+    assert cs.padding_rows_zero(got, case)
