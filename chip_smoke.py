@@ -42,11 +42,28 @@ Phases (any failure exits nonzero):
               The SSD scan at mamba2-1.3b shapes (b 2, S 1024, H 64, P 64,
               N 128, G 1, chunk 256) on what a fresh full-width layer feeds
               it, and with G = 2 and S = 1000 (not a chunk multiple)
-              through ``ops.ssd``, output and gradients; a scan that drops
-              the carried state must fail the output check.
-              RMSNorm at d 896 / 2048 / 2304 / 4096, bf16 -> bf16 and
-              f32 -> bf16, a row count that is not a block multiple, and
-              its gradients.  The int8 flash kernel at the dense serving
+              through ``ops.ssd``, each checked to take the tensor-core
+              scan: output element by element within 2^-8 mix + 2^-7
+              |plain| (mix the plain scan of |x|, |B|, |C|; ``ref.
+              rounding_bound_ratio``) and within 2e-2 max(1, |plain|),
+              gradients; broken scans must fail the bound: the carried
+              state dropped, dt 5% off, the mask one row late, h_enter one
+              chunk late, the chunk decay exp(seg) left out, and at G = 2
+              head h reading group h % G.  The CUDA-core scan (f32) at the
+              same widths (b 1, S 1024), checked to be the one launched,
+              within 2^-14 mix + one f32 ulp and 2e-2 max(1, |plain|);
+              the carried state dropped or dt 5% off must fail.  RMSNorm at d 896 / 2048 / 2304
+              / 4096 / 8192, bf16 -> bf16, f32 -> bf16 and f32 -> f32, a
+              row count that is not a block multiple, each on the one-pass
+              kernel, within one bf16 ulp element by element (1e-6
+              relative for f32 out) and 2e-2 max(1, |plain|); broken
+              kernels must fail the ulp rule: the gain read as scale, at d
+              4096 one warp's partial left out of the row's sum, at d 2304
+              the last pack not written; the two-pass kernel, checked to
+              be the one launched, at d 16384 (packs of 8), d 100 and rows
+              off 16-byte alignment (element by element), within one ulp;
+              and its gradients.  The int8
+              flash kernel at the dense serving
               path's decode shapes (q (8, 1, 14, 64) bf16, int8 K/V
               (8, 2048, 2, 64) quantized by the model's quantizer, bf16
               scales, lengths 1-2048), at gemma2-2b's D = 288 with window
@@ -70,7 +87,10 @@ Phases (any failure exits nonzero):
               scaled_dot_product_attention on K/V dequantized beforehand;
               ``F.rms_norm``; none for the SSD scan; used nowhere in the
               port) and its bound (bytes at 3.35 TB/s or flops at 989
-              TFLOP/s, whichever is larger);
+              TFLOP/s, whichever is larger); the tensor-core SSD scan also
+              launch by launch (each kernel's device time in whole scans,
+              from ``torch.profiler``), and RMSNorm also at the qwen2 step's
+              8,192 x 896 f32 -> bf16;
 5. serving  — full-width qwen2-0.5b (random weights, seed 0), paged: (a)
               the port's launcher ``repro_torch.launch.serve.main``; (b)
               the scheduler and engine driven directly with 8 prompts of
@@ -95,17 +115,19 @@ Phases (any failure exits nonzero):
               ``repro_torch.launch.train.main`` (seq 1024, batch 8, 8 AdamW
               steps): every loss finite, the last below the first, the
               flash kernel launched on every layer of every step, each
-              launch on the tensor-core kernel, and RMSNorm on every norm
-              (counters zeroed just before); then one
-              step under ``torch.profiler`` for where the device time goes;
+              launch on the tensor-core kernel, and RMSNorm on every norm,
+              each on the one-pass kernel (counters zeroed just before);
+              then one step under ``torch.profiler`` for where the device
+              time goes;
 9. training card vs CPU — one train step of a 2-layer full-width qwen2 at
               seq 128, batch 2, on the same weights on both: loss and the
               gradient's global norm within tolerance;
 10. training mamba2-1.3b, full width, through the launcher (seq 1024,
               batch 8, 8 AdamW steps): losses finite and falling, exactly
-              96 SSD launches (48 layers x 2 with remat) and 193 RMSNorm
-              launches in every step, step time, tokens/s, peak memory;
-              one step under ``torch.profiler``;
+              96 SSD scans (48 layers x 2 with remat), every one on the
+              tensor-core route, and 193 RMSNorm launches in every step,
+              every one on the one-pass kernel, step time, tokens/s, peak
+              memory; one step under ``torch.profiler``;
 11. mamba2 training card vs CPU — one step of a 2-layer full-width mamba2
               at seq 512 (two chunks: the state carries), batch 2, on the
               same weights on both: loss and gradient norm within
@@ -144,6 +166,10 @@ INT8_FLOOR = 2.0 ** -4         # by element: |got - plain| <= RTOL x
                                # 4.9e-4 absolute below |plain| 1/16)
 INT8_F32_TOL = 1e-5            # the int8 kernel with f32 q and scales,
                                # absolute: f32 sums and exps in another order
+NORM_F32_RTOL = 1e-6           # RMSNorm's f32 output, relative: the same f32
+                               # products, the sum of squares in another
+                               # order and rsqrtf (a few f32 roundings); its
+                               # bf16 output is held to one ulp, as int8's
 GRAD_TOL = 2e-2                # max |grad err| / max |grad|: bf16 grads
                                # (one ulp is 2**-8 = 3.9e-3 relative) from
                                # f32 sums in another order
@@ -461,6 +487,66 @@ def ssd_cost(case, chunk):
     return nbytes, 2 * mac
 
 
+def ssd_bound(ssd, args, chunk):
+    """The plain output and the plain scan of |x|, |B| and |C| in f32 (the
+    same dt and A: every decay is positive, so it bounds each output's sum
+    of magnitudes, the carried state's included) for the SSD check."""
+    x, dt, A, B, C = args
+    return (ssd.ssd_scan_plain(*args, chunk),
+            ssd.ssd_scan_plain(x.float().abs(), dt, A, B.float().abs(),
+                               C.float().abs(), chunk))
+
+
+def ssd_wrongs(ssd, ref, args, chunk):
+    """Broken SSD scans, as plain versions on changed inputs and the
+    tensor-core scan's decomposition (``ref.ssd_tiles_ref``) broken one way
+    each: [(what, () -> y)].  ``args`` with S a multiple of the chunk; the
+    group variant where G > 1."""
+    x, dt, A, B, C = args
+    b, S = x.shape[:2]
+    G = B.shape[2]
+    L = min(chunk, S)
+    cut = lambda t: t.reshape(b * S // L, L, *t.shape[2:])
+    out = [("dropped the state carried across chunks",
+            lambda: ssd.ssd_scan_plain(cut(x), cut(dt), A, cut(B), cut(C),
+                                       L).reshape(x.shape)),
+           ("took dt 5% off", lambda: ssd.ssd_scan_plain(x, 1.05 * dt, A, B,
+                                                         C, L))]
+    for what in ref.SSD_WRONGS:
+        if what != "group h % G" or G > 1:
+            out.append((f"had {what}", lambda w=what: ref.ssd_tiles_ref(
+                x, dt, A, B, C, L, wrong=w)))
+    return out
+
+
+def ulp_ratio(got, plain) -> float:
+    """max |got - plain| / bound, element by element: one bf16 ulp,
+    2^-7 max(|plain|, 2^-4), for a bf16 output; 1e-6 |plain| for f32.  A
+    reading above 1 fails."""
+    g, r = got.float(), plain.float()
+    if got.element_size() == 2:                       # bf16
+        bound = INT8_BF16_RTOL * r.abs().clamp(min=INT8_FLOOR)
+    else:
+        bound = NORM_F32_RTOL * r.abs() + 2.0 ** -30
+    return ((g - r).abs() / bound).max().item()
+
+
+def rmsnorm_wrongs(rn, ref, x, scale, out_dtype):
+    """Broken one-pass RMSNorm kernels (``ref.rmsnorm_one_pass_ref`` at the
+    kernel's plan): the gain read as scale; at d 4,096 also the row's last
+    warp's partial left out of its sum; at d 2,304 (288 packs over 160
+    threads) the row's last pack not written.  [(what, () -> y)]."""
+    d = x.shape[-1]
+    plan = rn.one_pass_plan(d)
+    wrongs = ["gain read as scale"]
+    if d == 4096:
+        wrongs.append("one warp's partial left out")
+    if d == 2304:
+        wrongs.append("last pack not written")
+    return [(w, lambda w=w: ref.rmsnorm_one_pass_ref(
+        x, scale, out_dtype=out_dtype, plan=plan, wrong=w)) for w in wrongs]
+
+
 def rmsnorm_cost(case):
     """(bytes, flops): x read once, y written once, the scale read once;
     4 flops per element (square-add, the two scalings, 1 + scale)."""
@@ -709,6 +795,31 @@ def time_ms(torch, fn, flush, reps: int = 20, warmup: int = 3) -> float:
     return total / reps
 
 
+def kernel_times_ms(torch, fn, names, flush, reps: int = 10) -> dict:
+    """Mean device time per call of ``fn`` of each CUDA kernel whose name
+    holds one of ``names``, from ``torch.profiler``'s device-side events
+    over ``reps`` calls, each after the L2 flush and the host spin, as in
+    ``time_ms``.  A name no kernel matched reads 0."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            torch.cuda._sleep(HOST_AHEAD_CYCLES)
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        for n in names:
+            if n in e.key:
+                out[n] += us / 1e3 / reps
+    return out
+
+
 def profile_breakdown(prof, wall_ms: float) -> dict:
     """Device time of one profiled step by kernel family: the device-side
     events' time (``self_device_time_total``, in us) summed over kernels;
@@ -727,8 +838,8 @@ def profile_breakdown(prof, wall_ms: float) -> dict:
             continue
         key = e.key.lower()
         fam = ("flash_attention" if "flash_fwd" in key else
-               "ssd_scan" if "ssd_scan_kernel" in key else
-               "rmsnorm" if "rmsnorm_kernel" in key else
+               "ssd_scan" if "ssd_" in key else
+               "rmsnorm" if "rmsnorm" in key else
                "gemm" if any(t in key for t in ("gemm", "xmma", "cutlass",
                                                 "cublas")) else "other")
         fams[fam] += us / 1e3
@@ -898,7 +1009,11 @@ def main() -> int:
                 "flash_attention_tensor_core": fa.flash_fwd_tensor_core,
                 "flash_attention_cuda_core": fa.flash_fwd_cuda_core,
                 "flash_attention_int8kv": fa.flash_attention_int8kv,
-                "ssd_scan": ssd.ssd_scan, "rmsnorm": rn.rmsnorm}
+                "ssd_scan": ssd.ssd_scan,
+                "ssd_tensor_core": ssd.ssd_tensor_core,
+                "ssd_cuda_core": ssd.ssd_cuda_core, "rmsnorm": rn.rmsnorm,
+                "rmsnorm_one_pass": rn.rmsnorm_one_pass,
+                "rmsnorm_two_pass": rn.rmsnorm_two_pass}
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.2f} s "
@@ -1133,11 +1248,22 @@ def main() -> int:
     }
     for label, sc in ssd_sets.items():
         args = (sc["x"], sc["dt"], sc["A"], sc["B"], sc["C"])
+        S = args[0].shape[1]
+        n_tc = ssd.ssd_tensor_core.launches
         got = kops.ssd(*args, chunk=256)
         torch.cuda.synchronize()
-        ref = ssd.ssd_scan_plain(*args, 256)
+        tc = ssd.ssd_tensor_core.launches - n_tc
+        check(tc == 1 and ssd.tensor_core_route(
+            got.dtype, args[3].shape[3], got.shape[3], 256),
+            f"the SSD call at {label} missed the tensor-core scan")
+        # the plain version, its |.| scan and the broken ones on the inputs
+        # padded to a chunk multiple, as ops.ssd pads them
+        padded = kref.pad_to_chunks(args[0], args[1], args[3], args[4], 256)
+        pargs = (padded[0], padded[1], args[2], padded[2], padded[3])
+        ref, mix = (t[:, :S] for t in ssd_bound(ssd, pargs, 256))
         err = (got.float() - ref.float()).abs().max().item()
         rel = norm_err(got, ref)
+        ratio = kref.rounding_bound_ratio(got, ref, mix, ssd.P_ROUNDING)
         ins = [t.clone().requires_grad_(True) for t in args]
         g_got = torch.autograd.grad(kops.ssd(*ins, chunk=256), ins, sc["dy"])
         torch.cuda.synchronize()
@@ -1147,50 +1273,122 @@ def main() -> int:
         gerr = [((g.float() - w.float()).abs().max()
                  / w.float().abs().max()).item()
                 for g, w in zip(g_got, g_want)]
-        print(f"ssd     {label}: max_abs_err {err:.3e}, / max(1, |plain|) "
-              f"{rel:.3e} (tol {KERNEL_TOL}); max |plain| "
-              f"{ref.float().abs().max().item():.3e}; dx/ddt/dA/dB/dC max "
-              f"err / max |grad| {', '.join(f'{g:.1e}' for g in gerr)} "
-              f"(tol {GRAD_TOL})")
-        check(rel <= KERNEL_TOL, f"SSD kernel disagrees at {label}")
+        print(f"ssd     {label} (tensor cores): max_abs_err {err:.3e}, / "
+              f"max(1, |plain|) {rel:.3e} (tol {KERNEL_TOL}); max |err| / "
+              f"bound {ratio:.3e} (bound 2^-8 mix + 2^-7 |plain|, mix the "
+              f"plain scan of |x|, |B|, |C|; fails above 1); max |plain| "
+              f"{ref.float().abs().max().item():.3e}, max mix "
+              f"{mix.max().item():.3e}; dx/ddt/dA/dB/dC max err / max |grad| "
+              f"{', '.join(f'{g:.1e}' for g in gerr)} (tol {GRAD_TOL})")
+        check(rel <= KERNEL_TOL and ratio <= 1.0,
+              f"SSD kernel disagrees at {label}")
         check(max(gerr) <= GRAD_TOL, f"SSD gradients disagree at {label}")
         worst["ssd_scan"] = max(worst.get("ssd_scan", 0.0), err)
-        if label == "mamba2-1.3b":
-            # the check's power: a scan that drops the state carried
-            # across chunks, or takes dt 5% off, must fail it
-            chunks = args[0].shape[0] * args[0].shape[1] // 256
-            cut = lambda t: t.reshape(chunks, 256, *t.shape[2:])
-            for what, wrong in (
-                    ("without the carried state", lambda: ssd.ssd_scan_plain(
-                        cut(args[0]), cut(args[1]), args[2], cut(args[3]),
-                        cut(args[4]), 256).reshape(ref.shape)),
-                    ("with dt 5% off", lambda: ssd.ssd_scan_plain(
-                        args[0], 1.05 * args[1], *args[2:], 256))):
-                miss = norm_err(wrong(), ref)
-                print(f"ssd     {label}: a scan {what} would read "
-                      f"{miss:.3e} / max(1, |plain|)")
-                check(miss > KERNEL_TOL,
-                      f"the SSD check misses a scan {what}")
-        del sc, args, got, ref, ins, g_got, g_want
+        del ins, g_got, g_want
+        # the check's power: broken scans must each fail it (read above 1,
+        # or nan where the broken decay overflows: nan <= 1 is false too)
+        for what, wrong in ssd_wrongs(ssd, kref, pargs, 256):
+            miss = kref.rounding_bound_ratio(wrong()[:, :S], ref, mix,
+                                             ssd.P_ROUNDING)
+            print(f"ssd     {label}: a scan that {what} would read "
+                  f"{miss:.3e}")
+            check(not miss <= 1.0, f"the SSD check misses a scan that {what}")
+        del sc, args, pargs, padded, got, ref, mix
     del ssd_sets
+    # the CUDA-core scan (f32, and the smoke configs' shapes) at the mamba2
+    # widths: its own counter, element by element within 2^-14 mix + one
+    # f32 ulp and 2e-2 max(1, |plain|); the plain broken scans must fail
+    sc = ssd_case(torch, rng, dev, b=1, S=1024, H=64, P=64, G=1, N=128)
+    args = tuple(sc[k].float() for k in ("x", "dt", "A", "B", "C"))
+    n_tc, n_cc = ssd.ssd_tensor_core.launches, ssd.ssd_cuda_core.launches
+    got = kops.ssd(*args, chunk=256)
+    torch.cuda.synchronize()
+    check(ssd.ssd_cuda_core.launches == n_cc + 1
+          and ssd.ssd_tensor_core.launches == n_tc,
+          "the f32 SSD call missed the CUDA-core scan")
+    ref, mix = ssd_bound(ssd, args, 256)
+    err = (got - ref).abs().max().item()
+    rel = norm_err(got, ref)
+    ratio = kref.rounding_bound_ratio(got, ref, mix,
+                                      ssd.CUDA_CORE_P_ROUNDING)
+    print(f"ssd     f32, b 1, S 1024, H 64, P 64, N 128 (CUDA cores): "
+          f"max_abs_err {err:.3e}, / max(1, |plain|) {rel:.3e} (tol "
+          f"{KERNEL_TOL}); max |err| / bound {ratio:.3e} (bound 2^-14 mix "
+          f"+ 2^-23 |plain|; fails above 1); max |plain| "
+          f"{ref.abs().max().item():.3e}, max mix {mix.max().item():.3e}")
+    check(rel <= KERNEL_TOL and ratio <= 1.0,
+          "the CUDA-core SSD scan disagrees in f32")
+    for what, wrong in ssd_wrongs(ssd, kref, args, 256)[:2]:
+        miss = kref.rounding_bound_ratio(wrong(), ref, mix,
+                                         ssd.CUDA_CORE_P_ROUNDING)
+        print(f"ssd     f32: a scan that {what} would read {miss:.3e}")
+        check(not miss <= 1.0, f"the f32 SSD check misses a scan that {what}")
+    del sc, args, got, ref, mix
     torch.cuda.empty_cache()
 
-    for d in (896, 2048, 2304, 4096):
+    for d in (896, 2048, 2304, 4096, 8192):
         sc_ = torch.tensor(0.1 * rng.standard_normal(d), dtype=torch.float32,
                            device=dev)
-        for din in (torch.bfloat16, torch.float32):
+        for din, dout in ((torch.bfloat16, torch.bfloat16),
+                          (torch.float32, torch.bfloat16),
+                          (torch.float32, torch.float32)):
             x = torch.tensor(rng.standard_normal((1037, d)), dtype=din,
                              device=dev)
-            got = rn.rmsnorm(x, sc_, out_dtype=torch.bfloat16)
+            n_one = rn.rmsnorm_one_pass.launches
+            got = rn.rmsnorm(x, sc_, out_dtype=dout)
             torch.cuda.synchronize()
-            ref = rn.rmsnorm_ref(x, sc_, out_dtype=torch.bfloat16)
+            check(rn.rmsnorm_one_pass.launches == n_one + 1,
+                  f"RMSNorm at d {d} missed the one-pass kernel")
+            ref = rn.rmsnorm_ref(x, sc_, out_dtype=dout)
             err = (got.float() - ref.float()).abs().max().item()
             rel = norm_err(got, ref)
-            print(f"rmsnorm d {d}, 1037 rows, {str(din)[6:]} -> bf16: "
-                  f"max_abs_err {err:.3e}, / max(1, |plain|) {rel:.3e} "
-                  f"(tol {KERNEL_TOL})")
-            check(rel <= KERNEL_TOL, f"RMSNorm disagrees at d {d}")
+            ulp = ulp_ratio(got, ref)
+            print(f"rmsnorm d {d}, 1037 rows, {str(din)[6:]} -> "
+                  f"{str(dout)[6:]} (one pass): max_abs_err {err:.3e}, / "
+                  f"max(1, |plain|) {rel:.3e} (tol {KERNEL_TOL}); max |err| / "
+                  f"one ulp {ulp:.3e} (fails above 1)")
+            check(rel <= KERNEL_TOL and ulp <= 1.0,
+                  f"RMSNorm disagrees at d {d}")
             worst["rmsnorm"] = max(worst.get("rmsnorm", 0.0), err)
+            # the check's power: broken kernels must each fail the ulp rule
+            for what, wrong in rmsnorm_wrongs(rn, kref, x, sc_, dout):
+                miss = ulp_ratio(wrong(), ref)
+                print(f"rmsnorm d {d}: a kernel with the {what} would read "
+                      f"{miss:.3e}")
+                check(miss > 1.0,
+                      f"the RMSNorm check misses a kernel with the {what}")
+    # the two-pass kernel: d past the one-pass kernel's widest (packs of
+    # 8), d % 8 != 0 and rows one element off 16-byte alignment (element
+    # by element), each within one ulp on its own counter
+    for d, skew, path in ((16384, 0, "packs of 8"), (100, 0, "scalar"),
+                          (4096, 1, "scalar, misaligned rows")):
+        sc_ = torch.tensor(0.1 * rng.standard_normal(d), dtype=torch.float32,
+                           device=dev)
+        for din, dout in ((torch.bfloat16, torch.bfloat16),
+                          (torch.float32, torch.bfloat16),
+                          (torch.float32, torch.float32)):
+            x = torch.tensor(rng.standard_normal(1037 * d + skew), dtype=din,
+                             device=dev)[skew:].view(1037, d)
+            n_two = rn.rmsnorm_two_pass.launches
+            got = rn.rmsnorm(x, sc_, out_dtype=dout)
+            torch.cuda.synchronize()
+            check(rn.rmsnorm_two_pass.launches == n_two + 1,
+                  f"RMSNorm at d {d} ({path}) missed the two-pass kernel")
+            ref = rn.rmsnorm_ref(x, sc_, out_dtype=dout)
+            err = (got.float() - ref.float()).abs().max().item()
+            rel = norm_err(got, ref)
+            ulp = ulp_ratio(got, ref)
+            print(f"rmsnorm d {d}, 1037 rows, {str(din)[6:]} -> "
+                  f"{str(dout)[6:]} (two pass, {path}): max_abs_err "
+                  f"{err:.3e}, / max(1, |plain|) {rel:.3e} (tol "
+                  f"{KERNEL_TOL}); max |err| / one ulp {ulp:.3e} (fails "
+                  "above 1)")
+            check(rel <= KERNEL_TOL and ulp <= 1.0,
+                  f"RMSNorm (two pass, {path}) disagrees at d {d}")
+    x = torch.tensor(rng.standard_normal((1037, 4096)), dtype=torch.float32,
+                     device=dev)
+    sc_ = torch.tensor(0.1 * rng.standard_normal(4096), dtype=torch.float32,
+                       device=dev)
     dy = torch.randn((1037, 4096), dtype=torch.bfloat16, device=dev)
     ins = [t.clone().requires_grad_(True) for t in (x, sc_)]
     g_got = torch.autograd.grad(kops.rmsnorm(*ins, out_dtype=torch.bfloat16),
@@ -1281,8 +1479,14 @@ def main() -> int:
         ref_t, got_t = plain(), fn()
         ref, out = ref_t.float(), got_t.float()
         err = (out - ref).abs().max().item()
-        if kname in ("ssd_scan", "rmsnorm"):
-            ok = norm_err(out, ref) <= KERNEL_TOL
+        if kname == "ssd_scan":
+            mix = ssd_bound(ssd, sargs, 256)[1]
+            ok = (norm_err(out, ref) <= KERNEL_TOL and kref.rounding_bound_ratio(
+                got_t, ref_t, mix, ssd.P_ROUNDING) <= 1.0)
+            del mix
+        elif kname == "rmsnorm":
+            ok = (norm_err(out, ref) <= KERNEL_TOL
+                  and ulp_ratio(got_t, ref_t) <= 1.0)
         elif kname == "flash_attention_int8kv":
             ok = int8_rel_err(out, ref) <= INT8_BF16_RTOL
         elif kname == "flash_attention":
@@ -1322,6 +1526,10 @@ def main() -> int:
               f"library {lib_txt}, bound {entry['bound_ms']:.4f} ms by "
               f"{bound_by} ({nbytes} B, {flops} flop)", flush=True)
     by_name = {k["name"]: k for k in kernels}
+    by_name["ssd_scan"]["design"] = (
+        f"tensor cores (mma.sync), {len(ssd.TC_KERNELS)} launches: "
+        + ", ".join(ssd.TC_KERNELS))
+    by_name["rmsnorm"]["design"] = "one pass, each row read once into registers"
 
     # the int8 kernel and paged prefill also at the shapes their paths run
     # most: the dense prefill replay (B = 1, one query, a 1,024-position
@@ -1394,7 +1602,41 @@ def main() -> int:
     print(f"rmsnorm 8192 x 4096 bf16 -> bf16: kernel {bf_ms:.4f} ms, bound "
           f"{(xb.numel() * 4 + 4096 * 4) / HBM_BYTES_PER_S * 1e3:.4f} ms "
           "(bytes)", flush=True)
-    del scase, sargs, ncase, gain, xb, icase, iargs, kd, vd
+    # RMSNorm at the qwen2 training step's norms: 8,192 rows x 896, the f32
+    # residual in, bf16 out
+    qcase = dict(x=torch.randn((8192, 896), dtype=torch.float32, device=dev),
+                 scale=0.1 * torch.randn((896,), dtype=torch.float32,
+                                         device=dev),
+                 out_dtype="bfloat16")
+    qgain = 1.0 + qcase["scale"]
+    qfn = lambda: rn.rmsnorm(qcase["x"], qcase["scale"],
+                             out_dtype=torch.bfloat16)
+    qplain = lambda: rn.rmsnorm_ref(qcase["x"], qcase["scale"],
+                                    out_dtype=torch.bfloat16)
+    check(ulp_ratio(qfn(), qplain()) <= 1.0,
+          "rmsnorm disagrees at 8192 x 896")
+    nbytes, flops = rmsnorm_cost(qcase)
+    q = dict(ms=time_ms(torch, qfn, flush),
+             plain_ms=time_ms(torch, qplain, flush, reps=5),
+             library_ms=time_ms(torch, lambda: F.rms_norm(
+                 qcase["x"], (896,), weight=qgain, eps=1e-6), flush),
+             bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S)
+             * 1e3, bound_by="bytes", shapes="8192 x 896 f32 -> bf16")
+    by_name["rmsnorm"]["path_shapes"] = q
+    print(f"rmsnorm at {q['shapes']} (qwen2's norms): kernel {q['ms']:.4f} ms, "
+          f"plain {q['plain_ms']:.4f} ms, library {q['library_ms']:.4f} ms, "
+          f"bound {q['bound_ms']:.4f} ms by bytes", flush=True)
+    # the tensor-core SSD scan launch by launch at the timing shapes: each
+    # kernel's device time in whole scans, from the profiler
+    stages = kernel_times_ms(torch, lambda: ssd.ssd_scan(*sargs, 256),
+                             ssd.TC_KERNELS, flush)
+    by_name["ssd_scan"]["stages_ms"] = stages
+    print("ssd_scan launches (tensor cores, b 8, profiler): " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in stages.items()) + f"; sum "
+        f"{sum(stages.values()):.4f} ms", flush=True)
+    check(all(v > 0 for v in stages.values()),
+          "the profiler saw no device time for an SSD launch")
+    del scase, sargs, ncase, gain, xb, icase, iargs, kd, vd, qcase, qgain
     torch.cuda.empty_cache()
 
     # 5. serving at full width ---------------------------------------------
@@ -1651,6 +1893,8 @@ def main() -> int:
           == launches["flash_attention"]
           and launches["flash_attention_cuda_core"] == 0,
           "a training flash launch missed the tensor-core kernel")
+    check(launches["rmsnorm_one_pass"] == launches["rmsnorm"],
+          "a qwen2 training norm missed the one-pass kernel")
     by_name["flash_attention"]["launches"] = launches["flash_attention"]
     rms_paths["training qwen2-0.5b"] = launches["rmsnorm"]
 
@@ -1694,6 +1938,17 @@ def main() -> int:
     check(all(n == want_rms for n in per_step["rmsnorm"]),
           f"rmsnorm launches per step {per_step['rmsnorm']}, want {want_rms}")
     check(launches["flash_attention"] == 0, "flash launched in mamba2")
+    # every scan of every step on the tensor-core route, every norm one pass
+    print(f"mamba2 SSD scans: {launches['ssd_scan']}, tensor cores "
+          f"{launches['ssd_tensor_core']}, CUDA cores "
+          f"{launches['ssd_cuda_core']}; rmsnorm one pass "
+          f"{launches['rmsnorm_one_pass']} of {launches['rmsnorm']}",
+          flush=True)
+    check(launches["ssd_tensor_core"] == launches["ssd_scan"]
+          and launches["ssd_cuda_core"] == 0,
+          "a mamba2 SSD scan missed the tensor-core route")
+    check(launches["rmsnorm_one_pass"] == launches["rmsnorm"],
+          "a mamba2 norm missed the one-pass kernel")
     by_name["ssd_scan"]["launches"] = launches["ssd_scan"]
     by_name["rmsnorm"]["launches"] = launches["rmsnorm"]
     rms_paths["training mamba2-1.3b"] = launches["rmsnorm"]

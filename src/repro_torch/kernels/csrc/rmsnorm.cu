@@ -6,21 +6,37 @@
 // function as the reference's jnp modules.rmsnorm, which every layer of the
 // port calls.
 //
-// What bounds it on the H100: 3 flops per element against 2-8 bytes per
-// element (x read once, y written once, bf16 or f32), so ~0.5 flop/byte,
-// far below the ~295 flop/byte ridge: device-memory bandwidth bounds it
-// (3.35 TB/s).  At the gated norm of mamba2-1.3b training (8,192 rows x
-// 4,096, bf16 in and out) that is 134 MB, 0.040 ms.
+// What bounds it on the H100: 4 flops per element against 4-8 bytes per
+// element (x read once, y written once, bf16 or f32), ~1 flop/byte, far
+// below the ~295 flop/byte ridge: device-memory bandwidth bounds it (3.35
+// TB/s).  At mamba2-1.3b's gated norm in training (8,192 rows x 4,096, f32
+// in, bf16 out) that is 201 MB, 0.060 ms; at qwen2-0.5b's (8,192 x 896,
+// f32 in, bf16 out) 44 MB, 0.013 ms.
 //
-// Design: one warp per row, 8 rows per 256-thread block, so a row's sum of
-// squares is reduced with shuffles alone (no shared memory, no block-wide
-// barrier) and any row count works (the last block's idle warps return;
-// Pallas pads the last row tile instead).  Each lane walks the row in
-// packs of 8 elements (one 16-byte load for bf16, two for f32) when d is a
-// multiple of 8 and the rows are 16-byte aligned, else element by element.
-// The row is read twice: once for the sum, once to normalise; the second
-// read of a row of at most 16 KB comes from L1/L2.  The sum of squares is
-// f32, as in the reference.
+// Two kernels, chosen by the wrapper from d and alignment
+// (kernels/rmsnorm.py::one_pass_route):
+//
+// - One pass (rmsnorm_one_pass_kernel): d a multiple of 8 up to 8,192 and
+//   x, scale, out 16-byte aligned.  A row is read once, into registers:
+//   each of the row's TPR threads (a multiple of 32, from
+//   rmsnorm.py::one_pass_plan) holds PPT packs of 8 elements (one 16-byte
+//   load for bf16, two for f32), packs tid, tid + TPR, ...; the sum of
+//   squares is reduced in f32 with shuffles inside each warp and the
+//   row's warp totals through a small shared array, then each thread
+//   normalises its packs from registers and stores them.  For d <= 1,024
+//   a block holds several rows (256 threads in all), so qwen2's d = 896
+//   keeps the card full.  Rows past the last are masked; threads past a
+//   ragged row's packs hold zeros.
+// - Two passes (rmsnorm_kernel, one warp per row, 8 rows per 256-thread
+//   block): every other d and alignment.  Each lane walks the row in packs
+//   of 8 (when d % 8 == 0 and the rows are aligned) or element by element,
+//   once for the sum of squares and again to normalise; the second read of
+//   a row of at most 16 KB comes from L1/L2.
+//
+// Numerics: the sum of squares, rsqrt and both products are f32, as in the
+// reference; only the order of the sum differs from the plain version's,
+// so a bf16 output is within one ulp of it and an f32 output within a few
+// f32 roundings.
 //
 // Input f32 or bf16; output f32 or bf16 (the port feeds norms the unrounded
 // f32 residual and asks for bf16 out).  The scale is f32 (the port keeps
@@ -34,6 +50,7 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int ROWS_PER_BLOCK = THREADS / 32;
+constexpr int MAX_BLOCK = 256;   // one-pass threads a block, at most
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -120,6 +137,95 @@ __global__ void __launch_bounds__(THREADS) rmsnorm_kernel(
   }
 }
 
+// One row per TPR threads (a multiple of 32), blockDim.x / TPR rows per
+// block; each thread holds packs lt, lt + TPR, ..., lt + (PPT - 1) TPR of
+// its row (8 elements each) in registers between the reduction and the
+// store.
+template <typename TI, typename TO, int PPT>
+__global__ void __launch_bounds__(MAX_BLOCK) rmsnorm_one_pass_kernel(
+    const TI* __restrict__ x,          // (rows, d)
+    const float* __restrict__ scale,   // (d,)
+    TO* __restrict__ out,              // (rows, d)
+    int rows, int d, int tpr, float eps) {
+  __shared__ float wsum[MAX_BLOCK / 32];   // a partial per warp
+  const int lt = threadIdx.x % tpr;
+  const int rib = threadIdx.x / tpr;
+  const long long row = (long long)blockIdx.x * (blockDim.x / tpr) + rib;
+  const bool live = row < rows;
+  const int packs = d >> 3;
+  const TI* xr = x + row * d;
+  TO* yr = out + row * d;
+
+  float v[PPT][8];
+  float ss = 0.0f;
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int p = lt + k * tpr;
+    if (live && p < packs) {
+      load8(xr + p * 8, v[k]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[k][i] = 0.0f;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < PPT; ++k)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) ss += v[k][i] * v[k][i];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) wsum[warp] = ss;
+  __syncthreads();
+  const int wpr = tpr >> 5;            // warps per row
+  float tot = 0.0f;
+  for (int w = 0; w < wpr; ++w) tot += wsum[rib * wpr + w];
+  const float r = rsqrtf(tot / (float)d + eps);
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int p = lt + k * tpr;
+    if (live && p < packs) {
+      float s[8];
+      load8(scale + p * 8, s);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[k][i] = (v[k][i] * r) * (1.0f + s[i]);
+      store8(yr + p * 8, v[k]);
+    }
+  }
+}
+
+template <typename TI, typename TO>
+int launch_one_pass(const void* x, const float* scale, void* out, int rows,
+                    int d, float eps, int ppt, int tpr, int rpb,
+                    cudaStream_t stream) {
+  const dim3 grid((rows + rpb - 1) / rpb);
+  const int threads = tpr * rpb;
+  const TI* xi = static_cast<const TI*>(x);
+  TO* o = static_cast<TO*>(out);
+  switch (ppt) {
+    case 1:
+      rmsnorm_one_pass_kernel<TI, TO, 1><<<grid, threads, 0, stream>>>(
+          xi, scale, o, rows, d, tpr, eps);
+      break;
+    case 2:
+      rmsnorm_one_pass_kernel<TI, TO, 2><<<grid, threads, 0, stream>>>(
+          xi, scale, o, rows, d, tpr, eps);
+      break;
+    case 3:
+      rmsnorm_one_pass_kernel<TI, TO, 3><<<grid, threads, 0, stream>>>(
+          xi, scale, o, rows, d, tpr, eps);
+      break;
+    case 4:
+      rmsnorm_one_pass_kernel<TI, TO, 4><<<grid, threads, 0, stream>>>(
+          xi, scale, o, rows, d, tpr, eps);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 template <typename TI, typename TO>
 void launch(const void* x, const float* scale, void* out, int rows, int d,
             float eps, int vec, cudaStream_t stream) {
@@ -136,7 +242,8 @@ void launch(const void* x, const float* scale, void* out, int rows, int d,
 
 }  // namespace
 
-// in_dtype / out_dtype: 0 = float32, 1 = bfloat16.  vec: 1 when d % 8 == 0
+// The two-pass kernel.  in_dtype / out_dtype: 0 = float32, 1 = bfloat16.
+// vec: 1 when d % 8 == 0
 // and x, scale and out are 16-byte aligned (the wrapper checks).  Returns
 // cudaGetLastError() after the launch (0 on success).
 extern "C" int rmsnorm_fwd(const void* x, const float* scale, void* out,
@@ -156,4 +263,32 @@ extern "C" int rmsnorm_fwd(const void* x, const float* scale, void* out,
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// The one-pass kernel: d % 8 == 0, x, scale and out 16-byte aligned; the
+// plan (ppt packs a thread, tpr threads a row, a multiple of 32, rpb rows
+// a block, tpr * rpb <= 256) from rmsnorm.py::one_pass_plan.  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// arguments the kernel does not take.
+extern "C" int rmsnorm_one_pass_fwd(const void* x, const float* scale,
+                                    void* out, int in_dtype, int out_dtype,
+                                    int rows, int d, float eps, int ppt,
+                                    int tpr, int rpb, cudaStream_t stream) {
+  if (rows <= 0 || d <= 0 || d % 8 != 0 || tpr <= 0 || tpr % 32 != 0 ||
+      rpb <= 0 || tpr * rpb > MAX_BLOCK || (long long)ppt * tpr * 8 < d)
+    return (int)cudaErrorInvalidValue;
+  cudaGetLastError();  // clear a stale error so ours is reported
+  if (in_dtype == 0 && out_dtype == 0)
+    return launch_one_pass<float, float>(x, scale, out, rows, d, eps, ppt,
+                                         tpr, rpb, stream);
+  if (in_dtype == 0 && out_dtype == 1)
+    return launch_one_pass<float, __nv_bfloat16>(x, scale, out, rows, d, eps,
+                                                 ppt, tpr, rpb, stream);
+  if (in_dtype == 1 && out_dtype == 0)
+    return launch_one_pass<__nv_bfloat16, float>(x, scale, out, rows, d, eps,
+                                                 ppt, tpr, rpb, stream);
+  if (in_dtype == 1 && out_dtype == 1)
+    return launch_one_pass<__nv_bfloat16, __nv_bfloat16>(
+        x, scale, out, rows, d, eps, ppt, tpr, rpb, stream);
+  return (int)cudaErrorInvalidValue;
 }

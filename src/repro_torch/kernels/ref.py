@@ -21,8 +21,12 @@ ranges and its split-and-combine, in f32), ``int8kv_split_ranges`` and
 ``prefill_split_ranges`` and ``paged_prefill_tiles_ref`` (the tensor-core
 prefill kernel's key ranges and its tile loop over pages, splits and
 combine, P rounded to bf16), ``flash_tiles_ref`` (the tensor-core flash
-kernel's tile loop, with P rounded to bf16 for the PV product) and
-``rounding_bound_ratio`` (the element-wise check derived from that
+kernel's tile loop, with P rounded to bf16 for the PV product),
+``ssd_tiles_ref`` (the tensor-core SSD scan's CB, chunk states, state
+passing and row tiles, M and w x rounded to bf16, with its broken
+variants), ``rmsnorm_one_pass_ref`` (the one-pass RMSNorm kernel's
+layout of a row over threads and warps, with its broken variants) and
+``rounding_bound_ratio`` (the element-wise check derived from the
 rounding).
 """
 from __future__ import annotations
@@ -582,6 +586,95 @@ def ssd_scan_ref(x, dt, A, B, C, chunk: int, initial_state=None):
     return y.to(x.dtype), h
 
 
+SSD_WRONGS = ("mask one row late", "h_enter one chunk late",
+              "no chunk decay exp(seg)", "group h % G")
+
+
+def ssd_tiles_ref(x, dt, A, B, C, chunk: int, *,
+                  wrong: Optional[str] = None):
+    """The tensor-core SSD scan's decomposition, in PyTorch at the model
+    layout (x (b, S, H, P), B and C (b, S, G, N), S a multiple of
+    ``L = min(chunk, S)``), with its rounding points:
+
+    (a) CB = C . B^T per (b, chunk, group) in f32 (products of bf16 values
+        are exact);
+    (b) per head cum, w = exp(seg - cum) dt and the chunk state
+        B^T (w x), w x entering as a hi + lo pair in x's dtype;
+    (c) the state passing h_enter[c + 1] = exp(seg_c) h_enter[c] + state_c
+        in f32;
+    (d) per 64-row tile, exp(cum_i) (C_i . h_enter) with h_enter as a hi +
+        lo pair, plus M . x over the column tiles at or below the diagonal,
+        M = CB exp(cum_i - cum_j) dt_j selected before the exp, as a hi +
+        lo pair.
+
+    ``wrong`` (one of ``SSD_WRONGS``) is a broken kernel, for the checks'
+    power: the mask one row late (j <= i + 1), h_enter one chunk late, the
+    state's decay exp(seg) left out, or head h reading group h % G instead
+    of h // (H / G).  Returns y (b, S, H, P) in x's dtype."""
+    if wrong is not None and wrong not in SSD_WRONGS:
+        raise ValueError(f"unknown broken scan {wrong!r}")
+    b, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    L = min(chunk, S)
+    nc = S // L
+    dev = x.device
+
+    def pair(t):                     # hi + lo, each rounded to x's dtype
+        hi = t.to(x.dtype).float()
+        return hi + (t - hi).to(x.dtype).float()
+
+    heads = torch.arange(H, device=dev)
+    grp = heads % G if wrong == "group h % G" else heads // (H // G)
+    xc = x.float().reshape(b, nc, L, H, P)
+    dc = dt.float().reshape(b, nc, L, H)
+    Bc = B.float().reshape(b, nc, L, G, N)
+    Cc = C.float().reshape(b, nc, L, G, N)
+    # (a) per group
+    cb = torch.einsum("bclgn,bcmgn->bcglm", Cc, Bc)[:, :, grp]  # (b,nc,H,L,L)
+    # (b) per head
+    cum = torch.cumsum(dc * A.float()[None, None, None, :], dim=2)
+    seg = cum[:, :, -1:, :]
+    w = torch.exp(seg - cum) * dc
+    states = torch.einsum("bclhn,bclhp->bchnp", Bc[:, :, :, grp],
+                          pair(w[..., None] * xc))
+    # (c) in f32
+    decay = torch.exp(seg[:, :, 0, :])
+    h = torch.zeros((b, H, N, P), device=dev)
+    h_enter = []
+    for c in range(nc):
+        h_enter.append(h)
+        h = (h if wrong == "no chunk decay exp(seg)"
+             else decay[:, c, :, None, None] * h) + states[:, c]
+    if wrong == "h_enter one chunk late":
+        h_enter = [torch.zeros_like(h)] + h_enter[:-1]
+    h_enter = torch.stack(h_enter, dim=1)                 # (b, nc, H, N, P)
+    h_near = pair(h_enter)
+    # (d) per row tile
+    Ch = Cc[:, :, :, grp]                                 # (b, nc, L, H, N)
+    cum_t = cum.permute(0, 1, 3, 2)                       # (b, nc, H, L)
+    dt_t = dc.permute(0, 1, 3, 2)
+    late = 1 if wrong == "mask one row late" else 0
+    tile = 64                                             # the kernel's
+    y = torch.zeros((b, nc, L, H, P), device=dev)
+    for i0 in range(0, L, tile):
+        rows = slice(i0, i0 + tile)
+        acc = torch.einsum("bclhn,bchnp->bclhp", Ch[:, :, rows], h_near)
+        acc = acc * torch.exp(cum[:, :, rows])[..., None]
+        ii = torch.arange(i0, min(i0 + tile, L), device=dev)[:, None]
+        for j0 in range(0, min(i0 + tile + late, L), tile):
+            cols = slice(j0, j0 + tile)
+            jj = torch.arange(j0, min(j0 + tile, L), device=dev)[None, :]
+            mask = jj <= ii + late
+            diff = cum_t[..., rows, None] - cum_t[..., None, cols]
+            zero = torch.zeros((), device=dev)
+            M = torch.where(mask, cb[..., rows, cols] * torch.exp(
+                torch.where(mask, diff, zero)) * dt_t[..., None, cols], zero)
+            acc = acc + torch.einsum("bchlm,bcmhp->bclhp", pair(M),
+                                     xc[:, :, cols])
+        y[:, :, rows] = acc
+    return y.reshape(b, S, H, P).to(x.dtype)
+
+
 def rmsnorm_ref(x, scale, eps: float = 1e-6, out_dtype=None):
     """x (..., d); scale (d,).  x * rsqrt(mean(x^2) + eps) * (1 + scale),
     in f32; the result in ``out_dtype`` (default: x's dtype)."""
@@ -589,3 +682,36 @@ def rmsnorm_ref(x, scale, eps: float = 1e-6, out_dtype=None):
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.float())).to(out_dtype or x.dtype)
+
+
+RMSNORM_WRONGS = ("one warp's partial left out", "gain read as scale",
+                  "last pack not written")
+
+
+def rmsnorm_one_pass_ref(x, scale, eps: float = 1e-6, out_dtype=None, *,
+                         plan, wrong: Optional[str] = None):
+    """``rmsnorm_ref`` as the one-pass kernel lays a row out: ``plan`` =
+    (packs a thread, threads a row, rows a block) from
+    ``rmsnorm.one_pass_plan``; thread t of a row holds packs t, t + TPR, ...
+    of 8 elements, warp w the threads [32 w, 32 w + 32).  ``wrong`` (one of
+    ``RMSNORM_WRONGS``) is a broken kernel, for the check's power: the
+    row's last warp's partial sum left out, the gain read as ``scale``
+    instead of ``1 + scale``, or the row's last pack of 8 not written (left
+    zero)."""
+    if wrong is not None and wrong not in RMSNORM_WRONGS:
+        raise ValueError(f"unknown broken kernel {wrong!r}")
+    ppt, tpr, _ = plan
+    d = x.shape[-1]
+    xf = x.float()
+    sq = xf.square()
+    if wrong == "one warp's partial left out":
+        pack = torch.arange(d, device=x.device) // 8
+        last_warp = (pack % tpr) // 32 == tpr // 32 - 1
+        sq = torch.where(last_warp, torch.zeros_like(sq), sq)
+    y = xf * torch.rsqrt(sq.sum(dim=-1, keepdim=True) / d + eps)
+    gain = scale.float() if wrong == "gain read as scale" else (
+        1.0 + scale.float())
+    y = y * gain
+    if wrong == "last pack not written":
+        y[..., d - 8:] = 0.0             # the one-pass kernel's d % 8 == 0
+    return y.to(out_dtype or x.dtype)

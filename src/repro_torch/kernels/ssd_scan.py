@@ -1,18 +1,30 @@
-"""Mamba-2 SSD chunked scan: CUDA kernel, plain PyTorch version, and the
+"""Mamba-2 SSD chunked scan: CUDA kernels, plain PyTorch version, and the
 autograd Function whose backward is PyTorch.
 
-Counterpart of ``repro.kernels.ssd_scan.ssd_scan``.  The kernel
-(``csrc/ssd_scan.cu``) runs one thread block per ``(b, h)`` that walks the
-chunks in order with the (N, P) state in shared memory, reading x, B and C
-in the model layout (head h reads group h // (H / G) of the un-repeated
-B and C).  See the source's header for its bound and design.  Like the TPU
-kernel it takes ``S % L == 0`` (``L = min(chunk, S)``), no initial state
-and no D skip; ``ops.ssd`` pads S to a chunk multiple.
+Counterpart of ``repro.kernels.ssd_scan.ssd_scan``.  ``csrc/ssd_scan.cu``
+holds two scans, chosen by :func:`tensor_core_route` (dtype and shapes,
+never a failed build or launch):
+
+- bf16 x, B and C with N and P multiples of 16, N <= 128, P <= 64 and L a
+  multiple of 64 up to 256 (mamba2-1.3b's N 128, P 64, L 256; zamba2-1.2b's
+  N 64): the
+  tensor-core scan, three launches (C.B^T per chunk and group; per head
+  the chunk states and the state passing over its chunks in f32; the
+  outputs per chunk and head), with f32 workspaces from this wrapper;
+- f32, and every other shape (the smoke configs' N 16, L 16): the CUDA-core
+  scan, one launch, one block per ``(b, h)`` walking the chunks in order.
+
+Both read x, B and C in the model layout (head h reads group h // (H / G)
+of the un-repeated B and C).  See the source's header for their bound,
+design and rounding points.  Like the TPU kernel they take ``S % L == 0``
+(``L = min(chunk, S)``), no initial state and no D skip; ``ops.ssd`` pads
+S to a chunk multiple.
 
 ``ssd_scan`` dispatches on the device of ``x``: a CPU tensor goes through
 the plain version (``repro_torch.kernels.ref.ssd_scan_ref``), a CUDA tensor
-launches the kernel or raises.  ``ssd_scan.launches`` counts kernel
-launches only.
+launches a scan or raises.  ``ssd_scan.launches`` counts scans, one a call;
+``ssd_tensor_core.launches`` and ``ssd_cuda_core.launches`` count them by
+route (a tensor-core scan is the ``TC_KERNELS``' launches, one each).
 
 The backward is PyTorch on any device: the JAX package has no backward
 kernel (its gradient is XLA's autodiff of ``ssd_chunked``), so
@@ -29,9 +41,23 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ssd_scan_ref
 
 _fn = None
+_fn_tc = None
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_STATE = 128
 MAX_HEAD_DIM = 64
+TC_ROWS = 64          # the tensor-core scan's row tile; L is a multiple
+TC_MAX_CHUNK = 256    # its states kernel's cum scan: one position a thread
+TC_KERNELS = ("ssd_cb_kernel", "ssd_states_kernel", "ssd_output_kernel")
+P_ROUNDING = 2.0 ** -8  # the element-wise bound's p (ref.
+                        # rounding_bound_ratio) for the tensor-core scan: M,
+                        # w x and h_enter enter its products as bf16 hi + lo
+                        # pairs (2^-18), the rest is the decays' f32 error
+                        # from summing cum in another order than the plain
+                        # cumsum (a few 2^-24 |cum|)
+CUDA_CORE_P_ROUNDING = 2.0 ** -14  # the same bound's p for the CUDA-core
+                                   # scan, f32 throughout: 2^10 f32
+                                   # roundings (2^-24 each) of headroom for
+                                   # sums taken in another order
 
 
 def _entry():
@@ -43,6 +69,26 @@ def _entry():
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def _entry_tc():
+    global _fn_tc
+    if _fn_tc is None:
+        fn = _build.load("ssd_scan").ssd_scan_tc_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fn_tc = fn
+    return _fn_tc
+
+
+def tensor_core_route(dtype: torch.dtype, N: int, P: int, L: int) -> bool:
+    """The routing rule: bf16 with N and P multiples of 16, N <= 128,
+    P <= 64 and L a multiple of 64 up to 256 runs the tensor-core scan;
+    f32 and every other shape the CUDA-core scan."""
+    return (dtype == torch.bfloat16 and N % 16 == 0 and 16 <= N <= MAX_STATE
+            and P % 16 == 0 and 16 <= P <= MAX_HEAD_DIM
+            and L % TC_ROWS == 0 and TC_ROWS <= L <= TC_MAX_CHUNK)
 
 
 def ssd_scan_plain(x, dt, A, B, C, chunk: int):
@@ -89,6 +135,56 @@ def _check_cuda(x, dt, A, B, C, L):
                          "ops.ssd pads it")
 
 
+def tc_workspaces(x, B, L):
+    """The tensor-core scan's f32 workspaces: CB (b, nc, G, L, L), cum and
+    dt (b, nc, H, L) each, the state entering each chunk (b, nc, H, N,
+    P)."""
+    b, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    nc = S // L
+    f32 = dict(dtype=torch.float32, device=x.device)
+    return (torch.empty((b, nc, G, L, L), **f32),
+            torch.empty((b, nc, H, L), **f32),
+            torch.empty((b, nc, H, L), **f32),
+            torch.empty((b, nc, H, N, P), **f32))
+
+
+def ssd_tensor_core(x, dt, A, B, C, y, L):
+    """Launch the tensor-core scan into ``y`` (its three kernels)."""
+    for name, t in (("x", x), ("B", B), ("C", C), ("y", y)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    b, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    ws = tc_workspaces(x, B, L)
+    fn = _entry_tc()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                    C.data_ptr(), y.data_ptr(), *(t.data_ptr() for t in ws),
+                    b, S, H, G, N, P, L, stream)
+    _build.check(status, "ssd_scan (tensor cores)")
+    ssd_tensor_core.launches += 1
+
+
+def ssd_cuda_core(x, dt, A, B, C, y, L):
+    """Launch the CUDA-core scan into ``y``."""
+    b, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    fn = _entry()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                    C.data_ptr(), y.data_ptr(), _DTYPES[x.dtype], b, S, H, G,
+                    N, P, L, stream)
+    _build.check(status, "ssd_scan (CUDA cores)")
+    ssd_cuda_core.launches += 1
+
+
+ssd_tensor_core.launches = 0
+ssd_cuda_core.launches = 0
+
+
 def ssd_scan(x, dt, A, B, C, chunk: int):
     """SSD scan with zero initial state.
 
@@ -99,20 +195,15 @@ def ssd_scan(x, dt, A, B, C, chunk: int):
         return ssd_scan_plain(x, dt, A, B, C, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: no kernel for device {x.device}")
-    b, S, H, P = x.shape
+    S, P, N = x.shape[1], x.shape[3], B.shape[3]
     L = min(chunk, S)
     _check_cuda(x, dt, A, B, C, L)
-    G, N = B.shape[2], B.shape[3]
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    fn = _entry()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-                    C.data_ptr(), y.data_ptr(), _DTYPES[x.dtype], b, S, H, G,
-                    N, P, L, stream)
-    _build.check(status, "ssd_scan")
+    launch = (ssd_tensor_core if tensor_core_route(x.dtype, N, P, L)
+              else ssd_cuda_core)
+    launch(x, dt, A, B, C, y, L)
     ssd_scan.launches += 1
     return y
 

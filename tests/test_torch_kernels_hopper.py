@@ -21,6 +21,16 @@ checked on the CPU.
   reference's Pallas kernel (interpret mode); every broken variant that
   ``chip_smoke.py`` builds exceeds the bound, for both kernels, so the
   check's power is shown here and not only on the card.
+- The tensor-core SSD scan's decomposition (``ref.ssd_tiles_ref``: CB per
+  group, chunk states, the state passing, row tiles; M, w x and h_enter as
+  bf16 hi + lo pairs) stays inside its element-wise bound against the
+  plain version and the reference's Pallas kernel (interpret mode) at small
+  mamba2-like shapes, and every broken scan ``chip_smoke.py`` builds fails
+  it; its route is a rule on dtype and shapes.
+- The one-pass RMSNorm kernel's layout of a row (``rmsnorm.one_pass_plan``,
+  ``ref.rmsnorm_one_pass_ref``) is within one bf16 ulp of the plain version
+  and each broken variant fails that rule; its route is a rule on d and
+  alignment.
 - The ``gpu`` tests at the end hold the CUDA kernels to the same bounds on
   a machine with a card (``python -m pytest -m gpu tests/``).
 """
@@ -34,11 +44,15 @@ import pytest
 import torch
 
 from repro.kernels import flash_attention as jfa
+from repro.kernels.ssd_scan import ssd_scan as pallas_ssd_scan
 from repro_torch.kernels import _build
+from repro_torch.kernels import ops
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import paged_prefill as pp
 from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import ssd_scan as ssd
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402  (the repository root's script)
@@ -545,6 +559,153 @@ def test_build_target_changes_when_a_header_changes(tmp_path):
 
 
 # ---------------------------------------------------------------------------
+# the SSD scan on tensor cores, parallel over chunks
+# ---------------------------------------------------------------------------
+
+def test_ssd_tensor_core_route_is_a_rule_on_dtype_and_shapes():
+    for N, P, L in ((128, 64, 256), (64, 64, 256), (16, 16, 64),
+                    (128, 48, 192), (32, 32, 128)):
+        assert ssd.tensor_core_route(torch.bfloat16, N, P, L)
+    for dt, N, P, L in ((torch.float32, 128, 64, 256),   # f32
+                        (torch.bfloat16, 16, 32, 16),    # the smoke config
+                        (torch.bfloat16, 136, 64, 256),  # N past 128
+                        (torch.bfloat16, 120, 64, 256),  # N not 16k
+                        (torch.bfloat16, 128, 40, 256),  # P not 16k
+                        (torch.bfloat16, 128, 64, 96),   # L not 64k
+                        (torch.bfloat16, 128, 64, 512)):  # L past 256
+        assert not ssd.tensor_core_route(dt, N, P, L)
+
+
+def _ssd_set(G):
+    """Small mamba2-like shapes: N 128, P 64, chunk 64 over S 256 (four
+    chunks: the state carries and decays), H 4 over G groups."""
+    c = cs.ssd_case(torch, np.random.default_rng(G), "cpu", b=2, S=256, H=4,
+                    P=64, G=G, N=128)
+    return (c["x"], c["dt"], c["A"], c["B"], c["C"])
+
+
+@pytest.mark.parametrize("G", [1, 2])
+def test_ssd_tiles_stay_inside_the_bound(G):
+    """The tensor-core scan's decomposition against the plain version:
+    inside 2^-8 mix + 2^-7 |plain| element by element, and inside the
+    element-wise 2e-2 check ``chip_smoke.py`` keeps beside it."""
+    args = _ssd_set(G)
+    plain, mix = cs.ssd_bound(ssd, args, 64)
+    emu = ref.ssd_tiles_ref(*args, 64)
+    assert emu.dtype == torch.bfloat16
+    assert ref.rounding_bound_ratio(emu, plain, mix, ssd.P_ROUNDING) <= 1.0
+    assert cs.norm_err(emu, plain) <= cs.KERNEL_TOL
+
+
+@pytest.mark.parametrize("G", [1, 2])
+def test_ssd_tiles_against_the_pallas_kernel(G):
+    """The same decomposition against the reference's Pallas kernel
+    (interpret mode, heads folded, B and C repeated per head) on the same
+    bf16 inputs, within the bound plus one ulp of the reference's own bf16
+    output."""
+    x, dt, A, B, C = args = _ssd_set(G)
+    b, S, H, P = x.shape
+    rep = H // G
+    fold = lambda t: jnp.asarray(t.float().transpose(1, 2).reshape(
+        b * H, S, -1).numpy(), jnp.bfloat16)
+    want = pallas_ssd_scan(
+        fold(x), jnp.asarray(dt.transpose(1, 2).reshape(b * H, S).numpy()),
+        jnp.asarray(np.tile(A.numpy(), b)),
+        fold(B.repeat_interleave(rep, dim=2)),
+        fold(C.repeat_interleave(rep, dim=2)), 64, interpret=True)
+    want = torch.from_numpy(np.array(want.astype(jnp.float32))).reshape(
+        b, H, S, P).transpose(1, 2)
+    _, mix = cs.ssd_bound(ssd, args, 64)
+    emu = ref.ssd_tiles_ref(*args, 64)
+    assert ref.rounding_bound_ratio(emu, want.to(torch.bfloat16), mix,
+                                    ssd.P_ROUNDING) <= 1.0
+
+
+SSD_WRONGS = [(1, i) for i in range(5)] + [(2, i) for i in range(6)]
+
+
+@pytest.mark.parametrize("G,which", SSD_WRONGS)
+def test_ssd_broken_variants_fail_the_bound(G, which):
+    """Each broken scan ``chip_smoke.py`` builds (the carried state dropped,
+    dt 5% off, the mask one row late, h_enter one chunk late, the chunk
+    decay exp(seg) left out; at G = 2 head h reading group h % G) fails the
+    bound."""
+    args = _ssd_set(G)
+    plain, mix = cs.ssd_bound(ssd, args, 64)
+    wrongs = cs.ssd_wrongs(ssd, ref, args, 64)
+    assert len(wrongs) == (6 if G > 1 else 5)
+    what, wrong = wrongs[which]
+    miss = ref.rounding_bound_ratio(wrong(), plain, mix, ssd.P_ROUNDING)
+    assert not miss <= 1.0, what
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm in one pass
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d,want", [
+    (896, (1, 128, 2)),      # qwen2-0.5b: two rows a block
+    (2048, (1, 256, 1)),
+    (2304, (2, 160, 1)),     # gemma2-2b: 288 packs over 160 threads
+    (4096, (2, 256, 1)),     # mamba2's gated norm
+    (8192, (4, 256, 1)),
+    (8, (1, 32, 8)),
+])
+def test_rmsnorm_one_pass_plan_from_shapes(d, want):
+    """The plan covers the row's d / 8 packs with whole warps, at most 4
+    packs a thread and 256 threads a block, several rows a block where a
+    row needs few threads."""
+    ppt, tpr, rpb = rn.one_pass_plan(d)
+    assert (ppt, tpr, rpb) == want
+    assert tpr % 32 == 0 and tpr * rpb <= rn.ONE_PASS_BLOCK
+    assert ppt <= rn.ONE_PASS_MAX_PPT and ppt * tpr * 8 >= d
+    assert (tpr - 32) * ppt * 8 < d          # no whole warp idle
+
+
+def test_rmsnorm_route_is_a_rule_on_d_and_alignment():
+    for d in (8, 896, 2048, 2304, 4096, 8192):
+        assert rn.one_pass_route(d, True)
+        assert not rn.one_pass_route(d, False)
+    for d in (100, 8200, 16384):
+        assert not rn.one_pass_route(d, True)
+
+
+def _rms_rows(d, din):
+    rng = np.random.default_rng(d)
+    return (torch.tensor(rng.standard_normal((37, d)), dtype=din),
+            torch.tensor(0.1 * rng.standard_normal(d), dtype=torch.float32))
+
+
+@pytest.mark.parametrize("d", [896, 2304, 4096, 8192])
+@pytest.mark.parametrize("din,dout", [(torch.bfloat16, torch.bfloat16),
+                                      (torch.float32, torch.bfloat16),
+                                      (torch.float32, torch.float32)])
+def test_rmsnorm_one_pass_layout_within_one_ulp(d, din, dout):
+    """The one-pass kernel's sum over its threads and warps meets the rule
+    ``chip_smoke.py`` holds the kernel to: one bf16 ulp element by element,
+    1e-6 relative for f32 out."""
+    x, s = _rms_rows(d, din)
+    got = ref.rmsnorm_one_pass_ref(x, s, out_dtype=dout,
+                                   plan=rn.one_pass_plan(d))
+    assert cs.ulp_ratio(got, rn.rmsnorm_ref(x, s, out_dtype=dout)) <= 1.0
+
+
+RMS_WRONGS = [(4096, 0), (4096, 1), (2304, 0), (2304, 1), (896, 0)]
+
+
+@pytest.mark.parametrize("d,which", RMS_WRONGS)
+@pytest.mark.parametrize("dout", [torch.bfloat16, torch.float32])
+def test_rmsnorm_broken_variants_fail_one_ulp(d, which, dout):
+    """Each broken kernel ``chip_smoke.py`` builds (the gain read as scale;
+    at d 4,096 one warp's partial left out of the row's sum; at d 2,304 the
+    ragged row's last pack not written) fails the one-ulp rule."""
+    x, s = _rms_rows(d, torch.float32)
+    what, wrong = cs.rmsnorm_wrongs(rn, ref, x, s, dout)[which]
+    assert cs.ulp_ratio(wrong(), rn.rmsnorm_ref(x, s, out_dtype=dout)) > 1.0, \
+        what
+
+
+# ---------------------------------------------------------------------------
 # on the card: the redesigned kernels at their bounds
 # ---------------------------------------------------------------------------
 
@@ -662,3 +823,86 @@ def test_cuda_prefill_within_bound(cuda, label):
     plain, mix, p_rel = cs.prefill_bound(pp, case)
     assert ref.rounding_bound_ratio(got, plain, mix, p_rel) <= 1.0
     assert cs.padding_rows_zero(got, case)
+
+
+SSD_CARD_CASES = {
+    # what a fresh full-width mamba2-1.3b layer feeds the scan
+    "mamba2-1.3b": dict(b=1, S=1024, seed=1),
+    # G 2 with S not a chunk multiple (ops.ssd pads it)
+    "G 2, S 1000": dict(b=1, S=1000, H=64, P=64, G=2, N=128),
+    # zamba2-1.2b's N 64, four chunks
+    "zamba2 N 64": dict(b=2, S=1024, H=64, P=64, G=1, N=64),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", list(SSD_CARD_CASES))
+def test_cuda_tensor_core_ssd_within_bound(cuda, label):
+    """The scan through ``ops.ssd`` takes the tensor-core route (its own
+    counter), is within 2^-8 mix + 2^-7 |plain| and the 2e-2 element-wise
+    check, and every broken scan fails the bound."""
+    rng = np.random.default_rng(len(label))
+    spec = SSD_CARD_CASES[label]
+    c = (cs.mamba_scan_case(torch, rng, cuda, **spec) if "seed" in spec
+         else cs.ssd_case(torch, rng, cuda, **spec))
+    args = (c["x"], c["dt"], c["A"], c["B"], c["C"])
+    S = args[0].shape[1]
+    n_tc, n_cc = ssd.ssd_tensor_core.launches, ssd.ssd_cuda_core.launches
+    got = ops.ssd(*args, chunk=256)
+    torch.cuda.synchronize()
+    assert ssd.ssd_tensor_core.launches == n_tc + 1
+    assert ssd.ssd_cuda_core.launches == n_cc
+    padded = ref.pad_to_chunks(args[0], args[1], args[3], args[4], 256)
+    pargs = (padded[0], padded[1], args[2], padded[2], padded[3])
+    plain, mix = (t[:, :S] for t in cs.ssd_bound(ssd, pargs, 256))
+    assert ref.rounding_bound_ratio(got, plain, mix, ssd.P_ROUNDING) <= 1.0
+    assert cs.norm_err(got, plain) <= cs.KERNEL_TOL
+    for what, wrong in cs.ssd_wrongs(ssd, ref, pargs, 256):
+        miss = ref.rounding_bound_ratio(wrong()[:, :S], plain, mix,
+                                        ssd.P_ROUNDING)
+        assert not miss <= 1.0, what
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [896, 2048, 2304, 4096, 8192])
+@pytest.mark.parametrize("din,dout", [(torch.bfloat16, torch.bfloat16),
+                                      (torch.float32, torch.bfloat16),
+                                      (torch.float32, torch.float32)])
+def test_cuda_rmsnorm_one_pass_within_one_ulp(cuda, d, din, dout):
+    """The one-pass kernel (its own counter) within one bf16 ulp element by
+    element (1e-6 relative for f32 out), over a row count that is not a
+    multiple of the block's rows."""
+    rng = np.random.default_rng(d)
+    x = torch.tensor(rng.standard_normal((1037, d)), dtype=din, device=cuda)
+    s = torch.tensor(0.1 * rng.standard_normal(d), dtype=torch.float32,
+                     device=cuda)
+    n1, n2 = rn.rmsnorm_one_pass.launches, rn.rmsnorm_two_pass.launches
+    got = rn.rmsnorm(x, s, out_dtype=dout)
+    torch.cuda.synchronize()
+    assert rn.rmsnorm_one_pass.launches == n1 + 1
+    assert rn.rmsnorm_two_pass.launches == n2
+    assert cs.ulp_ratio(got, rn.rmsnorm_ref(x, s, out_dtype=dout)) <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,skew", [(16384, 0),   # past the one-pass kernel
+                                    (100, 0),     # d % 8 != 0: element-wise
+                                    (4096, 1)])   # rows off 16-byte alignment
+@pytest.mark.parametrize("din,dout", [(torch.bfloat16, torch.bfloat16),
+                                      (torch.float32, torch.bfloat16),
+                                      (torch.float32, torch.float32)])
+def test_cuda_rmsnorm_two_pass_within_one_ulp(cuda, d, skew, din, dout):
+    """The two-pass kernel (its own counter) within one bf16 ulp element by
+    element (1e-6 relative for f32 out), with packs of 8 at d 16,384 and
+    element by element at d 100 and on misaligned rows."""
+    rng = np.random.default_rng(d + skew)
+    x = torch.tensor(rng.standard_normal(1037 * d + skew), dtype=din,
+                     device=cuda)[skew:].view(1037, d)
+    s = torch.tensor(0.1 * rng.standard_normal(d), dtype=torch.float32,
+                     device=cuda)
+    n1, n2 = rn.rmsnorm_one_pass.launches, rn.rmsnorm_two_pass.launches
+    got = rn.rmsnorm(x, s, out_dtype=dout)
+    torch.cuda.synchronize()
+    assert rn.rmsnorm_two_pass.launches == n2 + 1
+    assert rn.rmsnorm_one_pass.launches == n1
+    assert cs.ulp_ratio(got, rn.rmsnorm_ref(x, s, out_dtype=dout)) <= 1.0
