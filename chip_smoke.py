@@ -94,23 +94,38 @@ Phases (any failure exits nonzero):
 5. serving  — full-width qwen2-0.5b (random weights, seed 0), paged: (a)
               the port's launcher ``repro_torch.launch.serve.main``; (b)
               the scheduler and engine driven directly with 8 prompts of
-              320-1024 tokens sharing a 256-token prefix.  Every kernel's
-              launch counter is zeroed just before each part and the paged
-              kernels' and RMSNorm's must be > 0 after it, and every
-              prefill launch must be the tensor-core kernel's; every request
-              completes, the prefix cache hits, nothing leaks;
+              320-1024 tokens sharing a 256-token prefix.  Every round is a
+              replay of one of the engine's two CUDA graphs (decode,
+              paged prefill), each captured once (in (b) the engine is
+              marked warm once both exist, and nothing is captured or
+              recompiled after).  Every kernel's launch counter is zeroed
+              just before each part; the counts (replays x each capture's
+              launches) must be exactly 24 paged-decode launches a decode
+              round, 24 prefill launches a prefill round, all on the
+              tensor-core kernel, and 49 one-pass RMSNorms a round; every
+              request completes, the prefix cache hits, nothing leaks.
+              Then a B = 8 decode step at contexts 512-2048 as one graph
+              replay (and eagerly, for comparison), timed like the
+              kernels, and 5 serving-like steps (inputs from the host,
+              replay, greedy sample to the host) under ``torch.profiler``:
+              device kernels a step and the card's busy share;
 6. dense int8 — the same weights in dense mode with the int8 KV cache
               (8 slots, max_seq_len 1024, prefill chunk 16, 64 prefix
               blocks): 12 greedy prompts of 32 shared + 16-96 own tokens,
-              32 new each, with exactly 24 x (decode steps + prefill tokens
-              executed) int8-kernel launches and no other attention kernel,
+              32 new each, every decode round and every 16-token prompt
+              chunk a replay of the engine's two graphs (decode, dense
+              chunk), each captured once, none after warm-up, with exactly
+              24 x (decode steps + prefill tokens executed) int8-kernel
+              launches, 49 RMSNorms a step, and no other attention kernel,
               nothing leaked; then the first 4 with the bf16 dense cache
               (no int8 launch), and the int8 / bf16 KV bytes ratio;
 7. card vs CPU — the same weights on the CPU (plain kernel versions): one
               48-token prompt, last-position logits within tolerance and 4
               equal greedy tokens through the paged engine (scheduler), 8
               through the dense int8 engine (its decode steps driven
-              directly);
+              directly); then, paged and dense int8, one replayed decode
+              round against an eager ``decode_step`` on the same inputs
+              with the same kernels: identical logits;
 8. training — full-width qwen2-0.5b through the port's launcher
               ``repro_torch.launch.train.main`` (seq 1024, batch 8, 8 AdamW
               steps): every loss finite, the last below the first, the
@@ -938,6 +953,75 @@ def check_no_leaks(sched, label: str) -> None:
               f"{label}: {kv.prefix_pool.in_use} prefix pin(s) leaked")
 
 
+def run_marking_warm(sched) -> None:
+    """``sched.run()``, marking the engine's shape telemetry warm as soon
+    as both of its programs exist, so a later capture or novel program
+    signature counts as a post-warm recompile."""
+    eng = sched.engine
+    while sched.has_work:
+        sched.step()
+        if not eng.recompiles.warm and len(eng.programs) == 2:
+            eng.recompiles.mark_warm()
+
+
+def check_programs(eng, label: str, prefill: str, rows: int) -> None:
+    """Every round of ``eng`` ran as a replay of one of its two programs,
+    each built (captured) once, with no post-warm recompile of either;
+    ``rows``: executed prefill tokens a prefill replay.  Prints each
+    program's captures, replays and capture seconds."""
+    progs = eng.programs
+    check(sorted(progs) == sorted(["decode_step", prefill]),
+          f"{label}: programs {sorted(progs)}")
+    check(all(p.captures == 1 for p in progs.values()),
+          f"{label}: captures {[p.captures for p in progs.values()]}")
+    check(progs["decode_step"].replays == eng.decode_steps,
+          f"{label}: a decode round was not a replay")
+    check(progs[prefill].replays * rows == eng.prefill_tokens_executed,
+          f"{label}: a prefill round was not a replay")
+    rc = eng.recompiles
+    check(all(rc.post_warm.get(n, 0) == 0 and len(rc.signatures[n]) == 1
+              for n in progs), f"{label}: a program recompiled")
+    out = {n: {"captures": p.captures, "replays": p.replays,
+               "capture_s": p.capture_s} for n, p in progs.items()}
+    print(f"{label} programs: " + json.dumps(out), flush=True)
+
+
+def check_round_launches(eng, launches, label: str, cfg) -> None:
+    """A paged serving run's kernel counts are its replays times each
+    capture's launches: a decode round launches paged decode once a layer,
+    a prefill round paged prefill once a layer (on the tensor-core
+    kernel), and a round of either one RMSNorm a norm (two a layer and the
+    final one, each one pass)."""
+    L = cfg.num_layers
+    dec = eng.programs["decode_step"].replays
+    pre = eng.programs["prefill_paged"].replays
+    want = {"paged_decode_attention": L * dec,
+            "paged_prefill_attention": L * pre,
+            "paged_prefill_tensor_core": L * pre,
+            "rmsnorm": (2 * L + 1) * (dec + pre),
+            "rmsnorm_one_pass": (2 * L + 1) * (dec + pre)}
+    got = {k: launches[k] for k in want}
+    check(got == want, f"{label}: launches {got}, want {want} from {dec} "
+          f"decode and {pre} prefill replays")
+
+
+def eager_vs_replay(torch, T, eng, tokens, positions) -> float:
+    """One replayed decode round of ``eng`` against an eager
+    ``decode_step`` on the same inputs and cache (the replay wrote this
+    step's K/V, the eager step rewrites the same values): max |diff|."""
+    import numpy as np
+    replayed = eng.decode_once(tokens, positions).clone()
+    batch = {"tokens": torch.from_numpy(
+                 np.asarray(tokens, np.int32)[:, None]).to(eng.device),
+             "positions": torch.from_numpy(
+                 np.asarray(positions, np.int32)).to(eng.device),
+             "cache": eng.kv.cache}
+    if eng.paged:
+        batch["block_tables"] = eng.kv.device_block_tables()
+    eager = T.decode_step(eng.params, eng.cfg, batch)[0][:, 0]
+    return float((replayed - eager).abs().max())
+
+
 def report_serving(torch, sched, label: str, dev) -> dict:
     s = sched.metrics.summary()
     out = {"requests": s["requests_completed"],
@@ -1668,8 +1752,12 @@ def main() -> int:
           == launches_a["paged_prefill_attention"],
           "(a) a prefill launch missed the tensor-core kernel")
     check_no_leaks(sched_a, "(a)")
-    params = sched_a.engine.params
-    del sched_a
+    eng_a = sched_a.engine
+    check_programs(eng_a, "(a)", "prefill_paged",
+                   eng_a.prefill_batch * eng_a.prefill_chunk)
+    check_round_launches(eng_a, launches_a, "(a)", cfg)
+    params = eng_a.params
+    del sched_a, eng_a
     torch.cuda.empty_cache()
 
     rs = np.random.default_rng(1)
@@ -1686,7 +1774,7 @@ def main() -> int:
     rids = [sched_b.submit(Request(p, SamplingParams(max_new_tokens=32,
                                                      greedy=True)))
             for p in prompts]
-    sched_b.run()
+    run_marking_warm(sched_b)
     torch.cuda.synchronize()
     launches_b = read_counts(counters)
     print(f"(b) long prompts {[len(p) for p in prompts]}: kernel launches "
@@ -1703,6 +1791,10 @@ def main() -> int:
           == launches_b["paged_prefill_attention"],
           "(b) a prefill launch missed the tensor-core kernel")
     check_no_leaks(sched_b, "(b)")
+    check(eng.recompiles.warm, "(b) the engine never held both programs")
+    check_programs(eng, "(b)", "prefill_paged",
+                   eng.prefill_batch * eng.prefill_chunk)
+    check_round_launches(eng, launches_b, "(b)", cfg)
     for name in ("paged_decode_attention", "paged_prefill_attention"):
         k = by_name[name]                 # the serving path's own kernels
         k["launches"] = launches_a[name] + launches_b[name]
@@ -1712,24 +1804,69 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # where a decode step's time goes: one full-width decode_step at the
-    # kernel-timing shapes (B = 8, contexts 512-2048, random KV), timed
-    # like the kernels, against its 24 decode-kernel launches
+    # kernel-timing shapes (B = 8, contexts 512-2048, random KV) as one
+    # graph replay, and eagerly, timed like the kernels, against its 24
+    # decode-kernel launches
     from repro_torch.models import transformer as T
+    from repro_torch.serving.programs import CapturedProgram
     shape = (cfg.num_layers, 1, dcase["k_pages"].shape[0], 16,
              cfg.num_kv_heads, cfg.resolved_head_dim)
-    step_batch = {
-        "tokens": torch.zeros((8, 1), dtype=torch.int32, device=dev),
-        "positions": dcase["lengths"] - 1,
-        "cache": {"layers": {n: torch.randn(shape, dtype=torch.bfloat16,
-                                            device=dev) for n in "kv"}},
-        "block_tables": dcase["block_tables"]}
-    step_ms = time_ms(torch, lambda: T.decode_step(params, cfg, step_batch),
-                      flush, reps=10)
+    step_cache = {"layers": {n: torch.randn(shape, dtype=torch.bfloat16,
+                                            device=dev) for n in "kv"}}
+    step_in = {"tokens": torch.zeros((8, 1), dtype=torch.int32, device=dev),
+               "positions": (dcase["lengths"] - 1).to(torch.int32),
+               "block_tables": dcase["block_tables"]}
+    step = CapturedProgram("decode_step", lambda **b: T.decode_step(
+        params, cfg, dict(b, cache=step_cache))[0], step_in)
+    step.replay()
+    step_ms = time_ms(torch, step.replay, flush, reps=20)
+    eager_ms = time_ms(torch, lambda: T.decode_step(
+        params, cfg, dict(step_in, cache=step_cache)), flush, reps=10)
     attn_ms = cfg.num_layers * by_name["paged_decode_attention"]["ms"]
-    print(f"decode step, B=8, contexts 512-2048, full width: {step_ms:.3f} "
-          f"ms; {cfg.num_layers} decode-kernel launches {attn_ms:.3f} ms "
-          f"({attn_ms / step_ms:.1%})", flush=True)
-    del step_batch, flush
+    print(f"decode step, B=8, contexts 512-2048, full width: graph replay "
+          f"{step_ms:.3f} ms (capture {step.capture_s:.2f} s), eager "
+          f"{eager_ms:.3f} ms; {cfg.num_layers} decode-kernel launches "
+          f"{attn_ms:.3f} ms ({attn_ms / step_ms:.1%} of the replay)",
+          flush=True)
+    # serving-like steps: tokens and positions from the host, the replay,
+    # a greedy sample back to the host (the step's one sync)
+    rs = np.random.default_rng(4)
+
+    def serve_step():
+        step.feed(tokens=rs.integers(0, cfg.vocab_size, (8, 1),
+                                     dtype=np.int32))
+        torch.argmax(step.replay()[:, 0], dim=-1).cpu()
+
+    for _ in range(3):
+        serve_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        serve_step()
+    served_ms = (time.perf_counter() - t0) * 1e3 / 20
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            serve_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    br = profile_breakdown(prof, wall_ms)
+    n_kernels = sum(e.count for e in prof.key_averages() if str(getattr(
+        e, "device_type", "")).endswith("CUDA")) / 5
+    decode_profile = {"step_ms": served_ms,
+                      "kernels_per_step": n_kernels,
+                      "kernel_ms_per_step": br["kernel_ms"] / 5,
+                      "busy_share": br["kernel_ms"] / 5 / served_ms,
+                      "profiled_step_ms": wall_ms / 5,
+                      "profiled_busy_share": br["busy_share"],
+                      "top": br["top"][:6]}
+    print("decode step as served (B = 8; step ms the mean of 20 steps, "
+          "kernels from 5 more under torch.profiler; busy share = kernel "
+          "ms / step ms): " + json.dumps(decode_profile), flush=True)
+    check(n_kernels > 0, "the profiler saw no kernel of a replayed step")
+    del step, step_cache, step_in, flush, prof
     torch.cuda.empty_cache()
 
     # 6. dense-mode serving with the int8 KV cache -------------------------
@@ -1751,7 +1888,7 @@ def main() -> int:
         zero_counts(counters)
         rids = [sched_d.submit(Request(p, SamplingParams(
             max_new_tokens=32, greedy=True))) for p in prompts_]
-        sched_d.run()
+        run_marking_warm(sched_d)
         torch.cuda.synchronize()
         launches_d = read_counts(counters)
         rep = report_serving(torch, sched_d, f"dense {label}", dev)
@@ -1776,7 +1913,15 @@ def main() -> int:
             "paged_decode_attention", "paged_prefill_attention",
             "flash_attention")),
             f"dense {label}: another attention kernel was launched")
+        want_rms = (2 * cfg.num_layers + 1) * steps
+        check(launches_d["rmsnorm"] == launches_d["rmsnorm_one_pass"]
+              == want_rms, f"dense {label}: {launches_d['rmsnorm']} RMSNorm "
+              f"launches, want {want_rms}, all one pass")
         check_no_leaks(sched_d, f"dense {label}")
+        check(eng.recompiles.warm,
+              f"dense {label}: the engine never held both programs")
+        check_programs(eng, f"dense {label}", "prefill_chunk",
+                       eng.prefill_chunk)
         dense[label] = dict(rep, kv_bytes=eng.kv.kv_bytes(),
                             launches=launches_d["flash_attention_int8kv"],
                             decode_steps=eng.decode_steps,
@@ -1855,6 +2000,33 @@ def main() -> int:
     check(diff <= CPU_LOGIT_TOL, "dense int8: card and CPU logits disagree")
     check(tg.tolist() == tc.tolist(),
           "dense int8: card and CPU greedy tokens differ")
+    # a replayed decode round against the same round run eagerly, paged
+    # (8 slots, 4 holding prompts of 48-400 tokens) and dense int8
+    rs = np.random.default_rng(5)
+    lens = (48, 400, 131, 256)
+    replay_check = {}
+    for label, c, paged in (("paged", cfg, True), ("dense int8", cfg8,
+                                                   False)):
+        e = ServingEngine(c, params, max_seq_len=512, max_slots=8,
+                          paged=paged, prefill_batch=4, device=dev)
+        ps = [rs.integers(0, cfg.vocab_size, n, dtype=np.int32)
+              for n in lens]
+        tokens = np.zeros(8, np.int32)
+        positions = np.zeros(8, np.int32)
+        for p, (slot, last) in zip(ps, e.prefill_into_slots(ps)):
+            tokens[slot] = int(np.argmax(last))
+            positions[slot] = len(p)
+            e.kv.ensure_capacity(slot, len(p) + 1)
+        e.decode_once(tokens, positions)          # capture, then replay
+        replay_check[label] = eager_vs_replay(torch, T, e, tokens,
+                                              positions)
+        check(e.programs["decode_step"].captures == 1,
+              f"{label}: decode captured again")
+        del e
+    print(f"replayed vs eager decode round, max |diff|: "
+          f"{json.dumps(replay_check)}", flush=True)
+    check(all(d == 0.0 for d in replay_check.values()),
+          "a replayed decode round differs from the eager one")
     del params
     torch.cuda.empty_cache()
 

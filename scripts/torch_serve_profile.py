@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Paged serving of full-width qwen2-0.5b on one tree of the port: the
-launcher's workload repeated, then the decode step alone.
+"""Serving full-width qwen2-0.5b on one tree of the port: the paged
+launcher's workload repeated, the decode step alone, then dense serving
+with the int8 KV cache.
 
     python scripts/torch_serve_profile.py [--src DIR] [--runs 3] [--steps 40]
 
@@ -14,9 +15,14 @@ decode steps (``decode_once`` + ``sample_tokens``, greedy) timed on the
 host clock, both until ``decode_once`` returns (its host dispatch: the
 kernels are queued, not waited for) and until the sampled tokens are on
 the host (the step); the last 5 steps once more under ``torch.profiler``
-for the aten ops the host dispatches per step and the card's kernel
-time per step.  Prints the card's name and power
-limit, then one JSON line.  ``--src`` names the ``src`` directory whose
+for the aten ops the host dispatches per step, the device kernels per
+step and the card's kernel time and busy share.  Then dense int8 serving
+(``chip_smoke.py`` phase 6's workload: 8 slots x 1,024 positions, prefill
+chunk 16, 64 prefix blocks, 12 greedy requests of 32 shared + 16-96 own
+tokens, 32 new each) on a fresh engine: tokens/s, TTFT and the decode
+gap.  Where the tree's engine has round programs (CUDA graphs), each
+program's captures, replays and capture seconds are reported too.  Prints
+the card's name and power limit, then one JSON line.  ``--src`` names the ``src`` directory whose
 ``repro_torch`` runs (default: this checkout's), so that two trees compare
 on one card: unpack the other with ``git archive`` into a git-ignored
 directory and run them alternately in one call (a, b, b, a, ...).
@@ -103,12 +109,58 @@ def decode_steps(torch, engine, prompts, steps: int, dev) -> dict:
         br = chip_smoke.profile_breakdown(prof, wall_ms)
         out["profiled_5_steps"] = {k: br[k] for k in (
             "wall_ms", "kernel_ms", "busy_share", "top")}
+        # the card's busy share of an unprofiled step: kernel time a step
+        # (profiled) over the mean step time of the 40 unprofiled steps
+        out["busy_share"] = br["kernel_ms"] / 5 / out["step_ms"]["mean"]
         out["kernels_per_step"] = sum(
             e.count for e in prof.key_averages()
             if str(getattr(e, "device_type", "")).endswith("CUDA")) / 5
     for slot in slots:
         engine.free_slot(slot)
     return out
+
+
+def programs(engine) -> dict:
+    """Each round program's captures, replays and capture seconds (none
+    on a tree whose engine runs eagerly)."""
+    return {name: {"captures": p.captures, "replays": p.replays,
+                   "capture_s": p.capture_s}
+            for name, p in sorted(getattr(engine, "programs", {}).items())}
+
+
+def dense_int8(torch, cfg, params, dev) -> dict:
+    """``chip_smoke.py`` phase 6's dense int8 workload on a fresh engine:
+    tokens/s, TTFT and decode gap from the scheduler, and the wall time."""
+    import numpy as np
+    from repro_torch.serving import (Request, SamplingParams, Scheduler,
+                                     ServingEngine)
+    rs = np.random.default_rng(3)
+    shared = rs.integers(0, cfg.vocab_size, 32, dtype=np.int32)
+    prompts = [np.concatenate([shared, rs.integers(
+        0, cfg.vocab_size, int(rs.integers(16, 97)), dtype=np.int32)])
+        for _ in range(12)]
+    eng = ServingEngine(cfg.with_(kv_cache_dtype="int8"), params,
+                        paged=False, max_slots=8, max_seq_len=1024,
+                        prefill_chunk=16, prefix_cache_blocks=64, device=dev)
+    sched = Scheduler(eng)
+    for p in prompts:
+        sched.submit(Request(p, SamplingParams(max_new_tokens=32,
+                                               greedy=True)))
+    t0 = time.perf_counter()
+    sched.run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    summ = sched.metrics.summary()
+    dg = summ.get("decode_gap_ms", {})
+    return {"tokens_per_s": summ["tokens_per_s"],
+            "new_tokens": summ["total_new_tokens"], "wall_s": wall,
+            "ttft_p50_ms": summ["ttft_ms"]["p50"],
+            "decode_gap_p50_ms": dg.get("p50"),
+            "decode_gap_p95_ms": dg.get("p95"),
+            "decode_steps": eng.decode_steps,
+            "prefill_tokens_executed": eng.prefill_tokens_executed,
+            "programs": programs(eng)}
 
 
 def main() -> int:
@@ -151,7 +203,10 @@ def main() -> int:
     engine = sched.engine
     prompts = serve.make_prompts(engine.cfg, 8, 256)
     dec = decode_steps(torch, engine, prompts, args.steps, dev)
-    print(json.dumps({"src": str(src), "runs": runs, "decode": dec}))
+    dec["programs"] = programs(engine)
+    dense = dense_int8(torch, engine.cfg, engine.params, dev)
+    print(json.dumps({"src": str(src), "runs": runs, "decode": dec,
+                      "dense_int8": dense}))
     return 0
 
 

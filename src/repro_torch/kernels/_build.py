@@ -19,6 +19,12 @@ Binding: every pointer and the CUDA stream are passed as ``c_void_p``
 ``c_int``, floats as ``c_float``; each C entry returns ``cudaGetLastError()``
 as an int, which the wrappers turn into an exception.
 
+Launch counters: every kernel wrapper that launches is registered with
+:func:`counted` and adds one to its ``launches`` each time it launches its
+kernel.  :data:`counters` holds them all, so a captured CUDA graph
+(``serving/programs.py``), whose replays run no Python, can read what its
+capture launched and add that per replay.
+
 Nothing here runs at import: the CPU tests import every module of the port on
 a machine with no ``nvcc``.
 """
@@ -32,7 +38,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
@@ -44,6 +50,7 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 ptxas_log: Dict[str, str] = {}
 build_seconds: Optional[float] = None   # wall time of the last nvcc batch
+counters: Dict[str, Callable] = {}      # wrapper name -> wrapper (``launches``)
 
 
 def _nvcc() -> str:
@@ -130,3 +137,23 @@ def check(status: int, what: str) -> None:
     """Raise on a nonzero ``cudaGetLastError()`` from a launch."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {status}")
+
+
+def counted(fn: Callable) -> Callable:
+    """Register the wrapper ``fn`` as a launch counter: ``fn.launches``
+    starts at 0 and is listed in :data:`counters` under ``fn.__name__``."""
+    assert fn.__name__ not in counters, fn.__name__
+    fn.launches = 0
+    counters[fn.__name__] = fn
+    return fn
+
+
+def launch_counts() -> Dict[str, int]:
+    """``{wrapper name: launches}`` of every registered counter."""
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def set_launch_counts(counts: Dict[str, int]) -> None:
+    """Set every counter named in ``counts``."""
+    for name, n in counts.items():
+        counters[name].launches = n

@@ -98,6 +98,7 @@ def p_rounding(dtype: torch.dtype, D: int) -> float:
     return 2.0 ** -8 if tensor_core_route(dtype, D) else 2.0 ** -14
 
 
+@_build.counted
 def flash_fwd_tensor_core(q, k, v, out, lse, scale, causal, window,
                           softcap):
     """Launch the tensor-core kernel into ``out`` and ``lse``."""
@@ -117,6 +118,7 @@ def flash_fwd_tensor_core(q, k, v, out, lse, scale, causal, window,
     flash_fwd_tensor_core.launches += 1
 
 
+@_build.counted
 def flash_fwd_cuda_core(q, k, v, out, lse, scale, causal, window, softcap):
     """Launch the CUDA-core kernel into ``out`` and ``lse``."""
     B, Sq, H, D = q.shape
@@ -130,10 +132,6 @@ def flash_fwd_cuda_core(q, k, v, out, lse, scale, causal, window, softcap):
                     float(softcap or 0.0), stream)
     _build.check(status, "flash_attention (CUDA cores)")
     flash_fwd_cuda_core.launches += 1
-
-
-flash_fwd_tensor_core.launches = 0
-flash_fwd_cuda_core.launches = 0
 
 
 def _entry_int8kv():
@@ -235,6 +233,7 @@ def _check_cuda(q, k, v):
                          f"{MAX_HEAD_DIM}, got D={D}")
 
 
+@_build.counted
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
                     softcap: Optional[float] = None,
@@ -265,9 +264,6 @@ def flash_attention(q, k, v, *, causal: bool = True,
     launch(q, k, v, out, lse, scale, causal, window, softcap)
     flash_attention.launches += 1
     return out, lse
-
-
-flash_attention.launches = 0
 
 
 def flash_attention_bwd(q, k, v, lse, dout, *, causal: bool = True,
@@ -402,6 +398,7 @@ def _check_int8kv_cuda(q, k8, k_scale, v8, v_scale, q_start, kv_len):
                          f"{MAX_HEAD_DIM}, got D={D}")
 
 
+@_build.counted
 def flash_attention_int8kv(q, k8, k_scale, v8, v_scale, q_start, kv_len, *,
                            causal: bool = True,
                            window: Optional[int] = None,
@@ -453,4 +450,3 @@ def flash_attention_int8kv(q, k8, k_scale, v8, v_scale, q_start, kv_len, *,
     return out
 
 
-flash_attention_int8kv.launches = 0

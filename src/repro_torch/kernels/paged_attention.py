@@ -122,6 +122,7 @@ def _check_cuda(q, k_pages, v_pages, block_tables, **rows):
                          f"D={D}, page={k_pages.shape[1]}")
 
 
+@_build.counted
 def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
                     scale: Optional[float] = None,
                     window: Optional[int] = None,
@@ -173,4 +174,3 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     return out
 
 
-paged_attention.launches = 0

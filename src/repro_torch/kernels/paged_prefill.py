@@ -116,6 +116,7 @@ def paged_prefill_plain(q, k_pages, v_pages, block_tables, start_pos,
     return out.permute(0, 2, 1, 3, 4).reshape(B, KV, CG, D)
 
 
+@_build.counted
 def paged_prefill(q, k_pages, v_pages, block_tables, start_pos, q_lens, *,
                   group: int, scale: Optional[float] = None,
                   window: Optional[int] = None,
@@ -154,9 +155,7 @@ def paged_prefill(q, k_pages, v_pages, block_tables, start_pos, q_lens, *,
     return out
 
 
-paged_prefill.launches = 0
-
-
+@_build.counted
 def prefill_tensor_core(q, k_pages, v_pages, block_tables, start_pos, q_lens,
                         out, group, scale, window, softcap):
     """Launch the tensor-core split kernel and its combine into ``out``."""
@@ -185,6 +184,7 @@ def prefill_tensor_core(q, k_pages, v_pages, block_tables, start_pos, q_lens,
     prefill_tensor_core.launches += 1
 
 
+@_build.counted
 def prefill_cuda_core(q, k_pages, v_pages, block_tables, start_pos, q_lens,
                       out, group, scale, window, softcap):
     """Launch the CUDA-core kernel into ``out``."""
@@ -203,5 +203,3 @@ def prefill_cuda_core(q, k_pages, v_pages, block_tables, start_pos, q_lens,
     prefill_cuda_core.launches += 1
 
 
-prefill_tensor_core.launches = 0
-prefill_cuda_core.launches = 0

@@ -82,6 +82,7 @@ def one_pass_plan(d: int):
     return ppt, tpr, max(1, ONE_PASS_BLOCK // tpr)
 
 
+@_build.counted
 def rmsnorm_one_pass(x, scale, out, eps):
     """Launch the one-pass kernel into ``out`` (rows of x's last dim)."""
     d = x.shape[-1]
@@ -96,6 +97,7 @@ def rmsnorm_one_pass(x, scale, out, eps):
     rmsnorm_one_pass.launches += 1
 
 
+@_build.counted
 def rmsnorm_two_pass(x, scale, out, eps, vec: bool):
     """Launch the two-pass kernel into ``out``; ``vec``: packs of 8."""
     d = x.shape[-1]
@@ -109,10 +111,7 @@ def rmsnorm_two_pass(x, scale, out, eps, vec: bool):
     rmsnorm_two_pass.launches += 1
 
 
-rmsnorm_one_pass.launches = 0
-rmsnorm_two_pass.launches = 0
-
-
+@_build.counted
 def rmsnorm(x, scale, *, eps: float = 1e-6,
             out_dtype: Optional[torch.dtype] = None):
     """x (..., d) f32 or bf16; scale (d,).  Returns the norm of each row in
@@ -144,9 +143,6 @@ def rmsnorm(x, scale, *, eps: float = 1e-6,
         rmsnorm_two_pass(x, scale, out, eps, aligned and d % PACK == 0)
     rmsnorm.launches += 1
     return out
-
-
-rmsnorm.launches = 0
 
 
 def rmsnorm_bwd(x, scale, dy, eps: float = 1e-6):

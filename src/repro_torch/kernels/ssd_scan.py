@@ -149,6 +149,7 @@ def tc_workspaces(x, B, L):
             torch.empty((b, nc, H, N, P), **f32))
 
 
+@_build.counted
 def ssd_tensor_core(x, dt, A, B, C, y, L):
     """Launch the tensor-core scan into ``y`` (its three kernels)."""
     for name, t in (("x", x), ("B", B), ("C", C), ("y", y)):
@@ -167,6 +168,7 @@ def ssd_tensor_core(x, dt, A, B, C, y, L):
     ssd_tensor_core.launches += 1
 
 
+@_build.counted
 def ssd_cuda_core(x, dt, A, B, C, y, L):
     """Launch the CUDA-core scan into ``y``."""
     b, S, H, P = x.shape
@@ -181,10 +183,7 @@ def ssd_cuda_core(x, dt, A, B, C, y, L):
     ssd_cuda_core.launches += 1
 
 
-ssd_tensor_core.launches = 0
-ssd_cuda_core.launches = 0
-
-
+@_build.counted
 def ssd_scan(x, dt, A, B, C, chunk: int):
     """SSD scan with zero initial state.
 
@@ -206,9 +205,6 @@ def ssd_scan(x, dt, A, B, C, chunk: int):
     launch(x, dt, A, B, C, y, L)
     ssd_scan.launches += 1
     return y
-
-
-ssd_scan.launches = 0
 
 
 class SSDScan(torch.autograd.Function):

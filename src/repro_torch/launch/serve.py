@@ -4,7 +4,8 @@ Counterpart of ``repro.launch.serve``: routes requests through the
 continuous-batching scheduler (admission queue -> budgeted prefill ->
 batched decode with per-request sampling -> early exit on each request's
 own ``max_new_tokens`` / EOS) and prints per-request outputs plus TTFT /
-throughput telemetry.  ``--paged`` serves from paged KV blocks (the CUDA
+throughput telemetry and each round program's captures and replays (on
+the card every round replays a CUDA graph captured at its first round).  ``--paged`` serves from paged KV blocks (the CUDA
 paged kernels); without it, as in the reference, each slot owns a dense
 KV stripe (attended by the plain PyTorch attention, or by the int8 flash
 kernel for a config with ``kv_cache_dtype="int8"``).  Weights are
@@ -152,6 +153,12 @@ def main(argv=None):
     if dg.get("count"):
         print(f"decode step gap p50 {dg['p50']:.2f} ms, "
               f"p95 {dg['p95']:.2f} ms over {dg['count']} gaps")
+    programs = {name: {"captures": prog.captures, "replays": prog.replays,
+                       "capture_s": prog.capture_s}
+                for name, prog in sorted(engine.programs.items())}
+    print("programs: " + ", ".join(
+        f"{name} {p['captures']} capture(s) in {p['capture_s']:.2f} s, "
+        f"{p['replays']} replays" for name, p in programs.items()))
     pc = summ.get("prefix_cache", {})
     if pc.get("hits", 0) or pc.get("misses", 0):
         print(f"prefix cache: hit rate {pc['hit_rate']:.2f}, "
@@ -166,7 +173,7 @@ def main(argv=None):
              "device": str(device), "setup_s": setup_s,
              "prefill_tokens": engine.prefill_tokens,
              "prefill_tokens_executed": engine.prefill_tokens_executed,
-             "decode_steps": engine.decode_steps}
+             "decode_steps": engine.decode_steps, "programs": programs}
     if device.type == "cuda":
         stats["device_name"] = torch.cuda.get_device_name(device)
         stats["max_memory_allocated"] = torch.cuda.max_memory_allocated(

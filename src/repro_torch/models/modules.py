@@ -11,7 +11,7 @@ same numbers with one cast fewer.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -88,8 +88,20 @@ def unembed(p, x: torch.Tensor) -> torch.Tensor:
 # first, as the reference's jnp definitions do: in bf16 each op rounds its
 # result, and a fused f32 evaluation rounded once differs in ~40% of values.
 
-def _const(v: float, x: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(v, dtype=x.dtype, device=x.device)
+_consts: Dict[Tuple[float, torch.dtype, torch.device], torch.Tensor] = {}
+
+
+def const(v: float, x: torch.Tensor) -> torch.Tensor:
+    """``v`` rounded to x's dtype, as a 0-d tensor on x's device.  Made
+    once per (value, dtype, device) and kept: making it copies from
+    pageable host memory, which a CUDA graph capture forbids, so a
+    captured program's warm-up run makes every constant its capture
+    reads, and the graph reads it at that address on every replay."""
+    key = (v, x.dtype, x.device)
+    t = _consts.get(key)
+    if t is None:
+        t = _consts[key] = torch.tensor(v, dtype=x.dtype, device=x.device)
+    return t
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -99,8 +111,8 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu(x, approximate=True)``."""
-    inner = _const(math.sqrt(2.0 / math.pi), x) * (
-        x + _const(0.044715, x) * (x ** 3))
+    inner = const(math.sqrt(2.0 / math.pi), x) * (
+        x + const(0.044715, x) * (x ** 3))
     return x * (0.5 * (1.0 + torch.tanh(inner)))
 
 

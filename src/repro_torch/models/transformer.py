@@ -237,8 +237,7 @@ def _embed(params, cfg, tokens):
     dt = _dtype(cfg.dtype)
     x = nn.embed(params["embed"], tokens, dtype=dt)
     if cfg.embed_scale:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt,
-                             device=x.device)
+        x = x * nn.const(math.sqrt(cfg.d_model), x)
     return x
 
 

@@ -14,9 +14,11 @@ sequences, dense per-slot stripes by default or paged blocks with
   rows' pool blocks through the CUDA paged-prefill kernel, and cached
   prefix blocks load block to block at ``begin_prefill``.  Dense: each
   chunk of ``prefill_chunk`` tokens (padding included) is replayed one
-  token at a time through ``decode_step`` at batch 1 into the cursor's
-  batch-1 staging cache (made at its first chunk, with the cached prefix
-  loaded), which ``write_prefill`` copies into the slot when done.
+  token at a time through ``decode_step`` at batch 1 into the engine's
+  one batch-1 staging stripe (zeroed at the cursor's first chunk, with
+  the cached prefix loaded), which ``write_prefill`` copies into the slot
+  when done; a cursor left mid-prompt while another claims the stripe is
+  parked in a copy of it and copied back when it resumes.
   ``prefill_into_slots`` / ``prefill_into_slot`` run a batch to
   completion.
 * ``decode_once`` — one token for every slot against the pooled KV.
@@ -27,9 +29,22 @@ sequences, dense per-slot stripes by default or paged blocks with
   int8 cache.  Logits stay **on the device** until ``sample_tokens``, the
   one host sync of a step.
 
-PyTorch runs eagerly: the reference's jitted, buffer-donating step
-programs become plain calls that update the KV storage in place.
-Sampling is per row: greedy rows take the lowest token id within
+Each round is one program (``serving/programs.py``), as each is one
+jitted program in the reference: ``decode_step`` (``(max_slots,)`` rows,
+in paged mode with the ``(max_slots, blocks_per_slot)`` table), the paged
+co-prefill round ``prefill_paged`` (a ``(prefill_batch, prefill_chunk)``
+tile) and the dense prompt chunk ``prefill_chunk`` (``prefill_chunk``
+``decode_step``s at batch 1).  The engine holds two: decode and its
+mode's prefill.  On the card each is captured once into a CUDA graph at
+its first round and replayed on every later one; on the CPU the same
+body runs on the same static buffers.  The KV storage is updated in
+place, as the reference donates it.  A program's output is overwritten
+by its next round, so the prefill rounds clone each finished row's last
+logits and the scheduler samples a decode round's logits before the
+next.  A program's build is its compile for ``recompiles``.
+
+Sampling runs eagerly (the reference's separate ``_sample_vec``
+program), per row: greedy rows take the lowest token id within
 ``greedy_tie_eps`` of the max (exactly the reference's rule); other rows
 sample with the Gumbel-max trick from a ``torch.Generator`` seeded with
 ``rng_seed`` — their streams are not the reference's ``jax.random`` ones.
@@ -37,8 +52,9 @@ sample with the Gumbel-max trick from a ``torch.Generator`` seeded with
 Telemetry matches the reference: ``prefill_tokens`` (real prompt
 tokens), ``prefill_tokens_executed`` (every position a round ran, padding
 included), ``prefill_tokens_padding``, ``cached_prefix_tokens``,
-``decode_steps`` and ``transient_prefill_bytes`` (the largest batch-1
-staging cache a dense prefill made; 0 in paged mode, which stages none).
+``decode_steps`` and ``transient_prefill_bytes`` (the batch-1 staging
+stripe's bytes once a dense prefill ran; 0 in paged mode, which stages
+none).
 """
 from __future__ import annotations
 
@@ -49,7 +65,8 @@ import numpy as np
 import torch
 
 from repro_torch.models import transformer as T
-from repro_torch.serving.kvcache import PagedKVCache
+from repro_torch.serving.kvcache import PagedKVCache, _leaves
+from repro_torch.serving.programs import CapturedProgram
 
 
 @dataclass
@@ -87,7 +104,7 @@ class PrefillCursor:
     encoder_input: Optional[np.ndarray] = None
     prefix_blocks: Tuple[int, ...] = ()
     last_logits: object = None
-    dense_cache: object = None               # dense mode's staging cache
+    dense_cache: object = None               # dense progress, parked
 
     @property
     def remaining(self) -> int:
@@ -186,9 +203,66 @@ class ServingEngine:
         self.recompiles = RecompilationTracker()
         self._inflight: Dict[int, PrefillCursor] = {}   # slot -> cursor
         self._begin_seq = 0                  # FIFO stamp for cursors
+        # the round programs, built at their first round (decode and the
+        # mode's prefill: two per engine)
+        self.programs: Dict[str, CapturedProgram] = {}
+        # dense mode: the batch-1 staging stripe and the cursor it holds
+        self._stripe = None
+        self._stripe_owner: Optional[PrefillCursor] = None
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    # -- the round programs --------------------------------------------------
+
+    def _zeros(self, *shape: int) -> torch.Tensor:
+        return torch.zeros(shape, dtype=torch.int32, device=self.device)
+
+    def _program(self, name: str) -> CapturedProgram:
+        """The engine's program ``name``, made at its first round.  Its
+        body closes over the weights and the KV storage (or the dense
+        staging stripe), which stay at their addresses."""
+        prog = self.programs.get(name)
+        if prog is not None:
+            return prog
+        params, cfg, cache = self.params, self.cfg, self.kv.cache
+        S, Bp, C = self.max_slots, self.prefill_batch, self.prefill_chunk
+        if name == "decode_step":
+            inputs = {"tokens": self._zeros(S, 1),
+                      "positions": self._zeros(S)}
+            if self.paged:
+                inputs["block_tables"] = self.kv.block_tables_dev
+
+            def body(**batch):
+                return T.decode_step(params, cfg, dict(batch, cache=cache))[0]
+        elif name == "prefill_paged":
+            inputs = {"tokens": self._zeros(Bp, C),
+                      "positions": self._zeros(Bp),
+                      "q_lens": self._zeros(Bp),
+                      "block_tables": self._zeros(
+                          Bp, self.kv.blocks_per_slot)}
+
+            def body(**batch):
+                return T.prefill_step(params, cfg,
+                                      dict(batch, cache=cache))[0]
+        else:
+            assert name == "prefill_chunk", name
+            inputs = {"tokens": self._zeros(C, 1),
+                      "positions": self._zeros(C)}
+            stripe = self._stripe
+
+            def body(tokens, positions):
+                # the reference's scanned chunk: C decode steps at batch 1
+                return torch.stack([T.decode_step(params, cfg, {
+                    "tokens": tokens[t:t + 1],
+                    "positions": positions[t:t + 1],
+                    "cache": stripe})[0][0, 0] for t in range(C)])
+        prog = self.programs[name] = CapturedProgram(name, body, inputs)
+        return prog
+
+    def _replay(self, prog: CapturedProgram) -> torch.Tensor:
+        self.kv.check_storage()
+        return prog.replay()
 
     # -- scheduler-facing primitives ----------------------------------------
 
@@ -263,41 +337,55 @@ class ServingEngine:
         self.cached_prefix_tokens += sum(start_pos)
         return cursors
 
-    def _materialize_dense(self, cur: PrefillCursor) -> None:
-        """Build the cursor's batch-1 staging cache (dense mode only): a
-        fresh ``init_cache`` stripe with the cached prefix loaded."""
-        cache1 = T.init_cache(self.cfg, 1, self.max_seq_len,
-                              device=self.device)
-        self.transient_prefill_bytes = max(
-            self.transient_prefill_bytes,
-            sum(t.numel() * t.element_size()
-                for t in cache1["layers"].values()))
-        if cur.start_pos:
-            cache1 = self.kv.load_prefix_blocks(cache1, cur.prefix_blocks)
-        cur.dense_cache = cache1
+    def _claim_stripe(self, cur: PrefillCursor) -> None:
+        """Put ``cur``'s dense prefill state in the batch-1 staging stripe
+        (dense mode only; the stripe is made once, at the first chunk).
+        The cursor the stripe held, if still mid-prompt, is parked in a
+        copy first; ``cur`` either comes back from its parked copy or
+        starts on a zeroed stripe with its cached prefix loaded."""
+        if self._stripe is None:
+            self._stripe = T.init_cache(self.cfg, 1, self.max_seq_len,
+                                        device=self.device)
+        owner, stripe = self._stripe_owner, self._stripe
+        if owner is cur:
+            return
+        if (owner is not None and not owner.done
+                and self._inflight.get(owner.slot) is owner):
+            owner.dense_cache = [t.clone() for _, t in _leaves(stripe)]
+        if cur.dense_cache is not None:
+            for (_, t), parked in zip(_leaves(stripe), cur.dense_cache):
+                t.copy_(parked)
+            cur.dense_cache = None
+        else:
+            for _, t in _leaves(stripe):
+                t.zero_()
+            self.transient_prefill_bytes = max(
+                self.transient_prefill_bytes,
+                sum(t.numel() * t.element_size() for _, t in _leaves(stripe)))
+            if cur.start_pos:
+                self.kv.load_prefix_blocks(stripe, cur.prefix_blocks)
+        self._stripe_owner = cur
 
     def _dense_chunk(self, cur: PrefillCursor) -> None:
         """One dense prefill chunk: ``prefill_chunk`` tokens from
         ``cur.pos`` (zero-padded past the prompt) replayed one at a time
-        through ``decode_step`` at batch 1 into the staging cache, as the
-        reference's scanned chunk program does.  Sets ``last_logits`` (on
-        the device) when the prompt's last token runs in this chunk."""
-        if cur.dense_cache is None:
-            self._materialize_dense(cur)
+        through ``decode_step`` at batch 1 into the staging stripe, in one
+        program, as the reference's scanned chunk program does.  Sets
+        ``last_logits`` (on the device, cloned from the program's (C, V)
+        output) when the prompt's last token runs in this chunk."""
+        self._claim_stripe(cur)
         C = self.prefill_chunk
         ql = min(cur.remaining, C)
-        chunk = np.zeros((C, 1, 1), np.int32)
-        chunk[:ql, 0, 0] = cur.tokens[cur.pos:cur.pos + ql]
+        chunk = np.zeros((C, 1), np.int32)
+        chunk[:ql, 0] = cur.tokens[cur.pos:cur.pos + ql]
         self.recompiles.observe("prefill_chunk", (1, C), tracer=self.tracer)
-        toks = self._upload(chunk)
-        pos = self._upload(np.arange(cur.pos, cur.pos + C, dtype=np.int32))
+        prog = self._program("prefill_chunk")
+        prog.feed(tokens=chunk,
+                  positions=np.arange(cur.pos, cur.pos + C, dtype=np.int32))
+        logits = self._replay(prog)
         li = (len(cur.tokens) - 1) - cur.pos    # last real token's step
-        for t in range(C):
-            logits, _ = T.decode_step(self.params, self.cfg, {
-                "tokens": toks[t], "positions": pos[t:t + 1],
-                "cache": cur.dense_cache})
-            if t == li:
-                cur.last_logits = logits[0, 0]
+        if li < C:
+            cur.last_logits = logits[li].clone()
         cur.pos += ql
         self.prefill_tokens += ql
         self.prefill_tokens_executed += C
@@ -350,8 +438,8 @@ class ServingEngine:
                         self._dense_chunk(cur)
                         spent += C
                     if cur.done:
-                        self.kv.write_prefill(cur.slot, cur.dense_cache)
-                        cur.dense_cache = None
+                        self.kv.write_prefill(cur.slot, self._stripe)
+                        self._stripe_owner = None
                         finished.append(cur)
                     if not budget_left():
                         break
@@ -371,14 +459,12 @@ class ServingEngine:
                         qlens[r] = ql
                     self.recompiles.observe(
                         "prefill_paged", (toks.shape, tables.shape), tracer=tr)
-                    batch = {"tokens": self._upload(toks),
-                             "positions": self._upload(starts),
-                             "q_lens": self._upload(qlens),
-                             "cache": self.kv.cache,
-                             "block_tables": self._upload(tables)}
+                    prog = self._program("prefill_paged")
+                    prog.feed(tokens=toks, positions=starts, q_lens=qlens,
+                              block_tables=tables)
                     # writes the round's K/V into the pool storage in place
                     # (the reference donates the cache to its jitted program)
-                    logits, _ = T.prefill_step(self.params, self.cfg, batch)
+                    logits = self._replay(prog)
                     real = int(qlens.sum())
                     # FLOPs proxy: every row of the (Bp, C) round executes,
                     # dummy rows included
@@ -392,9 +478,11 @@ class ServingEngine:
                             tr.prefill_advance(cur.slot, int(qlens[r]),
                                                cur.pos, len(cur.tokens))
                         if cur.done:
-                            # on-device slice: no host sync inside the round
+                            # an on-device copy (the next round overwrites
+                            # the output): no host sync inside the round
                             # loop, so rounds keep dispatching
-                            cur.last_logits = logits[r, int(qlens[r]) - 1]
+                            cur.last_logits = logits[
+                                r, int(qlens[r]) - 1].clone()
                             finished.append(cur)
                     working = [c for c in working if not c.done]
         except Exception:
@@ -432,25 +520,26 @@ class ServingEngine:
             # before any state mutation: a decode-site fault leaves the
             # cache untouched, so the scheduler can retry the same step
             self.fault_injector.on_engine_op("decode")
-        batch = {"tokens": self._upload(np.asarray(tokens, np.int32)[:, None]),
-                 "positions": self._upload(np.asarray(positions, np.int32)),
-                 "cache": self.kv.cache}
+        prog = self._program("decode_step")
+        prog.feed(tokens=np.asarray(tokens, np.int32)[:, None],
+                  positions=np.asarray(positions, np.int32))
         if self.paged:
             # free slots' rows point at the trash block; a mid-prefill
             # slot's table maps real blocks already, so its row is masked
             # to the trash block too — its dummy decode write at position
             # 0 must not corrupt KV the prefill just produced.  (A dense
-            # mid-prefill slot prefills into its own staging cache, which
-            # replaces the whole stripe when it is done.)
-            batch["block_tables"] = self.kv.device_block_tables(
-                mask_slots=self._inflight)
+            # mid-prefill slot prefills into the staging stripe, which
+            # replaces the whole slot stripe when it is done.)  Refreshed
+            # in place: the program reads this one tensor.
+            self.kv.device_block_tables(mask_slots=self._inflight)
         self.recompiles.observe(
             "decode_step", (np.shape(tokens), np.shape(positions)),
             tracer=self.tracer)
         # updates self.kv.cache in place (the reference donates it)
-        logits, _ = T.decode_step(self.params, self.cfg, batch)
+        logits = self._replay(prog)
         self.decode_steps += 1
-        return logits[:, 0]                  # on device; no sync here
+        # on device, no sync here; the next decode round overwrites it
+        return logits[:, 0]
 
     def _sample(self, logits: torch.Tensor, temps: np.ndarray,
                 greedy: np.ndarray) -> torch.Tensor:

@@ -34,9 +34,13 @@ ledger:
   and load round trip is bit-identical.
 
 The batch and sequence axis of every leaf are found by diffing the
-model's cache spec at two sizes, as the reference does.  PyTorch runs
-eagerly: where the reference donated the storage to a jitted copy
-program, the port copies in place (``copy_`` into the storage tensors).
+model's cache spec at two sizes, as the reference does.  Where the
+reference donated the storage to a jitted copy program, the port copies in
+place (``copy_`` into the storage tensors).  The engine's captured
+programs (``serving/programs.py``) read and write the storage leaves and
+the device block table at the addresses they were captured with, so
+neither is ever rebound: ``check_storage`` raises if a leaf was, and the
+block table is one static tensor refreshed in place.
 """
 from __future__ import annotations
 
@@ -47,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import transformer as T
+from repro_torch.serving.programs import copy_from_host
 
 
 class OutOfBlocks(RuntimeError):
@@ -203,12 +208,16 @@ class PagedKVCache:
             self.cache = self._init_store(num_blocks + 1)
             self._tables = np.full((max_slots, self.blocks_per_slot),
                                    self.trash_block, np.int32)
-            self._tables_dev = None
-            self._masked_dev = None       # masked-table upload cache
-            self._masked_key = ()
+            # the device copy: one static tensor, refreshed in place when
+            # the ledger (its version) or the decode step's mask changes
+            self.block_tables_dev = torch.from_numpy(self._tables.copy()).to(
+                self.device)
+            self._tables_version = 0
+            self._dev_key = (0, ())
         else:
             self.cache = T.init_cache(cfg, max_slots, max_seq_len,
                                       device=self.device)
+        self._leaf_ptrs = [t.data_ptr() for _, t in _leaves(self.cache)]
 
         # -- prefix store (optional) ----------------------------------------
         self.prefix_pool: Optional[KVBlockPool] = None
@@ -388,7 +397,7 @@ class PagedKVCache:
         self.seq_len_of[slot] = prompt_len
         if self.paged:
             self._tables[slot, :len(blocks)] = blocks
-            self._tables_dev = self._masked_dev = None
+            self._tables_version += 1
         if tr is not None and tr.enabled:
             tr.block_alloc(slot, len(blocks), self.pool.available)
         return slot
@@ -411,7 +420,7 @@ class PagedKVCache:
                 raise
             if self.paged:
                 self._tables[slot, len(table) - 1] = table[-1]
-                self._tables_dev = self._masked_dev = None
+                self._tables_version += 1
             if tr is not None and tr.enabled:
                 tr.block_grow(slot, self.pool.available)
         self.seq_len_of[slot] = max(self.seq_len_of[slot], n_tokens)
@@ -424,7 +433,7 @@ class PagedKVCache:
         self._free_slots.append(slot)
         if self.paged:
             self._tables[slot, :] = self.trash_block
-            self._tables_dev = self._masked_dev = None
+            self._tables_version += 1
         tr = self.tracer
         if tr is not None and tr.enabled:
             tr.block_free(slot, len(blocks), self.pool.available)
@@ -432,28 +441,33 @@ class PagedKVCache:
     def device_block_tables(self, mask_slots: Sequence[int] = ()
                             ) -> torch.Tensor:
         """The (max_slots, blocks_per_slot) int32 block-table tensor the
-        paged decode step gathers through; uploaded lazily after ledger
-        mutations.  Unbacked entries name the trash block.
+        paged decode step gathers through: always the same tensor
+        (``block_tables_dev``, which a captured decode program reads),
+        refreshed in place lazily, when the ledger or the mask changed
+        since the last call.  Unbacked entries name the trash block.
 
         ``mask_slots`` re-routes those slots' rows to the trash block —
         the decode step passes the mid-prefill slots here so their dummy
-        decode rows can never touch KV the prefill already wrote.  The
-        masked upload is cached too (keyed by the mask), so steady
+        decode rows can never touch KV the prefill already wrote.  Steady
         interleaved decode pays one host-to-device copy per ledger or
         mask change, not one per step."""
         assert self.paged, "block tables are device-resident in paged mode"
-        key = tuple(sorted(mask_slots))
-        if not key:
-            if self._tables_dev is None:
-                self._tables_dev = torch.from_numpy(
-                    self._tables.copy()).to(self.device)
-            return self._tables_dev
-        if self._masked_dev is None or self._masked_key != key:
-            masked = self._tables.copy()
-            masked[list(key), :] = self.trash_block
-            self._masked_dev = torch.from_numpy(masked).to(self.device)
-            self._masked_key = key
-        return self._masked_dev
+        mask = tuple(sorted(mask_slots))
+        key = (self._tables_version, mask)
+        if key != self._dev_key:
+            tables = self._tables.copy()
+            tables[list(mask), :] = self.trash_block
+            copy_from_host(self.block_tables_dev, tables)
+            self._dev_key = key
+        return self.block_tables_dev
+
+    def check_storage(self) -> None:
+        """Raise unless every leaf of ``cache`` is still the storage made
+        at construction: every path updates the leaves in place, and a
+        captured program writes them at their first addresses."""
+        if [t.data_ptr() for _, t in _leaves(self.cache)] != self._leaf_ptrs:
+            raise RuntimeError("a KV storage leaf was rebound; the engine's "
+                               "captured programs write the original one")
 
     def write_prefill(self, slot: int, single_cache) -> None:
         """Copy a batch-1 prefilled cache into ``slot``'s stripe of the

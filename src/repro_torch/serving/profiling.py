@@ -7,15 +7,18 @@
   actually spent in admit / prefill / decode / sample.  Windows are
   bounded (:class:`~repro_torch.serving.slo.SlidingWindow`).
 
-* :class:`RecompilationTracker` — shape-signature telemetry.  PyTorch
-  runs eagerly and compiles nothing per shape, but the engine keeps the
-  reference's bookkeeping: each program's argument signature is reported
-  here, and a serving loop whose batch dimension wobbles (sizing the
-  decode batch to the number of *live* slots instead of padding to
-  ``max_slots``) shows up as signature churn, exactly as it does in the
-  reference.  Any novel signature after
-  :meth:`~RecompilationTracker.mark_warm` (or beyond the first one per
-  program) emits a ``recompile`` warning event through the tracer.
+* :class:`RecompilationTracker` — shape-signature telemetry.  Each of
+  the engine's round programs (``serving/programs.py``) has fixed
+  shapes, and its "compile" is its build at its first round: on the card
+  a CUDA-graph capture, on the CPU the first run into its static output.
+  The engine reports each program's argument signature here, so a build
+  is a program's first signature, and a serving loop whose batch
+  dimension wobbles (sizing the decode batch to the number of *live*
+  slots instead of padding to ``max_slots``) shows up as signature churn,
+  exactly as it does in the reference.  Any novel signature after
+  :meth:`~RecompilationTracker.mark_warm` (a capture there included, or
+  beyond the first one per program) emits a ``recompile`` warning event
+  through the tracer.
 
 Per-kernel device timing lives in ``chip_smoke.py`` (CUDA events at the
 main path's shapes); the reference's XLA ``cost_analysis`` profiles have
