@@ -146,7 +146,24 @@ Phases (any failure exits nonzero):
 11. mamba2 training card vs CPU — one step of a 2-layer full-width mamba2
               at seq 512 (two chunks: the state carries), batch 2, on the
               same weights on both: loss and gradient norm within
-              tolerance.
+              tolerance;
+12. 3dgan training, full width, Horovod DP — ``hvd.init("cuda")`` makes
+              an NCCL process group at world size 1 (``file://`` store) and
+              the backend is printed; ``GAN3DConfig()`` at seeds 0 / 1 must
+              count 719,053 G and 334,403 D parameters; three (D, G) RMSProp
+              step pairs (batch 8) through ``hvd.make_train_step`` on the
+              card against the same pairs on the CPU from the same weights,
+              batches and z (losses and parameters within the GAN_*
+              tolerances below); one D step and one G step must hand the
+              ``data`` group exactly two all_reduces each, of 334,403 x 4 +
+              16 and 719,053 x 4 + 12 bytes (the fused gradient, then the
+              metrics); the entry point ``repro_torch.launch.train_3dgan``
+              at batch 8 and 64 (ms per (D, G) pair, ms making a batch,
+              images/s, peak memory), the gradient all_reduces of a pair
+              timed with CUDA events, one pair at each batch under
+              ``torch.profiler`` (the card's busy share) beside its bound
+              (``gan_flops_per_image``: f32 operations over 67 TFLOP/s), and
+              the physics-validation flow's five rows.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -191,6 +208,26 @@ GRAD_TOL = 2e-2                # max |grad err| / max |grad|: bf16 grads
 TRAIN_LOSS_RTOL = 1e-3         # one train step, card vs CPU: a mean over
                                # 254 token losses of bf16-computed logits
 TRAIN_GNORM_RTOL = 2e-2        # the gradient's global norm, same step
+# 3DGAN, card against CPU: three (D, G) RMSProp step pairs in f32 (cuDNN
+# with TF32 off on the card, PyTorch's native convolutions on the CPU,
+# ``models/gan3d.py::_ieee_f32``: the same sums in another order; these
+# bounds were set before the first run on the card and have not moved;
+# on the CPU the port and the reference's XLA convolutions gave
+# losses within 1e-7 relative, gradients within 7e-6 of each leaf's largest
+# and parameters within 1.8e-6 after three pairs).  RMSProp moves an entry
+# by lr g / (sqrt(nu) + 1e-8), about lr sign(g) / sqrt(0.1) in the first
+# step whatever small error g carries, so the parameters agree to rounding
+# except entries whose gradient lies within rounding of 0 (or near eps),
+# which may move apart by up to 2 lr / sqrt(1 - 0.9) a step.  Hence: every
+# entry within 3 x 2 x lr / sqrt(0.1) (the most three pairs can part
+# them), and at most a 1e-3 share of each tree's entries beyond 1e-5.
+GAN_LOSS_RTOL = 1e-4           # d_loss, g_loss at each pair (f32 means)
+GAN_TOTAL_E_RTOL = 1e-3        # fake_total_e: 25^3 positive cells an image,
+                               # moved 2.5e-5 by the eps-region entries on
+                               # the CPU against XLA
+GAN_PARAM_ATOL = 1e-5
+GAN_PARAM_SHARE = 1e-3
+F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 # The SSD scan's and RMSNorm's bf16 outputs reach |y| ~ 20 and ~ 6, where
 # one bf16 ulp is 0.125 and 3.1e-2: their error is taken element by
 # element as |got - plain| / max(1, |plain|) against KERNEL_TOL (2.5-5
@@ -841,7 +878,7 @@ def profile_breakdown(prof, wall_ms: float) -> dict:
     busy share = total kernel time / the step's wall time (the profiler's
     own overhead is in that wall time)."""
     fams = {"flash_attention": 0.0, "ssd_scan": 0.0, "rmsnorm": 0.0,
-            "gemm": 0.0, "other": 0.0}
+            "conv": 0.0, "nccl": 0.0, "gemm": 0.0, "other": 0.0}
     top = []
     for e in prof.key_averages():
         if not str(getattr(e, "device_type", "")).endswith("CUDA"):
@@ -855,6 +892,9 @@ def profile_breakdown(prof, wall_ms: float) -> dict:
         fam = ("flash_attention" if "flash_fwd" in key else
                "ssd_scan" if "ssd_" in key else
                "rmsnorm" if "rmsnorm" in key else
+               "conv" if any(t in key for t in ("conv", "fprop", "dgrad",
+                                                "wgrad")) else
+               "nccl" if "nccl" in key else
                "gemm" if any(t in key for t in ("gemm", "xmma", "cutlass",
                                                 "cublas")) else "other")
         fams[fam] += us / 1e3
@@ -930,6 +970,263 @@ def train_card_vs_cpu(torch, cfg, *, seq: int, batch: int, dev) -> None:
           f"{cfg.name}: card and CPU training losses disagree")
     check(abs(ng - nc) <= TRAIN_GNORM_RTOL * abs(nc),
           f"{cfg.name}: card and CPU gradient norms disagree")
+
+
+# ---------------------------------------------------------------------------
+# 3dgan helpers
+# ---------------------------------------------------------------------------
+
+def gan_flops_per_image(cfg) -> float:
+    """f32 operations of one D step plus one G step per training image,
+    from the layer shapes: 2 x MACs of each conv (SAME: the output volume
+    x cout x cin x k^3) and linear.  D step: G forward, D forward on real
+    and fake, D backward on both (input and weight gradients, 2 x the
+    forward); G step: G forward, D forward, D backward for the input
+    gradient only (1 x), G backward (2 x)."""
+    g, gb, db = cfg.grid, cfg.g_base, cfg.d_base
+
+    def conv(n_out, cin, cout, k):
+        return 2.0 * n_out ** 3 * cout * cin * k ** 3
+
+    g_fwd = (2.0 * (cfg.latent_dim + 1) * 343 * cfg.g_fc_ch
+             + conv(7, cfg.g_fc_ch, gb, 3) + conv(14, gb, gb // 2, 3)
+             + conv(28, gb // 2, gb // 4, 3) + conv(g, gb // 4, 1, 3))
+    d_fwd = (conv(13, 1, db, 5) + conv(7, db, 2 * db, 5)
+             + conv(4, 2 * db, 4 * db, 5) + 3 * 2.0 * 64 * 4 * db)
+    return (g_fwd + 2 * d_fwd + 2 * 2 * d_fwd) + (g_fwd + d_fwd + d_fwd
+                                                  + 2 * g_fwd)
+
+
+def gan_data(torch, cfg, batch: int, pairs: int):
+    """``pairs`` calorimeter batches with the z of their D and G steps (one
+    ``torch.Generator``, seed 2), on the CPU."""
+    from repro_torch.data import CalorimeterSpec, generate_batch
+    zgen = torch.Generator().manual_seed(2)
+    out = []
+    for i in range(pairs):
+        b = {k: torch.from_numpy(v) for k, v in
+             generate_batch(CalorimeterSpec(), batch, i).items()}
+        out.append((b, torch.randn(batch, cfg.latent_dim, generator=zgen),
+                    torch.randn(batch, cfg.latent_dim, generator=zgen)))
+    return out
+
+
+def gan_card_vs_cpu(torch, dev, *, batch: int, pairs: int,
+                    full_width: bool = True) -> dict:
+    """``pairs`` (D, G) step pairs through ``hvd.make_train_step`` on the
+    card (inside an NCCL group) against the same pairs on the CPU, from
+    the same weights (seeds 0 and 1), batches and z: the CPU side is the
+    plain step (value and grad, RMSProp, ``apply_updates``), which is what
+    the DP step computes at world size 1.  Checks the GAN_* tolerances and
+    returns the card's collective counts of the first D and G steps."""
+    import numpy as np
+    from repro_torch import bridge, optim
+    from repro_torch.configs.gan3d import CONFIG, SMOKE_CONFIG
+    from repro_torch.core import hvd
+    from repro_torch.distributed.stepfn import value_and_grad
+    from repro_torch.models import gan3d as G
+    cfg = CONFIG if full_width else SMOKE_CONFIG
+    lr = 3e-4
+    g0 = G.init_generator(cfg, torch.Generator().manual_seed(0))
+    d0 = G.init_discriminator(cfg, torch.Generator().manual_seed(1))
+    data = gan_data(torch, cfg, batch, pairs)
+
+    def dl(d, g, b, z):
+        return G.d_loss(d, g, cfg, b, z)
+
+    def gl(g, d, b, z):
+        return G.g_loss(g, d, cfg, b, z)
+
+    d_opt = optim.rmsprop(lr * 0.5, clip_norm=1.0)
+    g_opt = optim.rmsprop(lr, clip_norm=1.0)
+    groups = hvd.axis_groups({"data": 1})
+    d_step = hvd.make_train_step(dl, d_opt, groups)
+    g_step = hvd.make_train_step(gl, g_opt, groups)
+    gp, dp = (optim.tree_map(lambda t: t.to(dev), t) for t in (g0, d0))
+    ds, gs = d_opt.init(dp), g_opt.init(gp)
+    card, counts = [], []
+    for b, z1, z2 in data:
+        b = {k: v.to(dev) for k, v in b.items()}
+        groups.reset_counts()
+        dp, ds, dm = d_step(dp, ds, gp, b, z1.to(dev))
+        counts.append(groups.counts()[("data",)])
+        groups.reset_counts()
+        gp, gs, gm = g_step(gp, gs, dp, b, z2.to(dev))
+        counts.append(groups.counts()[("data",)])
+        card.append({k: float(v) for k, v in {**dm, **gm}.items()})
+    gp_card, dp_card = gp, dp
+
+    gp, dp = g0, d0
+    ds, gs = d_opt.init(dp), g_opt.init(gp)
+    cpu = []
+    for b, z1, z2 in data:
+        _, dm, gr = value_and_grad(lambda p, a: dl(p, gp, a, z1), dp, b)
+        u, ds = d_opt.update(gr, ds, dp)
+        dp = optim.apply_updates(dp, u)
+        _, gm, gr = value_and_grad(lambda p, a: gl(p, dp, a, z2), gp, b)
+        u, gs = g_opt.update(gr, gs, gp)
+        gp = optim.apply_updates(gp, u)
+        cpu.append({k: float(v) for k, v in {**dm, **gm}.items()})
+
+    out = {"batch": batch, "pairs": pairs, "config": cfg.name,
+           "losses_card": card, "losses_cpu": cpu}
+    for c, p in zip(card, cpu):
+        for k, rtol in (("d_loss", GAN_LOSS_RTOL), ("g_loss", GAN_LOSS_RTOL),
+                        ("fake_total_e", GAN_TOTAL_E_RTOL)):
+            check(np.isfinite(c[k]) and abs(c[k] - p[k]) <= rtol * abs(p[k]),
+                  f"3dgan card vs CPU: {k} {c[k]} against {p[k]} (rtol "
+                  f"{rtol})")
+    for name, got, want, tree_lr in (("G", gp_card, gp, lr),
+                                     ("D", dp_card, dp, lr * 0.5)):
+        a, b = bridge.to_flat(got), bridge.to_flat(want)
+        diff = np.concatenate([np.abs(a[k] - b[k]).ravel() for k in b])
+        hard = pairs * 2 * tree_lr / math.sqrt(0.1)
+        beyond = int((diff > GAN_PARAM_ATOL).sum())
+        out[f"{name}_params"] = {"max_abs_diff": float(diff.max()),
+                                 "beyond_atol": beyond, "of": diff.size,
+                                 "hard_bound": hard}
+        check(diff.max() <= hard, f"3dgan card vs CPU: a {name} parameter "
+              f"moved {diff.max()} from the CPU's, past {hard}")
+        check(beyond <= GAN_PARAM_SHARE * diff.size,
+              f"3dgan card vs CPU: {beyond} of {diff.size} {name} "
+              f"parameters beyond {GAN_PARAM_ATOL}")
+    out["counts_first_pair"] = counts[:2]
+    return out
+
+
+def gan_allreduce_ms(torch, dev, groups, reps: int = 20) -> float:
+    """Device time of the two gradient all_reduces of one (D, G) pair at
+    full width (``hvd.allreduce`` of trees shaped as D's and G's
+    gradients: the fusion copy, the NCCL all_reduce, the division, the
+    unpacking), CUDA events around ``reps`` pairs."""
+    from repro_torch.configs.gan3d import CONFIG
+    from repro_torch.core import hvd
+    from repro_torch.models import gan3d as G
+    trees = [G.init_generator(CONFIG, torch.Generator().manual_seed(0), dev),
+             G.init_discriminator(CONFIG, torch.Generator().manual_seed(1),
+                                  dev)]
+    for t in trees:
+        hvd.allreduce(t, groups.world)
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        for t in trees:
+            hvd.allreduce(t, groups.world)
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def profile_gan_pair(torch, dev, batch: int) -> dict:
+    """One full-width (D, G) pair through ``hvd.make_train_step`` under
+    ``torch.profiler`` after two unprofiled pairs (the batch made
+    beforehand); device time by kernel family and the busy share."""
+    from repro_torch import optim
+    from repro_torch.configs.gan3d import CONFIG
+    from repro_torch.core import hvd
+    from repro_torch.models import gan3d as G
+    groups = hvd.axis_groups({"data": 1})
+    d_opt = optim.rmsprop(1.5e-4, clip_norm=1.0)
+    g_opt = optim.rmsprop(3e-4, clip_norm=1.0)
+    d_step = hvd.make_train_step(
+        lambda d, g, b, z: G.d_loss(d, g, CONFIG, b, z), d_opt, groups)
+    g_step = hvd.make_train_step(
+        lambda g, d, b, z: G.g_loss(g, d, CONFIG, b, z), g_opt, groups)
+    gp = G.init_generator(CONFIG, torch.Generator().manual_seed(0), dev)
+    dp = G.init_discriminator(CONFIG, torch.Generator().manual_seed(1), dev)
+    ds, gs = d_opt.init(dp), g_opt.init(gp)
+    data = [(({k: v.to(dev) for k, v in b.items()}), z1.to(dev), z2.to(dev))
+            for b, z1, z2 in gan_data(torch, CONFIG, batch, 3)]
+    for b, z1, z2 in data[:2]:
+        dp, ds, _ = d_step(dp, ds, gp, b, z1)
+        gp, gs, _ = g_step(gp, gs, dp, b, z2)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    b, z1, z2 = data[2]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        dp, ds, _ = d_step(dp, ds, gp, b, z1)
+        gp, gs, _ = g_step(gp, gs, dp, b, z2)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return profile_breakdown(prof, wall_ms)
+
+
+def gan_phase(torch, dev) -> None:
+    """Phase 12: NCCL, parameter counts, card against CPU, collective
+    counts, the entry point's times at batch 8 and 64, the all_reduce time,
+    the busy share, the physics-validation rows."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.benchmarks import physics_validation
+    from repro_torch.configs.gan3d import CONFIG
+    from repro_torch.core import hvd
+    from repro_torch.launch import train_3dgan
+    from repro_torch.models import gan3d as G
+    with hvd.init("cuda") as gdev:
+        backend = dist.get_backend()
+        print(f"process group: backend {backend}, world size "
+              f"{dist.get_world_size()}, device {gdev}", flush=True)
+        check(backend == "nccl", f"hvd.init('cuda') made a {backend} group")
+        n_g = G.param_count(G.init_generator(
+            CONFIG, torch.Generator().manual_seed(0), gdev))
+        n_d = G.param_count(G.init_discriminator(
+            CONFIG, torch.Generator().manual_seed(1), gdev))
+        print(f"3dgan parameters: G {n_g:,}, D {n_d:,}", flush=True)
+        check((n_g, n_d) == (719_053, 334_403),
+              f"3dgan parameter counts {n_g}, {n_d}")
+
+        t0 = time.perf_counter()
+        cmp = gan_card_vs_cpu(torch, gdev, batch=8, pairs=3)
+        print(f"3dgan card vs CPU ({time.perf_counter() - t0:.1f} s): "
+              + json.dumps(cmp), flush=True)
+        # one D step, one G step: the fused gradient all_reduce, then the
+        # metrics' (d_loss, acc_real, acc_fake, loss; g_loss, fake_total_e,
+        # loss), f32
+        want = [(2, 4 * n_d + 16), (2, 4 * n_g + 12)]
+        check([tuple(c) for c in cmp["counts_first_pair"]] == want,
+              f"3dgan collectives a step {cmp['counts_first_pair']}, want "
+              f"{want}")
+
+        flops = gan_flops_per_image(CONFIG)
+        runs = {}
+        for batch in (8, 64):
+            run = train_3dgan.main(["--batch", str(batch), "--steps", "20"])
+            pair_ms = 1e3 * sum(run["pair_s"][1:]) / (len(run["pair_s"]) - 1)
+            data_ms = 1e3 * sum(run["data_s"][1:]) / (len(run["data_s"]) - 1)
+            runs[batch] = {
+                "pair_ms": pair_ms, "data_ms": data_ms,
+                "images_per_s": run["images_per_s"],
+                "pair_images_per_s": batch / pair_ms * 1e3,
+                "bound_ms": flops * batch / F32_FLOPS_PER_S * 1e3,
+                "max_memory_allocated": run["max_memory_allocated"],
+                "d_losses": run["d_losses"], "g_losses": run["g_losses"],
+                "energy_corr": run["energy_corr"]}
+            check(np.isfinite(run["d_losses"] + run["g_losses"]).all(),
+                  f"3dgan batch {batch}: a loss is not finite")
+            check(all(c == {"calls": 4, "bytes": 4 * (n_d + n_g) + 28}
+                      for c in run["collectives_per_step"]),
+                  f"3dgan batch {batch}: collectives "
+                  f"{run['collectives_per_step'][:2]}")
+        groups = hvd.axis_groups({"data": 1})
+        ar_ms = gan_allreduce_ms(torch, gdev, groups)
+        print(f"3dgan flops per image (one D + one G step) {flops:.4e}; "
+              f"gradient all_reduces a pair {ar_ms:.4f} ms", flush=True)
+        for batch, r in runs.items():
+            print(f"3dgan launcher batch {batch}: " + json.dumps(r),
+                  flush=True)
+            print(f"3dgan pair profile, batch {batch}: "
+                  + json.dumps(profile_gan_pair(torch, gdev, batch)),
+                  flush=True)
+        rows = physics_validation.run(device=gdev)
+        for row in rows:
+            print("3dgan " + ",".join(str(x) for x in row), flush=True)
+        check(len(rows) == 5 and np.isfinite(
+            float(rows[-1][2].split()[0])), "physics validation rows")
+    check(not dist.is_initialized(), "the NCCL group outlived its block")
 
 
 # ---------------------------------------------------------------------------
@@ -2136,6 +2433,11 @@ def main() -> int:
     phase("mamba2 training card vs CPU")
     train_card_vs_cpu(torch, mcfg.with_(num_layers=2), seq=512, batch=2,
                       dev=dev)
+    torch.cuda.empty_cache()
+
+    # 12. the 3DGAN trained with Horovod-style DP ---------------------------
+    phase("3dgan training, full width, Horovod DP")
+    gan_phase(torch, dev)
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -7,6 +7,12 @@ The port's parameters are nested dicts of tensors with exactly that layout
 (``init_linear``'s ``(d_in, *out)`` weights, stacked layer dims), so the
 bridge only nests, converts and places — leaf for leaf, no transposes.
 
+The one exception is the 3DGAN's conv kernels: the reference's are DHWIO
+(channels last), the port's OIDHW (``F.conv3d``'s layout).
+``gan_from_flat`` / ``gan_to_flat`` transpose them both ways; every other
+leaf of the two GAN trees (``fc`` and the heads, ``(d_in, d_out)``, and the
+biases) passes as is.
+
 The caller flattens the reference's tree (the tests do it with the
 reference's own helper), so this module never touches JAX.
 """
@@ -61,3 +67,24 @@ def to_flat(params: Mapping[str, Any], prefix: str = ""
                 t = t.float()
             out[path] = t.numpy()
     return out
+
+
+def _is_conv_kernel(path: str, arr) -> bool:
+    return path.endswith("/w") and arr.ndim == 5
+
+
+def gan_from_flat(flat: Mapping[str, np.ndarray], device="cpu"
+                  ) -> Dict[str, Any]:
+    """A reference 3DGAN tree (generator or discriminator) as ``{path:
+    ndarray}`` -> the port's tree: conv kernels DHWIO -> OIDHW."""
+    return from_flat({
+        p: np.ascontiguousarray(np.transpose(a, (4, 3, 0, 1, 2)))
+        if _is_conv_kernel(p, a) else a for p, a in flat.items()}, device)
+
+
+def gan_to_flat(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The port's 3DGAN tree -> ``{path: ndarray}`` in the reference's
+    layout: conv kernels OIDHW -> DHWIO."""
+    return {p: np.ascontiguousarray(np.transpose(a, (2, 3, 4, 1, 0)))
+            if _is_conv_kernel(p, a) else a
+            for p, a in to_flat(params).items()}

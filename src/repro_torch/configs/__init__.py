@@ -4,8 +4,9 @@
 underscores.  Every entry exports CONFIG (the full-size numbers) and
 SMOKE_CONFIG (the reduced same-family variant for CPU tests), identical to
 the reference's.  The port carries the dense decoders its serving and
-training paths run and the ssm family its training path runs; the other
-families join with the slices that port them.
+training paths run, the ssm family its training path runs, and the
+paper's 3DGAN (``gan3d``, kept out of ``ARCHS`` as in the reference); the
+other families join with the slices that port them.
 """
 from __future__ import annotations
 
@@ -18,9 +19,10 @@ _MODULES = {
     "gemma2-2b": "gemma2_2b",
     "qwen2-0.5b": "qwen2_0p5b",
     "mamba2-1.3b": "mamba2_1p3b",
+    "gan3d": "gan3d",
 }
 
-ARCHS: List[str] = list(_MODULES)
+ARCHS: List[str] = [a for a in _MODULES if a != "gan3d"]
 
 
 def _module(arch: str):

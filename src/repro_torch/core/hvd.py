@@ -1,0 +1,353 @@
+"""Horovod-style data parallelism on ``torch.distributed`` — the paper's
+§II-H (counterpart of ``repro.core.hvd``).
+
+The paper's recipe: take a single-process script, add four calls
+(``hvd.init()``, pin one rank per device, wrap the optimizer in
+``DistributedOptimizer``, broadcast the initial variables) and run it
+under ``mpiexec``.  Here ``torchrun`` is the ``mpiexec``: it sets ``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK`` and the store's address, and :func:`init`
+reads them.  Gradients are exchanged by allreduce (NCCL on the card, gloo
+on the CPU), contrasted with the parameter-server baseline in
+``repro_torch.core.paramserver``.
+
+The reference's mesh axes become process groups: :func:`axis_groups`
+lays the world out row-major over a shape such as ``{"pod": 2, "data":
+2}`` and gives this rank one :class:`Group` for each set of axes.  Every
+collective takes a group and adds what this rank hands it (calls and
+bytes) to that group's counters, as the kernels' wrappers count their
+launches.  The collectives run whatever the group's size: at world size 1
+they are still issued.
+
+A step is Horovod's contract: parameters and optimizer state replicated,
+each rank passes its own shard of the batch, gradients averaged, the same
+update applied everywhere, so the replicas stay identical bit for bit.
+"""
+from __future__ import annotations
+
+import contextlib
+import itertools
+import os
+import shutil
+import tempfile
+from typing import (Callable, Dict, Iterator, List, Optional, Sequence, Tuple,
+                    Union)
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import optim
+from repro_torch.distributed.stepfn import value_and_grad
+from repro_torch.optim import tree_map
+
+# torch >= 2.13 names these ``*_single`` and deprecates the older names
+_all_gather = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+
+_BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+
+
+# ---------------------------------------------------------------------------
+# The process group (hvd.init)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def init(device, init_method: Optional[str] = None
+         ) -> Iterator[torch.device]:
+    """Create the default process group for ``device`` and yield this
+    rank's device; the group is destroyed when the block ends.
+
+    NCCL when the device is ``cuda`` (one card a rank, ``LOCAL_RANK``),
+    gloo when it is ``cpu``; never the other.  Rank and world size come
+    from ``RANK`` / ``WORLD_SIZE`` (set by ``torchrun``); the store from
+    ``init_method``, else ``env://``.  With no ``RANK`` set it runs alone
+    (world size 1) on a ``file://`` store in a temporary directory.  Inside
+    a block that already made a group of the same backend, it yields that
+    group's device and leaves the group to its maker."""
+    dev = torch.device(device)
+    if dev.type not in _BACKENDS:
+        raise ValueError(f"no process-group backend for device {dev}")
+    backend = _BACKENDS[dev.type]
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device 'cuda' requested but no CUDA device is available; "
+                "pass device='cpu' explicitly to train on gloo")
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(dev)
+    if dist.is_initialized():
+        if dist.get_backend() != backend:
+            raise RuntimeError(f"a {dist.get_backend()} process group "
+                               f"exists; device {dev} needs {backend}")
+        yield dev
+        return
+    store_dir = None
+    if "RANK" in os.environ:
+        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        init_method = init_method or "env://"
+    else:
+        rank, world = 0, 1
+        if init_method is None:
+            store_dir = tempfile.mkdtemp(prefix="hvd-store-")
+            init_method = f"file://{os.path.join(store_dir, 'store')}"
+    try:
+        dist.init_process_group(backend, init_method=init_method, rank=rank,
+                                world_size=world)
+        yield dev
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        if store_dir is not None:
+            shutil.rmtree(store_dir, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# Groups: the mesh axes
+# ---------------------------------------------------------------------------
+
+class Group:
+    """This rank's communicator over some axes of the layout, with the
+    counts of what this rank handed its collectives."""
+
+    def __init__(self, axes: Tuple[str, ...], ranks: List[int], pg):
+        self.axes, self.ranks, self.pg = axes, ranks, pg
+        self.size = len(ranks)
+        self.rank = ranks.index(dist.get_rank())
+        self.calls = 0
+        self.bytes = 0
+
+    def count(self, t: torch.Tensor) -> None:
+        self.calls += 1
+        self.bytes += t.numel() * t.element_size()
+
+
+class Groups:
+    """This rank's :class:`Group` for every non-empty set of axes of a
+    row-major layout (``groups["data"]``, ``groups[("pod", "data")]``);
+    ``world`` spans every axis."""
+
+    def __init__(self, axes: Tuple[str, ...], groups: Dict[tuple, Group]):
+        self.axes, self._groups = axes, groups
+
+    def __getitem__(self, axes: Union[str, Sequence[str]]) -> Group:
+        key = (axes,) if isinstance(axes, str) else tuple(axes)
+        return self._groups[tuple(a for a in self.axes if a in key)]
+
+    @property
+    def world(self) -> Group:
+        return self[self.axes]
+
+    def counts(self) -> Dict[Tuple[str, ...], Tuple[int, int]]:
+        """``{axes: (calls, bytes)}`` since the last reset."""
+        return {k: (g.calls, g.bytes) for k, g in self._groups.items()}
+
+    def reset_counts(self) -> None:
+        for g in self._groups.values():
+            g.calls = g.bytes = 0
+
+
+def axis_groups(shape: Dict[str, int]) -> Groups:
+    """Lay the world out row-major over ``shape`` (the last axis fastest,
+    like MPI ranks on a Cartesian communicator) and make this rank's group
+    for each set of axes.  Every rank makes every group, in one order, as
+    ``dist.new_group`` requires."""
+    sizes = list(shape.values())
+    n = 1
+    for s in sizes:
+        n *= s
+    if n != dist.get_world_size():
+        raise ValueError(f"layout {shape} holds {n} ranks; the world has "
+                         f"{dist.get_world_size()}")
+    coords = list(itertools.product(*(range(s) for s in sizes)))
+    me = coords[dist.get_rank()]
+    names = list(shape)
+    groups = {}
+    for k in range(1, len(names) + 1):
+        for axes in itertools.combinations(names, k):
+            free = [names.index(a) for a in axes]
+
+            def key(c):
+                return tuple(c[i] for i in range(len(c)) if i not in free)
+
+            for fixed in sorted({key(c) for c in coords}):
+                ranks = [r for r, c in enumerate(coords) if key(c) == fixed]
+                pg = dist.new_group(ranks)
+                if key(me) == fixed:
+                    groups[axes] = Group(axes, ranks, pg)
+    return Groups(tuple(names), groups)
+
+
+def rank(group: Group) -> int:
+    """This rank's index in ``group`` (row-major over its axes, like
+    ``MPI_Comm_rank``)."""
+    return group.rank
+
+
+def size(group: Group) -> int:
+    return group.size
+
+
+# ---------------------------------------------------------------------------
+# Collectives (Horovod vocabulary)
+# ---------------------------------------------------------------------------
+
+def _leaves(tree) -> Iterator[torch.Tensor]:
+    """Leaves in ``tree_map``'s order (dict insertion order)."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _fused(tree, op: Callable[[torch.Tensor], torch.Tensor]):
+    """Horovod's tensor fusion: the leaves of each dtype packed into one
+    contiguous buffer, ``op`` applied to each buffer once, the result cut
+    back into the tree's shapes."""
+    leaves = list(_leaves(tree))
+    out: List[torch.Tensor] = [None] * len(leaves)
+    dtypes = sorted({t.dtype for t in leaves}, key=str)
+    for dt in dtypes:
+        idx = [i for i, t in enumerate(leaves) if t.dtype == dt]
+        buf = op(torch.cat([leaves[i].reshape(-1) for i in idx]))
+        parts = torch.split(buf, [leaves[i].numel() for i in idx])
+        for i, part in zip(idx, parts):
+            out[i] = part.view(leaves[i].shape)
+    it = iter(out)
+    return tree_map(lambda _: next(it), tree)
+
+
+def _mean_dtype_check(buf: torch.Tensor) -> None:
+    if not buf.is_floating_point():
+        raise TypeError(f"averaging needs floating leaves, got {buf.dtype}")
+
+
+def allreduce(tree, group: Group, average: bool = True):
+    """Sum (``average``: mean) of every leaf over ``group``: one
+    ``all_reduce`` per dtype of the tree."""
+    def op(buf):
+        if average:
+            _mean_dtype_check(buf)
+        group.count(buf)
+        dist.all_reduce(buf, group=group.pg)
+        return buf.div_(group.size) if average else buf
+    return _fused(tree, op)
+
+
+def allgather(tree, group: Group):
+    """Every leaf concatenated over ``group`` along dim 0 (a 0-d leaf
+    becomes a (size,) vector)."""
+    def g(t):
+        t = t.reshape(1) if t.ndim == 0 else t.contiguous()
+        out = t.new_empty((group.size * t.shape[0],) + tuple(t.shape[1:]))
+        group.count(t)
+        _all_gather(out, t, group=group.pg)
+        return out
+    return tree_map(g, tree)
+
+
+def hierarchical_allreduce(tree, inner: Group, outer: Group,
+                           average: bool = True):
+    """Pod-aware allreduce: reduce-scatter over ``inner`` (intra-pod),
+    allreduce the shard over ``outer`` (inter-pod), all-gather back over
+    ``inner``; divided once by |inner| x |outer|.  The outer link carries
+    1/|inner| of the bytes of a flat allreduce.  Fused per dtype like
+    :func:`allreduce`: the buffer is padded to a multiple of |inner|."""
+    def op(buf):
+        if average:
+            _mean_dtype_check(buf)
+        n = buf.numel()
+        pad = (-n) % inner.size
+        if pad:
+            buf = torch.cat([buf, buf.new_zeros(pad)])
+        shard = buf.new_empty(buf.numel() // inner.size)
+        inner.count(buf)
+        _reduce_scatter(shard, buf, group=inner.pg)
+        outer.count(shard)
+        dist.all_reduce(shard, group=outer.pg)
+        full = torch.empty_like(buf)
+        inner.count(shard)
+        _all_gather(full, shard, group=inner.pg)
+        full = full[:n]
+        return full.div_(inner.size * outer.size) if average else full
+    return _fused(tree, op)
+
+
+def broadcast(tree, group: Group, root: int = 0):
+    """Every leaf as ``group``'s rank ``root`` holds it (Horovod's
+    initial-variable broadcast): one ``broadcast`` per dtype."""
+    def op(buf):
+        group.count(buf)
+        dist.broadcast(buf, src=group.ranks[root], group=group.pg)
+        return buf
+    return _fused(tree, op)
+
+
+# ---------------------------------------------------------------------------
+# DistributedOptimizer
+# ---------------------------------------------------------------------------
+
+class DistributedOptimizer:
+    """Wraps a ``repro_torch.optim`` optimizer: allreduce (average) the
+    gradients over ``group`` before the update."""
+
+    def __init__(self, optimizer: optim.Optimizer, group: Group):
+        self.inner = optimizer
+        self.group = group
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def update(self, grads, state, params):
+        grads = allreduce(grads, self.group, average=True)
+        return self.inner.update(grads, state, params)
+
+
+# ---------------------------------------------------------------------------
+# The replicated-DP train step
+# ---------------------------------------------------------------------------
+
+def make_train_step(loss_fn: Callable, optimizer: optim.Optimizer,
+                    groups: Groups, hierarchical: bool = False) -> Callable:
+    """Returns ``step(params, opt_state, *args) -> (params, opt_state,
+    metrics)`` over every axis of ``groups``: ``loss_fn(params, *args) ->
+    (loss, metrics)`` on this rank's shard, gradients averaged over the
+    world, the same update on every rank, the metrics (and ``loss``)
+    averaged.
+
+    hierarchical=True on a layout with a ``pod`` axis: gradients take
+    :func:`hierarchical_allreduce` (inner = the other axes, outer =
+    ``pod``) instead of one flat allreduce."""
+    world = groups.world
+    dist_opt = DistributedOptimizer(optimizer, world)
+    inner_axes = tuple(a for a in groups.axes if a != "pod")
+    hier = hierarchical and "pod" in groups.axes and inner_axes
+
+    def step(params, opt_state, *args):
+        loss, metrics, grads = value_and_grad(
+            lambda p, a: loss_fn(p, *a), params, args)
+        if hier:
+            grads = hierarchical_allreduce(grads, groups[inner_axes],
+                                           groups["pod"])
+            updates, opt_state = optimizer.update(grads, opt_state, params)
+        else:
+            updates, opt_state = dist_opt.update(grads, opt_state, params)
+        params = optim.apply_updates(params, updates)
+        metrics = allreduce(dict(metrics, loss=loss), world)
+        return params, opt_state, metrics
+
+    return step
+
+
+def make_eval_step(loss_fn: Callable, groups: Groups) -> Callable:
+    """``step(params, *args) -> metrics``: ``loss_fn`` on this rank's shard
+    without gradients, its metrics and ``loss`` averaged over the world."""
+    world = groups.world
+
+    def step(params, *args):
+        with torch.no_grad():
+            loss, metrics = loss_fn(params, *args)
+        return allreduce(dict(metrics, loss=loss), world)
+
+    return step

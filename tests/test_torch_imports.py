@@ -71,6 +71,13 @@ def test_launcher_defaults_to_cuda_and_refuses_without_a_card():
                     "--requests", "1"])
 
 
+def test_train_3dgan_defaults_to_cuda_and_refuses_without_a_card():
+    _no_card()
+    from repro_torch.launch import train_3dgan
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_3dgan.main(["--smoke", "--steps", "1"])
+
+
 def test_launcher_rejects_what_later_slices_port():
     """The replica gateway waits for the fleet slice; without ``--paged``
     the launcher serves in dense mode, as the reference's does."""
