@@ -18,7 +18,8 @@ Phases (any failure exits nonzero):
               longer contexts, softcap 50), with ragged lengths,
               trash/garbage table entries and q_len == 0 rows.  The flash
               kernel at qwen2-0.5b training shapes (B 8, S 1024, H 14, KV 2,
-              D 64, causal: the tensor-core kernel) and gemma2-2b shapes
+              D 64, causal: the tensor-core kernel), zamba2-1.2b's (B 8, S
+              1024, H = KV = 32, D 64: MHA) and gemma2-2b shapes
               (B 1, S 4150 — past the window and not a tile multiple — H 8,
               KV 4, D 288, window 4096, softcap 50: the CUDA-core kernel):
               output, logsumexp, and dQ/dK/dV through the autograd Function
@@ -35,14 +36,17 @@ Phases (any failure exits nonzero):
               dropped, the padding rows written as queries, gemma2's window
               one key wider or narrower; flash with the
               causal mask one key late, each row's last partial tile
-              dropped, kv head h % KV, l not rescaled, gemma2's window one
+              dropped, kv head h % KV (h + 1 at MHA), l not rescaled,
+              gemma2's window one
               key wider or narrower; decode with a split's partial left out
               of the combine, each row's newest key missed, a trash entry
               read unmasked, gemma2's window one key wider or narrower.
               The SSD scan at mamba2-1.3b shapes (b 2, S 1024, H 64, P 64,
               N 128, G 1, chunk 256) on what a fresh full-width layer feeds
               it, and with G = 2 and S = 1000 (not a chunk multiple)
-              through ``ops.ssd``, each checked to take the tensor-core
+              through ``ops.ssd``, and on what a fresh full-width
+              zamba2-1.2b layer feeds it (b 2, S 1024, H 64, P 64, N 64),
+              each checked to take the tensor-core
               scan: output element by element within 2^-8 mix + 2^-7
               |plain| (mix the plain scan of |x|, |B|, |C|; ``ref.
               rounding_bound_ratio``) and within 2e-2 max(1, |plain|),
@@ -62,11 +66,15 @@ Phases (any failure exits nonzero):
               the last pack not written; the two-pass kernel, checked to
               be the one launched, at d 16384 (packs of 8), d 100 and rows
               off 16-byte alignment (element by element), within one ulp;
-              and its gradients.  The int8
+              and its gradients; the decode rows, 1 and 8 at d 2,048 and
+              4,096, within one ulp, the broken variants failing.  The int8
               flash kernel at the dense serving
               path's decode shapes (q (8, 1, 14, 64) bf16, int8 K/V
               (8, 2048, 2, 64) quantized by the model's quantizer, bf16
-              scales, lengths 1-2048), at gemma2-2b's D = 288 with window
+              scales, lengths 1-2048), at zamba2-1.2b's (MHA, G = 1: q (8,
+              1, 32, 64), K/V (8, 1024, 32, 64), lengths 1-1024; and the
+              B = 1 prompt replay, kv_len 78; both with qwen2's broken
+              variants), at gemma2-2b's D = 288 with window
               and softcap, and at the TPU kernel's own test shapes (f32,
               q_start 0, kv_len Skv), element by element; kernels that
               left a split's partial out of the combine, ignored the scales
@@ -90,7 +98,10 @@ Phases (any failure exits nonzero):
               TFLOP/s, whichever is larger); the tensor-core SSD scan also
               launch by launch (each kernel's device time in whole scans,
               from ``torch.profiler``), and RMSNorm also at the qwen2 step's
-              8,192 x 896 f32 -> bf16;
+              8,192 x 896 f32 -> bf16; then at zamba2-1.2b's shapes: flash
+              (8, 1024, 32, 64), the int8 kernel at its decode and B = 1
+              replay shapes, the SSD scan at N 64 (b 8, also launch by
+              launch), RMSNorm at 8,192 x 2,048 f32 -> bf16;
 5. serving  — full-width qwen2-0.5b (random weights, seed 0), paged: (a)
               the port's launcher ``repro_torch.launch.serve.main``; (b)
               the scheduler and engine driven directly with 8 prompts of
@@ -147,7 +158,29 @@ Phases (any failure exits nonzero):
               at seq 512 (two chunks: the state carries), batch 2, on the
               same weights on both: loss and gradient norm within
               tolerance;
-12. 3dgan training, full width, Horovod DP — ``hvd.init("cuda")`` makes
+12. training zamba2-1.2b, full width, through the launcher (seq 1024,
+              batch 8, 8 AdamW steps, remat per mamba layer and per
+              application of the shared block): losses finite and falling,
+              exactly 12 flash launches (6 applications x 2), 76 SSD scans
+              (38 layers x 2) and 177 RMSNorms in every step, each on the
+              tensor-core / one-pass route, step time, tokens/s, peak
+              memory; one step under ``torch.profiler``;
+13. zamba2 training card vs CPU — one step of an 8-layer full-width zamba2
+              (one group of six and the shared block, a tail of two) at
+              seq 512, batch 2: loss and gradient norm within tolerance;
+14. dense serving of mamba2-1.3b and zamba2-1.2b, full width — phase 6's
+              workload (8 slots x 1,024, chunk 16, 64 prefix blocks asked
+              for: the engine keeps none) for zamba2 with int8 KV, zamba2
+              with bf16 KV (first 4 prompts) and mamba2: every round a
+              replay of the engine's two programs, captured once; exactly
+              6 int8 launches (int8 zamba2), no SSD or other attention
+              launch and 2 L + 2 G + 1 one-pass RMSNorms per step (decode
+              steps + prompt tokens executed); nothing leaked; a B = 8
+              decode round replayed (CUDA events) and held bit for bit
+              against the eager round from the same cache; then card
+              against CPU at cut depth (zamba2 8 layers, int8; mamba2 4):
+              last logits within tolerance and 8 equal greedy tokens;
+15. 3dgan training, full width, Horovod DP — ``hvd.init("cuda")`` makes
               an NCCL process group at world size 1 (``file://`` store) and
               the backend is printed; ``GAN3DConfig()`` at seeds 0 / 1 must
               count 719,053 G and 334,403 D parameters; three (D, G) RMSProp
@@ -501,15 +534,16 @@ def ssd_case(torch, rng, dev, *, b, S, H, P, G, N):
                 C=bf(b, S, G, N), dy=bf(b, S, H, P))
 
 
-def mamba_scan_case(torch, rng, dev, *, b, S, seed):
-    """What the first layer of a freshly initialised full-width
-    mamba2-1.3b feeds the SSD scan (``ssm.scan_inputs``: in_proj, causal
-    conv, softplus dt) for unit-rms rows of bf16 input, as its pre-norm
-    hands them over.  Its heads decay from A = -1 to -64: exp(cum)
-    underflows in most, the first ones carry the state across chunks."""
+def mamba_scan_case(torch, rng, dev, *, b, S, seed, arch="mamba2-1.3b"):
+    """What the first layer of a freshly initialised full-width ``arch``
+    (mamba2-1.3b: N 128; zamba2-1.2b: N 64) feeds the SSD scan
+    (``ssm.scan_inputs``: in_proj, causal conv, softplus dt) for unit-rms
+    rows of bf16 input, as its pre-norm hands them over.  Its 64 heads
+    decay from A = -1 to -64: exp(cum) underflows in most, the first ones
+    carry the state across chunks."""
     from repro_torch.configs import get_config
     from repro_torch.models import ssm
-    cfg = get_config("mamba2-1.3b")
+    cfg = get_config(arch)
     gen = torch.Generator().manual_seed(seed)
     p = ssm.init_mamba2(cfg, gen, device=dev, weight_dtype=torch.bfloat16)
     u = torch.randn((b, S, cfg.d_model), generator=gen).to(dev,
@@ -655,12 +689,14 @@ def flash_wrongs(torch, fa, ref, q, k, v, kw, tile: int = 64):
         return out
 
     def head():
-        idx = torch.arange(H, device=k.device) % KV
+        # GQA: head h reads kv head h % KV; MHA (h % KV is h): h + 1
+        idx = (torch.arange(H, device=k.device) + (H == KV)) % KV
         return plain(q, k[:, :, idx].contiguous(), v[:, :, idx].contiguous())
 
     return [("applied the causal mask one key late", late),
             ("dropped each row's last partial kv tile", drop_tile),
-            ("read kv head h % KV instead of h // G", head),
+            ("read kv head h % KV instead of h // G" if H > KV
+             else "read kv head h + 1 instead of h", head),
             ("did not rescale the running sum l",
              lambda: ref.flash_tiles_ref(q, k, v, **kw, block_k=tile,
                                          rescale_l=False)[0])]
@@ -1241,6 +1277,9 @@ def check_no_leaks(sched, label: str) -> None:
     check(kv.free_slot_count == kv.max_slots,
           f"{label}: {kv.max_slots - kv.free_slot_count} slot(s) leaked")
     check(kv.pool.in_use == 0, f"{label}: {kv.pool.in_use} block(s) leaked")
+    # no cursor left in flight, none holding the dense staging stripe
+    check(not eng._inflight and eng._stripe_owner is None,
+          f"{label}: a prefill cursor or the staging stripe leaked")
     pc = eng.prefix_cache
     if pc is not None:
         # with every request retired, evicting the whole tree must return
@@ -1304,10 +1343,16 @@ def check_round_launches(eng, launches, label: str, cfg) -> None:
 
 def eager_vs_replay(torch, T, eng, tokens, positions) -> float:
     """One replayed decode round of ``eng`` against an eager
-    ``decode_step`` on the same inputs and cache (the replay wrote this
-    step's K/V, the eager step rewrites the same values): max |diff|."""
+    ``decode_step`` on the same inputs from the same cache (snapshotted
+    before the replay and restored before the eager step: a mamba layer's
+    state advances a token a step): max |diff|."""
     import numpy as np
+    from repro_torch.serving.kvcache import _leaves
+    before = [t.clone() for _, t in _leaves(eng.kv.cache)]
     replayed = eng.decode_once(tokens, positions).clone()
+    for (_, t), b in zip(_leaves(eng.kv.cache), before):
+        t.copy_(b)
+    del before
     batch = {"tokens": torch.from_numpy(
                  np.asarray(tokens, np.int32)[:, None]).to(eng.device),
              "positions": torch.from_numpy(
@@ -1317,6 +1362,163 @@ def eager_vs_replay(torch, T, eng, tokens, positions) -> float:
         batch["block_tables"] = eng.kv.device_block_tables()
     eager = T.decode_step(eng.params, eng.cfg, batch)[0][:, 0]
     return float((replayed - eager).abs().max())
+
+
+def serve_recurrent(torch, T, dev, counters, by_name, rms_paths) -> dict:
+    """Dense serving of zamba2-1.2b (int8 KV, then bf16 KV on the first 4
+    prompts) and mamba2-1.3b at full width with random weights (seed 0):
+    phase 6's workload through the scheduler, every round a replay of
+    the engine's two programs, exact launch counts, no prefix cache
+    though blocks are asked for, nothing leaked; a replayed B = 8 decode
+    round timed with CUDA events and held bit for bit against the eager
+    round; then greedy tokens and last logits, card against CPU, at cut
+    depth.  Adds each path's launches to ``by_name`` and ``rms_paths``."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.serving import (Request, SamplingParams, Scheduler,
+                                     ServingEngine)
+    kw = dict(paged=False, max_slots=8, max_seq_len=1024, prefill_chunk=16,
+              prefix_cache_blocks=64)
+    out, params = {}, {}
+    for arch, kv_dtype, n_req in (("zamba2-1.2b", "int8", 12),
+                                  ("zamba2-1.2b", "bfloat16", 4),
+                                  ("mamba2-1.3b", "bfloat16", 12)):
+        cfg = get_config(arch).with_(kv_cache_dtype=kv_dtype)
+        label = f"dense {arch}" + (f" {kv_dtype}" if cfg.num_heads else "")
+        if arch not in params:
+            params = {arch: T.init_params(cfg, torch.Generator().manual_seed(
+                0), device=dev)}
+        rs = np.random.default_rng(3)
+        shared = rs.integers(0, cfg.vocab_size, 32, dtype=np.int32)
+        prompts = [np.concatenate([shared, rs.integers(
+            0, cfg.vocab_size, int(rs.integers(16, 97)), dtype=np.int32)])
+            for _ in range(12)][:n_req]
+        torch.cuda.reset_peak_memory_stats(dev)
+        eng = ServingEngine(cfg, params[arch], device=dev, **kw)
+        check(eng.prefix_cache is None and eng.kv.prefix_pool is None,
+              f"{label}: a prefix store for a recurrent cache")
+        sched = Scheduler(eng, profile=True)
+        zero_counts(counters)
+        rids = [sched.submit(Request(p, SamplingParams(
+            max_new_tokens=32, greedy=True))) for p in prompts]
+        run_marking_warm(sched)
+        torch.cuda.synchronize()
+        launches = read_counts(counters)
+        rep = report_serving(torch, sched, label, dev)
+        outs = [sched.output(r) for r in rids]
+        check(all(len(o) == 32 for o in outs),
+              f"{label}: not every request completed")
+        check(all(((o >= 0) & (o < cfg.vocab_size)).all() for o in outs),
+              f"{label}: token ids out of range")
+        check_no_leaks(sched, label)
+        check(eng.recompiles.warm, f"{label}: the engine never held both "
+              "programs")
+        check_programs(eng, label, "prefill_chunk", eng.prefill_chunk)
+        # every step (a decode round, or one replayed prompt token) runs
+        # each mamba layer's recurrence (no scan kernel), two norms a
+        # mamba layer, and zamba2's shared block once a group: its two
+        # norms and, with the int8 cache, one int8 kernel launch
+        steps = eng.decode_steps + eng.prefill_tokens_executed
+        L = cfg.num_layers
+        G = L // cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
+        norms = 2 * L + 2 * G + 1
+        want = {"flash_attention_int8kv": G * steps if kv_dtype == "int8"
+                else 0, "ssd_scan": 0, "flash_attention": 0,
+                "paged_decode_attention": 0, "paged_prefill_attention": 0,
+                "rmsnorm": norms * steps, "rmsnorm_one_pass": norms * steps}
+        got = {k: launches[k] for k in want}
+        check(got == want, f"{label}: launches {got}, want {want} from "
+              f"{steps} steps")
+        # a B = 8 decode round at position 512 on every row, replayed
+        dec = eng.programs["decode_step"]
+        dec.feed(tokens=np.ones((8, 1), np.int32),
+                 positions=np.full(8, 512, np.int32))
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        dec.replay()
+        ev[0].record()
+        for _ in range(20):
+            dec.replay()
+        ev[1].record()
+        torch.cuda.synchronize()
+        step_ms = ev[0].elapsed_time(ev[1]) / 20
+        # a replayed decode round against the eager one, 4 slots holding
+        # prompts of 48-400 tokens
+        ps = [rs.integers(0, cfg.vocab_size, n, dtype=np.int32)
+              for n in (48, 400, 131, 256)]
+        tokens = np.zeros(8, np.int32)
+        positions = np.zeros(8, np.int32)
+        slots = []
+        for p, (slot, last) in zip(ps, eng.prefill_into_slots(ps)):
+            tokens[slot] = int(np.argmax(last))
+            positions[slot] = len(p)
+            slots.append(slot)
+        replay_diff = eager_vs_replay(torch, T, eng, tokens, positions)
+        check(replay_diff == 0.0 and dec.captures == 1,
+              f"{label}: a replayed decode round differs from the eager "
+              f"one ({replay_diff})")
+        for slot in slots:
+            eng.free_slot(slot)
+        progs = {n: {"captures": p.captures, "capture_s": p.capture_s}
+                 for n, p in eng.programs.items()}
+        out[label] = dict(rep, kv_bytes=eng.kv.kv_bytes(),
+                          decode_steps=eng.decode_steps,
+                          prefill_tokens_executed=eng.prefill_tokens_executed,
+                          launches={k: v for k, v in got.items() if v},
+                          decode_round_replay_ms=step_ms,
+                          replay_vs_eager_max_diff=replay_diff,
+                          programs=progs)
+        print(f"{label}: kv_bytes {eng.kv.kv_bytes()}; B = 8 decode round "
+              f"replayed {step_ms:.3f} ms; launches {got}", flush=True)
+        if want["flash_attention_int8kv"]:
+            k = by_name["flash_attention_int8kv"]
+            k["launches_per_path"][f"dense serving {arch}"] = \
+                launches["flash_attention_int8kv"]
+            k["launches"] = sum(k["launches_per_path"].values())
+            k["zamba2_launches_per_step"] = G
+        rms_paths[label] = launches["rmsnorm"]
+        del sched, eng, dec
+        torch.cuda.empty_cache()
+    z8, z16 = out["dense zamba2-1.2b int8"], out["dense zamba2-1.2b bfloat16"]
+    D = get_config("zamba2-1.2b").resolved_head_dim
+    print(f"zamba2 dense int8 / bf16 KV bytes "
+          f"{z8['kv_bytes'] / z16['kv_bytes']:.4f} (the mamba state, f32, is "
+          f"the same in both; the K/V stripes take (2D + 4) / (4D) = "
+          f"{(2 * D + 4) / (4 * D):.4f})", flush=True)
+    # card against CPU at full width and cut depth (zamba2: one group of
+    # six and a tail of two, int8 KV; mamba2: four layers): one 48-token
+    # prompt, last logits and 8 greedy tokens (tie-eps 1e-2)
+    for arch, layers, kv_dtype in (("zamba2-1.2b", 8, "int8"),
+                                   ("mamba2-1.3b", 4, "bfloat16")):
+        cfg = get_config(arch).with_(num_layers=layers,
+                                     kv_cache_dtype=kv_dtype)
+        prompt = np.random.default_rng(2).integers(0, cfg.vocab_size, 48,
+                                                   dtype=np.int32)
+        p_cpu = T.init_params(cfg, torch.Generator().manual_seed(1))
+        results = {}
+        for where in (dev, "cpu"):
+            e = ServingEngine(cfg, p_cpu, max_seq_len=64, max_slots=1,
+                              paged=False, device=where)
+            slot, last = e.prefill_into_slot(prompt)
+            logits, toks = torch.from_numpy(last)[None], []
+            for i in range(8):
+                t = e.sample_tokens(logits, np.ones(1, np.float32),
+                                    np.ones(1, bool))
+                toks.append(int(t[0]))
+                logits = e.decode_once(t, np.array([len(prompt) + i],
+                                                   np.int32))
+            results[str(where)] = (last, toks)
+            del e
+        (lg, tg), (lc, tc) = results[str(dev)], results["cpu"]
+        check(np.isfinite(lg).all() and lg.shape == (cfg.vocab_size,),
+              f"{arch}: card logits not finite or of the wrong shape")
+        diff = float(np.abs(lg - lc).max())
+        print(f"{arch} {layers}-layer full-width dense {kv_dtype}, card vs "
+              f"CPU: last logits max |diff| {diff:.3e} (tol "
+              f"{CPU_LOGIT_TOL}); greedy card {tg} cpu {tc}", flush=True)
+        check(diff <= CPU_LOGIT_TOL, f"{arch}: card and CPU logits disagree")
+        check(tg == tc, f"{arch}: card and CPU greedy tokens differ")
+        out[f"{arch} card vs CPU"] = dict(logit_diff=diff, tokens=tg)
+    return out
 
 
 def report_serving(torch, sched, label: str, dev) -> dict:
@@ -1484,6 +1686,8 @@ def main() -> int:
         "qwen2-0.5b": dict(B=8, S=1024, H=14, KV=2, D=64),
         "gemma2-2b": dict(B=1, S=4150, H=8, KV=4, D=288, window=4096,
                           softcap=50.0),
+        # zamba2-1.2b's shared block in training: MHA, G = 1
+        "zamba2-1.2b": dict(B=8, S=1024, H=32, KV=32, D=64),
     }
     for label, s in flash_sets.items():
         fc = flash_case(torch, rng, dev, **s)
@@ -1536,6 +1740,7 @@ def main() -> int:
     # softcap, and at the TPU kernel's own test shapes (heads folded,
     # q_start 0, kv_len Skv, f32 q and scales)
     path_lens = [1, 293, 586, 878, 1171, 1464, 1756, 2048]
+    z_lens = [1, 147, 293, 439, 585, 731, 877, 1024]
     int8_sets = {
         "qwen2-0.5b decode": dict(
             Sq=1, H=14, KV=2, D=64, Skv=2048, kv_len=path_lens,
@@ -1543,6 +1748,13 @@ def main() -> int:
         "gemma2-2b decode": dict(
             Sq=1, H=8, KV=4, D=288, Skv=5000, q_start=[4096, 4999, 99, 0],
             kv_len=[4097, 5000, 100, 1], window=4096, softcap=50.0),
+        # zamba2-1.2b's shared block (MHA, G = 1: one live row of a tile's
+        # 16) over 1,024-position stripes, and the B = 1 prompt replay
+        "zamba2-1.2b decode": dict(
+            Sq=1, H=32, KV=32, D=64, Skv=1024, kv_len=z_lens,
+            q_start=[n - 1 for n in z_lens]),
+        "zamba2-1.2b replay": dict(
+            Sq=1, H=32, KV=32, D=64, Skv=1024, q_start=[77], kv_len=[78]),
         "TPU test (2, 1, 256, 64)": dict(
             Sq=1, H=1, KV=1, D=64, Skv=256, q_start=[0, 0],
             kv_len=[256, 256], dtype="float32"),
@@ -1576,7 +1788,8 @@ def main() -> int:
         # must each fail it
         q, k8, ks, v8, vs, qs, n = args
         wrongs = []
-        if label == "qwen2-0.5b decode":
+        if label in ("qwen2-0.5b decode", "zamba2-1.2b decode",
+                     "zamba2-1.2b replay"):
             full = torch.full_like(n, spec["Skv"])
             tile = torch.where(n > 64, (n - 1) // 64 * 64, n)
             B8, _, H8, D8 = q.shape
@@ -1626,6 +1839,8 @@ def main() -> int:
         "mamba2-1.3b": mamba_scan_case(torch, rng, dev, b=2, S=1024, seed=1),
         "G 2, S 1000": ssd_case(torch, rng, dev, b=1, S=1000, H=64, P=64,
                                 G=2, N=128),
+        "zamba2-1.2b (N 64)": mamba_scan_case(
+            torch, rng, dev, b=2, S=1024, seed=3, arch="zamba2-1.2b"),
     }
     for label, sc in ssd_sets.items():
         args = (sc["x"], sc["dt"], sc["A"], sc["B"], sc["C"])
@@ -1738,6 +1953,31 @@ def main() -> int:
                       f"{miss:.3e}")
                 check(miss > 1.0,
                       f"the RMSNorm check misses a kernel with the {what}")
+    # the decode steps' rows: B = 1 (the prompt replay) and B = 8 at
+    # zamba2's d 2,048 (residual norms) and 4,096 (the gated norm)
+    for d in (2048, 4096):
+        sc_ = torch.tensor(0.1 * rng.standard_normal(d), dtype=torch.float32,
+                           device=dev)
+        for rows in (1, 8):
+            for din in (torch.bfloat16, torch.float32):
+                x = torch.tensor(rng.standard_normal((rows, d)), dtype=din,
+                                 device=dev)
+                n_one = rn.rmsnorm_one_pass.launches
+                got = rn.rmsnorm(x, sc_, out_dtype=torch.bfloat16)
+                torch.cuda.synchronize()
+                check(rn.rmsnorm_one_pass.launches == n_one + 1,
+                      f"RMSNorm at {rows} x {d} missed the one-pass kernel")
+                ref = rn.rmsnorm_ref(x, sc_, out_dtype=torch.bfloat16)
+                ulp = ulp_ratio(got, ref)
+                print(f"rmsnorm {rows} x {d}, {str(din)[6:]} -> bfloat16 "
+                      f"(one pass): max |err| / one ulp {ulp:.3e} (fails "
+                      "above 1)")
+                check(ulp <= 1.0, f"RMSNorm disagrees at {rows} x {d}")
+                for what, wrong in rmsnorm_wrongs(rn, kref, x, sc_,
+                                                  torch.bfloat16):
+                    miss = ulp_ratio(wrong(), ref)
+                    check(miss > 1.0, f"the RMSNorm check at {rows} x {d} "
+                          f"misses a kernel with the {what}")
     # the two-pass kernel: d past the one-pass kernel's widest (packs of
     # 8), d % 8 != 0 and rows one element off 16-byte alignment (element
     # by element), each within one ulp on its own counter
@@ -2020,6 +2260,88 @@ def main() -> int:
     del scase, sargs, ncase, gain, xb, icase, iargs, kd, vd, qcase, qgain
     torch.cuda.empty_cache()
 
+    # the kernels at zamba2-1.2b's shapes: flash in training (MHA, G = 1),
+    # the int8 kernel at a B = 8 decode step and at the B = 1 prompt
+    # replay, the SSD scan at N 64 (b 8), RMSNorm on the residual (8,192 x
+    # 2,048, the f32 sum in, bf16 out); each checked as above, then timed
+    # beside its plain version, its library call and its bound
+    zf = flash_case(torch, rng, dev, B=8, S=1024, H=32, KV=32, D=64)
+    zfa = (zf["q"], zf["k"], zf["v"])
+    zs = mamba_scan_case(torch, rng, dev, b=8, S=1024, seed=4,
+                         arch="zamba2-1.2b")
+    zsa = (zs["x"], zs["dt"], zs["A"], zs["B"], zs["C"])
+    zn = dict(x=torch.randn((8192, 2048), dtype=torch.float32, device=dev),
+              scale=0.1 * torch.randn((2048,), dtype=torch.float32,
+                                      device=dev),
+              out_dtype="bfloat16")
+    zgain = 1.0 + zn["scale"]
+
+    def flash_ok(got, want):
+        _, mix, p_rel = flash_bound(fa, *zfa, zf["kw"])
+        return kref.rounding_bound_ratio(got, want, mix, p_rel) <= 1.0
+
+    def ssd_ok(got, want):
+        mix = ssd_bound(ssd, zsa, 256)[1]
+        return (norm_err(got, want) <= KERNEL_TOL and kref.rounding_bound_ratio(
+            got, want, mix, ssd.P_ROUNDING) <= 1.0)
+
+    zcases = [
+        ("flash_attention", "q, k, v (8, 1024, 32, 64) bf16, causal",
+         lambda: fa.flash_attention(*zfa)[0],
+         lambda: fa.flash_attention_plain(*zfa)[0],
+         lambda: library_flash(torch, F, zf), flash_cost, zf, flash_ok),
+        ("ssd_scan", "x (8, 1024, 64, 64), B/C (8, 1024, 1, 64) bf16, "
+         "chunk 256", lambda: ssd.ssd_scan(*zsa, 256),
+         lambda: ssd.ssd_scan_plain(*zsa, 256), None,
+         lambda c: ssd_cost(c, 256), zs, ssd_ok),
+        ("rmsnorm", "8192 x 2048 f32 -> bf16",
+         lambda: rn.rmsnorm(zn["x"], zn["scale"], out_dtype=torch.bfloat16),
+         lambda: rn.rmsnorm_ref(zn["x"], zn["scale"],
+                                out_dtype=torch.bfloat16),
+         lambda: F.rms_norm(zn["x"], (2048,), weight=zgain, eps=1e-6),
+         rmsnorm_cost, zn, lambda got, want: ulp_ratio(got, want) <= 1.0)]
+    for label, what in (("zamba2-1.2b decode",
+                         "q (8, 1, 32, 64) bf16, int8 K/V (8, 1024, 32, 64), "
+                         f"kv_len {z_lens}"),
+                        ("zamba2-1.2b replay",
+                         "q (1, 1, 32, 64) bf16, int8 K/V (1, 1024, 32, "
+                         "64), kv_len 78")):
+        zc = int8_case(torch, rng, dev, **int8_sets[label])
+        fn_, plain_, lib_ = int8_fns(zc)
+        zcases.append(("flash_attention_int8kv", what, fn_, plain_, lib_,
+                       int8_cost, zc, lambda got, want: int8_rel_err(
+                           got, want) <= INT8_BF16_RTOL))
+    for kname, what, fn, plain, lib, cost, case, ok_of in zcases:
+        want, got = plain(), fn()
+        err = (got.float() - want.float()).abs().max().item()
+        check(ok_of(got, want), f"{kname} disagrees at zamba2's {what}")
+        del want, got
+        nbytes, flops = cost(case)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_flops = flops / BF16_FLOPS_PER_S * 1e3
+        z = dict(shapes=what, ms=time_ms(torch, fn, flush),
+                 plain_ms=time_ms(torch, plain, flush, reps=5),
+                 library_ms=None if lib is None else time_ms(torch, lib,
+                                                             flush),
+                 bound_ms=max(t_bytes, t_flops),
+                 bound_by="bytes" if t_bytes >= t_flops else "operations",
+                 max_abs_err=err)
+        entry = by_name[kname]
+        entry.setdefault("zamba2_shapes", []).append(z)
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        lib_txt = ("none" if z["library_ms"] is None
+                   else f"{z['library_ms']:.4f} ms")
+        print(f"{kname} at zamba2's {what}: kernel {z['ms']:.4f} ms, plain "
+              f"{z['plain_ms']:.4f} ms, library {lib_txt}, bound "
+              f"{z['bound_ms']:.5f} ms by {z['bound_by']}", flush=True)
+    zstages = kernel_times_ms(torch, lambda: ssd.ssd_scan(*zsa, 256),
+                              ssd.TC_KERNELS, flush)
+    by_name["ssd_scan"]["zamba2_stages_ms"] = zstages
+    print("ssd_scan launches at zamba2's N 64 (b 8, profiler): " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in zstages.items()), flush=True)
+    del zf, zfa, zs, zsa, zn, zgain, zcases, case
+    torch.cuda.empty_cache()
+
     # 5. serving at full width ---------------------------------------------
     phase("serving qwen2-0.5b, full width")
     from repro_torch.configs import get_config
@@ -2236,6 +2558,8 @@ def main() -> int:
     check(abs(ratio - (2 * D + 4) / (4 * D)) < 1e-9,
           "int8 / bf16 KV bytes off the layout's ratio")
     by_name["flash_attention_int8kv"]["launches"] = dense["int8"]["launches"]
+    by_name["flash_attention_int8kv"]["launches_per_path"] = {
+        "dense serving qwen2-0.5b": dense["int8"]["launches"]}
     by_name["flash_attention_int8kv"]["launches_per_step"] = (
         dense["int8"]["launches"] / (dense["int8"]["decode_steps"]
                                      + dense["int8"]["prefill_tokens_executed"]))
@@ -2365,6 +2689,8 @@ def main() -> int:
     check(launches["rmsnorm_one_pass"] == launches["rmsnorm"],
           "a qwen2 training norm missed the one-pass kernel")
     by_name["flash_attention"]["launches"] = launches["flash_attention"]
+    by_name["flash_attention"]["launches_per_path"] = {
+        "training qwen2-0.5b": launches["flash_attention"]}
     rms_paths["training qwen2-0.5b"] = launches["rmsnorm"]
 
     # where one training step's device time goes (torch.profiler)
@@ -2419,6 +2745,8 @@ def main() -> int:
     check(launches["rmsnorm_one_pass"] == launches["rmsnorm"],
           "a mamba2 norm missed the one-pass kernel")
     by_name["ssd_scan"]["launches"] = launches["ssd_scan"]
+    by_name["ssd_scan"]["launches_per_path"] = {
+        "training mamba2-1.3b": launches["ssd_scan"]}
     by_name["rmsnorm"]["launches"] = launches["rmsnorm"]
     rms_paths["training mamba2-1.3b"] = launches["rmsnorm"]
     by_name["rmsnorm"]["launches_per_path"] = rms_paths
@@ -2435,7 +2763,74 @@ def main() -> int:
                       dev=dev)
     torch.cuda.empty_cache()
 
-    # 12. the 3DGAN trained with Horovod-style DP ---------------------------
+    # 12. training zamba2-1.2b at full width ---------------------------------
+    phase("training zamba2-1.2b, full width")
+    zcfg = get_config("zamba2-1.2b")
+    E, G = zcfg.hybrid_attn_every, zcfg.num_layers // zcfg.hybrid_attn_every
+    zero_counts(counters)
+    run = train_launcher.main(["--arch", "zamba2-1.2b", "--seq-len", "1024",
+                               "--global-batch", "8", "--steps", "8"])
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    losses = run["losses"]
+    per_step = run["launches_per_step"]
+    summary = {k: run[k] for k in ("losses", "step_s", "tokens_per_s",
+                                   "launches_per_step",
+                                   "max_memory_allocated")}
+    print("training zamba2: " + json.dumps(summary), flush=True)
+    check(all(np.isfinite(losses)), "a zamba2 training loss is not finite")
+    check(losses[-1] < losses[0], "the zamba2 loss did not fall")
+    for name in ("flash_attention", "ssd_scan", "rmsnorm"):
+        check(launches[name] > 0 and sum(per_step[name]) == launches[name],
+              f"{name} was never launched in zamba2 training")
+    # remat per mamba layer and per application of the shared block: each
+    # runs in the forward and again in the backward's recompute; a mamba
+    # layer has two norms (its pre-norm and the gated norm), the shared
+    # block two, and the final norm runs once
+    want = {"flash_attention": 2 * G, "ssd_scan": 2 * zcfg.num_layers,
+            "rmsnorm": 2 * (2 * zcfg.num_layers + 2 * G) + 1}
+    for name, n in want.items():
+        check(all(k == n for k in per_step[name]),
+              f"zamba2 {name} launches per step {per_step[name]}, want {n}")
+    print(f"zamba2 flash launches {launches['flash_attention']} (tensor "
+          f"cores {launches['flash_attention_tensor_core']}), SSD scans "
+          f"{launches['ssd_scan']} (tensor cores "
+          f"{launches['ssd_tensor_core']}), rmsnorm one pass "
+          f"{launches['rmsnorm_one_pass']} of {launches['rmsnorm']}",
+          flush=True)
+    check(launches["flash_attention_tensor_core"]
+          == launches["flash_attention"],
+          "a zamba2 flash launch missed the tensor-core kernel")
+    check(launches["ssd_tensor_core"] == launches["ssd_scan"]
+          and launches["ssd_cuda_core"] == 0,
+          "a zamba2 SSD scan missed the tensor-core route")
+    check(launches["rmsnorm_one_pass"] == launches["rmsnorm"],
+          "a zamba2 norm missed the one-pass kernel")
+    for name in ("flash_attention", "ssd_scan", "rmsnorm"):
+        k = by_name[name]
+        k["launches_per_path"]["training zamba2-1.2b"] = launches[name]
+        k["launches"] = sum(k["launches_per_path"].values())
+    del run
+    torch.cuda.empty_cache()
+    prof_out = profile_train_step(torch, zcfg, dev)
+    print("zamba2 train step profile: " + json.dumps(prof_out), flush=True)
+    torch.cuda.empty_cache()
+
+    # 13. zamba2 training, card vs CPU --------------------------------------
+    phase("zamba2 training card vs CPU")
+    # one group of six mamba layers and the shared block, then a tail of
+    # two; seq 512 (two chunks: the state carries), batch 2
+    train_card_vs_cpu(torch, zcfg.with_(num_layers=8), seq=512, batch=2,
+                      dev=dev)
+    torch.cuda.empty_cache()
+
+    # 14. dense serving of the ssm and hybrid families ------------------------
+    phase("serving mamba2-1.3b and zamba2-1.2b, full width, dense")
+    rec = serve_recurrent(torch, T, dev, counters, by_name, rms_paths)
+    print("recurrent serving: " + json.dumps(rec), flush=True)
+    by_name["rmsnorm"]["launches"] = sum(rms_paths.values())
+
+    # 15. the 3DGAN trained with Horovod-style DP ---------------------------
     phase("3dgan training, full width, Horovod DP")
     gan_phase(torch, dev)
 

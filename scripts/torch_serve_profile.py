@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Serving full-width qwen2-0.5b on one tree of the port: the paged
-launcher's workload repeated, the decode step alone, then dense serving
-with the int8 KV cache.
+"""Serving a full-width model (qwen2-0.5b by default) on one tree of the
+port: the launcher's workload repeated, the decode step alone, then dense
+serving with the int8 KV cache.
 
     python scripts/torch_serve_profile.py [--src DIR] [--runs 3] [--steps 40]
+        [--arch qwen2-0.5b] [--dense]
 
-Runs ``repro_torch.launch.serve`` paged (8 slots, max_seq_len 2048, 12
+Runs ``repro_torch.launch.serve`` for ``--arch``, paged (or in dense mode
+with ``--dense``, the only mode of the ssm and hybrid families: one stripe
+per slot, prompts replayed at batch 1) (8 slots, max_seq_len 2048, 12
 greedy requests of a 256-token shared prefix plus 4-11 own tokens, 32 new
 each, prefill batch 4, token budget 512, 256 prefix blocks) once to build
 the kernels and warm the allocator, then ``--runs`` more times, each with a
@@ -41,11 +44,10 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-SERVE_ARGS = ["--arch", "qwen2-0.5b", "--paged", "--max-slots", "8",
-              "--max-seq-len", "2048", "--prefill-batch", "4",
-              "--prefill-token-budget", "512", "--prefix-cache-blocks",
-              "256", "--shared-prefix", "256", "--requests", "12",
-              "--max-new", "32", "--greedy"]
+SERVE_ARGS = ["--max-slots", "8", "--max-seq-len", "2048",
+              "--prefill-batch", "4", "--prefill-token-budget", "512",
+              "--prefix-cache-blocks", "256", "--shared-prefix", "256",
+              "--requests", "12", "--max-new", "32", "--greedy"]
 
 
 def pct(xs, q):
@@ -170,6 +172,9 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=40)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--dense", action="store_true",
+                    help="serve the launcher's workload in dense mode")
     args = ap.parse_args()
     src = Path(args.src).resolve()
     sys.path[:0] = [str(src), str(ROOT)]
@@ -179,8 +184,9 @@ def main() -> int:
         return 1
     from repro_torch.launch import serve
     dev = torch.device(args.device)
-    argv = SERVE_ARGS + ["--device", args.device] + (
-        ["--smoke"] if args.smoke else [])
+    argv = (["--arch", args.arch] + ([] if args.dense else ["--paged"])
+            + SERVE_ARGS + ["--device", args.device]
+            + (["--smoke"] if args.smoke else []))
     if dev.type == "cuda":
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,
@@ -205,7 +211,8 @@ def main() -> int:
     dec = decode_steps(torch, engine, prompts, args.steps, dev)
     dec["programs"] = programs(engine)
     dense = dense_int8(torch, engine.cfg, engine.params, dev)
-    print(json.dumps({"src": str(src), "runs": runs, "decode": dec,
+    print(json.dumps({"src": str(src), "arch": args.arch,
+                      "dense": args.dense, "runs": runs, "decode": dec,
                       "dense_int8": dense}))
     return 0
 

@@ -3,10 +3,10 @@
 ``--arch <id>`` ids use the reference's names (dashes); modules use
 underscores.  Every entry exports CONFIG (the full-size numbers) and
 SMOKE_CONFIG (the reduced same-family variant for CPU tests), identical to
-the reference's.  The port carries the dense decoders its serving and
-training paths run, the ssm family its training path runs, and the
-paper's 3DGAN (``gan3d``, kept out of ``ARCHS`` as in the reference); the
-other families join with the slices that port them.
+the reference's.  The port carries the dense decoders, the ssm family
+(mamba2) and the hybrid family (zamba2) that its serving and training
+paths run, and the paper's 3DGAN (``gan3d``, kept out of ``ARCHS`` as in
+the reference); the other families join with the slices that port them.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ _MODULES = {
     "gemma2-2b": "gemma2_2b",
     "qwen2-0.5b": "qwen2_0p5b",
     "mamba2-1.3b": "mamba2_1p3b",
+    "zamba2-1.2b": "zamba2_1p2b",
     "gan3d": "gan3d",
 }
 

@@ -17,6 +17,13 @@ tokens, then 4-11 random ones.
       --paged --requests 8 --max-new 16 --shared-prefix 64
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --smoke --device cpu --requests 4 --max-new 8   # dense mode
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+      --requests 8 --max-new 16                       # dense mode
+
+The ssm (mamba2-1.3b) and hybrid (zamba2-1.2b) families serve in dense
+mode only: their cache holds recurrent state, so ``--paged`` raises the KV
+cache's ``ValueError`` and the engine keeps no prefix store, as in the
+reference.
 
 The port drives one ``Scheduler`` directly; ``--replicas > 1`` and
 ``--fabric`` need the gateway, which is ported with the fleet slice.

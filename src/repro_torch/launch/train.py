@@ -6,11 +6,14 @@ masters, the synthetic Markov token source, the chosen optimizer with
 global-norm clipping at 1.0, and ``distributed.stepfn.make_train_step``.
 Prints the reference's step and summary lines, then step time, tokens/s,
 each kernel's launches per step and, on the card, peak device memory.
-The dense (qwen2-0.5b, gemma2-2b) and ssm (mamba2-1.3b) families train.
+The dense (qwen2-0.5b, gemma2-2b), ssm (mamba2-1.3b) and hybrid
+(zamba2-1.2b) families train.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --seq-len 1024 --global-batch 8 --steps 8
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \\
+      --seq-len 1024 --global-batch 8 --steps 8
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
       --seq-len 1024 --global-batch 8 --steps 8
 
 ``--device`` defaults to ``cuda`` and fails without a card; ``--device

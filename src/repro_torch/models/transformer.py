@@ -1,23 +1,30 @@
 """The decoder stacks: dense (llama-style pre-norm GQA; qwen2 QKV bias;
 gemma2 local/global windows, logit softcaps, post-block norms, scaled
-embeddings) and ssm (mamba2, attention-free).
+embeddings), ssm (mamba2, attention-free) and hybrid (zamba2: mamba2
+layers with one weight-shared attention + MLP block applied after every
+``hybrid_attn_every`` of them).
 
-Counterpart of ``repro.models.transformer`` for ``family="dense"`` and
-``family="ssm"``.  The parameter tree keeps the reference's layout —
-dense per-layer leaves stacked as ``(L // pat, pat, ...)`` where
-``pat = len(layer_pattern(cfg))``, ssm leaves as ``(L, ...)`` — so
-``repro_torch.bridge`` moves weights between the packages leaf for leaf.
-PyTorch runs eagerly: the reference's ``lax.scan`` over layer groups is a
-Python loop (each group, or each mamba layer, under
+Counterpart of ``repro.models.transformer`` for ``family`` in ``dense``,
+``ssm`` and ``hybrid``.  The parameter tree keeps the reference's layout
+— dense per-layer leaves stacked as ``(L // pat, pat, ...)`` where
+``pat = len(layer_pattern(cfg))``, ssm leaves as ``(L, ...)``, hybrid
+mamba leaves as ``(G, E, ...)`` (``E = hybrid_attn_every``, ``G = L //
+E``) with the ``L % E`` tail layers as ``(R, ...)`` and the unstacked
+``shared_attn`` layer — so ``repro_torch.bridge`` moves weights between
+the packages leaf for leaf.  PyTorch runs eagerly: the reference's
+``lax.scan`` over layer groups is a Python loop (each dense group, each
+mamba layer and each application of the shared block under
 ``torch.utils.checkpoint`` when ``cfg.remat``), and the decode caches
 are updated in place.
 
 Ported: the full-sequence ``forward`` and the losses of training
-(``lm_loss``, ``lm_loss_chunked``) for both families, and for dense
-decoders the serving steps: ``decode_step`` over a dense per-slot cache
-(``init_cache``: bf16, or int8 codes with per-token scales) or paged KV,
-and ``prefill_step`` over paged KV.  The other families, and ssm
-decoding, come with the slices that need them.
+(``lm_loss``, ``lm_loss_chunked``) for the three families; ``decode_step``
+for the three over a dense per-slot cache (``init_cache``: attention K/V
+in bf16, or int8 codes with per-token scales; the mamba layers' f32 SSM
+and conv state), and for dense decoders over paged KV; ``prefill_step``
+over paged KV for dense decoders (the other two have no positional
+cache, and the reference refuses them there too).  The other families
+come with the slices that need them.
 """
 from __future__ import annotations
 
@@ -49,16 +56,25 @@ def layer_pattern(cfg):
     return (cfg.sliding_window,)
 
 
-def _check_family(cfg, families=("dense",)) -> None:
-    """Raise for a family this entry point does not run yet: the training
-    path runs ``("dense", "ssm")``, the serving steps dense decoders."""
+def _check_family(cfg, families) -> None:
+    """Raise for a family this entry point does not run yet: training and
+    ``decode_step`` run ``_FAMILIES``, paged prefill dense decoders."""
     if cfg.family not in families:
         raise NotImplementedError(
             f"family {cfg.family!r} is ported with a later slice; here the "
             f"port runs {', '.join(families)}")
 
 
-_TRAIN_FAMILIES = ("dense", "ssm")
+_FAMILIES = ("dense", "ssm", "hybrid")
+
+
+def _refuse_paged(cfg) -> None:
+    """The reference's refusal of paged block storage for a family whose
+    cache holds recurrent state (no token-position axis)."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise ValueError(
+            f"paged prefill needs a positional attention cache; family "
+            f"{cfg.family!r} unsupported")
 
 
 # ---------------------------------------------------------------------------
@@ -76,32 +92,54 @@ def init_params(cfg, generator: torch.Generator, device="cpu",
     embedding leaves are then held in ``weight_dtype`` (default: the
     config's compute dtype), norm scales and the leaves the reference uses
     in f32 (``ssm.F32_LEAVES``) in f32."""
-    _check_family(cfg, _TRAIN_FAMILIES)
+    _check_family(cfg, _FAMILIES)
     wdt = weight_dtype or _dtype(cfg.dtype)
-    if cfg.family == "ssm":
-        return _init_ssm_params(cfg, generator, device, wdt)
-    d, h, kvh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
-    dh, dff, L = cfg.resolved_head_dim, cfg.d_ff, cfg.num_layers
+    if cfg.family != "dense":
+        return _init_mamba_params(cfg, generator, device, wdt)
+    L = cfg.num_layers
     pat = len(layer_pattern(cfg))
     assert L % pat == 0, (L, pat)
-    lead = (L // pat, pat)
+    layers = _init_attn_mlp_layer(cfg, generator, (L // pat, pat), device,
+                                  wdt)
+    p: Dict[str, Any] = {
+        "embed": {"table": _normal((cfg.vocab_size, cfg.d_model), 0.02,
+                                   generator, device, wdt)},
+        "final_norm": {"scale": _zeros((cfg.d_model,), device)},
+        "layers": layers,
+    }
+    if not cfg.tie_embeddings:
+        d = cfg.d_model
+        p["lm_head"] = {"w": _normal((d, cfg.vocab_size), 1.0 / math.sqrt(d),
+                                     generator, device, wdt)}
+    return p
 
-    def normal(shape, std):
-        t = torch.empty(shape, dtype=torch.float32)
-        return nn.truncated_normal_(t, std, generator).to(device, wdt)
 
-    def zeros(shape, dtype=wdt):
-        return torch.zeros(shape, dtype=dtype, device=device)
+def _normal(shape, std, generator, device, dtype):
+    t = torch.empty(shape, dtype=torch.float32)
+    return nn.truncated_normal_(t, std, generator).to(device, dtype)
+
+
+def _zeros(shape, device, dtype=torch.float32):
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def _init_attn_mlp_layer(cfg, generator, lead, device, wdt):
+    """One pre-norm attention + gated-MLP layer's leaves, stacked with
+    leading dims ``lead`` (``()`` for the hybrid family's shared block)."""
+    d, h, kvh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    dh, dff = cfg.resolved_head_dim, cfg.d_ff
+    lead = tuple(lead)
 
     def lin(d_in, out, std=None, bias=False):
         out = (out,) if isinstance(out, int) else tuple(out)
-        p = {"w": normal(lead + (d_in, *out), std or 1.0 / math.sqrt(d_in))}
+        p = {"w": _normal(lead + (d_in, *out), std or 1.0 / math.sqrt(d_in),
+                          generator, device, wdt)}
         if bias:
-            p["b"] = zeros(lead + out)
+            p["b"] = _zeros(lead + out, device, wdt)
         return p
 
     def norm():
-        return {"scale": zeros(lead + (d,), torch.float32)}
+        return {"scale": _zeros(lead + (d,), device)}
 
     layer = {
         "ln1": norm(), "ln2": norm(),
@@ -116,35 +154,42 @@ def init_params(cfg, generator: torch.Generator, device="cpu",
     if cfg.post_block_norm:
         layer["post_ln1"] = norm()
         layer["post_ln2"] = norm()
-    p: Dict[str, Any] = {
-        "embed": {"table": normal((cfg.vocab_size, d), 0.02)},
-        "final_norm": {"scale": torch.zeros((d,), dtype=torch.float32,
-                                            device=device)},
-        "layers": layer,
-    }
-    if not cfg.tie_embeddings:
-        p["lm_head"] = {"w": normal((d, cfg.vocab_size), 1.0 / math.sqrt(d))}
-    return p
+    return layer
 
 
-def _init_ssm_params(cfg, generator, device, wdt):
-    """The ssm family's tree: tied embedding, final norm, and per-layer
-    ``{"ln1", "mamba"}`` leaves stacked as ``(L, ...)``."""
-    L, d = cfg.num_layers, cfg.d_model
-    table = nn.truncated_normal_(
-        torch.empty((cfg.vocab_size, d), dtype=torch.float32), 0.02,
-        generator).to(device, wdt)
+def _init_mamba_layers(cfg, generator, lead, device, wdt):
+    """``{"ln1", "mamba"}`` leaves stacked with leading dims ``lead``."""
+    return {"ln1": {"scale": _zeros(tuple(lead) + (cfg.d_model,), device)},
+            "mamba": ssm_lib.init_mamba2(cfg, generator, lead=lead,
+                                         device=device, weight_dtype=wdt)}
+
+
+def _hybrid_groups(cfg) -> Tuple[int, int, int]:
+    """(E, G, R): mamba layers a group, groups, tail layers."""
+    E = cfg.hybrid_attn_every
+    return E, cfg.num_layers // E, cfg.num_layers % E
+
+
+def _init_mamba_params(cfg, generator, device, wdt):
+    """The ssm and hybrid trees: tied embedding, final norm, and mamba
+    layers stacked as ``(L, ...)`` (ssm) or ``(G, E, ...)`` plus
+    ``tail_layers`` ``(R, ...)`` and one unstacked ``shared_attn`` layer
+    (hybrid)."""
     p: Dict[str, Any] = {
-        "embed": {"table": table},
-        "final_norm": {"scale": torch.zeros((d,), dtype=torch.float32,
-                                            device=device)},
-        "layers": {
-            "ln1": {"scale": torch.zeros((L, d), dtype=torch.float32,
-                                         device=device)},
-            "mamba": ssm_lib.init_mamba2(cfg, generator, lead=(L,),
-                                         device=device, weight_dtype=wdt),
-        },
+        "embed": {"table": _normal((cfg.vocab_size, cfg.d_model), 0.02,
+                                   generator, device, wdt)},
+        "final_norm": {"scale": _zeros((cfg.d_model,), device)},
     }
+    if cfg.family == "ssm":
+        p["layers"] = _init_mamba_layers(cfg, generator, (cfg.num_layers,),
+                                         device, wdt)
+        return p
+    E, G, R = _hybrid_groups(cfg)
+    p["layers"] = _init_mamba_layers(cfg, generator, (G, E), device, wdt)
+    if R:
+        p["tail_layers"] = _init_mamba_layers(cfg, generator, (R,), device,
+                                              wdt)
+    p["shared_attn"] = _init_attn_mlp_layer(cfg, generator, (), device, wdt)
     return p
 
 
@@ -153,26 +198,49 @@ def _init_ssm_params(cfg, generator, device, wdt):
 # ---------------------------------------------------------------------------
 
 def _cache_struct(cfg, batch: int, seq_len: int):
-    """Nested dict of (shape, dtype) describing the dense-family decode
-    cache: ``(L // pat, pat, batch, seq_len, KV, D)`` per k/v leaf, bf16;
+    """Nested dict of (shape, dtype) describing the decode cache.
+
+    Attention K/V: ``(lead, batch, seq_len, KV, D)`` per k/v leaf, bf16;
     with ``cfg.kv_cache_dtype == "int8"`` the k/v leaves are int8 codes
-    and ``k_scale`` / ``v_scale`` ``(L // pat, pat, batch, seq_len, KV)``
-    bf16 hold one absmax scale per (token, kv head)."""
-    _check_family(cfg)
-    pat = len(layer_pattern(cfg))
-    lead = (cfg.num_layers // pat, pat, batch, seq_len, cfg.num_kv_heads)
-    shape = lead + (cfg.resolved_head_dim,)
-    if cfg.kv_cache_dtype == "int8":
-        return {"layers": {"k": (shape, torch.int8),
-                           "v": (shape, torch.int8),
-                           "k_scale": (lead, torch.bfloat16),
-                           "v_scale": (lead, torch.bfloat16)}}
-    return {"layers": {"k": (shape, torch.bfloat16),
-                       "v": (shape, torch.bfloat16)}}
+    and ``k_scale`` / ``v_scale`` ``(lead, batch, seq_len, KV)`` bf16 hold
+    one absmax scale per (token, kv head).  Mamba state: ``ssm`` ``(lead,
+    batch, H, N, P)`` and ``conv`` ``(lead, batch, w - 1, d_inner + 2 G
+    N)``, f32, with no sequence axis.  ``lead`` is ``(L // pat, pat)``
+    (dense), ``(L,)`` (ssm), or for the hybrid family ``(G, E)`` for the
+    mamba groups, ``(R,)`` for ``tail_layers`` and ``(G,)`` for
+    ``shared_attn``, one K/V stripe per application of the shared block."""
+    _check_family(cfg, _FAMILIES)
+    kv, dh = cfg.num_kv_heads, cfg.resolved_head_dim if cfg.num_heads else 0
+
+    def attn_cache(lead):
+        shape = lead + (batch, seq_len, kv, dh)
+        if cfg.kv_cache_dtype == "int8":
+            return {"k": (shape, torch.int8), "v": (shape, torch.int8),
+                    "k_scale": (shape[:-1], torch.bfloat16),
+                    "v_scale": (shape[:-1], torch.bfloat16)}
+        return {"k": (shape, torch.bfloat16), "v": (shape, torch.bfloat16)}
+
+    def mamba_cache(lead):
+        H, N, P = cfg.ssm_num_heads, cfg.ssm_state, cfg.ssm_head_dim
+        conv_dim = cfg.ssm_d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+        return {"ssm": (lead + (batch, H, N, P), torch.float32),
+                "conv": (lead + (batch, cfg.ssm_conv_width - 1, conv_dim),
+                         torch.float32)}
+
+    if cfg.family == "dense":
+        pat = len(layer_pattern(cfg))
+        return {"layers": attn_cache((cfg.num_layers // pat, pat))}
+    if cfg.family == "ssm":
+        return {"layers": mamba_cache((cfg.num_layers,))}
+    E, G, R = _hybrid_groups(cfg)
+    c = {"layers": mamba_cache((G, E)), "shared_attn": attn_cache((G,))}
+    if R:
+        c["tail_layers"] = mamba_cache((R,))
+    return c
 
 
 def init_cache(cfg, batch: int, seq_len: int, device="cpu"):
-    """Zeros of ``_cache_struct``: the dense per-slot decode cache."""
+    """Zeros of ``_cache_struct``: the per-slot decode cache."""
     def zeros(node):
         if isinstance(node, dict):
             return {k: zeros(v) for k, v in node.items()}
@@ -225,12 +293,21 @@ def _apply_layer(p, cfg, x, x_sum, *, window, positions, cache,
     return add(x, m)
 
 
-def _apply_mamba_layer(p, cfg, x):
-    """Pre-norm mamba2 block (no cache) plus the residual.  The residual
-    enters rounded to the compute dtype (each layer is a scan step of its
-    own in the reference), so there is no ``x_sum`` here."""
-    h = nn.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    return x + ssm_lib.mamba2_block(p["mamba"], cfg, h)[0]
+def _apply_mamba_layer(p, cfg, x, x_sum=None, cache=None):
+    """Pre-norm mamba2 block plus the residual, with ``_apply_layer``'s
+    ``(x, x_sum)`` convention: the norm reads ``x_sum`` (the residual
+    before its last rounding) when given.  ``cache``: this layer's
+    ``{"ssm", "conv"}`` decode state, updated in place (the engine's
+    programs read it at its address).  Returns ``(x, x_sum)``."""
+    dt = _dtype(cfg.dtype)
+    h = nn.rmsnorm(p["ln1"], x if x_sum is None else x_sum, cfg.norm_eps,
+                   out_dtype=dt)
+    m, new_cache = ssm_lib.mamba2_block(p["mamba"], cfg, h, cache=cache)
+    if cache is not None:
+        for name, t in new_cache.items():
+            cache[name].copy_(t)
+    s = x.float() + m.float()
+    return s.to(dt), s
 
 
 def _embed(params, cfg, tokens):
@@ -288,34 +365,77 @@ def _forward_group(gp, cfg, x):
     return x
 
 
+def _shared_block(p, cfg, x, x_sum):
+    """The hybrid family's shared attention + MLP block, no cache (the
+    reference applies it with ``window=None``)."""
+    return _apply_layer(p, cfg, x, x_sum, window=None, positions=None,
+                        cache=None, cache_index=None, block_tables=None)
+
+
+def _hybrid_trunk(params, cfg, x, mamba, shared):
+    """The hybrid stack: G groups of E mamba layers each followed by the
+    shared block, then the tail layers.  A group is one scan step of the
+    reference, compiled as one body, so ``_apply_layer``'s ``x_sum`` rule
+    holds across its layers: each norm reads the residual add before its
+    bf16 rounding, each add the rounded residual (against the jitted
+    reference in bf16 this leaves 20% of the smoke config's final hidden
+    values one ulp apart; rounding after every layer leaves 86%).  The
+    residual enters each group and each tail layer rounded (scan
+    carries).  ``mamba(p, x, x_sum, where)`` applies a mamba layer,
+    ``where`` naming its cache leaves (``("layers", gi, i)`` or
+    ``("tail_layers", li)``); ``shared(x, x_sum, gi)`` applies the shared
+    block in group ``gi``; each returns ``(x, x_sum)``."""
+    E, G, R = _hybrid_groups(cfg)
+    for gi in range(G):
+        x_sum = None
+        for i in range(E):
+            x, x_sum = mamba(_index(params["layers"], gi, i), x, x_sum,
+                             ("layers", gi, i))
+        x, _ = shared(x, x_sum, gi)
+    for li in range(R):
+        x, _ = mamba(_index(params["tail_layers"], li), x, None,
+                     ("tail_layers", li))
+    return x
+
+
 def forward(params, cfg, batch: Dict[str, Any], *, last_only: bool = False,
             return_hidden: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence causal forward (training, prefill).  batch: tokens
     (B, S).  Returns (logits (B, S, V) f32, aux_loss 0-d f32 (zero for
-    dense and ssm decoders)).
+    the three families here)).
 
     last_only: unembed only the final position.  return_hidden: return the
     final-norm hidden states (B, S, d) in the compute dtype instead of
     logits (the chunked loss unembeds them itself).  With ``cfg.remat``
-    each layer group (dense) or layer (ssm) runs under
-    ``torch.utils.checkpoint`` (the reference's rematted scan body): its
-    activations are recomputed in the backward, so attention or the SSD
-    scan runs twice per layer per training step."""
-    _check_family(cfg, _TRAIN_FAMILIES)
+    each layer group (dense), each mamba layer and each application of
+    the hybrid family's shared block runs under ``torch.utils.checkpoint``
+    (the reference remats whole scan steps; a hybrid group of six mamba
+    layers and the shared block would hold all of their activations at
+    once in the backward): its activations are recomputed in the
+    backward, so attention or the SSD scan runs twice per layer per
+    training step."""
+    _check_family(cfg, _FAMILIES)
     x = _embed(params, cfg, batch["tokens"])
-    if cfg.family == "ssm":
-        body, steps = _apply_mamba_layer, cfg.num_layers
-    else:
-        body, steps = _forward_group, cfg.num_layers // len(
-            layer_pattern(cfg))
-    for gi in range(steps):
-        gp = _index(params["layers"], gi)
+
+    def run(fn, p, *carry):
         if cfg.remat:
-            x = checkpoint(body, gp, cfg, x, use_reentrant=False,
-                           preserve_rng_state=False)
-        else:
-            x = body(gp, cfg, x)
+            return checkpoint(fn, p, cfg, *carry, use_reentrant=False,
+                              preserve_rng_state=False)
+        return fn(p, cfg, *carry)
+
+    if cfg.family == "hybrid":
+        x = _hybrid_trunk(
+            params, cfg, x,
+            lambda p, x, x_sum, _: run(_apply_mamba_layer, p, x, x_sum),
+            lambda x, x_sum, _: run(_shared_block, params["shared_attn"], x,
+                                    x_sum))
+    elif cfg.family == "ssm":
+        for li in range(cfg.num_layers):
+            x, _ = run(_apply_mamba_layer, _index(params["layers"], li), x)
+    else:
+        for gi in range(cfg.num_layers // len(layer_pattern(cfg))):
+            x = run(_forward_group, _index(params["layers"], gi), x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if last_only:
         x = x[:, -1:]
@@ -399,14 +519,33 @@ def decode_step(params, cfg, batch: Dict[str, Any]
                 ) -> Tuple[torch.Tensor, Any]:
     """One-token decode.  batch: tokens (B, 1), positions (B,), cache,
     and optionally block_tables (B, blocks_per_slot).  Without tables the
-    cache is the dense per-slot tree of ``init_cache`` (row b's token
-    written at ``positions[b]``); with them it is paged block storage.
-    Either is updated in place.  Returns (logits (B, 1, V) f32, cache)."""
-    _check_family(cfg)
+    cache is the per-slot tree of ``init_cache`` (row b's token written
+    at ``positions[b]``; a mamba layer's state advanced by one token);
+    with them (dense decoders only) it is paged block storage.  Either
+    is updated in place.  Returns (logits (B, 1, V) f32, cache)."""
+    _check_family(cfg, _FAMILIES)
     tokens, idx, cache = batch["tokens"], batch["positions"], batch["cache"]
+    block_tables = batch.get("block_tables")
+    if block_tables is not None:
+        _refuse_paged(cfg)
     x = _embed(params, cfg, tokens)
-    x = _run_layers(params, cfg, x, cache, positions=idx[:, None],
-                    cache_index=idx, block_tables=batch.get("block_tables"))
+    if cfg.family == "dense":
+        x = _run_layers(params, cfg, x, cache, positions=idx[:, None],
+                        cache_index=idx, block_tables=block_tables)
+    elif cfg.family == "ssm":
+        for li in range(cfg.num_layers):
+            x, _ = _apply_mamba_layer(_index(params["layers"], li), cfg, x,
+                                      cache=_index(cache["layers"], li))
+    else:
+        x = _hybrid_trunk(
+            params, cfg, x,
+            lambda p, x, x_sum, where: _apply_mamba_layer(
+                p, cfg, x, x_sum, cache=_index(cache[where[0]], *where[1:])),
+            lambda x, x_sum, gi: _apply_layer(
+                params["shared_attn"], cfg, x, x_sum, window=None,
+                positions=idx[:, None],
+                cache=_index(cache["shared_attn"], gi), cache_index=idx,
+                block_tables=None))
     return _logits(params, cfg, x), cache
 
 
@@ -424,8 +563,10 @@ def prefill_step(params, cfg, batch: Dict[str, Any]
     and their K/V routed to the trash block); cache — paged block storage,
     updated in place; block_tables (B, blocks_per_slot).  Returns
     (logits (B, C, V) f32, cache); logits at padding positions are
-    garbage — callers index only real tokens."""
-    _check_family(cfg)
+    garbage — callers index only real tokens.  Dense decoders only: the
+    ssm and hybrid families raise ``ValueError``, as in the reference."""
+    _refuse_paged(cfg)
+    _check_family(cfg, ("dense",))
     _require_paged(batch, "prefill_step")
     tokens, starts, cache = batch["tokens"], batch["positions"], batch["cache"]
     B, C = tokens.shape

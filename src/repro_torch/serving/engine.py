@@ -29,6 +29,15 @@ sequences, dense per-slot stripes by default or paged blocks with
   int8 cache.  Logits stay **on the device** until ``sample_tokens``, the
   one host sync of a step.
 
+The ssm (mamba2) and hybrid (zamba2) families serve in dense mode only,
+as in the reference: their cache holds each mamba layer's recurrent
+state (no token-position axis), so the KV cache refuses paged mode and
+the engine asks it for no prefix store (``prefix_cache`` stays ``None``
+whatever ``prefix_cache_blocks`` says).  A dense chunk's padding tokens
+past a prompt's end run through ``decode_step`` like its real ones, so
+they advance that state too, exactly as the reference's scanned chunk
+does; a cursor parked mid-prompt keeps the whole state in its copy.
+
 Each round is one program (``serving/programs.py``), as each is one
 jitted program in the reference: ``decode_step`` (``(max_slots,)`` rows,
 in paged mode with the ``(max_slots, blocks_per_slot)`` table), the paged
@@ -156,7 +165,7 @@ class ServingEngine:
                  paged: bool = False, num_blocks: Optional[int] = None,
                  prefill_batch: int = 4, greedy_tie_eps: float = 1e-2,
                  device="cuda"):
-        T._check_family(cfg)
+        T._check_family(cfg, T._FAMILIES)
         self.device = resolve_device(device)
         # numerics as the reference's: f32 matmuls in full f32 (no TF32),
         # bf16 matmuls with full-precision reductions
@@ -179,10 +188,13 @@ class ServingEngine:
         # prefills serially whatever the batch size
         self.prefill_batch = max(1, min(prefill_batch, max_slots))
         self.paged = paged
+        # a family whose cache holds recurrent state keeps no prefix store
+        # (its state depends on every token before, not one block's)
         self.kv = PagedKVCache(
             cfg, max_slots, max_seq_len, block_size=kv_block_size,
-            prefix_blocks=prefix_cache_blocks, num_blocks=num_blocks,
-            paged=paged, device=self.device)
+            prefix_blocks=(prefix_cache_blocks
+                           if self._family_supports_prefix(cfg) else 0),
+            num_blocks=num_blocks, paged=paged, device=self.device)
         self.prefix_cache = None
         if self.kv.prefix_pool is not None:
             from repro_torch.serving.prefix_cache import PrefixCache
@@ -210,6 +222,13 @@ class ServingEngine:
         self._stripe = None
         self._stripe_owner: Optional[PrefillCursor] = None
 
+    @staticmethod
+    def _family_supports_prefix(cfg) -> bool:
+        """Whether every cache leaf has a token-position axis, so cached
+        prompt blocks can be reused (the reference's rule)."""
+        return all(ax is not None
+                   for ax in PagedKVCache._seq_axis_per_leaf(cfg, 1))
+
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
@@ -221,7 +240,8 @@ class ServingEngine:
     def _program(self, name: str) -> CapturedProgram:
         """The engine's program ``name``, made at its first round.  Its
         body closes over the weights and the KV storage (or the dense
-        staging stripe), which stay at their addresses."""
+        staging stripe), which stay at their addresses; their leaves are
+        the program's in-place ``state``."""
         prog = self.programs.get(name)
         if prog is not None:
             return prog
@@ -249,15 +269,17 @@ class ServingEngine:
             assert name == "prefill_chunk", name
             inputs = {"tokens": self._zeros(C, 1),
                       "positions": self._zeros(C)}
-            stripe = self._stripe
+            cache = self._stripe
 
             def body(tokens, positions):
                 # the reference's scanned chunk: C decode steps at batch 1
                 return torch.stack([T.decode_step(params, cfg, {
                     "tokens": tokens[t:t + 1],
                     "positions": positions[t:t + 1],
-                    "cache": stripe})[0][0, 0] for t in range(C)])
-        prog = self.programs[name] = CapturedProgram(name, body, inputs)
+                    "cache": cache})[0][0, 0] for t in range(C)])
+        # what the body updates in place: the KV storage, or the stripe
+        prog = self.programs[name] = CapturedProgram(
+            name, body, inputs, state=[t for _, t in _leaves(cache)])
         return prog
 
     def _replay(self, prog: CapturedProgram) -> torch.Tensor:

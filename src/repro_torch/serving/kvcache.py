@@ -20,6 +20,14 @@ ledger:
   writes and speculative reads never touch a live sequence's KV.  As in
   the reference, paged mode refuses the int8 cache.
 
+Families whose cache holds recurrent state (ssm; hybrid, whose mamba
+layers' state sits beside the shared block's K/V) run through the same
+ledger in the dense layout: their state leaves have a batch axis and no
+sequence axis, ``write_prefill`` copies a slot's whole state, and the
+block table models the logical footprint the scheduler admits against.
+As in the reference they report ``supports_prefix_cache = False``, and
+paged mode and the prefix store refuse them with ``ValueError``.
+
 * ``KVBlockPool`` — a fixed budget of KV blocks handed out from a free
   ring (freed blocks go to the tail, recycled from the head), each with a
   reference count so the prefix cache can share one block between the
@@ -195,6 +203,10 @@ class PagedKVCache:
         self._axes = self._batch_axes(cfg, max_seq_len)
         self._seq_axes = self._seq_axis_per_leaf(cfg, max_slots)
         if paged:
+            if not self.supports_prefix_cache:
+                raise ValueError(
+                    f"family {cfg.family!r} has a non-positional decode "
+                    "cache; paged attention unsupported")
             if cfg.kv_cache_dtype == "int8":
                 raise ValueError(
                     "paged attention does not support the int8 KV cache "
@@ -223,6 +235,10 @@ class PagedKVCache:
         self.prefix_pool: Optional[KVBlockPool] = None
         self.prefix_store = None
         if prefix_blocks > 0:
+            if not self.supports_prefix_cache:
+                raise ValueError(
+                    f"family {cfg.family!r} has a non-positional decode "
+                    "cache; prefix caching unsupported")
             self.prefix_pool = KVBlockPool(prefix_blocks, block_size)
             self.prefix_store = self._init_store(prefix_blocks)
 

@@ -13,7 +13,11 @@ eagerly ``WARMUP_RUNS`` times on a side stream (the kernels' one-time
 setup, such as their ``cudaFuncSetAttribute`` calls and the library
 builds, and the model's cached constants happen there), then captures it
 once into a ``torch.cuda.CUDAGraph`` and replays that graph; every later
-call is one replay.  A failed capture raises: there is no eager fallback
+call is one replay.  The state the body updates in place (``state``: the
+KV storage or the staging stripe) is restored after each warm-up run, so
+the first round advances it once, as every later one does: rewriting an
+attention K/V entry is idempotent, but a mamba layer's recurrent state
+moves a token with every run.  A failed capture raises: there is no eager fallback
 and no switch that turns graphs off on the card.  The body's KV storage
 and other tensors it closes over are read and written at the addresses
 they had at capture, which is why the KV storage and the block table are
@@ -34,7 +38,7 @@ once per call), though the kernels' plain versions count no launch.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -68,13 +72,17 @@ class CapturedProgram:
     ``captures`` counts builds (a graph capture on the card, the first
     run on the CPU), ``replays`` calls, ``capture_s`` the seconds the
     build took (warm-up included) and ``launches`` the kernel launches
-    one replay makes, by counter name."""
+    one replay makes, by counter name.  ``state``: the tensors the body
+    updates in place, which the warm-up runs before a capture must leave
+    as they found them."""
 
     def __init__(self, name: str, body: Callable[..., torch.Tensor],
-                 inputs: Dict[str, torch.Tensor]):
+                 inputs: Dict[str, torch.Tensor],
+                 state: Sequence[torch.Tensor] = ()):
         self.name = name
         self._body = body
         self.inputs = inputs
+        self._state = list(state)
         self.device = next(iter(inputs.values())).device
         self.output: Optional[torch.Tensor] = None
         self.launches: Dict[str, int] = {}
@@ -125,8 +133,12 @@ class CapturedProgram:
         side = torch.cuda.Stream(device=self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
+            saved = [t.clone() for t in self._state]
             for _ in range(WARMUP_RUNS):
                 self._body(**self.inputs)
+                for t, s in zip(self._state, saved):
+                    t.copy_(s)
+            del saved
         torch.cuda.current_stream(self.device).wait_stream(side)
         warm = _build.launch_counts()
         graph = torch.cuda.CUDAGraph()

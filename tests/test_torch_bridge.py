@@ -19,7 +19,7 @@ from repro_torch.models import transformer as PT
 
 torch.set_num_threads(2)
 
-ARCHS = ["qwen2-0.5b", "gemma2-2b", "mamba2-1.3b"]
+ARCHS = ["qwen2-0.5b", "gemma2-2b", "mamba2-1.3b", "zamba2-1.2b"]
 # the mamba2 leaves the reference uses in f32 (conv, dt bias, A_log, D)
 SSM_F32 = ("conv_w", "conv_b", "dt_bias", "A_log", "D")
 
@@ -68,8 +68,8 @@ def test_port_init_matches_reference_layout(ref_flat):
         assert ours[k].shape == v.shape, (k, ours[k].shape, v.shape)
     # truncated normal at the reference's stddevs: bounded by 2 sigma
     d = cfg.d_model
-    w = ours["layers/mamba/in_proj/w" if cfg.family == "ssm"
-             else "layers/attn/wq/w"]
+    w = ours["layers/attn/wq/w" if cfg.family == "dense"
+             else "layers/mamba/in_proj/w"]
     assert np.abs(w).max() <= 2.0 / np.sqrt(d) + 1e-6
     assert 0.5 / np.sqrt(d) < w.std() < 1.0 / np.sqrt(d)
     np.testing.assert_array_equal(ours["final_norm/scale"], 0.0)

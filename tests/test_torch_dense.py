@@ -564,6 +564,12 @@ def cuda():
     (1, 1, 1, 128, 300, 64, None, "f32", [299], [300]),
     # several queries per row
     (5, 4, 2, 32, 70, 9, 30.0, "bf16", [10, 65], [15, 70]),
+    # zamba2's shared block, MHA (G = 1): decode over 1,024-position
+    # stripes, and the B = 1 prompt replay
+    (1, 32, 32, 64, 1024, None, None, "bf16",
+     [0, 146, 292, 438, 584, 730, 876, 1023],
+     [1, 147, 293, 439, 585, 731, 877, 1024]),
+    (1, 32, 32, 64, 1024, None, None, "bf16", [77], [78]),
 ])
 def test_cuda_int8kv_matches_plain(cuda, Sq, H, KV, D, Skv, window, softcap,
                                    dtype, q_start, kv_len):

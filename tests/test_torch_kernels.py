@@ -429,9 +429,14 @@ def test_cuda_kernels_match_plain(cuda, G, D, page, window, softcap):
         assert (got[b, :, n * G:] == 0).all()
 
 
+# on the card only (the Pallas interpret run above would take minutes):
+# zamba2-1.2b's shared attention block in training, MHA (G = 1)
+CUDA_FLASH_CASES = [(8, 1024, 32, 32, 64, True, None, None, "bf16")]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,H,KV,D,causal,window,softcap,dtype",
-                         FLASH_CASES)
+                         FLASH_CASES + CUDA_FLASH_CASES)
 def test_cuda_flash_matches_plain(cuda, B, S, H, KV, D, causal, window,
                                   softcap, dtype):
     """The flash kernel's output and lse, and the gradients through the

@@ -8,7 +8,9 @@ replays, so these tests hold the static-buffer path to the reference:
 - greedy tokens through the ``Scheduler`` identical to the reference
   engine's on bridged weights, at each family's tie-eps (qwen2 smoke
   1e-2, gemma2 smoke raw argmax), paged (qwen2 and gemma2 smoke) and
-  dense with the bf16 and the int8 KV cache (qwen2 smoke), with
+  dense with the bf16 and the int8 KV cache (qwen2 smoke), and dense
+  for the recurrent families (mamba2 smoke at 1e-2, zamba2 smoke with
+  the bf16 and the int8 cache at raw argmax), with
   interleaved prefill in which a row finishes in one prefill round and
   another round runs before it is sampled (the prefill output it was read
   from is overwritten by then);
@@ -19,12 +21,14 @@ replays, so these tests hold the static-buffer path to the reference:
   once;
 - ``device_block_tables`` is one tensor refreshed in place; a rebound KV
   leaf is refused; the dense staging stripe parks a cursor left
-  mid-prompt and restores it bit for bit;
+  mid-prompt and restores it bit for bit, the recurrent state of the
+  mamba2 and zamba2 layers included;
 - a program adds what its build launched to the kernel counters once per
   call.
 
-On the card (``gpu``): a replayed decode round, paged and dense int8, is
-identical to an eager ``decode_step`` on the same inputs with the same
+On the card (``gpu``): a replayed decode round, paged and dense int8
+(qwen2), dense mamba2 and dense int8 zamba2, is identical to an eager
+``decode_step`` on the same inputs and the same cache with the same
 kernels; a capture against a block-table tensor that is then rebound
 fails that comparison; a body the card cannot capture raises."""
 import jax
@@ -52,7 +56,10 @@ from repro_torch.serving.programs import CapturedProgram
 
 torch.set_num_threads(2)
 
-TIE_EPS = {"qwen2-0.5b": 1e-2, "gemma2-2b": 0.0}
+# zamba2 at raw argmax: at 1e-2 its smoke runs meet a reference margin at
+# the tie rule's boundary (``test_torch_ssm_serving.py``, KNOWN_GAPS)
+TIE_EPS = {"qwen2-0.5b": 1e-2, "gemma2-2b": 0.0, "mamba2-1.3b": 1e-2,
+           "zamba2-1.2b": 0.0}
 
 
 def _bridged(arch):
@@ -123,6 +130,19 @@ ALIAS_CASES = {
                     prefix_cache_blocks=8),
         budget=16),
     ("dense", "qwen2-0.5b", "int8"): dict(
+        engine=dict(prefill_chunk=8, kv_block_size=8,
+                    prefix_cache_blocks=8),
+        budget=16),
+    # the recurrent families: prefix blocks asked for, none kept
+    ("dense", "mamba2-1.3b", "bfloat16"): dict(
+        engine=dict(prefill_chunk=8, kv_block_size=8,
+                    prefix_cache_blocks=8),
+        budget=16),
+    ("dense", "zamba2-1.2b", "bfloat16"): dict(
+        engine=dict(prefill_chunk=8, kv_block_size=8,
+                    prefix_cache_blocks=8),
+        budget=16),
+    ("dense", "zamba2-1.2b", "int8"): dict(
         engine=dict(prefill_chunk=8, kv_block_size=8,
                     prefix_cache_blocks=8),
         budget=16),
@@ -311,6 +331,43 @@ def test_dense_stripe_parks_a_cursor_left_mid_prompt(qwen2):
                                alone.kv.cache["layers"][name][:, :, c1.slot])
 
 
+@pytest.mark.parametrize("arch,kv_dtype", [("mamba2-1.3b", "bfloat16"),
+                                           ("zamba2-1.2b", "int8")])
+def test_dense_stripe_parks_a_recurrent_state_left_mid_prompt(arch,
+                                                              kv_dtype):
+    """As above for the recurrent families: the parked copy is the whole
+    SSM and conv state (and zamba2's shared-block K/V), so B resumes bit
+    for bit; every slot leaf, whatever its batch axis, equals the prompt
+    prefilled alone, and nothing leaks."""
+    from repro_torch.serving.kvcache import _leaves
+    _, _, pparams = _bridged(arch)
+    cfg = port_smoke_config(arch).with_(kv_cache_dtype=kv_dtype)
+    kw = dict(max_seq_len=40, max_slots=2, prefill_chunk=8, device="cpu")
+    pa_, pb_ = _prompts(cfg.vocab_size, (13, 21), seed=7)
+    eng = ServingEngine(cfg, pparams, **kw)
+    ca, cb = eng.begin_prefill([pa_, pb_])
+    assert eng.advance_prefill([cb], token_budget=8) == []
+    assert eng.advance_prefill([ca]) == [ca]
+    assert cb.dense_cache is not None           # parked while A ran
+    assert eng.advance_prefill([cb]) == [cb]
+    assert eng.programs["prefill_chunk"].captures == 1
+    for prompt, cur in ((pa_, ca), (pb_, cb)):
+        alone = ServingEngine(cfg, pparams, **kw)
+        [c1] = alone.begin_prefill([prompt])
+        alone.advance_prefill()
+        assert torch.equal(c1.last_logits, cur.last_logits)
+        for (path, leaf), (_, other), ax in zip(
+                _leaves(eng.kv.cache), _leaves(alone.kv.cache),
+                eng.kv._axes):
+            assert torch.equal(leaf.select(ax, cur.slot),
+                               other.select(ax, c1.slot)), path
+        alone.free_slot(c1.slot)
+    for cur in (ca, cb):
+        eng.free_slot(cur.slot)
+    assert eng.kv.free_slot_count == 2 and eng.kv.pool.in_use == 0
+    assert not eng._inflight
+
+
 def test_program_adds_its_build_launches_once_per_call():
     """A stub body that bumps two kernel counters as a wrapper would
     (three and one launches at its first run, other counts later): every
@@ -382,22 +439,37 @@ def _eager_decode(eng, tokens, positions):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("paged,kv_dtype", [(True, "bfloat16"),
-                                            (False, "int8")],
-                         ids=["paged", "dense-int8"])
-def test_cuda_replayed_decode_round_equals_eager(cuda, paged, kv_dtype):
-    eng, tokens, positions = _card_engine("qwen2-0.5b", kv_dtype, paged,
-                                          cuda)
+@pytest.mark.parametrize("arch,paged,kv_dtype", [
+    ("qwen2-0.5b", True, "bfloat16"), ("qwen2-0.5b", False, "int8"),
+    ("mamba2-1.3b", False, "bfloat16"), ("zamba2-1.2b", False, "int8")],
+    ids=["paged", "dense-int8", "mamba2-dense", "zamba2-dense-int8"])
+def test_cuda_replayed_decode_round_equals_eager(cuda, arch, paged,
+                                                 kv_dtype):
+    """The replayed round and an eager ``decode_step`` from the same
+    cache: the cache is snapshotted before each replay and restored
+    before the eager step (a mamba layer's state advances a token a
+    step; attention K/V are rewritten with the same values)."""
+    from repro_torch.serving.kvcache import _leaves
+    eng, tokens, positions = _card_engine(arch, kv_dtype, paged, cuda)
+    before = [t.clone() for _, t in _leaves(eng.kv.cache)]
+
+    def restore():
+        for (_, t), b in zip(_leaves(eng.kv.cache), before):
+            t.copy_(b)
+
     replayed = eng.decode_once(tokens, positions).clone()
     prog = eng.programs["decode_step"]
     assert prog.captures == 1 and prog.replays == 1
-    # the round wrote this step's K/V; the eager step rewrites the same
-    # values and attends the same cache
+    restore()
     eager = _eager_decode(eng, tokens, positions)
     torch.cuda.synchronize()
     assert torch.equal(replayed, eager)
+    after = [t.clone() for _, t in _leaves(eng.kv.cache)]
+    restore()
     again = eng.decode_once(tokens, positions)
     assert prog.captures == 1 and torch.equal(again, eager)
+    assert all(torch.equal(t, a)
+               for (_, t), a in zip(_leaves(eng.kv.cache), after))
 
 
 @pytest.mark.gpu

@@ -263,6 +263,7 @@ def cuda():
     (2, 64, 8, 32, 1, 16, 16, "f32"),        # the smoke config's shapes
     (1, 300, 4, 64, 2, 128, 256, "bf16"),    # G = 2, S ragged, full P, N
     (2, 512, 4, 64, 1, 128, 256, "bf16"),    # two chunks carry the state
+    (8, 1024, 64, 64, 1, 64, 256, "bf16"),   # zamba2-1.2b's layers: N 64
 ])
 def test_cuda_ssd_matches_plain(cuda, b, S, H, P, G, N, chunk, dtype):
     """The kernel's output through ``ops.ssd`` (padding included) and the
