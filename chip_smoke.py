@@ -139,7 +139,9 @@ Phases (any failure exits nonzero):
               with the same kernels: identical logits;
 8. training — full-width qwen2-0.5b through the port's launcher
               ``repro_torch.launch.train.main`` (seq 1024, batch 8, 8 AdamW
-              steps): every loss finite, the last below the first, the
+              steps; ``--strategy dp``, as in phases 10 and 12: an NCCL
+              group at world size 1 and the gradients through
+              ``hvd.allreduce``): every loss finite, the last below the first, the
               flash kernel launched on every layer of every step, each
               launch on the tensor-core kernel, and RMSNorm on every norm,
               each on the one-pass kernel (counters zeroed just before);
@@ -196,7 +198,24 @@ Phases (any failure exits nonzero):
               timed with CUDA events, one pair at each batch under
               ``torch.profiler`` (the card's busy share) beside its bound
               (``gan_flops_per_image``: f32 operations over 67 TFLOP/s), and
-              the physics-validation flow's five rows.
+              the physics-validation flow's five rows;
+16. deployment — the paper's path: ``DeploymentPipeline.deploy`` of the
+              PyTorch image (``core/deploy.py::pytorch_image``: resolved
+              against the port's offline index, flattened, transferred,
+              unpacked under ``build/chip_smoke/deploy``), the pipeline log
+              and the rendered 1-node and 32-node launch lines; inside the
+              capsule (``Deployment.run``, world size 1 on NCCL) the
+              launcher at qwen2-0.5b full width, ``--strategy dp``, seq
+              1024, batch 8, 8 AdamW steps: losses finite and falling,
+              exactly 48 flash launches (all tensor cores) and 97 one-pass
+              RMSNorms a step, exactly one f32 gradient all_reduce of 4 x
+              (parameter count) bytes and one of the four metrics (16
+              bytes) a step, the image tree hash unchanged; step time,
+              tokens/s and peak memory beside phase 8's bare run; the
+              gradient all_reduce timed with CUDA events; then
+              ``benchmarks/container_overhead.run`` at the full 3DGAN,
+              batch 64 (three bare and three capsule rounds of 50 D steps,
+              interleaved): its four rows and the peak device memory row.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -949,10 +968,12 @@ def profile_breakdown(prof, wall_ms: float) -> dict:
 # ---------------------------------------------------------------------------
 
 def profile_train_step(torch, cfg, dev) -> dict:
-    """One full-width train step (seq 1024, batch 8, AdamW) under
-    ``torch.profiler``, after two unprofiled steps; device time by kernel
-    family."""
+    """One full-width train step (seq 1024, batch 8, AdamW), the launcher's
+    ``dp`` step at world size 1 on NCCL (its gradient all_reduce
+    included), under ``torch.profiler``, after two unprofiled steps;
+    device time by kernel family."""
     from repro_torch import optim
+    from repro_torch.core import hvd
     from repro_torch.data import SyntheticTokenSource, TokenDatasetSpec
     from repro_torch.distributed import stepfn
     from repro_torch.models import transformer as T
@@ -960,27 +981,31 @@ def profile_train_step(torch, cfg, dev) -> dict:
                            device=dev, weight_dtype=torch.float32)
     opt = optim.adamw(3e-4, clip_norm=1.0)
     state = opt.init(params)
-    step = stepfn.make_train_step(cfg, opt, device=dev)
     src = SyntheticTokenSource(TokenDatasetSpec(cfg.vocab_size, 1024, 8))
-    for i in range(2):
-        params, state, _ = step(params, state, src.batch(i))
-    torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        params, state, _ = step(params, state, src.batch(2))
+    with hvd.init(dev):
+        step = stepfn.make_train_step(cfg, opt, hvd.axis_groups({"data": 1}),
+                                      device=dev)
+        for i in range(2):
+            params, state, _ = step(params, state, src.batch(i))
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            params, state, _ = step(params, state, src.batch(2))
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
     return profile_breakdown(prof, wall_ms)
 
 
 def train_card_vs_cpu(torch, cfg, *, seq: int, batch: int, dev) -> None:
     """One train step of ``cfg`` on the card and on the CPU from the same
-    f32 weights and batch: loss and the gradient's global norm within
+    f32 weights and batch (the launcher's ``dp`` step at world size 1,
+    NCCL and gloo): loss and the gradient's global norm within
     tolerance."""
     import numpy as np
     from repro_torch import optim
+    from repro_torch.core import hvd
     from repro_torch.data import SyntheticTokenSource, TokenDatasetSpec
     from repro_torch.distributed import stepfn
     from repro_torch.models import transformer as T
@@ -992,8 +1017,10 @@ def train_card_vs_cpu(torch, cfg, *, seq: int, batch: int, dev) -> None:
     for where in (dev, "cpu"):
         p = optim.tree_map(lambda t: t.to(where), p_cpu)
         o = optim.adamw(3e-4, clip_norm=1.0)
-        _, _, m = stepfn.make_train_step(cfg, o, device=where)(
-            p, o.init(p), data)
+        with hvd.init(where):
+            _, _, m = stepfn.make_train_step(
+                cfg, o, hvd.axis_groups({"data": 1}), device=where)(
+                    p, o.init(p), data)
         got[str(where)] = (float(m["loss"]), float(m["grad_norm"]))
         del p, o, m
     (lg, ng), (lc, nc) = got[str(dev)], got["cpu"]
@@ -1263,6 +1290,149 @@ def gan_phase(torch, dev) -> None:
         check(len(rows) == 5 and np.isfinite(
             float(rows[-1][2].split()[0])), "physics validation rows")
     check(not dist.is_initialized(), "the NCCL group outlived its block")
+
+
+# ---------------------------------------------------------------------------
+# deployment helpers
+# ---------------------------------------------------------------------------
+
+def lm_allreduce_ms(torch, params, reps: int = 5) -> float:
+    """Device time of the qwen2 step's gradient exchange: ``hvd.allreduce``
+    of a tree shaped as the f32 master parameters (the fusion copy into
+    one buffer, the NCCL all_reduce at world size 1, the division, the
+    unpacking), CUDA events around ``reps`` calls."""
+    from repro_torch.core import hvd
+    with hvd.init("cuda"):
+        world = hvd.axis_groups({"data": 1}).world
+        hvd.allreduce(params, world)
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(reps):
+            hvd.allreduce(params, world)
+        e.record()
+        e.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def deploy_phase(torch, counters, by_name, rms_paths, bare: dict) -> None:
+    """Phase 16: the PyTorch image through the port's pipeline, the Slurm
+    lines, the launcher's qwen2 DP step inside the capsule (launch counts,
+    gradient bytes, image hash), its numbers beside phase 8's bare run,
+    and the paper's Tables 2-3 at the full 3DGAN on the card."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.benchmarks import container_overhead
+    from repro_torch.core import container as cc
+    from repro_torch.core import deploy as D
+    from repro_torch.launch import slurm
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models import gan3d as G
+
+    work = OUT / "deploy"
+    shutil.rmtree(work, ignore_errors=True)
+    steps = 8                   # phase 8's run: its loss falls by step 7
+    argv = ["--arch", "qwen2-0.5b", "--strategy", "dp", "--seq-len", "1024",
+            "--global-batch", "8", "--steps", str(steps)]
+    payload = f"{D.LAUNCHER} {' '.join(argv)}"
+    dep = D.DeploymentPipeline().deploy(D.pytorch_image("chip-smoke"), work,
+                                        script=payload)
+    for line in dep.log:
+        print(f"pipeline: {line}")
+    print(f"packages: {json.dumps(dep.image.packages, sort_keys=True)}")
+    print(f"slurm, 1 node:   {dep.slurm_script.splitlines()[-1]}")
+    line32 = slurm.render_script(
+        job_name="chip-smoke", image_dir=str(dep.unpacked),
+        entrypoint="python", nodes=32, script=payload).splitlines()[-1]
+    print(f"slurm, 32 nodes: {line32}", flush=True)
+    check(line32.startswith("mpiexec -n 32 -ppn 1 ch-run"),
+          f"32-node launch line {line32}")
+
+    pre = cc._tree_hash(dep.unpacked)
+    zero_counts(counters)
+    res = dep.run(train_launcher.main, argv)[0]
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    run = res.value
+    params = run.pop("params")
+    n = sum(t.numel() for t in _leaves(params))
+    check(cc._tree_hash(dep.unpacked) == pre,
+          "the image tree changed during the capsule run")
+    check((run["world_size"], run["backend"]) == (1, "nccl"),
+          f"capsule run on {run['backend']} at world size "
+          f"{run['world_size']}")
+    losses, per_step = run["losses"], run["launches_per_step"]
+    steady = run["step_s"][1:]
+    inside = {"losses": losses, "step_s": run["step_s"],
+              "step_ms": 1e3 * sum(steady) / len(steady),
+              "tokens_per_s": run["tokens_per_s"],
+              "max_memory_allocated": run["max_memory_allocated"],
+              "launches_per_step": per_step,
+              "collectives_per_step": run["collectives_per_step"],
+              "capsule": res.image, "wall_s": res.wall_time_s}
+    print("capsule training: " + json.dumps(inside), flush=True)
+    b_steady = bare["step_s"][1:]
+    b_ms = 1e3 * sum(b_steady) / len(b_steady)
+    print(f"capsule vs bare (phase 8): step {inside['step_ms']:.2f} / "
+          f"{b_ms:.2f} ms ({100 * (inside['step_ms'] / b_ms - 1):+.2f}%), "
+          f"tokens/s {inside['tokens_per_s']:.0f} / "
+          f"{bare['tokens_per_s']:.0f}, peak "
+          f"{inside['max_memory_allocated'] / 2**30:.2f} / "
+          f"{bare['max_memory_allocated'] / 2**30:.2f} GiB", flush=True)
+    print("capsule vs bare losses, max |diff|: "
+          f"{max(abs(a - b) for a, b in zip(losses, bare['losses'])):.3e}",
+          flush=True)
+    check(all(np.isfinite(losses)), "a capsule training loss is not finite")
+    check(losses[-1] < losses[0], "the capsule loss did not fall")
+    check(all(k == 48 for k in per_step["flash_attention"]),
+          f"capsule flash launches per step {per_step['flash_attention']}")
+    check(all(k == 97 for k in per_step["rmsnorm"]),
+          f"capsule rmsnorm launches per step {per_step['rmsnorm']}")
+    check(launches["flash_attention_tensor_core"]
+          == launches["flash_attention"] == 48 * steps
+          and launches["flash_attention_cuda_core"] == 0,
+          "a capsule flash launch missed the tensor-core kernel")
+    check(launches["rmsnorm_one_pass"] == launches["rmsnorm"] == 97 * steps,
+          "a capsule norm missed the one-pass kernel")
+    # one fused f32 gradient all_reduce and the four f32 metrics a step
+    want = {"calls": 2, "bytes": 4 * n + 16}
+    check(run["collectives_per_step"] == [want] * steps,
+          f"capsule collectives {run['collectives_per_step']}, want {want}")
+    for name in ("flash_attention", "rmsnorm"):
+        k = by_name[name]
+        k["launches_per_path"]["qwen2-0.5b dp in the capsule"] = \
+            launches[name]
+        k["launches"] = sum(k["launches_per_path"].values())
+    ar_ms = lm_allreduce_ms(torch, params)
+    print(f"qwen2 parameters {n:,}; gradient all_reduce {4 * n:,} bytes, "
+          f"{ar_ms:.3f} ms a step (NCCL, world size 1)", flush=True)
+    del params, run, res
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    # 50 steps a round (the reference's 8 last ~0.1 s here, inside the
+    # noise), three rounds a mode
+    rows = container_overhead.run(steps=50, batch_size=64, rounds=3,
+                                  cfg=G.GAN3DConfig(), device="cuda",
+                                  work_dir=OUT / "deploy_bench")
+    print(f"container overhead ({time.perf_counter() - t0:.1f} s):")
+    for row in rows:
+        print("  " + ",".join(str(x) for x in row), flush=True)
+    check([r[0] for r in rows] == [
+        "3dgan_d_step/with_capsule", "3dgan_d_step/bare",
+        "capsule_overhead_pct", "rss_delta_mb", "device_peak_delta_mb"],
+        f"container overhead rows {[r[0] for r in rows]}")
+    check(rows[0][1] > 0 and rows[1][1] > 0, "container overhead times")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 # ---------------------------------------------------------------------------
@@ -2657,13 +2827,16 @@ def main() -> int:
     zero_counts(counters)
     run = train_launcher.main(["--arch", "qwen2-0.5b", "--seq-len", "1024",
                                "--global-batch", "8", "--steps", "8"])
+    del run["params"]
     torch.cuda.synchronize()
     launches = read_counts(counters)
     losses = run["losses"]
     per_step = run["launches_per_step"]
     summary = {k: run[k] for k in ("losses", "step_s", "tokens_per_s",
                                    "launches_per_step",
+                                   "collectives_per_step",
                                    "max_memory_allocated")}
+    qwen2_bare = summary
     print("training: " + json.dumps(summary), flush=True)
     check(all(np.isfinite(losses)), "a training loss is not finite")
     check(losses[-1] < losses[0], "the loss did not fall over 8 steps")
@@ -2710,12 +2883,14 @@ def main() -> int:
     zero_counts(counters)
     run = train_launcher.main(["--arch", "mamba2-1.3b", "--seq-len", "1024",
                                "--global-batch", "8", "--steps", "8"])
+    del run["params"]
     torch.cuda.synchronize()
     launches = read_counts(counters)
     losses = run["losses"]
     per_step = run["launches_per_step"]
     summary = {k: run[k] for k in ("losses", "step_s", "tokens_per_s",
                                    "launches_per_step",
+                                   "collectives_per_step",
                                    "max_memory_allocated")}
     print("training mamba2: " + json.dumps(summary), flush=True)
     check(all(np.isfinite(losses)), "a mamba2 training loss is not finite")
@@ -2770,12 +2945,14 @@ def main() -> int:
     zero_counts(counters)
     run = train_launcher.main(["--arch", "zamba2-1.2b", "--seq-len", "1024",
                                "--global-batch", "8", "--steps", "8"])
+    del run["params"]
     torch.cuda.synchronize()
     launches = read_counts(counters)
     losses = run["losses"]
     per_step = run["launches_per_step"]
     summary = {k: run[k] for k in ("losses", "step_s", "tokens_per_s",
                                    "launches_per_step",
+                                   "collectives_per_step",
                                    "max_memory_allocated")}
     print("training zamba2: " + json.dumps(summary), flush=True)
     check(all(np.isfinite(losses)), "a zamba2 training loss is not finite")
@@ -2833,6 +3010,10 @@ def main() -> int:
     # 15. the 3DGAN trained with Horovod-style DP ---------------------------
     phase("3dgan training, full width, Horovod DP")
     gan_phase(torch, dev)
+
+    # 16. the paper's deployment path on the card ----------------------------
+    phase("deployment on the card: the PyTorch capsule")
+    deploy_phase(torch, counters, by_name, rms_paths, qwen2_bare)
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -4,12 +4,15 @@
     python scripts/torch_step_profile.py [--src DIR] [--arch qwen2-0.5b]
 
 Two unprofiled steps, then one under ``torch.profiler`` (seq 1024, batch 8,
-AdamW over f32 masters: ``chip_smoke.profile_train_step``); prints the
+AdamW over f32 masters, the launcher's ``dp`` step at world size 1 with its
+gradient all_reduce: ``chip_smoke.profile_train_step``); prints the
 card's name and power limit, then one JSON line with the device time by
 kernel family.  ``--src`` names the ``src`` directory whose ``repro_torch``
 runs (default: this checkout's), so that two trees compare on one card:
 unpack the other with ``git archive`` into a git-ignored directory and run
-them in the order a, b, b, a.
+them in the order a, b, b, a.  Its ``stepfn.make_train_step`` must take
+the data group (``make_train_step(cfg, optimizer, groups, ...)``), as
+this checkout's does.
 """
 from __future__ import annotations
 

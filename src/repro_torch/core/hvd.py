@@ -2,11 +2,12 @@
 §II-H (counterpart of ``repro.core.hvd``).
 
 The paper's recipe: take a single-process script, add four calls
-(``hvd.init()``, pin one rank per device, wrap the optimizer in
-``DistributedOptimizer``, broadcast the initial variables) and run it
-under ``mpiexec``.  Here ``torchrun`` is the ``mpiexec``: it sets ``RANK``,
+(``hvd.init()``, pin one rank per device, average the gradients before
+the optimizer's update, broadcast the initial variables) and run it under
+``mpiexec``.  Here ``torchrun`` is the ``mpiexec``: it sets ``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK`` and the store's address, and :func:`init`
-reads them.  Gradients are exchanged by allreduce (NCCL on the card, gloo
+reads them; :func:`run_ranks` starts the ranks of a ``python -c`` program
+on this host the same way.  Gradients are exchanged by allreduce (NCCL on the card, gloo
 on the CPU), contrasted with the parameter-server baseline in
 ``repro_torch.core.paramserver``.
 
@@ -28,6 +29,8 @@ import contextlib
 import itertools
 import os
 import shutil
+import subprocess
+import sys
 import tempfile
 from typing import (Callable, Dict, Iterator, List, Optional, Sequence, Tuple,
                     Union)
@@ -102,24 +105,92 @@ def init(device, init_method: Optional[str] = None
             shutil.rmtree(store_dir, ignore_errors=True)
 
 
+class DeviceCountError(ValueError):
+    """More NCCL ranks asked for than this host has cards: NCCL needs one
+    card a rank."""
+
+
+def run_ranks(prog: str, world: int, out, *args: str, device="cpu",
+              timeout: float = 240.0) -> None:
+    """Run ``prog`` (the text of a ``python -c`` program) as ``world`` ranks
+    on this host, as ``mpiexec`` or ``torchrun`` would: each rank gets
+    ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` and the arguments
+    ``<store> <out> *args``, where ``<store>`` is a ``file://`` store in
+    the directory ``out`` (no network) for :func:`init`'s
+    ``init_method``.  ``device`` is the one the program passes to
+    :func:`init`: on ``cuda`` every rank needs a card of its own.  Raises
+    ``RuntimeError`` with the tail of every failed rank's stderr."""
+    if torch.device(device).type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device 'cuda' requested but no CUDA device is available; "
+                "pass device='cpu' explicitly to run the ranks on gloo")
+        if world > torch.cuda.device_count():
+            raise DeviceCountError(
+                f"{world} NCCL ranks need {world} cards; this host has "
+                f"{torch.cuda.device_count()} (pass device='cpu' for gloo)")
+    src = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = dict(os.environ, PYTHONPATH=src, WORLD_SIZE=str(world),
+               OMP_NUM_THREADS="1")
+    store = f"file://{os.path.join(str(out), 'store')}"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", prog, store, str(out), *args],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    errs = []
+    try:
+        for r, p in enumerate(procs):
+            _, err = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                errs.append(f"rank {r} exited {p.returncode}: {err[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if errs:
+        raise RuntimeError("\n".join(errs))
+
+
 # ---------------------------------------------------------------------------
 # Groups: the mesh axes
 # ---------------------------------------------------------------------------
 
 class Group:
     """This rank's communicator over some axes of the layout, with the
-    counts of what this rank handed its collectives."""
+    counts of what this rank handed its collectives: in all (``calls``,
+    ``bytes``) and by kind of collective (``kinds``)."""
 
     def __init__(self, axes: Tuple[str, ...], ranks: List[int], pg):
         self.axes, self.ranks, self.pg = axes, ranks, pg
         self.size = len(ranks)
         self.rank = ranks.index(dist.get_rank())
+        self.reset()
+
+    def reset(self) -> None:
         self.calls = 0
         self.bytes = 0
+        self.kinds: Dict[str, List[int]] = {}
 
-    def count(self, t: torch.Tensor) -> None:
+    def count(self, t: torch.Tensor, kind: str) -> None:
+        n = t.numel() * t.element_size()
         self.calls += 1
-        self.bytes += t.numel() * t.element_size()
+        self.bytes += n
+        k = self.kinds.setdefault(kind, [0, 0])
+        k[0] += 1
+        k[1] += n
+
+    def output_bytes(self) -> int:
+        """The bytes of every collective's output since the last reset,
+        the measure of the reference's ``launch.dryrun.collective_bytes``
+        (each collective's output shape in the compiled program): an
+        all_gather gives ``size`` x what it was handed, a reduce_scatter
+        1 / ``size``, an all_reduce or a broadcast as much."""
+        scale = {"all_gather": self.size, "reduce_scatter": 1 / self.size}
+        return int(sum(n * scale.get(kind, 1)
+                       for kind, (_, n) in self.kinds.items()))
 
 
 class Groups:
@@ -144,7 +215,7 @@ class Groups:
 
     def reset_counts(self) -> None:
         for g in self._groups.values():
-            g.calls = g.bytes = 0
+            g.reset()
 
 
 def axis_groups(shape: Dict[str, int]) -> Groups:
@@ -229,7 +300,7 @@ def allreduce(tree, group: Group, average: bool = True):
     def op(buf):
         if average:
             _mean_dtype_check(buf)
-        group.count(buf)
+        group.count(buf, "all_reduce")
         dist.all_reduce(buf, group=group.pg)
         return buf.div_(group.size) if average else buf
     return _fused(tree, op)
@@ -241,7 +312,7 @@ def allgather(tree, group: Group):
     def g(t):
         t = t.reshape(1) if t.ndim == 0 else t.contiguous()
         out = t.new_empty((group.size * t.shape[0],) + tuple(t.shape[1:]))
-        group.count(t)
+        group.count(t, "all_gather")
         _all_gather(out, t, group=group.pg)
         return out
     return tree_map(g, tree)
@@ -262,12 +333,12 @@ def hierarchical_allreduce(tree, inner: Group, outer: Group,
         if pad:
             buf = torch.cat([buf, buf.new_zeros(pad)])
         shard = buf.new_empty(buf.numel() // inner.size)
-        inner.count(buf)
+        inner.count(buf, "reduce_scatter")
         _reduce_scatter(shard, buf, group=inner.pg)
-        outer.count(shard)
+        outer.count(shard, "all_reduce")
         dist.all_reduce(shard, group=outer.pg)
         full = torch.empty_like(buf)
-        inner.count(shard)
+        inner.count(shard, "all_gather")
         _all_gather(full, shard, group=inner.pg)
         full = full[:n]
         return full.div_(inner.size * outer.size) if average else full
@@ -278,30 +349,10 @@ def broadcast(tree, group: Group, root: int = 0):
     """Every leaf as ``group``'s rank ``root`` holds it (Horovod's
     initial-variable broadcast): one ``broadcast`` per dtype."""
     def op(buf):
-        group.count(buf)
+        group.count(buf, "broadcast")
         dist.broadcast(buf, src=group.ranks[root], group=group.pg)
         return buf
     return _fused(tree, op)
-
-
-# ---------------------------------------------------------------------------
-# DistributedOptimizer
-# ---------------------------------------------------------------------------
-
-class DistributedOptimizer:
-    """Wraps a ``repro_torch.optim`` optimizer: allreduce (average) the
-    gradients over ``group`` before the update."""
-
-    def __init__(self, optimizer: optim.Optimizer, group: Group):
-        self.inner = optimizer
-        self.group = group
-
-    def init(self, params):
-        return self.inner.init(params)
-
-    def update(self, grads, state, params):
-        grads = allreduce(grads, self.group, average=True)
-        return self.inner.update(grads, state, params)
 
 
 # ---------------------------------------------------------------------------
@@ -320,19 +371,21 @@ def make_train_step(loss_fn: Callable, optimizer: optim.Optimizer,
     :func:`hierarchical_allreduce` (inner = the other axes, outer =
     ``pod``) instead of one flat allreduce."""
     world = groups.world
-    dist_opt = DistributedOptimizer(optimizer, world)
     inner_axes = tuple(a for a in groups.axes if a != "pod")
     hier = hierarchical and "pod" in groups.axes and inner_axes
 
     def step(params, opt_state, *args):
         loss, metrics, grads = value_and_grad(
             lambda p, a: loss_fn(p, *a), params, args)
+        # rebinding ``grads`` frees the rank's own gradients before the
+        # update (held through it, they would be a second copy of every
+        # gradient at the optimizer's peak)
         if hier:
             grads = hierarchical_allreduce(grads, groups[inner_axes],
                                            groups["pod"])
-            updates, opt_state = optimizer.update(grads, opt_state, params)
         else:
-            updates, opt_state = dist_opt.update(grads, opt_state, params)
+            grads = allreduce(grads, world, average=True)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
         params = optim.apply_updates(params, updates)
         metrics = allreduce(dict(metrics, loss=loss), world)
         return params, opt_state, metrics

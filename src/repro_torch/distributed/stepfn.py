@@ -1,13 +1,15 @@
-"""The training step on one device (counterpart of
-``repro.distributed.stepfn.make_train_step`` under the ``dp`` strategy on a
-one-device mesh).
+"""The training step (counterpart of
+``repro.distributed.stepfn.make_train_step`` under the ``dp`` strategy).
 
-``step(params, opt_state, batch) -> (params, opt_state, metrics)``: value
-and gradient of the loss with respect to every parameter leaf, gradient
-accumulation over microbatches in f32, the optimizer's update, then
-``apply_updates``.  Params are nested dicts of f32 master tensors (the
+``step(params, opt_state, batch) -> (params, opt_state, metrics)`` on the
+``data`` axis of a process-group layout (``core/hvd.py``), at every world
+size: rank r of N takes rows ``[r B/N, (r+1) B/N)`` of the global batch,
+the value and gradient of the loss with respect to every parameter leaf
+(accumulated over microbatches in f32), the gradients averaged over the
+axis by ``hvd.allreduce``, the optimizer's update, then ``apply_updates``
+on every rank.  Params are nested dicts of f32 master tensors (the
 reference's ``param_dtype``); compute runs in the config's dtype.  Sharded
-strategies (``dp_tp``, ``fsdp_tp``) wait for ROADMAP Queue 1 item 10.
+strategies (``dp_tp``, ``fsdp_tp``) wait for ROADMAP Queue 1 item 6.
 """
 from __future__ import annotations
 
@@ -38,25 +40,34 @@ def value_and_grad(loss_fn, params, batch):
     return loss.detach(), metrics, tree_map(lambda _: next(grads), params)
 
 
-def make_train_step(cfg, optimizer, *, loss_variant: str = "plain",
+def make_train_step(cfg, optimizer, groups, *, loss_variant: str = "plain",
                     seq_chunk: int = 512, microbatches: int = 1,
                     device="cuda"):
     """Returns ``step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``.
+    metrics)``, the ``dp`` strategy on the ``data`` axis of ``groups`` (an
+    ``hvd.axis_groups`` layout, made inside ``hvd.init``).
 
+    ``batch`` is the whole global batch, as every rank draws it (a dict of
+    numpy arrays or tensors); this rank's rows of it are moved to
+    ``device`` (default ``cuda``, which raises without a card).
     loss_variant: "plain" (``lm_loss``) | "chunked_ce" (``lm_loss_chunked``,
-    no (B, S, V) logits).  microbatches > 1 splits the batch along its
-    leading dim and accumulates ``grad / microbatches`` in f32 (the same
-    update for a token-mean loss).  ``batch`` is a dict of numpy arrays or
-    tensors; it is moved to ``device`` (default ``cuda``, which raises
-    without a card).  metrics: the loss's metrics (averaged over
-    microbatches), ``loss``, and ``grad_norm`` (the global norm of the
+    no (B, S, V) logits).  microbatches > 1 splits the rank's rows along
+    the leading dim and accumulates ``grad / microbatches`` in f32 (the
+    same update for a token-mean loss).  The gradients are averaged over
+    the axis by one fused all_reduce per dtype, issued at world size 1
+    too; with equal token counts on every shard the mean of the shard
+    means is the global token mean, so this is the reference's ``dp`` step
+    on a mesh's data axis.  metrics: the loss's metrics and ``loss``
+    (averaged over microbatches, then over the axis by one more
+    all_reduce), and ``grad_norm`` (the global norm of the averaged
     gradient before clipping)."""
+    from repro_torch.core import hvd        # hvd imports this module
     from repro_torch.serving.engine import resolve_device
 
     device = resolve_device(device)
     if loss_variant not in ("plain", "chunked_ce"):
         raise ValueError(f"unknown loss_variant {loss_variant!r}")
+    data = groups["data"]
 
     def loss_fn(p, b):
         if loss_variant == "chunked_ce":
@@ -64,15 +75,19 @@ def make_train_step(cfg, optimizer, *, loss_variant: str = "plain",
         return T.lm_loss(p, cfg, b)
 
     def step(params, opt_state, batch: Dict[str, Any]):
-        batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+        B = batch["tokens"].shape[0]
+        if B % (data.size * microbatches) != 0:
+            raise ValueError(f"global batch {B} is not a multiple of the "
+                             f"data axis {data.size} x microbatches "
+                             f"{microbatches}")
+        n = B // data.size
+        rows = slice(data.rank * n, (data.rank + 1) * n)
+        batch = {k: torch.as_tensor(v[rows]).to(device)
+                 for k, v in batch.items()}
         if microbatches == 1:
             loss, metrics, grads = value_and_grad(loss_fn, params, batch)
         else:
-            B = batch["tokens"].shape[0]
-            if B % microbatches != 0:
-                raise ValueError(f"batch {B} is not a multiple of "
-                                 f"microbatches {microbatches}")
-            n = B // microbatches
+            n //= microbatches
             grads = tree_map(lambda p: torch.zeros(
                 p.shape, dtype=torch.float32, device=p.device), params)
             loss = torch.zeros((), dtype=torch.float32, device=device)
@@ -86,10 +101,14 @@ def make_train_step(cfg, optimizer, *, loss_variant: str = "plain",
                 ms.append(m)
             metrics = tree_map(lambda *a: torch.stack(a).mean(), ms[0],
                                *ms[1:])
+        # rebinding ``grads`` frees the rank's own gradients before the
+        # update (held through it, they would be a second copy of every
+        # gradient at the optimizer's peak)
+        grads = hvd.allreduce(grads, data, average=True)
         grad_norm = optim.global_norm(grads)
         updates, opt_state = optimizer.update(grads, opt_state, params)
         params = optim.apply_updates(params, updates)
-        return params, opt_state, dict(metrics, loss=loss,
-                                       grad_norm=grad_norm)
+        metrics = hvd.allreduce(dict(metrics, loss=loss), data)
+        return params, opt_state, dict(metrics, grad_norm=grad_norm)
 
     return step

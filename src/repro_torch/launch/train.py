@@ -1,25 +1,32 @@
-"""Training launcher for the PyTorch port (one device).
+"""Training launcher for the PyTorch port (counterpart of
+``repro.launch.train``).
 
-Counterpart of ``repro.launch.train``, with its flags plus ``--device``:
-random weights from the port's ``init_params`` at seed 0 held as f32
-masters, the synthetic Markov token source, the chosen optimizer with
-global-norm clipping at 1.0, and ``distributed.stepfn.make_train_step``.
-Prints the reference's step and summary lines, then step time, tokens/s,
-each kernel's launches per step and, on the card, peak device memory.
-The dense (qwen2-0.5b, gemma2-2b), ssm (mamba2-1.3b) and hybrid
-(zamba2-1.2b) families train.
+In-capsule entrypoint: the Slurm script that ``repro_torch.launch.slurm``
+renders runs ``ch-run <image> -- python -m repro_torch.launch.train
+--arch <id> ...`` on every rank.  The reference's flags, plus ``--device``,
+``--dtype`` and ``--init-method``: random weights from the port's
+``init_params`` at seed 0 held as f32 masters (broadcast from rank 0, as
+Horovod's recipe does), the synthetic Markov token source, the chosen
+optimizer with global-norm clipping at 1.0, and the ``dp`` strategy
+(``distributed.stepfn.make_train_step``) at every world size: inside
+``hvd.init`` (NCCL on the card, gloo on the CPU; world size 1 without
+``torchrun``), each rank takes its rows of the global batch and the
+gradients are averaged by ``hvd.allreduce``.  Rank 0 prints the
+reference's step and summary lines, then step time, tokens/s, each
+kernel's launches per step, the gradient exchange's calls and bytes per
+step and, on the card, peak device memory.  The dense (qwen2-0.5b,
+gemma2-2b), ssm (mamba2-1.3b) and hybrid (zamba2-1.2b) families train.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --seq-len 1024 --global-batch 8 --steps 8
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \\
       --seq-len 1024 --global-batch 8 --steps 8
-  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
-      --seq-len 1024 --global-batch 8 --steps 8
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+      --arch qwen2-0.5b --smoke --strategy dp --device cpu --steps 4
 
 ``--device`` defaults to ``cuda`` and fails without a card; ``--device
-cpu`` runs the kernels' plain PyTorch versions.  Only the ``dp`` strategy
-on one device is ported; ``dp_tp`` and ``fsdp_tp`` wait for ROADMAP
-Queue 1 item 10.
+cpu`` runs the kernels' plain PyTorch versions.  ``dp_tp`` and
+``fsdp_tp`` shard the model and wait for ROADMAP Queue 1 item 6.
 """
 from __future__ import annotations
 
@@ -36,94 +43,127 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["dp", "dp_tp", "fsdp_tp"])
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--seq-len", type=int, default=128)
-    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--global-batch", type=int, default=8,
+                    help="global batch (split over the ranks)")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--optimizer", default="adamw",
                     choices=["adamw", "adam", "rmsprop", "sgd"])
-    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="rank 0 saves params and optimizer state here")
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--device", default="cuda",
-                    help="torch device (default cuda; 'cpu' runs the "
-                         "kernels' plain PyTorch versions)")
+                    help="torch device (default cuda, NCCL; 'cpu' runs the "
+                         "kernels' plain PyTorch versions on gloo)")
+    ap.add_argument("--dtype", default=None,
+                    choices=["bfloat16", "float32"],
+                    help="compute dtype (default: the config's)")
+    ap.add_argument("--init-method", default=None,
+                    help="the process group's store (default env:// under "
+                         "torchrun, a private file:// store alone)")
     return ap
 
 
 def main(argv=None) -> dict:
     """Runs the training loop; returns the run's numbers (losses, step
     seconds, tokens/s, ``launches_per_step``: {kernel: [launches in each
-    step]}, peak memory on a card)."""
+    step]}, ``collectives_per_step``: the calls and bytes this rank handed
+    the data group in each step, peak memory on a card) and its final
+    ``params``."""
     args = build_parser().parse_args(argv)
     if args.strategy != "dp":
         raise NotImplementedError(
             f"--strategy {args.strategy} shards the model over a mesh, which "
-            "is ported with sharded training (ROADMAP Queue 1 item 10)")
+            "is ported with sharded training (ROADMAP Queue 1 item 6)")
 
     import torch
+    import torch.distributed as dist
 
     from repro_torch import checkpoint as ck
     from repro_torch import optim
     from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core import hvd
     from repro_torch.data import SyntheticTokenSource, TokenDatasetSpec
     from repro_torch.distributed import stepfn
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.models import transformer as T
-    from repro_torch.serving.engine import resolve_device
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    device = resolve_device(args.device)
-    opt = optim.get(args.optimizer, args.lr, clip_norm=1.0)
-    print(f"arch={cfg.name} family={cfg.family} strategy={args.strategy} "
-          f"device={device} params~{cfg.param_count()/1e6:.1f}M")
+    if args.dtype:
+        cfg = cfg.with_(dtype=args.dtype)
+    with hvd.init(args.device, init_method=args.init_method) as device:
+        world_size, rank = dist.get_world_size(), dist.get_rank()
+        groups = hvd.axis_groups({"data": world_size})
+        lead = rank == 0
+        opt = optim.get(args.optimizer, args.lr, clip_norm=1.0)
+        if lead:
+            print(f"arch={cfg.name} family={cfg.family} "
+                  f"strategy={args.strategy} device={device} "
+                  f"world_size={world_size} backend={dist.get_backend()} "
+                  f"params~{cfg.param_count()/1e6:.1f}M")
 
-    params = T.init_params(cfg, torch.Generator().manual_seed(0),
-                           device=device, weight_dtype=torch.float32)
-    opt_state = opt.init(params)
-    step_fn = stepfn.make_train_step(cfg, opt, device=device)
-    source = SyntheticTokenSource(TokenDatasetSpec(
-        cfg.vocab_size, args.seq_len, args.global_batch))
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
+        params = hvd.broadcast(
+            T.init_params(cfg, torch.Generator().manual_seed(0),
+                          device=device, weight_dtype=torch.float32),
+            groups.world)
+        opt_state = opt.init(params)
+        step_fn = stepfn.make_train_step(cfg, opt, groups, device=device)
+        source = SyntheticTokenSource(TokenDatasetSpec(
+            cfg.vocab_size, args.seq_len, args.global_batch))
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
 
-    counters = {"flash_attention": fa.flash_attention,
-                "ssd_scan": ssd.ssd_scan, "rmsnorm": rn.rmsnorm}
-    losses, step_s = [], []
-    launches = {k: [] for k in counters}
-    t0 = time.time()
-    for i in range(args.steps):
-        t_step = time.perf_counter()
-        n0 = {k: f.launches for k, f in counters.items()}
-        params, opt_state, m = step_fn(params, opt_state, source.batch(i))
-        loss = float(m["loss"])             # waits for the step
-        step_s.append(time.perf_counter() - t_step)
-        for k, f in counters.items():
-            launches[k].append(f.launches - n0[k])
-        losses.append(loss)
-        if i % 5 == 0 or i == args.steps - 1:
-            print(f"step {i:4d}  loss {loss:.4f}")
-        if args.ckpt_dir and args.ckpt_every and (i + 1) % args.ckpt_every == 0:
-            ck.save(args.ckpt_dir, i + 1, {"params": params, "opt": opt_state})
-    print(f"{args.steps} steps in {time.time()-t0:.1f}s; "
-          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+        counters = {"flash_attention": fa.flash_attention,
+                    "ssd_scan": ssd.ssd_scan, "rmsnorm": rn.rmsnorm}
+        losses, step_s, per_step = [], [], []
+        launches = {k: [] for k in counters}
+        t0 = time.time()
+        for i in range(args.steps):
+            t_step = time.perf_counter()
+            n0 = {k: f.launches for k, f in counters.items()}
+            groups.reset_counts()
+            params, opt_state, m = step_fn(params, opt_state,
+                                           source.batch(i))
+            loss = float(m["loss"])             # waits for the step
+            step_s.append(time.perf_counter() - t_step)
+            calls, nbytes = groups.counts()[("data",)]
+            per_step.append({"calls": calls, "bytes": nbytes})
+            for k, f in counters.items():
+                launches[k].append(f.launches - n0[k])
+            losses.append(loss)
+            if lead and (i % 5 == 0 or i == args.steps - 1):
+                print(f"step {i:4d}  loss {loss:.4f}")
+            if (lead and args.ckpt_dir and args.ckpt_every
+                    and (i + 1) % args.ckpt_every == 0):
+                ck.save(args.ckpt_dir, i + 1,
+                        {"params": params, "opt": opt_state})
 
-    tokens = args.global_batch * args.seq_len
-    steady = step_s[1:] or step_s           # step 0 pays the kernel build
-    mean_s = sum(steady) / len(steady)
-    result = {"arch": cfg.name, "device": str(device), "losses": losses,
-              "step_s": step_s, "tokens_per_step": tokens,
-              "tokens_per_s": tokens / mean_s,
-              "launches_per_step": launches}
-    print(f"step time {mean_s * 1e3:.1f} ms (mean of steps "
-          f"{1 if len(step_s) > 1 else 0}-{len(step_s) - 1}); "
-          f"{result['tokens_per_s']:.0f} tokens/s; kernel launches per "
-          f"step {launches}")
-    if device.type == "cuda":
-        result["device_name"] = torch.cuda.get_device_name(device)
-        result["max_memory_allocated"] = torch.cuda.max_memory_allocated(
-            device)
-        print(f"peak device memory {result['max_memory_allocated'] / 2**30:.2f}"
-              f" GiB on {result['device_name']}")
+        tokens = args.global_batch * args.seq_len
+        steady = step_s[1:] or step_s           # step 0 pays the kernel build
+        mean_s = sum(steady) / len(steady)
+        result = {"arch": cfg.name, "device": str(device),
+                  "world_size": world_size, "backend": dist.get_backend(),
+                  "losses": losses, "step_s": step_s,
+                  "tokens_per_step": tokens, "tokens_per_s": tokens / mean_s,
+                  "launches_per_step": launches,
+                  "collectives_per_step": per_step, "params": params}
+        if lead:
+            print(f"{args.steps} steps in {time.time()-t0:.1f}s; "
+                  f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+            print(f"step time {mean_s * 1e3:.1f} ms (mean of steps "
+                  f"{1 if len(step_s) > 1 else 0}-{len(step_s) - 1}); "
+                  f"{result['tokens_per_s']:.0f} tokens/s; kernel launches "
+                  f"per step {launches}; data-group collectives per step "
+                  f"{per_step[-1]}")
+        if device.type == "cuda":
+            result["device_name"] = torch.cuda.get_device_name(device)
+            result["max_memory_allocated"] = torch.cuda.max_memory_allocated(
+                device)
+            if lead:
+                print(f"peak device memory "
+                      f"{result['max_memory_allocated'] / 2**30:.2f} GiB on "
+                      f"{result['device_name']}")
     return result
 
 

@@ -3,8 +3,8 @@ parallelism (the port of ``examples/train_3dgan.py``'s flow).
 
 The ~1.05 M-parameter 3-D convolutional ACGAN on synthetic CLIC
 calorimeter showers: each step a D step, then a G step, each through
-``hvd.make_train_step`` (``hvd.DistributedOptimizer``: gradients averaged
-by allreduce over the ``data`` axis, one rank per device), RMSProp with
+``hvd.make_train_step`` (gradients averaged by allreduce over the
+``data`` axis before the update, one rank per device), RMSProp with
 global-norm clipping at 1.0, D at half the G rate.  Each rank draws its
 shard of the global batch from ``CalorimeterSource(spec, batch, rank,
 world_size)``; z is the rank's rows of one global draw from a

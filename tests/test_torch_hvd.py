@@ -26,14 +26,13 @@ Tolerances:
   gradient allreduce's, plus one f32 of padding for an odd count.
 """
 import json
-import os
-import subprocess
-import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+
+from repro_torch.core import hvd
 
 ROOT = Path(__file__).resolve().parents[1]
 LOSS_RTOL = 1e-5
@@ -159,39 +158,13 @@ json.dump(res, open(os.path.join(out, f"train{rank}.json"), "w"))
 """ % {"d_lr": D_LR, "g_lr": G_LR}
 
 
-def _launch(prog: str, world: int, out: Path, *args: str,
-            timeout: float = 240.0) -> None:
-    """Run ``prog`` as ``world`` ranks joined by a file store in ``out``;
-    every rank must exit 0."""
-    store = f"file://{out / 'store'}"
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), WORLD_SIZE=str(world),
-               OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", prog, store, str(out), *args],
-        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), cwd=str(ROOT),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(world)]
-    errs = []
-    try:
-        for r, p in enumerate(procs):
-            _, err = p.communicate(timeout=timeout)
-            if p.returncode != 0:
-                errs.append(f"rank {r} exited {p.returncode}: {err[-3000:]}")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    assert not errs, "\n".join(errs)
-
-
 # ---------------------------------------------------------------------------
 # the collectives
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("world", [2, 4])
 def test_collectives_give_exact_values(world, tmp_path):
-    _launch(COLLECTIVES, world, tmp_path)
+    hvd.run_ranks(COLLECTIVES, world, tmp_path)
     res = [json.loads((tmp_path / f"coll{r}.json").read_text())
            for r in range(world)]
     a = np.arange(6, dtype=np.float32).reshape(2, 3)
@@ -297,7 +270,7 @@ def reference():
 
 def _train(reference, world, mode, out):
     np.savez(out / "init.npz", **reference["init"])
-    _launch(TRAINING, world, out, mode)
+    hvd.run_ranks(TRAINING, world, out, mode)
     res = [json.loads((out / f"train{r}.json").read_text())
            for r in range(world)]
     params = {run: [dict(np.load(out / f"{run}{r}.npz"))

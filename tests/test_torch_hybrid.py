@@ -161,6 +161,7 @@ def test_train_steps_match_reference(dtype):
     from repro_torch import bridge
     from repro_torch import optim as popt
     from repro_torch.configs import get_smoke_config as port_smoke_config
+    from repro_torch.core import hvd
     from repro_torch.distributed import stepfn as pstep
     cfg = get_smoke_config(ARCH).with_(dtype=dtype)
     pcfg = port_smoke_config(ARCH).with_(dtype=dtype)
@@ -173,15 +174,17 @@ def test_train_steps_match_reference(dtype):
         cfg, jo, make_host_mesh(), "dp", InputShape("t", SEQ, B, "train"))
     jp, js = params, jo.init(params)
     po = popt.adamw(1e-3, clip_norm=1.0)
-    pstep_fn = pstep.make_train_step(pcfg, po, device="cpu")
     pp = bridge.from_flat(_flat_np(params))
     ps = po.init(pp)
-    for i in range(3):
-        jp, js, jm = step(jp, js, _jb(src.batch(i)))
-        pp, ps, pm = pstep_fn(pp, ps, src.batch(i))
-        np.testing.assert_allclose(float(pm["loss"]), float(jm["loss"]),
-                                   rtol=LOSS_RTOL[dtype])
-        assert np.isfinite(float(pm["grad_norm"]))
+    with hvd.init("cpu"):
+        pstep_fn = pstep.make_train_step(
+            pcfg, po, hvd.axis_groups({"data": 1}), device="cpu")
+        for i in range(3):
+            jp, js, jm = step(jp, js, _jb(src.batch(i)))
+            pp, ps, pm = pstep_fn(pp, ps, src.batch(i))
+            np.testing.assert_allclose(float(pm["loss"]), float(jm["loss"]),
+                                       rtol=LOSS_RTOL[dtype])
+            assert np.isfinite(float(pm["grad_norm"]))
     if dtype == "float32":
         jf, pf = _flat_np(jp), bridge.to_flat(pp)
         for k in jf:

@@ -14,8 +14,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"]
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+        (ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_roots(path: Path):
@@ -31,6 +31,16 @@ def _imported_roots(path: Path):
 def test_port_imports_neither_jax_nor_the_reference():
     files = _port_files()
     assert len(files) > 20, files
+    names = {p.relative_to(ROOT).as_posix() for p in files}
+    assert {"src/repro_torch/core/registry.py",
+            "src/repro_torch/core/container.py",
+            "src/repro_torch/core/deploy.py",
+            "src/repro_torch/launch/slurm.py",
+            "src/repro_torch/benchmarks/container_overhead.py",
+            "src/repro_torch/benchmarks/allreduce_vs_ps.py",
+            "src/repro_torch/benchmarks/scaling.py",
+            "examples/torch_quickstart.py",
+            "examples/torch_deploy_supermuc.py"} <= names
     bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
            for p in files for line, mod in _imported_roots(p)
            if mod in FORBIDDEN]
@@ -92,3 +102,40 @@ def test_launcher_rejects_what_later_slices_port():
                         "--max-seq-len", "32"])
     assert not sched.engine.paged
     assert sched.metrics.summary()["requests_completed"] == 2
+
+
+@pytest.mark.parametrize("entry", ["quickstart", "deploy_supermuc",
+                                   "container_overhead", "allreduce_vs_ps",
+                                   "scaling"])
+def test_deployment_entry_points_default_to_cuda_and_refuse_without_a_card(
+        entry, tmp_path):
+    _no_card()
+    import importlib
+    import importlib.util
+    out = ["--out", str(tmp_path / "bench.json")]
+    if entry == "container_overhead":
+        from repro_torch.benchmarks import container_overhead as mod
+        argv = out + ["--smoke"]
+    elif entry in ("allreduce_vs_ps", "scaling"):
+        mod = importlib.import_module(f"repro_torch.benchmarks.{entry}")
+        argv = out + ["--ranks", "2"]
+    else:
+        spec = importlib.util.spec_from_file_location(
+            entry, ROOT / "examples" / f"torch_{entry}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        argv = ["--smoke"] if entry == "quickstart" else []
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(argv)
+    assert not (tmp_path / "bench.json").exists()
+
+
+def test_nccl_ranks_need_a_card_each(monkeypatch, tmp_path):
+    """``hvd.run_ranks`` on ``cuda`` refuses more ranks than cards before
+    it starts any, with a typed error."""
+    from repro_torch.core import hvd
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(hvd.DeviceCountError, match="2 NCCL ranks need 2"):
+        hvd.run_ranks("raise SystemExit(1)", 2, tmp_path, device="cuda")
+    assert not (tmp_path / "store").exists()
