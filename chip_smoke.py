@@ -41,6 +41,17 @@ Phases (any failure exits nonzero):
               key wider or narrower; decode with a split's partial left out
               of the combine, each row's newest key missed, a trash entry
               read unmasked, gemma2's window one key wider or narrower.
+              The f32 routes of both paged kernels at the same two shape
+              sets (the decode kernel's f32 instantiation and the
+              CUDA-core prefill kernel, each checked to be the one
+              launched) within 2^-14 (|P| @ |V|) / l + one f32 ulp, with
+              the same broken variants above that bound.  The flash
+              kernel's D tail (head dims padded to a multiple of 32 in
+              the wrapper, ``flash_attention.run_padded``) at gemma2-27b's
+              head layout (B 2, S 640, H 32, KV 16, D 144: CUDA cores) and
+              at D 80 (B 2, S 600, H 8, KV 2: tensor cores), output, lse
+              and gradients as above, and two broken D tails must fail
+              (the scale of the padded D, junk in the padded columns).
               The SSD scan at mamba2-1.3b shapes (b 2, S 1024, H 64, P 64,
               N 128, G 1, chunk 256) on what a fresh full-width layer feeds
               it, and with G = 2 and S = 1000 (not a chunk multiple)
@@ -101,7 +112,14 @@ Phases (any failure exits nonzero):
               8,192 x 896 f32 -> bf16; then at zamba2-1.2b's shapes: flash
               (8, 1024, 32, 64), the int8 kernel at its decode and B = 1
               replay shapes, the SSD scan at N 64 (b 8, also launch by
-              launch), RMSNorm at 8,192 x 2,048 f32 -> bf16;
+              launch), RMSNorm at 8,192 x 2,048 f32 -> bf16; then the
+              repaired routes as entries of their own: the f32 decode and
+              CUDA-core f32 prefill at the launcher's kernel-profile shapes
+              (``serving/profiling.py::paged_profile_cases``: 8 slots of
+              1,024, 513 pages, C = 8; bound with f32 flops at 67 TFLOP/s)
+              and the flash D tail at gemma2-27b's layout (B 2, S 2048, D
+              144), whose ``launches`` in the kernels line is the sum of
+              its own counter (``flash_d_tail``) over every path run;
 5. serving  — full-width qwen2-0.5b (random weights, seed 0), paged: (a)
               the port's launcher ``repro_torch.launch.serve.main``; (b)
               the scheduler and engine driven directly with 8 prompts of
@@ -215,7 +233,33 @@ Phases (any failure exits nonzero):
               gradient all_reduce timed with CUDA events; then
               ``benchmarks/container_overhead.run`` at the full 3DGAN,
               batch 64 (three bare and three capsule rounds of 50 D steps,
-              interleaved): its four rows and the peak device memory row.
+              interleaved): its four rows and the peak device memory row;
+17. the serving fleet, full-width qwen2-0.5b (random weights, seed 0,
+              paged, bf16): (a) the launcher ``--paged --replicas 3
+              --max-slots 8 --max-seq-len 1024 --requests 24 --max-new 32
+              --shared-prefix 256 --greedy --tenant a,b --slo-config ...
+              --metrics-out ... --metrics-interval-steps 8 --trace-out ...
+              --profile``: every request completes, the prefix's hash owner
+              hits its cache, the replicas share one set of weights, every
+              replica's two programs are captured once and never again,
+              each decode replay launches 24 paged-decode kernels (bf16)
+              and each prefill replay 24 tensor-core prefills, the counts
+              over the run are exactly replays x 24 plus the f32 kernel
+              profiles' launches (printed beside their bounds), and the
+              merged trace passes the schema; (b) failover: three engines
+              on one set of weights, ``replica1`` crashing at its step 4,
+              18 greedy requests of 256-896 prompt and 16-32 new tokens (12
+              before the crash): ``replica1`` DEAD, one failover, every
+              output token for token the fault-free run's on one replica,
+              the survivors leak nothing and capture nothing twice; (c)
+              ``repro_torch.benchmarks.fabric`` (three worker processes
+              sharing the card, one SIGKILLed mid-burst, outputs equal to
+              the parent's oracle), then a fault-free fabric burst with the
+              default health ladder and waits: no health transition, no
+              failover; (d) ``repro_torch.benchmarks.fault_tolerance`` at
+              its reference size.  Each part prints tokens/s, TTFT p50/p95,
+              the decode gap p95, recovery_wall_s, peak device memory and
+              its wall time.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -226,9 +270,11 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -308,10 +354,11 @@ def phase(name: str) -> None:
 # ---------------------------------------------------------------------------
 
 def decode_case(torch, rng, dev, *, B, KV, G, D, page, lengths, window=None,
-                softcap=None, garbage=True):
-    """Random decode inputs with ragged ``lengths``; each row owns its own
-    pages; entries past a row's extent name the trash page (the last) or,
-    with ``garbage``, out-of-range ids the kernel must clamp and mask."""
+                softcap=None, garbage=True, dtype="bfloat16"):
+    """Random decode inputs in ``dtype`` with ragged ``lengths``; each row
+    owns its own pages; entries past a row's extent name the trash page
+    (the last) or, with ``garbage``, out-of-range ids the kernel must clamp
+    and mask."""
     pps = max(1, -(-max(lengths) // page))
     NP = B * pps + 1
     tables = rng.permutation(NP - 1)[:B * pps].reshape(B, pps)
@@ -320,7 +367,8 @@ def decode_case(torch, rng, dev, *, B, KV, G, D, page, lengths, window=None,
         tables[b, used:] = NP - 1
         if garbage and used < pps:
             tables[b, pps - 1] = NP + 5 + b          # clamped, masked
-    mk = lambda *s: torch.tensor(rng.standard_normal(s), dtype=torch.bfloat16,
+    dt = getattr(torch, dtype)
+    mk = lambda *s: torch.tensor(rng.standard_normal(s), dtype=dt,
                                  device=dev)
     return dict(q=mk(B, KV, G, D), k_pages=mk(NP, page, KV, D),
                 v_pages=mk(NP, page, KV, D),
@@ -331,12 +379,13 @@ def decode_case(torch, rng, dev, *, B, KV, G, D, page, lengths, window=None,
 
 
 def prefill_case(torch, rng, dev, *, B, KV, G, D, page, C, starts, q_lens,
-                 window=None, softcap=None):
+                 window=None, softcap=None, dtype="bfloat16"):
     ends = [s + C for s in starts]
     case = decode_case(torch, rng, dev, B=B, KV=KV, G=G, D=D, page=page,
-                       lengths=ends, window=window, softcap=softcap)
+                       lengths=ends, window=window, softcap=softcap,
+                       dtype=dtype)
     case["q"] = torch.tensor(rng.standard_normal((B, KV, C * G, D)),
-                             dtype=torch.bfloat16, device=dev)
+                             dtype=getattr(torch, dtype), device=dev)
     case.pop("lengths")
     case["start_pos"] = torch.tensor(starts, dtype=torch.int32, device=dev)
     case["q_lens"] = torch.tensor(q_lens, dtype=torch.int32, device=dev)
@@ -418,40 +467,6 @@ def flash_cost(case):
     pairs = sum(min(t + 1, w) if w else t + 1 for t in range(S))
     nbytes = 2 * (B * S * H * D * 2) + 2 * (B * S * KV * D * 2) + B * H * S * 4
     return nbytes, 4 * B * H * D * pairs
-
-
-def decode_cost(case):
-    """(bytes, flops) the function needs for these inputs: q, the K and V
-    positions each row attends (window included), out; 4 flops per
-    (query head, position, dim)."""
-    B, KV, G, D = case["q"].shape
-    lens = case["lengths"].tolist()
-    w = case["window"]
-    pos = sum(min(n, w) if w else n for n in lens)
-    q_bytes = B * KV * G * D * 2
-    nbytes = 2 * q_bytes + pos * KV * D * 2 * 2 + B * 4 * (
-        1 + case["block_tables"].shape[1])
-    return nbytes, 4 * pos * KV * G * D
-
-
-def prefill_cost(case):
-    B, KV, CG, D = case["q"].shape
-    G = case["group"]
-    starts, qls = case["start_pos"].tolist(), case["q_lens"].tolist()
-    w = case["window"]
-    hist = attended = 0
-    for s, ql in zip(starts, qls):
-        if ql == 0:
-            continue
-        lo = max(0, s - w + 1) if w else 0
-        hist += s + ql - lo                      # positions read
-        for c in range(ql):
-            p = s + c
-            attended += p + 1 - (max(0, p - w + 1) if w else 0)
-    q_bytes = B * KV * CG * D * 2
-    nbytes = 2 * q_bytes + hist * KV * D * 2 * 2 + B * 4 * (
-        2 + case["block_tables"].shape[1])
-    return nbytes, 4 * attended * KV * G * D
 
 
 def int8_case(torch, rng, dev, *, Sq, H, KV, D, Skv, q_start, kv_len,
@@ -721,6 +736,29 @@ def flash_wrongs(torch, fa, ref, q, k, v, kw, tile: int = 64):
                                          rescale_l=False)[0])]
 
 
+def flash_pad_wrongs(torch, fa, q, k, v, kw):
+    """Broken D-tail paths of the flash wrapper (a head dim that is not a
+    multiple of 32 runs padded with zero columns, ``fa.run_padded``), as
+    the plain version run through the padding: [(what, () -> out)]."""
+    D = q.shape[-1]
+    Dp = fa.padded_head_dim(D)
+    g = torch.Generator(device=q.device).manual_seed(7)
+
+    def junk(t):
+        # the pad columns left as whatever memory held: N(0, 1)
+        pad = torch.randn(t.shape[:-1] + (Dp - D,), generator=g,
+                          device=t.device).to(t.dtype)
+        return torch.cat([t, pad], dim=-1)
+
+    return [("took the scale from the padded head dim",
+             lambda: fa.flash_attention_plain(
+                 q, k, v, scale=1.0 / math.sqrt(Dp), **kw)[0]),
+            ("left the padded columns of q and k unzeroed",
+             lambda: fa.flash_attention_plain(
+                 junk(q), junk(k), junk(v), scale=1.0 / math.sqrt(D),
+                 **kw)[0][..., :D])]
+
+
 def sm_count(pa, t) -> int:
     """The SMs the split plans size a call on ``t``'s device by."""
     return pa.device_sm_count(t.device) if t.is_cuda else pa.SM_COUNT
@@ -764,7 +802,8 @@ def decode_wrongs(torch, pa, ref, case):
     page, pps = kp.shape[1], tb.shape[1]
     plain = lambda lengths=ln, window=w: pa.paged_attention_plain(
         q, kp, vp, tb, lengths, window=window, softcap=sc)
-    per, splits = pa.split_plan(B, KV, pps, page, D, sm_count(pa, q))
+    per, splits = pa.split_plan(B, KV, pps, page, D, sm_count(pa, q),
+                                q.element_size())
     keep = drop_first_live(torch, [ref.paged_split_ranges(
         n, per, splits, page, pps, w) for n in ln.tolist()])
     out = [("dropped one split's partial from the combine",
@@ -872,8 +911,15 @@ def zero_counts(counters) -> None:
         fn.launches = 0
 
 
+PATH_COUNTS = []                # each path run's counts, read just after it
+
+
 def read_counts(counters) -> dict:
-    return {name: fn.launches for name, fn in counters.items()}
+    """The counts since ``zero_counts``, which every path run is driven
+    just after; kept in ``PATH_COUNTS`` as well."""
+    counts = {name: fn.launches for name, fn in counters.items()}
+    PATH_COUNTS.append(counts)
+    return counts
 
 
 HOST_AHEAD_CYCLES = 2_000_000  # ~1 ms of device spin after the flush
@@ -1427,6 +1473,269 @@ def deploy_phase(torch, counters, by_name, rms_paths, bare: dict) -> None:
     check(rows[0][1] > 0 and rows[1][1] > 0, "container overhead times")
 
 
+# ---------------------------------------------------------------------------
+# the fleet (phase 17)
+# ---------------------------------------------------------------------------
+
+def fleet_report(torch, gw, label: str, wall_s: float, dev,
+                 extra=None) -> dict:
+    """One line of a fleet part's numbers: tokens/s, TTFT p50/p95 over
+    every request the gateway's replicas served, the decode gap p95 (the
+    merge's conservative max), the peak device memory of this process and
+    the part's wall time."""
+    import numpy as np
+    tot = gw.stats()["totals"]
+    ttft = [t * 1e3 for rep in gw.replicas
+            for t in rep.scheduler.metrics.ttft_s()]
+    out = {"requests": tot["requests_completed"],
+           "new_tokens": tot["total_new_tokens"],
+           "tokens_per_s": tot["tokens_per_s"],
+           "ttft_ms_p50": float(np.percentile(ttft, 50)) if ttft else None,
+           "ttft_ms_p95": float(np.percentile(ttft, 95)) if ttft else None,
+           "decode_gap_ms_p95": tot["decode_gap_ms"]["p95"],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "wall_s": wall_s, **(extra or {})}
+    print(f"{label}: " + json.dumps(out), flush=True)
+    return out
+
+
+def fleet_phase(torch, dev, counters, by_name, rms_paths) -> dict:
+    """Phase 17: the serving fleet on the card (see the module docstring).
+    Returns the launch counts of part (a), the main path's launcher run."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serving import (FaultPlan, FaultSpec, LocalProcessBackend,
+                                     ReplicaGateway, Request, RequestFailed,
+                                     SamplingParams, Scheduler, ServingEngine,
+                                     launch_fabric_replicas, shutdown_fabric)
+    from repro_torch.serving.fabric import build_engine
+    from repro_torch.serving.health import DEAD
+    from repro_torch.serving.tracing import validate_event
+    from repro_torch.benchmarks import fabric as fabric_bench
+    from repro_torch.benchmarks import fault_tolerance as ft_bench
+
+    cfg = get_config("qwen2-0.5b")
+    L = cfg.num_layers
+    fleet = {}
+
+    # (a) the launcher: three full-width replicas behind the gateway
+    slo = OUT / "fleet_slo.json"
+    slo.write_text(json.dumps({"default": {"ttft_p95_ms": 30000.0},
+                               "tenants": {"b": {"gap_p95_ms": 1000.0}}}))
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    gw = launcher.main([
+        "--arch", "qwen2-0.5b", "--paged", "--replicas", "3",
+        "--max-slots", "8", "--max-seq-len", "1024", "--requests", "24",
+        "--max-new", "32", "--shared-prefix", "256", "--greedy",
+        "--tenant", "a,b", "--slo-config", str(slo),
+        "--metrics-out", str(OUT / "fleet_totals.json"),
+        "--metrics-interval-steps", "8",
+        "--metrics-json", str(OUT / "fleet_metrics.json"),
+        "--trace-out", str(OUT / "fleet_trace"), "--profile"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    print(f"(a) launcher, 3 replicas: kernel launches {launches}")
+    stats = json.loads((OUT / "fleet_metrics.json").read_text())
+    tot = json.loads((OUT / "fleet_totals.json").read_text())
+    check(tot["requests_completed"] == 24 and all(
+        len(gw.result(h)) == 32 for h in gw._requests),
+        "(a) not every request completed")
+    # the prefix's hash owner (the gateway's own rule) hits its cache
+    kv0 = gw.replicas[0].scheduler.engine.kv
+    head = np.asarray(launcher.make_prompts(cfg, 1, 256)[0][:kv0.block_size],
+                      np.int32)
+    owner = zlib.crc32(head.tobytes()) % len(gw.replicas)
+    owner_pc = gw.replicas[owner].scheduler.metrics.summary()["prefix_cache"]
+    print(f"(a) routed {[r.routed for r in gw.replicas]}; owner replica"
+          f"{owner} prefix cache {json.dumps(owner_pc)}")
+    check(owner_pc["hits"] > 0, "(a) no prefix hit on the owner replica")
+    dec = pre = 0
+    for rep in gw.replicas:
+        eng = rep.scheduler.engine
+        check_programs(eng, f"(a) {rep.name}", "prefill_paged",
+                       eng.prefill_batch * eng.prefill_chunk)
+        d, p = eng.programs["decode_step"], eng.programs["prefill_paged"]
+        # what one replay of this replica's programs launches
+        # (keyed by the wrappers' own names, as kernels/_build counts them)
+        check(d.launches.get("paged_attention") == L
+              and d.launches.get("decode_bf16") == L
+              and "decode_f32" not in d.launches
+              and p.launches.get("paged_prefill") == L
+              and p.launches.get("prefill_tensor_core") == L
+              and "prefill_cuda_core" not in p.launches,
+              f"(a) {rep.name}: launches a replay {d.launches} / "
+              f"{p.launches}")
+        dec += d.replays
+        pre += p.replays
+    profs = stats["kernel_profiles"]
+    n_prof = profs["paged_attention"]["reps"] + 1      # and the warm-up
+    want = {"decode_bf16": L * dec, "decode_f32": n_prof,
+            "paged_decode_attention": L * dec + n_prof,
+            "paged_prefill_tensor_core": L * pre,
+            "paged_prefill_cuda_core": n_prof,
+            "paged_prefill_attention": L * pre + n_prof,
+            "rmsnorm": (2 * L + 1) * (dec + pre),
+            "rmsnorm_one_pass": (2 * L + 1) * (dec + pre)}
+    got = {k: launches[k] for k in want}
+    check(got == want, f"(a) launches {got}, want {want} from {dec} decode "
+          f"and {pre} prefill replays over 3 replicas and the f32 profiles")
+    for name, prof in profs.items():
+        bound = max(prof["bytes_accessed"] / HBM_BYTES_PER_S,
+                    prof["flops"] / F32_FLOPS_PER_S) * 1e3
+        print(f"(a) kernel profile {name} (f32): {prof['wall_ms_median']:.4f}"
+              f" ms median of {prof['reps']}, bound {bound:.4f} ms "
+              f"({prof['bytes_accessed']:.0f} B, {prof['flops']:.0f} flop)")
+        check(prof["wall_ms_median"] > 0, f"(a) {name} profile not timed")
+    events = [json.loads(line) for line in (
+        OUT / "fleet_trace.jsonl").read_text().splitlines()]
+    bad = [e for e in events if validate_event(e) is not None]
+    check(events and not bad, f"(a) {len(bad)} trace events fail the schema")
+    check({e.get("replica") for e in events} == {"replica0", "replica1",
+                                                 "replica2"},
+          "(a) the merged trace lacks a replica")
+    fleet["launcher"] = fleet_report(torch, gw, "(a) launcher", wall, dev, {
+        "trace_events": len(events), "prefill_replays": pre,
+        "decode_replays": dec, "slo_breaches": tot.get("slo_breaches")})
+    for name in ("paged_decode_attention", "paged_prefill_attention"):
+        by_name[name]["launches"] += L * (dec if "decode" in name else pre)
+        by_name[name]["launches_per_part"].append(
+            L * (dec if "decode" in name else pre))
+    by_name["paged_decode_attention_f32"]["launches"] = launches["decode_f32"]
+    by_name["paged_prefill_attention_f32"]["launches"] = \
+        launches["paged_prefill_cuda_core"]
+    rms_paths["fleet"] = launches["rmsnorm"]
+    params = gw.replicas[0].scheduler.engine.params
+    check(all(rep.scheduler.engine.params["embed"]["table"].data_ptr()
+              == params["embed"]["table"].data_ptr() for rep in gw.replicas),
+          "(a) replicas do not share weights")
+    del gw
+    torch.cuda.empty_cache()
+
+    # (b) failover at full width: replica1 of three crashes at its step 4
+    rs = np.random.default_rng(17)
+    reqs = [Request(rs.integers(0, cfg.vocab_size, int(rs.integers(256, 897)),
+                                dtype=np.int32),
+                    SamplingParams(max_new_tokens=int(rs.integers(16, 33)),
+                                   greedy=True)) for _ in range(18)]
+    ekw = dict(max_seq_len=1024, max_slots=8, paged=True,
+               greedy_tie_eps=1e-2, device=dev)
+    oracle = Scheduler(ServingEngine(cfg, params, **ekw))
+    orids = [oracle.submit(r) for r in reqs]
+    oracle.run()
+    want_out = [oracle.output(r).tolist() for r in orids]
+    del oracle
+    torch.cuda.reset_peak_memory_stats(dev)
+    plan = FaultPlan([FaultSpec(kind="crash", replica="replica1", at_step=4)])
+    gw = ReplicaGateway.from_engines(
+        [ServingEngine(cfg, params, **ekw) for _ in range(3)],
+        tracing=True, fault_plan=plan)
+    t0 = time.perf_counter()
+    handles = [gw.submit(r) for r in reqs[:12]]
+    for _ in range(6):                     # let the crash land mid-burst
+        gw.step()
+    handles += [gw.submit(r) for r in reqs[12:]]
+    gw.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    outs = [gw.result(h) for h in handles]
+    check(not any(isinstance(o, RequestFailed) for o in outs),
+          "(b) a request failed")
+    check(gw.health[1].state == DEAD and gw.failovers == 1,
+          f"(b) health {[m.state for m in gw.health]}, failovers "
+          f"{gw.failovers}")
+    same = [o.tolist() == w for o, w in zip(outs, want_out)]
+    check(all(same), f"(b) {same.count(False)} output(s) differ from the "
+          "fault-free run")
+    for i in (0, 2):
+        rep = gw.replicas[i]
+        check_no_leaks(rep.scheduler, f"(b) {rep.name}")
+        check_programs(rep.scheduler.engine, f"(b) {rep.name}",
+                       "prefill_paged", 64)
+    events = gw.trace_events()
+    fo = next(e["ts"] for e in events if e["kind"] == "replica_failover")
+    retried = {(e["replica"], e["rid"]) for e in events
+               if e["kind"] == "replica_retry"}
+    recovery = max((e["ts"] for e in events if e["kind"] == "retire"
+                    and (e["replica"], e["rid"]) in retried),
+                   default=fo) - fo
+    fleet["failover"] = fleet_report(torch, gw, "(b) failover", wall, dev, {
+        "recovery_wall_s": recovery, "retried": len(retried),
+        "prompt_lens": [len(r.prompt) for r in reqs]})
+    del gw, params
+    torch.cuda.empty_cache()
+
+    # (c) the fabric: three worker processes share the card
+    t0 = time.perf_counter()
+    rows = fabric_bench.run(quick=True, out_path=str(OUT / "fabric.json"),
+                            device="cuda",
+                            trace_out=str(OUT / "fabric_trace.jsonl"))
+    rec = json.loads((OUT / "fabric.json").read_text())
+    print("(c) " + "; ".join(f"{n}: {d}" for n, _, d in rows))
+    check(rec["bit_identical_outputs"] and rec["failed_requests"] == 0
+          and rec["requests_completed"] == rec["n_requests"],
+          "(c) the fabric lost or changed a request")
+    fleet["fabric_kill"] = dict(
+        {k: rec[k] for k in ("requests_completed", "failovers", "wall_s",
+                             "boot_wall_s", "recovery_wall_s")},
+        phase_wall_s=time.perf_counter() - t0)
+    print("(c) fabric with a SIGKILL: " + json.dumps(fleet["fabric_kill"]),
+          flush=True)
+    # a fault-free burst with the default health ladder and waits: no
+    # transition and no failover (a capture longer than a step's wait
+    # would read as a wedged worker)
+    spool = OUT / "fleet_spool"
+    shutil.rmtree(spool, ignore_errors=True)
+    oracle_eng = build_engine(None)
+    freqs = fabric_bench._workload(oracle_eng.cfg.vocab_size, 12)
+    oracle = Scheduler(oracle_eng)
+    orids = [oracle.submit(r) for r in freqs]
+    oracle.run()
+    fwant = [oracle.output(r).tolist() for r in orids]
+    del oracle, oracle_eng
+    backend = LocalProcessBackend()
+    gw = launch_fabric_replicas(3, backend, spool, tracing=True)
+    try:
+        boot = fabric_bench.wait_for_workers(gw)
+        t0 = time.perf_counter()
+        handles = [gw.submit(r) for r in freqs]
+        gw.drain()
+        wall = time.perf_counter() - t0
+        st = gw.stats()["fleet"]
+        trans = {n: h["transitions"] for n, h in st["health"].items()}
+        check(all(v == 0 for v in trans.values()) and st["failovers"] == 0,
+              f"(c) fault-free burst: transitions {trans}, failovers "
+              f"{st['failovers']}")
+        check([gw.result(h).tolist() for h in handles] == fwant,
+              "(c) fault-free fabric outputs differ from the oracle")
+        fleet["fabric_clean"] = fleet_report(
+            torch, gw, "(c) fabric, fault-free", wall, dev,
+            {"boot_wall_s": boot, "transitions": trans})
+    finally:
+        shutdown_fabric(gw)
+    check(all(p.poll() is not None for p in backend.procs.values()),
+          "(c) a worker process outlived the shutdown")
+
+    # (d) the fault-tolerance benchmark at its reference size
+    t0 = time.perf_counter()
+    rows = ft_bench.run(quick=True, out_path=str(OUT / "faults.json"),
+                        device="cuda",
+                        trace_out=str(OUT / "faults_trace.jsonl"))
+    rec = json.loads((OUT / "faults.json").read_text())
+    check(rec["bit_identical_outputs"] and rec["failed_requests"] == 0,
+          "(d) the fault-tolerance benchmark lost or changed a request")
+    fleet["fault_tolerance"] = dict(
+        {k: rec[k] for k in ("requests_completed", "failovers", "wall_s",
+                             "recovery_wall_s", "salvage_success_rate")},
+        phase_wall_s=time.perf_counter() - t0)
+    print("(d) fault tolerance: " + json.dumps(fleet["fault_tolerance"]),
+          flush=True)
+    return fleet
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1755,12 +2064,15 @@ def main() -> int:
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels.ref import attention_int8kv_ref
     counters = {"paged_decode_attention": pa.paged_attention,
+                "decode_bf16": pa.DTYPE_LAUNCHES[torch.bfloat16],
+                "decode_f32": pa.DTYPE_LAUNCHES[torch.float32],
                 "paged_prefill_attention": pp.paged_prefill,
                 "paged_prefill_tensor_core": pp.prefill_tensor_core,
                 "paged_prefill_cuda_core": pp.prefill_cuda_core,
                 "flash_attention": fa.flash_attention,
                 "flash_attention_tensor_core": fa.flash_fwd_tensor_core,
                 "flash_attention_cuda_core": fa.flash_fwd_cuda_core,
+                "flash_attention_d_tail": fa.flash_d_tail,
                 "flash_attention_int8kv": fa.flash_attention_int8kv,
                 "ssd_scan": ssd.ssd_scan,
                 "ssd_tensor_core": ssd.ssd_tensor_core,
@@ -1852,12 +2164,84 @@ def main() -> int:
             check(miss > 1.0, f"the prefill check misses a kernel that {what}")
         del pc_, got, ref_, mix
 
+    # the f32 routes of both paged kernels (the launcher's kernel profiles
+    # run them): the decode kernel's f32 instantiation and the CUDA-core
+    # prefill kernel, each checked to be the one launched, element by
+    # element within 2^-14 (|P| @ |V|) / l + one f32 ulp of the plain
+    # output, and the broken variants above it
+    for label, s in shape_sets.items():
+        dc = decode_case(torch, rng, dev, B=len(s["lengths"]), KV=s["KV"],
+                         G=s["G"], D=s["D"], page=s["page"],
+                         lengths=s["lengths"], window=s["window"],
+                         softcap=s["softcap"], dtype="float32")
+        n32 = counters["decode_f32"].launches
+        got = pa.paged_attention(*decode_args(dc), window=dc["window"],
+                                 softcap=dc["softcap"])
+        torch.cuda.synchronize()
+        check(counters["decode_f32"].launches == n32 + 1
+              and got.dtype == torch.float32,
+              f"the f32 decode call at {label} missed the f32 kernel")
+        ref_, mix = decode_bound(pa, dc)
+        err = (got - ref_).abs().max().item()
+        ratio = kref.rounding_bound_ratio(got, ref_, mix, pa.P_ROUNDING)
+        print(f"decode  {label} f32: max_abs_err {err:.3e}; max |err| / "
+              f"bound {ratio:.3e} (bound 2^-14 (|P| @ |V|) / l + 2^-23 "
+              f"|plain|, fails above 1)")
+        check(ratio <= 1.0, f"f32 decode kernel disagrees at {label}")
+        worst["paged_decode_attention_f32"] = max(
+            worst.get("paged_decode_attention_f32", 0.0), err)
+        for what, wrong in decode_wrongs(torch, pa, kref, dc):
+            miss = kref.rounding_bound_ratio(wrong(), ref_, mix,
+                                             pa.P_ROUNDING)
+            print(f"decode  {label} f32: a kernel that {what} would read "
+                  f"{miss:.3e}")
+            check(miss > 1.0, f"the f32 decode check misses a kernel that "
+                  f"{what}")
+        del dc, got, ref_, mix
+        pc_ = prefill_case(torch, rng, dev, B=len(s["starts"]), KV=s["KV"],
+                           G=s["G"], D=s["D"], page=s["page"], C=s["C"],
+                           starts=s["starts"], q_lens=s["q_lens"],
+                           window=s["window"], softcap=s["softcap"],
+                           dtype="float32")
+        kw = dict(group=pc_["group"], window=pc_["window"],
+                  softcap=pc_["softcap"])
+        n_cc = pp.prefill_cuda_core.launches
+        got = pp.paged_prefill(*prefill_args(pc_), **kw)
+        torch.cuda.synchronize()
+        check(pp.prefill_cuda_core.launches == n_cc + 1
+              and got.dtype == torch.float32,
+              f"the f32 prefill call at {label} missed the CUDA-core kernel")
+        ref_, mix, p_rel = prefill_bound(pp, pc_)
+        err = (got - ref_).abs().max().item()
+        ratio = kref.rounding_bound_ratio(got, ref_, mix, p_rel)
+        pad_ok = padding_rows_zero(got, pc_)
+        print(f"prefill {label} f32 (CUDA cores): max_abs_err {err:.3e}; "
+              f"max |err| / bound {ratio:.3e} (bound 2^"
+              f"{int(math.log2(p_rel))} (|P| @ |V|) / l + 2^-23 |plain|, "
+              f"fails above 1); padding rows zeros: {pad_ok}")
+        check(p_rel == 2.0 ** -14 and ratio <= 1.0 and pad_ok,
+              f"f32 prefill kernel disagrees at {label}")
+        worst["paged_prefill_attention_f32"] = max(
+            worst.get("paged_prefill_attention_f32", 0.0), err)
+        for what, wrong in prefill_wrongs(torch, pa, pp, kref, pc_):
+            miss = kref.rounding_bound_ratio(wrong(), ref_, mix, p_rel)
+            print(f"prefill {label} f32: a kernel that {what} would read "
+                  f"{miss:.3e}")
+            check(miss > 1.0, f"the f32 prefill check misses a kernel that "
+                  f"{what}")
+        del pc_, got, ref_, mix
+
     flash_sets = {
         "qwen2-0.5b": dict(B=8, S=1024, H=14, KV=2, D=64),
         "gemma2-2b": dict(B=1, S=4150, H=8, KV=4, D=288, window=4096,
                           softcap=50.0),
         # zamba2-1.2b's shared block in training: MHA, G = 1
         "zamba2-1.2b": dict(B=8, S=1024, H=32, KV=32, D=64),
+        # head dims that are not multiples of 32 run padded (the D tail):
+        # gemma2-27b's head layout (D 144, to 160: CUDA cores) and D 80 (to
+        # 96: tensor cores)
+        "gemma2-27b D 144": dict(B=2, S=640, H=32, KV=16, D=144),
+        "D 80": dict(B=2, S=600, H=8, KV=2, D=80),
     }
     for label, s in flash_sets.items():
         fc = flash_case(torch, rng, dev, **s)
@@ -1892,11 +2276,16 @@ def main() -> int:
               f"flash kernel disagrees at {label} shapes")
         check(max(gerr) <= GRAD_TOL,
               f"flash gradients disagree at {label} shapes")
-        worst["flash_attention"] = max(worst.get("flash_attention", 0.0), err)
+        key = ("flash_attention_d_tail" if s["D"] % 32
+               else "flash_attention")
+        worst[key] = max(worst.get(key, 0.0), err)
         del ins, got, want, out, lse, ref_lse
         # the check's power: broken flash kernels, as plain versions on
         # changed inputs, must each fail it
-        for what, wrong in flash_wrongs(torch, fa, kref, *qkv, kw):
+        wrongs = flash_wrongs(torch, fa, kref, *qkv, kw)
+        if s["D"] % 32:
+            wrongs += flash_pad_wrongs(torch, fa, *qkv, kw)
+        for what, wrong in wrongs:
             miss = kref.rounding_bound_ratio(wrong(), ref, mix, p_rel)
             print(f"flash   {label}: a kernel that {what} would read "
                   f"{miss:.3e}")
@@ -2196,6 +2585,7 @@ def main() -> int:
 
     # 4. times at the main path's shapes -----------------------------------
     phase("times")
+    from repro_torch.serving.profiling import decode_cost, prefill_cost
     flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device=dev)
     dcase = decode_case(torch, rng, dev, B=8, KV=2, G=7, D=64, page=16,
                         lengths=[512, 704, 896, 1088, 1280, 1472, 1664, 2048],
@@ -2512,6 +2902,90 @@ def main() -> int:
     del zf, zfa, zs, zsa, zn, zgain, zcases, case
     torch.cuda.empty_cache()
 
+    # the repaired routes as kernels of their own: the f32 decode and
+    # CUDA-core f32 prefill at the shapes the launcher's kernel profiles
+    # give them (phase 17's engine: 8 slots of 1,024 positions, page 16,
+    # 513 pages, qwen2-0.5b's heads; ``profiling.paged_profile_cases``), and
+    # the flash D tail at gemma2-27b's head layout (D 144, padded to 160),
+    # each checked as in phase 3 and timed beside its plain version, its
+    # library call (gather + SDPA in f32; SDPA) and its bound (f32 flops at
+    # 67 TFLOP/s, bf16 at 989)
+    from repro_torch.serving.profiling import paged_profile_cases
+    prof_cases = paged_profile_cases(
+        slots=8, num_blocks=512, page=16, blocks_per_slot=64,
+        max_seq_len=1024, num_heads=14, num_kv_heads=2, head_dim=64,
+        device=dev)
+    d32, p32 = prof_cases["paged_attention"], prof_cases["paged_prefill"]
+    d32a, p32a = decode_args(d32), prefill_args(p32)
+    p32kw = dict(group=p32["group"])
+    tf = flash_case(torch, rng, dev, B=2, S=2048, H=32, KV=16, D=144)
+    tfa = (tf["q"], tf["k"], tf["v"])
+
+    def d32_ok(got, want):
+        return kref.rounding_bound_ratio(got, want, decode_bound(pa, d32)[1],
+                                         pa.P_ROUNDING) <= 1.0
+
+    def p32_ok(got, want):
+        _, mix, p_rel = prefill_bound(pp, p32)
+        return (kref.rounding_bound_ratio(got, want, mix, p_rel) <= 1.0
+                and padding_rows_zero(got, p32))
+
+    def tf_ok(got, want):
+        _, mix, p_rel = flash_bound(fa, *tfa, tf["kw"])
+        return kref.rounding_bound_ratio(got, want, mix, p_rel) <= 1.0
+
+    for kname, what, fn, plain, lib, cost, case, ok_of, peak, src, tpu in (
+            ("paged_decode_attention_f32",
+             "q (8, 2, 7, 64) f32, pages (513, 16, 2, 64), lengths 1024",
+             lambda: pa.paged_attention(*d32a),
+             lambda: pa.paged_attention_plain(*d32a),
+             lambda: library_decode(torch, F, d32), decode_cost, d32, d32_ok,
+             F32_FLOPS_PER_S, "src/repro_torch/kernels/csrc/paged_attention.cu",
+             "src/repro/kernels/paged_attention.py:97"),
+            ("paged_prefill_attention_f32",
+             "q (8, 2, 8*7, 64) f32, C = 8, starts 0, pages (513, 16, 2, 64)",
+             lambda: pp.paged_prefill(*p32a, **p32kw),
+             lambda: pp.paged_prefill_plain(*p32a, **p32kw),
+             lambda: library_prefill(torch, F, p32), prefill_cost, p32,
+             p32_ok, F32_FLOPS_PER_S,
+             "src/repro_torch/kernels/csrc/paged_prefill.cu",
+             "src/repro/kernels/paged_prefill.py:111"),
+            ("flash_attention_d_tail",
+             "q (2, 2048, 32, 144), k/v (2, 2048, 16, 144) bf16, causal "
+             "(padded to D 160: CUDA cores)",
+             lambda: fa.flash_attention(*tfa)[0],
+             lambda: fa.flash_attention_plain(*tfa)[0],
+             lambda: library_flash(torch, F, tf), flash_cost, tf, tf_ok,
+             BF16_FLOPS_PER_S, "src/repro_torch/kernels/flash_attention.py "
+             "(run_padded) + csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:203")):
+        want, got = plain(), fn()
+        err = (got.float() - want.float()).abs().max().item()
+        check(ok_of(got, want), f"{kname} disagrees at {what}")
+        del want, got
+        nbytes, flops = cost(case)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_flops = flops / peak * 1e3
+        entry = {"name": kname, "route": "cuda", "source": src,
+                 "replaces": tpu, "tpu_kernel": tpu, "launches": 0,
+                 "max_abs_err": max(err, worst.get(kname, 0.0)),
+                 "ms": time_ms(torch, fn, flush),
+                 "plain_ms": time_ms(torch, plain, flush, reps=5),
+                 "bound_ms": max(t_bytes, t_flops),
+                 "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+                 "library_ms": time_ms(torch, lib, flush), "bytes": nbytes,
+                 "flops": flops, "shapes": what}
+        entry["kernel_ms"] = entry["ms"]
+        kernels.append(entry)
+        by_name[kname] = entry
+        print(f"{kname} at {what}: kernel {entry['ms']:.4f} ms, plain "
+              f"{entry['plain_ms']:.4f} ms, library "
+              f"{entry['library_ms']:.4f} ms, bound {entry['bound_ms']:.5f} "
+              f"ms by {entry['bound_by']} ({nbytes} B, {flops} flop)",
+              flush=True)
+    del prof_cases, d32, p32, d32a, p32a, tf, tfa
+    torch.cuda.empty_cache()
+
     # 5. serving at full width ---------------------------------------------
     phase("serving qwen2-0.5b, full width")
     from repro_torch.configs import get_config
@@ -2526,7 +3000,8 @@ def main() -> int:
         "--max-seq-len", "2048", "--prefill-batch", "4",
         "--prefill-token-budget", "512", "--prefix-cache-blocks", "256",
         "--shared-prefix", "256", "--requests", "12", "--max-new", "32",
-        "--greedy", "--metrics-json", str(OUT / "serve_metrics.json")])
+        "--greedy", "--metrics-json", str(OUT / "serve_metrics.json")
+    ]).replicas[0].scheduler            # one replica behind the gateway
     torch.cuda.synchronize()
     launches_a = read_counts(counters)
     print(f"(a) launcher: kernel launches {launches_a}")
@@ -3014,6 +3489,22 @@ def main() -> int:
     # 16. the paper's deployment path on the card ----------------------------
     phase("deployment on the card: the PyTorch capsule")
     deploy_phase(torch, counters, by_name, rms_paths, qwen2_bare)
+
+    # 17. the serving fleet -------------------------------------------------
+    phase("the serving fleet: gateway, failover, fabric, qwen2-0.5b")
+    t17 = time.perf_counter()
+    fleet = fleet_phase(torch, dev, counters, by_name, rms_paths)
+    by_name["rmsnorm"]["launches"] = sum(rms_paths.values())
+    print(f"fleet phase {time.perf_counter() - t17:.1f} s: "
+          + json.dumps(fleet), flush=True)
+
+    # the D tail's launches over every path run (each zeroed just before
+    # it): no ported config has a head dim that is not a multiple of 32
+    tail = by_name["flash_attention_d_tail"]
+    tail["launches"] = sum(c["flash_attention_d_tail"] for c in PATH_COUNTS)
+    tail["path_runs"] = len(PATH_COUNTS)
+    print(f"flash D-tail launches over {len(PATH_COUNTS)} path runs: "
+          f"{tail['launches']}", flush=True)
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -195,7 +195,7 @@ def main() -> int:
     runs = []
     for i in range(args.runs + 1):
         with contextlib.redirect_stdout(io.StringIO()):
-            sched = serve.main(argv)
+            sched = serve.main(argv).replicas[0].scheduler
         summ = sched.metrics.summary()
         dg = summ.get("decode_gap_ms", {})
         run = {"tokens_per_s": summ["tokens_per_s"],

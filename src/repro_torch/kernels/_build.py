@@ -37,6 +37,7 @@ import shutil
 import subprocess
 import threading
 import time
+import types
 from pathlib import Path
 from typing import Callable, Dict, Optional
 
@@ -146,6 +147,13 @@ def counted(fn: Callable) -> Callable:
     fn.launches = 0
     counters[fn.__name__] = fn
     return fn
+
+
+def counter(name: str):
+    """Register a launch counter that belongs to no wrapper of its own (a
+    wrapper that counts each of its kernel's instantiations apart):
+    ``counter(name).launches`` starts at 0, listed under ``name``."""
+    return counted(types.SimpleNamespace(__name__=name))
 
 
 def launch_counts() -> Dict[str, int]:

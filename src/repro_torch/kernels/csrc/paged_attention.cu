@@ -57,6 +57,16 @@
 // P, the sums and the combine in f32 (no bf16 rounding of P); only the
 // output is rounded to bf16.  D must be a multiple of 8 (16-byte copies)
 // and at most 288; page at most 32.
+//
+// f32 (paged_decode_f32): the same two kernels, instantiated on the element
+// type T (Elem<T> below).  A 16-byte copy then holds 4 elements, not 8: a
+// lane of the score pass dots 4 dims of a key per step (one float4 of q,
+// where bf16 takes two), K/V tiles take 4 bytes an element, and the host's
+// split plan sizes a split by the element's bytes (paged_attention.py
+// split_plan, elem_bytes), so the same 48 KB of K and V a split holds half
+// the pages.  Nothing is rounded but the output, which the combine writes
+// in f32.  The work is the same and still bound by bytes, now twice as
+// many a position.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,6 +82,44 @@ constexpr int THREADS = 128;           // 4 warps
 constexpr int NW = THREADS / 32;
 constexpr int GB = 8;                  // query heads per pass of the loops
 
+// What the kernels need of an element type: how many fit in a 16-byte
+// copy, and the f32 values of one such chunk and of one pair.
+template <typename T> struct Elem;
+template <> struct Elem<__nv_bfloat16> {
+  static constexpr int PER16 = 8;
+  __device__ static __forceinline__ float to_f(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+  }
+  __device__ static __forceinline__ void chunk(const __nv_bfloat16* p,
+                                               float* f) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* kp = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 x = __bfloat1622float2(kp[e]);
+      f[2 * e] = x.x;
+      f[2 * e + 1] = x.y;
+    }
+  }
+  __device__ static __forceinline__ float2 pair(const __nv_bfloat16* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+};
+template <> struct Elem<float> {
+  static constexpr int PER16 = 4;
+  __device__ static __forceinline__ float to_f(float x) { return x; }
+  __device__ static __forceinline__ void chunk(const float* p, float* f) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    f[0] = x.x;
+    f[1] = x.y;
+    f[2] = x.z;
+    f[3] = x.w;
+  }
+  __device__ static __forceinline__ float2 pair(const float* p) {
+    return *reinterpret_cast<const float2*>(p);
+  }
+};
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
@@ -86,29 +134,34 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// Shared memory of one split block, in bytes: K and V (keys x D bf16 each),
-// q (G x D f32), scores (G x keys f32), the 4 warps' P V sums (4 x G x D
-// f32) and (m, l) per head.
-__host__ __device__ inline int split_smem_bytes(int G, int D, int keys) {
-  return 4 * keys * D + 4 * (G * D + G * keys + NW * G * D + 2 * G);
+// Shared memory of one split block, in bytes: K and V (keys x D elements
+// of `esize` bytes each), q (G x D f32), scores (G x keys f32), the 4
+// warps' P V sums (4 x G x D f32) and (m, l) per head.
+__host__ __device__ inline int split_smem_bytes(int G, int D, int keys,
+                                                int esize) {
+  return 2 * esize * keys * D + 4 * (G * D + G * keys + NW * G * D + 2 * G);
 }
 
-// NPR: output dim pairs per lane in the P V pass, ceil(D / 64).
-template <int NPR>
+// T: the element type of q, K and V (bf16 or f32); NPR: output dim pairs
+// per lane in the P V pass, ceil(D / 64).
+template <typename T, int NPR>
 __global__ void __launch_bounds__(THREADS) paged_decode_split_kernel(
-    const __nv_bfloat16* __restrict__ q,        // (B, KV, G, D)
-    const __nv_bfloat16* __restrict__ k_pages,  // (NP, page, KV, D)
-    const __nv_bfloat16* __restrict__ v_pages,  // (NP, page, KV, D)
+    const T* __restrict__ q,                    // (B, KV, G, D)
+    const T* __restrict__ k_pages,              // (NP, page, KV, D)
+    const T* __restrict__ v_pages,              // (NP, page, KV, D)
     const int* __restrict__ tables,             // (B, pps)
     const int* __restrict__ lengths,            // (B,)
     float* __restrict__ part_ml,                // (B, KV, splits, G, 2)
     float* __restrict__ part_acc,               // (B, KV, splits, G, D)
     int KV, int G, int D, int NP, int page, int pps, int pages_per_split,
     float scale, int window, float softcap) {
+  using E = Elem<T>;
+  constexpr int PER16 = E::PER16;              // elements a 16-byte copy
+  constexpr int HALVES = PER16 / 4;            // float4s of q a chunk
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int keys_max = pages_per_split * page;
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* v_s = k_s + keys_max * D;
+  T* k_s = reinterpret_cast<T*>(smem_raw);
+  T* v_s = k_s + keys_max * D;
   float* q_s = reinterpret_cast<float*>(v_s + keys_max * D);   // G x D
   float* s_s = q_s + G * D;                    // G x keys_max
   float* red = s_s + G * keys_max;             // NW x G x D
@@ -138,31 +191,31 @@ __global__ void __launch_bounds__(THREADS) paged_decode_split_kernel(
     return;
   }
   const int n_keys = (p_hi - p_lo + 1) * page;
-  const int CH = D >> 3;                       // 16-byte chunks per key row
+  const int CH = D / PER16;                    // 16-byte chunks per key row
 
   // all K pages of the range, then all V pages: two cp.async groups
   for (int pass = 0; pass < 2; ++pass) {
-    const __nv_bfloat16* src = pass == 0 ? k_pages : v_pages;
-    __nv_bfloat16* dst = pass == 0 ? k_s : v_s;
+    const T* src = pass == 0 ? k_pages : v_pages;
+    T* dst = pass == 0 ? k_s : v_s;
     for (int i = tid; i < n_keys * CH; i += THREADS) {
       const int t = i / CH, c = i - t * CH;
       const int pg = p_lo + t / page, tok = t - (t / page) * page;
       int blk = tables[(size_t)b * pps + pg];
       blk = blk < 0 ? 0 : (blk > NP - 1 ? NP - 1 : blk);
-      cp_async16(smem_u32(dst + t * D + c * 8),
-                 src + (((size_t)blk * page + tok) * KV + h) * D + c * 8);
+      cp_async16(smem_u32(dst + t * D + c * PER16),
+                 src + (((size_t)blk * page + tok) * KV + h) * D + c * PER16);
     }
     cp_async_commit();
   }
 
-  // q in f32, chunk-major: element (g, c * 8 + e) at
-  // ((g * 2 + e / 4) * CH + c) * 4 + e % 4, so lanes reading chunks c..c+7
-  // of one half read 128 contiguous bytes
-  const __nv_bfloat16* qb = q + (size_t)(b * KV + h) * G * D;
+  // q in f32, chunk-major: element (g, c * PER16 + e) at
+  // ((g * HALVES + e / 4) * CH + c) * 4 + e % 4, so lanes reading chunks
+  // c..c+7 of one float4 column read 128 contiguous bytes
+  const T* qb = q + (size_t)(b * KV + h) * G * D;
   for (int i = tid; i < G * D; i += THREADS) {
     const int g = i / D, d = i - g * D;
-    const int c = d >> 3, e = d & 7;
-    q_s[((g * 2 + (e >> 2)) * CH + c) * 4 + (e & 3)] = __bfloat162float(qb[i]);
+    const int c = d / PER16, e = d - c * PER16;
+    q_s[((g * HALVES + (e >> 2)) * CH + c) * 4 + (e & 3)] = E::to_f(qb[i]);
   }
   cp_async_wait<1>();                          // K landed
   __syncthreads();
@@ -179,32 +232,21 @@ __global__ void __launch_bounds__(THREADS) paged_decode_split_kernel(
       for (int gi = 0; gi < GB; ++gi) acc[gi] = 0.0f;
       if (valid) {
         for (int c = l8; c < CH; c += 8) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(k_s + t * D + c * 8);
-          const __nv_bfloat162* kp =
-              reinterpret_cast<const __nv_bfloat162*>(&raw);
-          float kf[8];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 f = __bfloat1622float2(kp[e]);
-            kf[2 * e] = f.x;
-            kf[2 * e + 1] = f.y;
-          }
+          float kf[PER16];
+          E::chunk(k_s + t * D + c * PER16, kf);
 #pragma unroll
           for (int gi = 0; gi < GB; ++gi) {
             if (g0 + gi < G) {
-              const float4 a = *reinterpret_cast<const float4*>(
-                  q_s + (((g0 + gi) * 2) * CH + c) * 4);
-              const float4 bq = *reinterpret_cast<const float4*>(
-                  q_s + (((g0 + gi) * 2 + 1) * CH + c) * 4);
               float x = acc[gi];
-              x = fmaf(a.x, kf[0], x);
-              x = fmaf(a.y, kf[1], x);
-              x = fmaf(a.z, kf[2], x);
-              x = fmaf(a.w, kf[3], x);
-              x = fmaf(bq.x, kf[4], x);
-              x = fmaf(bq.y, kf[5], x);
-              x = fmaf(bq.z, kf[6], x);
-              x = fmaf(bq.w, kf[7], x);
+#pragma unroll
+              for (int hh = 0; hh < HALVES; ++hh) {
+                const float4 a = *reinterpret_cast<const float4*>(
+                    q_s + (((g0 + gi) * HALVES + hh) * CH + c) * 4);
+                x = fmaf(a.x, kf[4 * hh], x);
+                x = fmaf(a.y, kf[4 * hh + 1], x);
+                x = fmaf(a.z, kf[4 * hh + 2], x);
+                x = fmaf(a.w, kf[4 * hh + 3], x);
+              }
               acc[gi] = x;
             }
           }
@@ -260,7 +302,6 @@ __global__ void __launch_bounds__(THREADS) paged_decode_split_kernel(
 
   // P V: warp w sums keys t = w mod 4, lane owns dim pairs lane + 32 j
   const int DH = D >> 1;
-  const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(v_s);
   for (int g0 = 0; g0 < G; g0 += GB) {
     float acc[GB][NPR][2];
 #pragma unroll
@@ -276,7 +317,7 @@ __global__ void __launch_bounds__(THREADS) paged_decode_split_kernel(
       for (int j = 0; j < NPR; ++j) {
         const int dp = lane + 32 * j;
         if (dp < DH) {
-          const float2 vf = __bfloat1622float2(v2[t * DH + dp]);
+          const float2 vf = E::pair(v_s + t * D + 2 * dp);
 #pragma unroll
           for (int gi = 0; gi < GB; ++gi) {
             acc[gi][j][0] = fmaf(p[gi], vf.x, acc[gi][j][0]);
@@ -316,14 +357,14 @@ __global__ void __launch_bounds__(THREADS) paged_decode_split_kernel(
   }
 }
 
-template <int NPR>
+template <typename T, int NPR>
 int launch_split(dim3 grid, int smem, cudaStream_t stream,
                  const void* q, const void* k_pages, const void* v_pages,
                  const void* tables, const void* lengths, void* part_ml,
                  void* part_acc, int KV, int G, int D, int NP, int page,
                  int pps, int pages_per_split, float scale, int window,
                  float softcap) {
-  auto kernel = paged_decode_split_kernel<NPR>;
+  auto kernel = paged_decode_split_kernel<T, NPR>;
   static int smem_opted = 48 * 1024;   // one per instantiation
   if (smem > smem_opted) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -332,19 +373,54 @@ int launch_split(dim3 grid, int smem, cudaStream_t stream,
     smem_opted = smem;
   }
   kernel<<<grid, THREADS, smem, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pages,
-      (const __nv_bfloat16*)v_pages, (const int*)tables, (const int*)lengths,
+      (const T*)q, (const T*)k_pages, (const T*)v_pages, (const int*)tables,
+      (const int*)lengths,
       (float*)part_ml, (float*)part_acc, KV, G, D, NP, page, pps,
       pages_per_split, scale, window, softcap);
   return (int)cudaGetLastError();
 }
 
+// The split kernel and the combine, on element type T (q, pages and out).
+template <typename T>
+int decode_entry(const void* q, const void* k_pages, const void* v_pages,
+                 const void* tables, const void* lengths, void* out,
+                 void* part_ml, void* part_acc, int B, int KV, int G, int D,
+                 int NP, int page, int pps, int pages_per_split, int splits,
+                 float scale, int window, float softcap, void* stream) {
+  if (D <= 0 || D % 8 != 0 || D > 288 || page <= 0 || page > 32 ||
+      pages_per_split <= 0 || splits <= 0 || G <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (B * KV == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  const int smem =
+      split_smem_bytes(G, D, page * pages_per_split, (int)sizeof(T));
+  dim3 grid(splits, KV, B);
+  const int npr = (D + 63) / 64;
+  int e;
+  if (npr <= 1)
+    e = launch_split<T, 1>(grid, smem, s, q, k_pages, v_pages, tables,
+                           lengths, part_ml, part_acc, KV, G, D, NP, page,
+                           pps, pages_per_split, scale, window, softcap);
+  else if (npr == 2)
+    e = launch_split<T, 2>(grid, smem, s, q, k_pages, v_pages, tables,
+                           lengths, part_ml, part_acc, KV, G, D, NP, page,
+                           pps, pages_per_split, scale, window, softcap);
+  else
+    e = launch_split<T, 5>(grid, smem, s, q, k_pages, v_pages, tables,
+                           lengths, part_ml, part_acc, KV, G, D, NP, page,
+                           pps, pages_per_split, scale, window, softcap);
+  if (e != 0) return e;
+  return split_combine::launch_combine(
+      (const float*)part_ml, (const float*)part_acc, (T*)out, B, KV, G, D,
+      splits, 1, (long long)KV * G * D, (long long)G * D, D, s);
+}
+
 }  // namespace
 
-// Shared memory (bytes) of one split block.
+// Shared memory (bytes) of one split block, elements of `esize` bytes.
 extern "C" int paged_decode_smem_bytes(int G, int D, int page,
-                                       int pages_per_split) {
-  return split_smem_bytes(G, D, page * pages_per_split);
+                                       int pages_per_split, int esize) {
+  return split_smem_bytes(G, D, page * pages_per_split, esize);
 }
 
 // q (B, KV, G, D), pages (NP, page, KV, D), out (B, KV, G, D): bf16; tables
@@ -358,29 +434,21 @@ extern "C" int paged_decode_bf16(
     void* part_acc, int B, int KV, int G, int D, int NP, int page, int pps,
     int pages_per_split, int splits, float scale, int window, float softcap,
     void* stream) {
-  if (D <= 0 || D % 8 != 0 || D > 288 || page <= 0 || page > 32 ||
-      pages_per_split <= 0 || splits <= 0 || G <= 0)
-    return (int)cudaErrorInvalidValue;
-  if (B * KV == 0) return (int)cudaGetLastError();
-  cudaStream_t s = (cudaStream_t)stream;
-  const int smem = split_smem_bytes(G, D, page * pages_per_split);
-  dim3 grid(splits, KV, B);
-  const int npr = (D + 63) / 64;
-  int e;
-  if (npr <= 1)
-    e = launch_split<1>(grid, smem, s, q, k_pages, v_pages, tables, lengths,
-                        part_ml, part_acc, KV, G, D, NP, page, pps,
-                        pages_per_split, scale, window, softcap);
-  else if (npr == 2)
-    e = launch_split<2>(grid, smem, s, q, k_pages, v_pages, tables, lengths,
-                        part_ml, part_acc, KV, G, D, NP, page, pps,
-                        pages_per_split, scale, window, softcap);
-  else
-    e = launch_split<5>(grid, smem, s, q, k_pages, v_pages, tables, lengths,
-                        part_ml, part_acc, KV, G, D, NP, page, pps,
-                        pages_per_split, scale, window, softcap);
-  if (e != 0) return e;
-  return split_combine::launch_combine(
-      (const float*)part_ml, (const float*)part_acc, (__nv_bfloat16*)out, B,
-      KV, G, D, splits, 1, (long long)KV * G * D, (long long)G * D, D, s);
+  return decode_entry<__nv_bfloat16>(
+      q, k_pages, v_pages, tables, lengths, out, part_ml, part_acc, B, KV, G,
+      D, NP, page, pps, pages_per_split, splits, scale, window, softcap,
+      stream);
+}
+
+// The same with q, pages and out in f32.
+extern "C" int paged_decode_f32(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* tables, const void* lengths, void* out, void* part_ml,
+    void* part_acc, int B, int KV, int G, int D, int NP, int page, int pps,
+    int pages_per_split, int splits, float scale, int window, float softcap,
+    void* stream) {
+  return decode_entry<float>(
+      q, k_pages, v_pages, tables, lengths, out, part_ml, part_acc, B, KV, G,
+      D, NP, page, pps, pages_per_split, splits, scale, window, softcap,
+      stream);
 }

@@ -53,7 +53,11 @@
 // c >= q_len are padding, and a fully masked row keeps p = 0 and writes
 // zeros.  A row of the batch with q_len == 0 reads no page at all.  It
 // re-reads each page once per row tile; moving D = 288 onto tensor cores is
-// later work.
+// later work.  It is instantiated on the element type of q, the pages and
+// the output: bf16 (paged_prefill_bf16) and f32 (paged_prefill_f32, every
+// head dim; the tensor-core kernel is bf16 only).  Everything past the
+// loads is f32 either way, so the f32 instantiation differs only in what it
+// reads and writes.
 //
 // Both kernels clamp table entries to [0, NP - 1] and mask every position
 // past the causal bound, so trash or garbage entries never contribute.
@@ -71,14 +75,24 @@ constexpr float NEG_INF = -1.0e30f;
 constexpr int THREADS = 128;
 constexpr int ROWS = 16;                 // query rows per thread block
 
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+
+template <typename T>
 __global__ void paged_prefill_kernel(
-    const __nv_bfloat16* __restrict__ q,        // (B, KV, CG, D)
-    const __nv_bfloat16* __restrict__ k_pages,  // (NP, page, KV, D)
-    const __nv_bfloat16* __restrict__ v_pages,  // (NP, page, KV, D)
+    const T* __restrict__ q,                    // (B, KV, CG, D)
+    const T* __restrict__ k_pages,              // (NP, page, KV, D)
+    const T* __restrict__ v_pages,              // (NP, page, KV, D)
     const int* __restrict__ tables,             // (B, pps)
     const int* __restrict__ start_pos,          // (B,)
     const int* __restrict__ q_lens,             // (B,)
-    __nv_bfloat16* __restrict__ out,            // (B, KV, CG, D)
+    T* __restrict__ out,                        // (B, KV, CG, D)
     int KV, int CG, int G, int D, int NP, int page, int pps,
     float scale, int window, float softcap) {
   extern __shared__ float smem[];
@@ -102,7 +116,7 @@ __global__ void paged_prefill_kernel(
 
   const size_t qoff = ((size_t)bh * CG + row0) * D;
   for (int i = tid; i < RD; i += THREADS) {
-    q_s[i] = __bfloat162float(q[qoff + i]);
+    q_s[i] = to_f(q[qoff + i]);
     acc_s[i] = 0.0f;
   }
   for (int r = tid; r < nrows; r += THREADS) {
@@ -129,8 +143,8 @@ __global__ void paged_prefill_kernel(
     for (int i = tid; i < page * D; i += THREADS) {
       const int t = i / D, d = i % D;
       const size_t off = base + t * tstride + d;
-      k_s[t * Dk + d] = __bfloat162float(k_pages[off]);
-      v_s[t * D + d] = __bfloat162float(v_pages[off]);
+      k_s[t * Dk + d] = to_f(k_pages[off]);
+      v_s[t * D + d] = to_f(v_pages[off]);
     }
     __syncthreads();
 
@@ -184,7 +198,7 @@ __global__ void paged_prefill_kernel(
 
   for (int i = tid; i < RD; i += THREADS) {
     const float l = l_s[i / D];
-    out[qoff + i] = __float2bfloat16(l == 0.0f ? 0.0f : acc_s[i] / l);
+    put(out + qoff + i, l == 0.0f ? 0.0f : acc_s[i] / l);
   }
 }
 
@@ -422,16 +436,20 @@ extern "C" int paged_prefill_smem_bytes(int D, int page) {
 
 extern "C" int paged_prefill_rows_per_block() { return ROWS; }
 
-extern "C" int paged_prefill_bf16(
-    const void* q, const void* k_pages, const void* v_pages,
-    const void* tables, const void* start_pos, const void* q_lens,
-    void* out, int B, int KV, int CG, int G, int D, int NP, int page,
-    int pps, float scale, int window, float softcap, void* stream) {
+namespace {
+
+// The CUDA-core kernel on element type T (q, pages and out).
+template <typename T>
+int cuda_core_entry(const void* q, const void* k_pages, const void* v_pages,
+                    const void* tables, const void* start_pos,
+                    const void* q_lens, void* out, int B, int KV, int CG,
+                    int G, int D, int NP, int page, int pps, float scale,
+                    int window, float softcap, void* stream) {
   const int smem = paged_prefill_smem_bytes(D, page);
-  static int smem_opted = 48 * 1024;
+  static int smem_opted = 48 * 1024;     // one per instantiation
   if (smem > smem_opted) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_prefill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        paged_prefill_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (e != cudaSuccess) return (int)e;
     smem_opted = smem;
@@ -439,13 +457,37 @@ extern "C" int paged_prefill_bf16(
   const int tiles = (CG + ROWS - 1) / ROWS;
   if (B * KV > 0 && tiles > 0) {
     dim3 grid(B * KV, tiles);
-    paged_prefill_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pages,
-        (const __nv_bfloat16*)v_pages, (const int*)tables,
-        (const int*)start_pos, (const int*)q_lens, (__nv_bfloat16*)out, KV,
-        CG, G, D, NP, page, pps, scale, window, softcap);
+    paged_prefill_kernel<T><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+        (const T*)q, (const T*)k_pages, (const T*)v_pages,
+        (const int*)tables, (const int*)start_pos, (const int*)q_lens,
+        (T*)out, KV, CG, G, D, NP, page, pps, scale, window, softcap);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The CUDA-core kernel: q (B, KV, CG, D), pages (NP, page, KV, D) and out
+// bf16; tables (B, pps), start_pos and q_lens (B,) int32.
+extern "C" int paged_prefill_bf16(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* tables, const void* start_pos, const void* q_lens,
+    void* out, int B, int KV, int CG, int G, int D, int NP, int page,
+    int pps, float scale, int window, float softcap, void* stream) {
+  return cuda_core_entry<__nv_bfloat16>(
+      q, k_pages, v_pages, tables, start_pos, q_lens, out, B, KV, CG, G, D,
+      NP, page, pps, scale, window, softcap, stream);
+}
+
+// The same with q, pages and out in f32.
+extern "C" int paged_prefill_f32(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* tables, const void* start_pos, const void* q_lens,
+    void* out, int B, int KV, int CG, int G, int D, int NP, int page,
+    int pps, float scale, int window, float softcap, void* stream) {
+  return cuda_core_entry<float>(
+      q, k_pages, v_pages, tables, start_pos, q_lens, out, B, KV, CG, G, D,
+      NP, page, pps, scale, window, softcap, stream);
 }
 
 // The tensor-core kernel: q (B, KV, CG, D), pages (NP, page, KV, D) and out

@@ -14,10 +14,15 @@ through the plain version (``repro_torch.kernels.ref.attention_ref``), a
 CUDA tensor launches a kernel or raises.  Which kernel is a rule on dtype
 and head dim (:func:`tensor_core_route`): bf16 with ``D <= 128`` runs the
 tensor-core kernel (mma.sync, P rounded to bf16 for the PV product), f32
-and ``D > 128`` the CUDA-core kernel (P in f32).
+and ``D > 128`` the CUDA-core kernel (P in f32).  Both kernels take D a
+multiple of 32; any other D up to 288 (gemma2-27b's 144) runs through
+:func:`run_padded`: q, k and v gain zero columns up to the next multiple
+of 32, the scale stays 1/sqrt(D) of the true D, and the output is cut back
+(a zero column adds nothing to a score, its output column is dropped, and
+the logsumexp is unchanged).
 ``flash_attention.launches`` counts every launch;
 ``flash_fwd_tensor_core.launches`` and ``flash_fwd_cuda_core.launches``
-count each kernel's.
+count each kernel's, and ``flash_d_tail.launches`` the padded calls'.
 
 ``flash_attention_int8kv`` is the counterpart of the reference's
 ``flash_attention_int8kv``: the same attention over int8 K/V with
@@ -85,7 +90,8 @@ def _entry_tc():
 def tensor_core_route(dtype: torch.dtype, D: int) -> bool:
     """The routing rule: bf16 with ``D <= 128`` runs the tensor-core
     kernel; f32, and bf16 with ``D > 128`` (gemma2-2b's 288), the
-    CUDA-core kernel.  (``D`` is a multiple of 32 either way.)"""
+    CUDA-core kernel.  A true ``D`` and its padded one (``padded_head_dim``)
+    route alike, since 128 is a multiple of 32."""
     return dtype == torch.bfloat16 and D <= TENSOR_CORE_MAX_HEAD_DIM
 
 
@@ -207,10 +213,34 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
             lse.reshape(B, H, Sq))
 
 
+def padded_head_dim(D: int) -> int:
+    """The head dim the kernels run a call of head dim ``D`` at: the next
+    multiple of 32."""
+    return -(-D // 32) * 32
+
+
+def run_padded(fwd, q, k, v, *, scale: Optional[float] = None, **kw):
+    """``fwd(q, k, v, scale=..., **kw) -> (out, lse)`` at the padded head
+    dim: q, k and v gain zero columns up to :func:`padded_head_dim`, the
+    scale stays ``1/sqrt(D)`` of the true D (or the caller's), and the
+    output is cut back to D.  The zero columns add nothing to any score, so
+    the scores, P and the logsumexp are the unpadded call's; the output's
+    extra columns (P times zeros) are dropped."""
+    D = q.shape[-1]
+    Dp = padded_head_dim(D)
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    if Dp == D:
+        return fwd(q, k, v, scale=scale, **kw)
+    pad = lambda t: torch.nn.functional.pad(t, (0, Dp - D)).contiguous()
+    out, lse = fwd(pad(q), pad(k), pad(v), scale=scale, **kw)
+    return out[..., :D].contiguous(), lse
+
+
 def _check_cuda(q, k, v):
-    """What the kernel takes: q (B, Sq, H, D), k and v (B, Skv, KV, D), all
-    on one device, contiguous, of one dtype (f32 or bf16); H a multiple of
-    KV; D a multiple of 32 and at most 288."""
+    """What the wrapper takes: q (B, Sq, H, D), k and v (B, Skv, KV, D),
+    all on one device, contiguous, of one dtype (f32 or bf16); H a multiple
+    of KV; D at most 288 (the kernels run D padded to a multiple of 32)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
@@ -228,9 +258,8 @@ def _check_cuda(q, k, v):
                          f"q {tuple(q.shape)}")
     if H % k.shape[2] != 0:
         raise ValueError(f"H={H} is not a multiple of KV={k.shape[2]}")
-    if D % 32 != 0 or D > MAX_HEAD_DIM:
-        raise ValueError(f"kernel takes D a multiple of 32 up to "
-                         f"{MAX_HEAD_DIM}, got D={D}")
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"kernel takes D up to {MAX_HEAD_DIM}, got D={D}")
 
 
 @_build.counted
@@ -254,15 +283,32 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     _check_cuda(q, k, v)
+    kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
+    if padded_head_dim(q.shape[-1]) != q.shape[-1]:
+        out, lse = flash_d_tail(q, k, v, **kw)
+    else:
+        out, lse = run_padded(_flash_launch, q, k, v, **kw)
+    flash_attention.launches += 1
+    return out, lse
+
+
+@_build.counted
+def flash_d_tail(q, k, v, **kw):
+    """One launch at the padded head dim, for a head dim that is not a
+    multiple of 32 (:func:`run_padded`)."""
+    out, lse = run_padded(_flash_launch, q, k, v, **kw)
+    flash_d_tail.launches += 1
+    return out, lse
+
+
+def _flash_launch(q, k, v, *, scale, causal, window, softcap):
+    """One kernel launch at a head dim that is a multiple of 32."""
     B, Sq, H, D = q.shape
-    if scale is None:
-        scale = 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     launch = (flash_fwd_tensor_core if tensor_core_route(q.dtype, D)
               else flash_fwd_cuda_core)
     launch(q, k, v, out, lse, scale, causal, window, softcap)
-    flash_attention.launches += 1
     return out, lse
 
 

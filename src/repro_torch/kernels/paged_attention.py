@@ -12,9 +12,13 @@ decode path).  See the source's header for its bound and design.
 
 ``paged_attention`` dispatches on the device of ``q``: a CPU tensor goes
 through the plain version (``repro_torch.kernels.ref``), a CUDA tensor
-launches the kernels or raises.  ``paged_attention.launches`` counts
-wrapper calls that launched (each issues two CUDA kernels: split and
-combine).
+launches the kernels or raises.  The kernels take q and the pages in bf16
+or in f32 (one dtype for all three; the source is instantiated on each,
+and a split holds half the pages in f32); the output is in q's dtype.
+``paged_attention.launches`` counts wrapper calls that launched (each
+issues two CUDA kernels: split and combine); ``DTYPE_LAUNCHES[dtype]``
+counts each instantiation's, registered as ``decode_bf16`` and
+``decode_f32``.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import paged_attention_ref
 
-_fn = None
+_fns = {}
 SM_COUNT = 132                  # H100 (and H200) SXM streaming multiprocessors:
                                 # the split plans' default, for the CPU tests
 BLOCKS_PER_SM = 4               # the split aims at this many blocks per SM
@@ -38,16 +42,23 @@ P_ROUNDING = 2.0 ** -14         # the kernel keeps P in f32: the element-wise
                                 # another order
 
 
-def _entry():
-    global _fn
-    if _fn is None:
-        fn = _build.load("paged_attention").paged_decode_bf16
+KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+DTYPE_LAUNCHES = {dtype: _build.counter(f"decode_{name}")
+                  for dtype, name in KERNEL_DTYPES.items()}
+
+
+def _entry(dtype: torch.dtype):
+    """The C entry for q's ``dtype``: ``paged_decode_bf16`` or ``_f32``."""
+    fn = _fns.get(dtype)
+    if fn is None:
+        fn = getattr(_build.load("paged_attention"),
+                     f"paged_decode_{KERNEL_DTYPES[dtype]}")
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[dtype] = fn
+    return fn
 
 
 _sm_counts = {}
@@ -67,15 +78,16 @@ def device_sm_count(device) -> int:
 
 
 def split_plan(B: int, KV: int, pps: int, page: int, D: int,
-               sm_count: int = SM_COUNT):
+               sm_count: int = SM_COUNT, elem_bytes: int = 2):
     """``(pages_per_split, splits)`` for a decode call, from shapes only.
 
     Enough splits that ``B * KV * splits`` covers the ``sm_count`` SMs
     about ``BLOCKS_PER_SM`` times over, each split at most ``KV_SMEM_BYTES`` of
-    K and V (``4 * page * D`` bytes a page) and at least one page;
-    ``splits * pages_per_split >= pps`` covers the whole table.  Which of
-    a row's pages a split reads is :func:`ref.paged_split_ranges`."""
-    cap = max(1, KV_SMEM_BYTES // (4 * page * D))
+    K and V (``2 * elem_bytes * page * D`` bytes a page: bf16 2, f32 4) and
+    at least one page; ``splits * pages_per_split >= pps`` covers the whole
+    table.  Which of a row's pages a split reads is
+    :func:`ref.paged_split_ranges`."""
+    cap = max(1, KV_SMEM_BYTES // (2 * elem_bytes * page * D))
     want = -(-BLOCKS_PER_SM * sm_count // max(1, B * KV))
     per = max(1, min(cap, -(-pps // want)))
     return per, -(-pps // per)
@@ -92,9 +104,12 @@ def paged_attention_plain(q, k_pages, v_pages, block_tables, lengths, *,
 
 def _check_cuda(q, k_pages, v_pages, block_tables, **rows):
     """What the CUDA kernels take: everything on q's device and
-    contiguous; bf16 q and pages; int32 tables and per-row ``rows``
-    vectors of shape (B,); pages (NP, page, KV, D) matching q's KV and D
-    (q is (B, KV, rows, D)); D <= 288 and page <= 32."""
+    contiguous; q and pages of one dtype, bf16 or f32; int32 tables and
+    per-row ``rows`` vectors of shape (B,); pages (NP, page, KV, D)
+    matching q's KV and D (q is (B, KV, rows, D)); D <= 288 and page <=
+    32."""
+    if q.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"kernels take bfloat16 or float32, got {q.dtype}")
     dev = q.device
     B, KV, _, D = q.shape
     ints = {"block_tables": block_tables, **rows}
@@ -104,7 +119,7 @@ def _check_cuda(q, k_pages, v_pages, block_tables, **rows):
             raise ValueError(f"{name} on {t.device}, q on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        want = torch.bfloat16 if name in ("q", "k_pages", "v_pages") \
+        want = q.dtype if name in ("q", "k_pages", "v_pages") \
             else torch.int32
         if t.dtype != want:
             raise TypeError(f"{name} must be {want}, got {t.dtype}")
@@ -151,17 +166,29 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    NP, page = k_pages.shape[0], k_pages.shape[1]
-    pps = block_tables.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(D)
-    per, splits = split_plan(B, KV, pps, page, D, device_sm_count(q.device))
     out = torch.empty_like(q)
+    _launch(q, k_pages, v_pages, block_tables, lengths, out, scale, window,
+            softcap)
+    paged_attention.launches += 1
+    return out
+
+
+def _launch(q, k_pages, v_pages, block_tables, lengths, out, scale, window,
+            softcap):
+    """The split kernel and its combine, into ``out``, through the C entry
+    of q's dtype."""
+    B, KV, G, D = q.shape
+    NP, page = k_pages.shape[0], k_pages.shape[1]
+    pps = block_tables.shape[1]
+    per, splits = split_plan(B, KV, pps, page, D, device_sm_count(q.device),
+                             q.element_size())
     part_ml = torch.empty((B, KV, splits, G, 2), dtype=torch.float32,
                           device=q.device)
     part_acc = torch.empty((B, KV, splits, G, D), dtype=torch.float32,
                            device=q.device)
-    fn = _entry()
+    fn = _entry(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -169,8 +196,5 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
                     out.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
                     B, KV, G, D, NP, page, pps, per, splits, float(scale),
                     int(window or 0), float(softcap or 0.0), stream)
-    _build.check(status, "paged_attention")
-    paged_attention.launches += 1
-    return out
-
-
+    _build.check(status, f"paged_attention ({KERNEL_DTYPES[q.dtype]})")
+    DTYPE_LAUNCHES[q.dtype].launches += 1

@@ -12,8 +12,10 @@ never a failed build or launch):
   ``keys_per_split`` keys from :func:`split_plan` (shapes only), walked in
   64-key tiles staged through the block table, writing a partial
   ``(m, l, acc)`` per row; a second kernel of the same call merges them;
-- other head dims (gemma2-2b's 288): a CUDA-core kernel, one block per
-  ``(b, kv_head, 16 rows)``, walking the row's pages with P in f32.
+- f32 (any head dim), and bf16 with other head dims (gemma2-2b's 288): a
+  CUDA-core kernel, one block per ``(b, kv_head, 16 rows)``, walking the
+  row's pages with P in f32, instantiated on the element type (its C
+  entries ``paged_prefill_bf16`` and ``paged_prefill_f32``).
 
 See the source's header for their bound and design.
 
@@ -33,26 +35,29 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as _fa
-from repro_torch.kernels.paged_attention import (BLOCKS_PER_SM, SM_COUNT,
+from repro_torch.kernels.paged_attention import (BLOCKS_PER_SM,
+                                                 KERNEL_DTYPES, SM_COUNT,
                                                  _check_cuda,
                                                  device_sm_count)
 from repro_torch.kernels.ref import paged_prefill_ref
 
-_fn = None
+_fns = {}
 _fn_tc = None
 TILE_KEYS = 64                  # keys per tile of the tensor-core kernel
 
 
-def _entry():
-    global _fn
-    if _fn is None:
-        fn = _build.load("paged_prefill").paged_prefill_bf16
+def _entry(dtype: torch.dtype):
+    """The CUDA-core kernel's C entry for q's ``dtype``."""
+    fn = _fns.get(dtype)
+    if fn is None:
+        fn = getattr(_build.load("paged_prefill"),
+                     f"paged_prefill_{KERNEL_DTYPES[dtype]}")
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[dtype] = fn
+    return fn
 
 
 def _entry_tc():
@@ -69,8 +74,8 @@ def _entry_tc():
 
 def tensor_core_route(dtype: torch.dtype, D: int) -> bool:
     """The flash kernel's rule (bf16 with ``D <= 128``), for the head dims
-    the tensor-core prefill kernel is built for (multiples of 32); every
-    other ``D`` (gemma2-2b's 288) runs the CUDA-core kernel."""
+    the tensor-core prefill kernel is built for (multiples of 32); f32 and
+    every other ``D`` (gemma2-2b's 288) run the CUDA-core kernel."""
     return _fa.tensor_core_route(dtype, D) and D % 32 == 0
 
 
@@ -191,7 +196,7 @@ def prefill_cuda_core(q, k_pages, v_pages, block_tables, start_pos, q_lens,
     B, KV, CG, D = q.shape
     NP, page = k_pages.shape[0], k_pages.shape[1]
     pps = block_tables.shape[1]
-    fn = _entry()
+    fn = _entry(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),

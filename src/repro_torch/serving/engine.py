@@ -282,6 +282,19 @@ class ServingEngine:
             name, body, inputs, state=[t for _, t in _leaves(cache)])
         return prog
 
+    def warm_up(self) -> None:
+        """Build the engine's two round programs (decode and the mode's
+        prefill) before its first round, without running a round: on the
+        card each is captured now (``CapturedProgram.build``), so no round
+        of a served request pays a capture.  The cache is left as it was.
+        A fabric worker calls this before its first heartbeat."""
+        if not self.paged and self._stripe is None:
+            self._stripe = T.init_cache(self.cfg, 1, self.max_seq_len,
+                                        device=self.device)
+        for name in ("decode_step",
+                     "prefill_paged" if self.paged else "prefill_chunk"):
+            self._program(name).build()
+
     def _replay(self, prog: CapturedProgram) -> torch.Tensor:
         self.kv.check_storage()
         return prog.replay()

@@ -1,4 +1,4 @@
-"""In-process performance profiling for the serving stack (host side).
+"""In-process performance profiling for the serving stack.
 
 * :class:`StepProfiler` — step-phase timing.  The scheduler's phase
   timestamps normally measure *dispatch* (CUDA launches are async); with
@@ -20,15 +20,35 @@
   beyond the first one per program) emits a ``recompile`` warning event
   through the tracer.
 
-Per-kernel device timing lives in ``chip_smoke.py`` (CUDA events at the
-main path's shapes); the reference's XLA ``cost_analysis`` profiles have
-no counterpart here.
+* :func:`profile_kernel` / :func:`profile_paged_kernels` — per-kernel
+  profiles of the paged attention kernels at the engine's serving shapes,
+  with the reference's result keys.  The reference reads FLOPs and bytes
+  from XLA's ``cost_analysis``, which has no counterpart here: they come
+  from :func:`decode_cost` / :func:`prefill_cost`, the work the function
+  needs for these inputs (each input byte read once, each output byte
+  written once, 4 flops per (query head, attended key, dim)), the formulas
+  ``chip_smoke.py`` bounds every paged kernel by.  Wall times are the
+  median of ``reps`` runs, with CUDA events on the card and the host clock
+  on the CPU (where the kernels run their plain versions, so only the
+  structure means anything).  Peaks are the H100 SXM's (NVIDIA's data
+  sheet): 3.35 TB/s of HBM, and 989 TFLOP/s for bf16 on the tensor cores
+  or 67 TFLOP/s for f32 outside them, by the operands' dtype.
+
+``chip_smoke.py`` times every kernel at the main path's shapes beside its
+plain version, its library call and its bound.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
 
 from repro_torch.serving.slo import SlidingWindow
+
+HBM_BW = 3.35e12                # H100 SXM bytes/s (NVIDIA data sheet)
+PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense tensor cores
+              torch.float32: 67e12}     # outside the tensor cores
 
 PHASES = ("admit", "prefill", "decode", "sample")
 
@@ -54,6 +74,178 @@ class StepProfiler:
         for name, win in self.phases.items():
             out[f"{name}_ms"] = win.summary()
         return out
+
+
+def decode_cost(case) -> Tuple[int, int]:
+    """(bytes, flops) a paged decode call needs for these inputs (the
+    kernel layout: ``q`` (B, KV, G, D), ``lengths``, ``window``,
+    ``block_tables``): q read and the output written once, the K and V
+    positions each row attends (window included) read once, the lengths
+    and tables; 4 flops per (query head, position, dim)."""
+    B, KV, G, D = case["q"].shape
+    e = case["q"].element_size()
+    lens = case["lengths"].tolist()
+    w = case["window"]
+    pos = sum(min(n, w) if w else n for n in lens)
+    q_bytes = B * KV * G * D * e
+    nbytes = 2 * q_bytes + pos * KV * D * e * 2 + B * 4 * (
+        1 + case["block_tables"].shape[1])
+    return nbytes, 4 * pos * KV * G * D
+
+
+def prefill_cost(case) -> Tuple[int, int]:
+    """(bytes, flops) a paged prefill call needs for these inputs (``q``
+    (B, KV, C*G, D), ``group``, ``start_pos``, ``q_lens``, ``window``,
+    ``block_tables``): q read and the output written once, each row's
+    reachable history read once; 4 flops per (query head, attended key,
+    dim), causal and window masks counted."""
+    B, KV, CG, D = case["q"].shape
+    e = case["q"].element_size()
+    G = case["group"]
+    starts, qls = case["start_pos"].tolist(), case["q_lens"].tolist()
+    w = case["window"]
+    hist = attended = 0
+    for s, ql in zip(starts, qls):
+        if ql == 0:
+            continue
+        lo = max(0, s - w + 1) if w else 0
+        hist += s + ql - lo                      # positions read
+        for c in range(ql):
+            p = s + c
+            attended += p + 1 - (max(0, p - w + 1) if w else 0)
+    q_bytes = B * KV * CG * D * e
+    nbytes = 2 * q_bytes + hist * KV * D * e * 2 + B * 4 * (
+        2 + case["block_tables"].shape[1])
+    return nbytes, 4 * attended * KV * G * D
+
+
+def _wall_s(fn: Callable, args, kwargs, device: torch.device,
+            clock) -> float:
+    """One run's wall time: CUDA events on the card, ``clock`` on the
+    CPU."""
+    if device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*args, **kwargs)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3
+    t0 = clock()
+    fn(*args, **kwargs)
+    return clock() - t0
+
+
+def profile_kernel(fn: Callable, *args, name: str, flops: float,
+                   bytes_accessed: float, reps: int = 5,
+                   clock=time.perf_counter, **kwargs) -> Dict[str, object]:
+    """Profile one kernel call at the given arguments: one warm-up run,
+    then ``reps`` timed runs; reports the median wall and the achieved
+    fractions of the card's peaks for ``flops`` and ``bytes_accessed``
+    (the work the call needs, from :func:`decode_cost` /
+    :func:`prefill_cost`).  The FLOP peak is the first tensor
+    argument's dtype's."""
+    first = next(a for a in args if isinstance(a, torch.Tensor))
+    device = first.device
+    peak = PEAK_FLOPS.get(first.dtype, PEAK_FLOPS[torch.float32])
+    fn(*args, **kwargs)                           # warm-up (and any build)
+    walls = sorted(_wall_s(fn, args, kwargs, device, clock)
+                   for _ in range(max(reps, 1)))
+    wall = walls[len(walls) // 2]
+    achieved_flops = flops / wall if wall > 0 else 0.0
+    achieved_bw = bytes_accessed / wall if wall > 0 else 0.0
+    return {
+        "name": name,
+        "device": (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else "cpu"),
+        "reps": len(walls),
+        "wall_ms_median": wall * 1e3,
+        "flops": float(flops),
+        "bytes_accessed": float(bytes_accessed),
+        "achieved_tflops": achieved_flops / 1e12,
+        "achieved_gbps": achieved_bw / 1e9,
+        "fraction_of_peak_flops": achieved_flops / peak,
+        "fraction_of_peak_bw": achieved_bw / HBM_BW,
+        "arithmetic_intensity": (flops / bytes_accessed
+                                 if bytes_accessed > 0 else 0.0),
+    }
+
+
+def profile_shapes(engine) -> Dict[str, object]:
+    """The keyword arguments of :func:`paged_profile_cases` for a paged
+    engine: its batch width, page geometry, head layout and device."""
+    if not getattr(engine, "paged", False):
+        raise ValueError("kernel profiling requires a paged engine")
+    cfg, kv = engine.cfg, engine.kv
+    return dict(slots=engine.max_slots, num_blocks=kv.pool.num_blocks,
+                page=kv.block_size, blocks_per_slot=kv.blocks_per_slot,
+                max_seq_len=engine.max_seq_len, num_heads=cfg.num_heads,
+                num_kv_heads=cfg.num_kv_heads,
+                head_dim=cfg.resolved_head_dim, device=engine.device)
+
+
+def paged_profile_cases(*, slots: int, num_blocks: int, page: int,
+                        blocks_per_slot: int, max_seq_len: int,
+                        num_heads: int, num_kv_heads: int, head_dim: int,
+                        device, chunk: int = 8) -> Dict[str, dict]:
+    """The operands :func:`profile_paged_kernels` times, in the kernels'
+    layout: f32, at a paged engine's serving shapes (``slots`` rows,
+    ``num_blocks`` pages plus the trash page, every row's table reaching
+    ``min(page * blocks_per_slot, max_seq_len)`` positions), from
+    ``numpy.random.default_rng(0)`` as the reference draws them."""
+    import numpy as np
+
+    B, H, KV, D = slots, num_heads, num_kv_heads, head_dim
+    G = H // KV
+    pages = num_blocks + 1                                 # + trash block
+    rng = np.random.default_rng(0)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=device)
+    q1 = f32(rng.standard_normal((B, 1, H, D)))
+    kp = f32(rng.standard_normal((pages, page, KV, D)))
+    vp = f32(rng.standard_normal((pages, page, KV, D)))
+    tables = i32(np.arange(B * blocks_per_slot, dtype=np.int32).reshape(
+        B, blocks_per_slot) % num_blocks)
+    lengths = i32(np.full((B,), min(page * blocks_per_slot, max_seq_len)))
+    C = min(chunk, max_seq_len)
+    qc = f32(rng.standard_normal((B, C, H, D)))
+    decode = dict(q=q1[:, 0].reshape(B, KV, G, D).contiguous(), k_pages=kp,
+                  v_pages=vp, block_tables=tables, lengths=lengths,
+                  window=None, softcap=None)
+    prefill = dict(q=qc.reshape(B, C, KV, G, D).transpose(1, 2).reshape(
+        B, KV, C * G, D).contiguous(), k_pages=kp, v_pages=vp,
+        block_tables=tables, start_pos=i32(np.zeros(B, np.int32)),
+        q_lens=i32(np.full((B,), C)), group=G, window=None, softcap=None)
+    return {"paged_attention": decode, "paged_prefill": prefill}
+
+
+def profile_paged_kernels(engine, reps: int = 3,
+                          chunk: int = 8) -> Dict[str, Dict[str, object]]:
+    """Profile the paged decode and prefill kernels at the engine's own
+    serving shapes on synthetic f32 operands
+    (:func:`paged_profile_cases`), as the reference profiles
+    ``paged_decode_attention`` and ``paged_prefill_attention``.  On the
+    card f32 takes each kernel's f32 route (the decode kernel's f32
+    instantiation, the CUDA-core prefill kernel).  Requires a paged
+    engine."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_prefill as pp
+
+    cases = paged_profile_cases(**profile_shapes(engine), chunk=chunk)
+    dc, pc = cases["paged_attention"], cases["paged_prefill"]
+    d_bytes, d_flops = decode_cost(dc)
+    p_bytes, p_flops = prefill_cost(pc)
+    return {
+        "paged_attention": profile_kernel(
+            pa.paged_attention, dc["q"], dc["k_pages"], dc["v_pages"],
+            dc["block_tables"], dc["lengths"], name="paged_attention",
+            flops=d_flops, bytes_accessed=d_bytes, reps=reps),
+        "paged_prefill": profile_kernel(
+            pp.paged_prefill, pc["q"], pc["k_pages"], pc["v_pages"],
+            pc["block_tables"], pc["start_pos"], pc["q_lens"],
+            group=pc["group"], name="paged_prefill", flops=p_flops,
+            bytes_accessed=p_bytes, reps=reps),
+    }
 
 
 class RecompilationTracker:

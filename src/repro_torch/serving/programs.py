@@ -96,6 +96,25 @@ class CapturedProgram:
         for name, arr in arrays.items():
             copy_from_host(self.inputs[name], arr)
 
+    def build(self) -> None:
+        """Build the program now, without running a round: on the card
+        capture it (its warm-up runs leave ``state`` as they found it, and
+        a capture runs nothing); on the CPU run the body once with
+        ``state`` saved and restored.  A no-op once built."""
+        if self.captures:
+            return
+        if self.device.type == "cuda":
+            self._capture()
+            return
+        saved = [t.clone() for t in self._state]
+        t0 = time.perf_counter()
+        before = _build.launch_counts()
+        out = self._body(**self.inputs)
+        self._built(before, out, time.perf_counter() - t0)
+        _build.set_launch_counts(before)
+        for t, s in zip(self._state, saved):
+            t.copy_(s)
+
     def replay(self) -> torch.Tensor:
         """Run the round on the current static inputs (building the
         program first, on the first call) and return the static output,

@@ -39,6 +39,16 @@ def test_port_imports_neither_jax_nor_the_reference():
             "src/repro_torch/benchmarks/container_overhead.py",
             "src/repro_torch/benchmarks/allreduce_vs_ps.py",
             "src/repro_torch/benchmarks/scaling.py",
+            "src/repro_torch/serving/faults.py",
+            "src/repro_torch/serving/health.py",
+            "src/repro_torch/serving/gateway.py",
+            "src/repro_torch/serving/fabric/mailbox.py",
+            "src/repro_torch/serving/fabric/registry.py",
+            "src/repro_torch/serving/fabric/worker.py",
+            "src/repro_torch/serving/fabric/backends.py",
+            "src/repro_torch/serving/fabric/remote.py",
+            "src/repro_torch/benchmarks/fault_tolerance.py",
+            "src/repro_torch/benchmarks/fabric.py",
             "examples/torch_quickstart.py",
             "examples/torch_deploy_supermuc.py"} <= names
     bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
@@ -81,6 +91,34 @@ def test_launcher_defaults_to_cuda_and_refuses_without_a_card():
                     "--requests", "1"])
 
 
+def test_fabric_worker_engine_defaults_to_cuda_and_refuses_without_a_card():
+    """``build_engine`` takes its device from the model spec's engine
+    kwargs, by default the engine's: the card."""
+    _no_card()
+    from repro_torch.serving.fabric import DEFAULT_MODEL_SPEC, build_engine
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_engine(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_engine({"engine": dict(DEFAULT_MODEL_SPEC["engine"],
+                                     device="cuda")})
+    eng = build_engine({"engine": dict(DEFAULT_MODEL_SPEC["engine"],
+                                       device="cpu")})
+    assert eng.device.type == "cpu" and eng.max_slots == 3
+
+
+@pytest.mark.parametrize("bench", ["fault_tolerance", "fabric"])
+def test_fleet_benchmarks_default_to_cuda_and_refuse_without_a_card(
+        bench, tmp_path):
+    _no_card()
+    import importlib
+    mod = importlib.import_module(f"repro_torch.benchmarks.{bench}")
+    out = tmp_path / "bench.json"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(["--out", str(out), "--trace-out",
+                  str(tmp_path / "t.jsonl")])
+    assert not out.exists()
+
+
 def test_train_3dgan_defaults_to_cuda_and_refuses_without_a_card():
     _no_card()
     from repro_torch.launch import train_3dgan
@@ -88,19 +126,25 @@ def test_train_3dgan_defaults_to_cuda_and_refuses_without_a_card():
         train_3dgan.main(["--smoke", "--steps", "1"])
 
 
-def test_launcher_rejects_what_later_slices_port():
-    """The replica gateway waits for the fleet slice; without ``--paged``
-    the launcher serves in dense mode, as the reference's does."""
+def test_launcher_rejects_what_later_slices_port(tmp_path):
+    """Since the fleet slice the launcher serves ``--replicas N`` and
+    ``--fabric`` through the gateway; what it still refuses is what the
+    reference's refuses: ``--fabric`` without ``--smoke``, and ``--fabric``
+    with ``--profile`` or ``--slo-config``.  Without ``--paged`` it serves
+    in dense mode, as the reference's does."""
     from repro_torch.launch import serve
-    for argv in (["--replicas", "2", "--paged"], ["--fabric", "mock",
-                                                   "--paged"]):
-        with pytest.raises(SystemExit):
-            serve.main(["--arch", "qwen2-0.5b", "--smoke", "--device", "cpu",
-                        *argv])
-    sched = serve.main(["--arch", "qwen2-0.5b", "--smoke", "--device", "cpu",
-                        "--requests", "2", "--max-new", "2", "--greedy",
-                        "--max-seq-len", "32"])
-    assert not sched.engine.paged
+    slo = tmp_path / "slo.json"
+    slo.write_text('{"default": {"ttft_p95_ms": 1000.0}}')
+    for argv in (["--fabric", "mock"],
+                 ["--fabric", "mock", "--smoke", "--profile"],
+                 ["--fabric", "local", "--smoke", "--slo-config", str(slo)]):
+        with pytest.raises(SystemExit, match="--fabric"):
+            serve.main(["--arch", "qwen2-0.5b", "--device", "cpu", *argv])
+    gw = serve.main(["--arch", "qwen2-0.5b", "--smoke", "--device", "cpu",
+                     "--requests", "2", "--max-new", "2", "--greedy",
+                     "--max-seq-len", "32"])
+    sched = gw.replicas[0].scheduler
+    assert len(gw.replicas) == 1 and not sched.engine.paged
     assert sched.metrics.summary()["requests_completed"] == 2
 
 

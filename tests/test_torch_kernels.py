@@ -486,8 +486,9 @@ def test_cuda_wrappers_raise_on_wrong_inputs(cuda):
         pa.paged_attention(q, pages, pages, tbl, lens)
     with pytest.raises(ValueError):
         pa.paged_attention(q.bfloat16(), pages, pages, tbl.cpu(), lens)
-    kv = torch.zeros((1, 4, 1, 48), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="multiple of 32"):
+    # any D up to 288 runs (padded to a multiple of 32); past it, raises
+    kv = torch.zeros((1, 4, 1, 304), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="up to 288"):
         fa.flash_attention(kv, kv, kv)
     with pytest.raises(TypeError):
         fa.flash_attention(kv.half(), kv.half(), kv.half())

@@ -174,16 +174,16 @@ def test_launcher_serves_and_traces_in_the_reference_schema(tmp_path):
     from repro_torch.serving.tracing import EVENT_KINDS
 
     assert EVENT_KINDS == REF_KINDS
-    sched = serve.main([
+    gw = serve.main([
         "--arch", "gemma2-2b", "--smoke", "--paged", "--device", "cpu",
         "--requests", "5", "--max-new", "4", "--shared-prefix", "16",
         "--greedy", "--prefill-token-budget", "32", "--profile",
         "--metrics-json", str(tmp_path / "m.json"),
         "--trace-out", str(tmp_path / "t")])
     stats = json.loads((tmp_path / "m.json").read_text())
-    assert stats["summary"]["requests_completed"] == 5
-    assert stats["summary"]["prefix_cache"]["hits"] > 0
-    _assert_no_leaks(sched)
+    assert stats["totals"]["requests_completed"] == 5
+    assert stats["totals"]["prefix_cache"]["hits"] > 0
+    _assert_no_leaks(gw.replicas[0].scheduler)
     events = [json.loads(line) for line in
               (tmp_path / "t.jsonl").read_text().splitlines()]
     assert events and all(validate_event(ev) is None for ev in events)

@@ -379,14 +379,14 @@ def test_launcher_serves_dense_on_cpu(arch, tmp_path):
     import json
     from repro_torch.launch import serve
     out = tmp_path / "m.json"
-    sched = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
-                        "--requests", "3", "--max-new", "4",
-                        "--shared-prefix", "8", "--greedy",
-                        "--prefill-token-budget", "16",
-                        "--metrics-json", str(out)])
-    eng = sched.engine
+    gw = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                     "--requests", "3", "--max-new", "4",
+                     "--shared-prefix", "8", "--greedy",
+                     "--prefill-token-budget", "16",
+                     "--metrics-json", str(out)])
+    eng = gw.replicas[0].scheduler.engine
     assert not eng.paged and eng.prefix_cache is None
     assert sorted(eng.programs) == ["decode_step", "prefill_chunk"]
     stats = json.loads(out.read_text())
-    assert stats["summary"]["requests_completed"] == 3
-    assert stats["summary"]["total_new_tokens"] == 12
+    assert stats["totals"]["requests_completed"] == 3
+    assert stats["totals"]["total_new_tokens"] == 12
