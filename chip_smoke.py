@@ -91,7 +91,14 @@ Phases (any failure exits nonzero):
               left a split's partial out of the combine, ignored the scales
               or the per-row lengths, dropped each row's last partial tile
               or its newest key, moved gemma2's window by one key either
-              way, or kept K unrounded must fail the check;
+              way, or kept K unrounded must fail the check.  At
+              qwen3-moe-30b-a3b's attention (KV 4, G 8, D 128): paged
+              decode q (8, 4, 8, 128) at contexts 512-2048 with trash
+              entries, paged prefill q (4, 4, C*8, 128) at C = 16 and 64,
+              starts 0-1,024, q_len = 0 rows and zero padding rows (each
+              checked to take the tensor-core kernel), the int8 kernel at
+              q (8, 1, 32, 128) over int8 K/V (8, 2048, 4, 128) and the
+              B = 1 replay, with qwen2's broken variants;
 4. times    — each kernel at the main path's shapes (decode: B = 8,
               contexts 512-2048; prefill: B = 4, C = 64, and the launcher's
               B = 4, C = 16; flash: the qwen2 training shapes above; int8
@@ -120,6 +127,8 @@ Phases (any failure exits nonzero):
               and the flash D tail at gemma2-27b's layout (B 2, S 2048, D
               144), whose ``launches`` in the kernels line is the sum of
               its own counter (``flash_d_tail``) over every path run;
+              then qwen3-moe-30b-a3b's shapes of phase 3 (decode, prefill
+              at C = 16 and 64, int8 decode and B = 1 replay);
 5. serving  — full-width qwen2-0.5b (random weights, seed 0), paged: (a)
               the port's launcher ``repro_torch.launch.serve.main``; (b)
               the scheduler and engine driven directly with 8 prompts of
@@ -259,7 +268,29 @@ Phases (any failure exits nonzero):
               failover; (d) ``repro_torch.benchmarks.fault_tolerance`` at
               its reference size.  Each part prints tokens/s, TTFT p50/p95,
               the decode gap p95, recovery_wall_s, peak device memory and
-              its wall time.
+              its wall time;
+18. MoE serving, qwen3-moe-30b-a3b at full width and depth (48 layers,
+              128 experts top-8, 61.09 GB of bf16 weights drawn on the
+              card at seed 0, one copy resident at a time): (a) the
+              launcher ``--paged --max-slots 8 --max-seq-len 1024
+              --requests 8 --max-new 32 --shared-prefix 256 --greedy``;
+              (b) the scheduler and engine on phase 5 (b)'s workload:
+              every round a replay of one of two programs, each captured
+              once, exactly 48 paged-decode launches a decode round, 48
+              tensor-core prefills a prefill round and 97 one-pass
+              RMSNorms a round, prefix hits, no leaks; (c) one B = 8
+              decode round at contexts 512-2048, replayed and eager (bit
+              for bit), timed with CUDA events, 5 served steps profiled
+              (kernels a step, busy share) and one eager step's device
+              time split into expert GEMMs, dispatch, attention and the
+              rest; (d) dense int8 on phase 6's first 4 prompts: exactly
+              48 int8 launches and 97 RMSNorms a step, no other attention
+              kernel; (e) card against CPU at 2 layers on weights copied
+              from the card: last logits within ``CPU_LOGIT_TOL``, 4
+              equal greedy tokens, and per layer the share of (token, k)
+              expert choices that agree on the same layer inputs, with
+              the smallest top-K margin.  Init seconds, weight bytes,
+              peaks, tokens/s, TTFT and decode gap are printed.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -946,6 +977,37 @@ def time_ms(torch, fn, flush, reps: int = 20, warmup: int = 3) -> float:
         e.synchronize()
         total += s.elapsed_time(e)
     return total / reps
+
+
+def time_cases(torch, cases, model: str, key: str, by_name, flush) -> None:
+    """Hold each ``(kernel, shapes, fn, plain, lib, cost, case, ok)`` of
+    ``cases`` against its plain version (``ok(got, want)``), then time it
+    beside the plain version, the library call (none where ``lib`` is
+    None) and its bound; the numbers go to ``by_name[kernel][key]`` and
+    are printed."""
+    for kname, what, fn, plain, lib, cost, case, ok_of in cases:
+        want, got = plain(), fn()
+        err = (got.float() - want.float()).abs().max().item()
+        check(ok_of(got, want), f"{kname} disagrees at {model}'s {what}")
+        del want, got
+        nbytes, flops = cost(case)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_flops = flops / BF16_FLOPS_PER_S * 1e3
+        m = dict(shapes=what, ms=time_ms(torch, fn, flush),
+                 plain_ms=time_ms(torch, plain, flush, reps=5),
+                 library_ms=None if lib is None else time_ms(torch, lib,
+                                                             flush),
+                 bound_ms=max(t_bytes, t_flops),
+                 bound_by="bytes" if t_bytes >= t_flops else "operations",
+                 max_abs_err=err)
+        entry = by_name[kname]
+        entry.setdefault(key, []).append(m)
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        lib_txt = ("none" if m["library_ms"] is None
+                   else f"{m['library_ms']:.4f} ms")
+        print(f"{kname} at {model}'s {what}: kernel {m['ms']:.4f} ms, plain "
+              f"{m['plain_ms']:.4f} ms, library {lib_txt}, bound "
+              f"{m['bound_ms']:.5f} ms by {m['bound_by']}", flush=True)
 
 
 def kernel_times_ms(torch, fn, names, flush, reps: int = 10) -> dict:
@@ -1801,12 +1863,13 @@ def check_programs(eng, label: str, prefill: str, rows: int) -> None:
     print(f"{label} programs: " + json.dumps(out), flush=True)
 
 
-def check_round_launches(eng, launches, label: str, cfg) -> None:
+def check_round_launches(eng, launches, label: str, cfg) -> dict:
     """A paged serving run's kernel counts are its replays times each
     capture's launches: a decode round launches paged decode once a layer,
     a prefill round paged prefill once a layer (on the tensor-core
     kernel), and a round of either one RMSNorm a norm (two a layer and the
-    final one, each one pass)."""
+    final one, each one pass).  Returns the paged kernels' measured
+    launches per replay of their round's program."""
     L = cfg.num_layers
     dec = eng.programs["decode_step"].replays
     pre = eng.programs["prefill_paged"].replays
@@ -1818,6 +1881,10 @@ def check_round_launches(eng, launches, label: str, cfg) -> None:
     got = {k: launches[k] for k in want}
     check(got == want, f"{label}: launches {got}, want {want} from {dec} "
           f"decode and {pre} prefill replays")
+    return {"paged_decode_attention": got["paged_decode_attention"]
+            / max(dec, 1),
+            "paged_prefill_attention": got["paged_prefill_attention"]
+            / max(pre, 1)}
 
 
 def eager_vs_replay(torch, T, eng, tokens, positions) -> float:
@@ -2000,6 +2067,398 @@ def serve_recurrent(torch, T, dev, counters, by_name, rms_paths) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# MoE serving (phase 18)
+# ---------------------------------------------------------------------------
+
+def moe_device_split(prof) -> dict:
+    """Device time (ms) of one profiled eager MoE decode step: the expert
+    GEMMs (kernels of ``aten::bmm``: the three expert einsums; every other
+    product of the step is an ``aten::mm``), the dispatch (kernels of the
+    ops under ``moe.DISPATCH_RANGE``: the router, the aux loss, the
+    dispatch into the capacity buffer, the gather and combine of the
+    slots), the attention kernels (paged decode and its split combine,
+    launched through ctypes, so found by kernel name) and the rest; plus
+    the 8 ops with the most device time of their own, and the kernel
+    count."""
+    from repro_torch.models.moe import DISPATCH_RANGE
+
+    def under_range(e):
+        while e is not None:
+            if e.name == DISPATCH_RANGE:
+                return True
+            e = e.cpu_parent
+        return False
+
+    split = dict.fromkeys(("expert_gemms", "dispatch", "attention"), 0.0)
+    total, n, own, calls = 0.0, 0, {}, {}
+    for e in prof.events():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if not us:
+            continue
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            if e.name == DISPATCH_RANGE or getattr(e, "is_user_annotation",
+                                                   False):
+                continue        # the range's span on the device, no kernel
+            total += us / 1e3
+            n += 1
+            low = e.name.lower()
+            if "paged_decode" in low or "combine_kernel" in low:
+                split["attention"] += us / 1e3
+            continue
+        own[e.name] = own.get(e.name, 0.0) + us / 1e3
+        calls[e.name] = calls.get(e.name, 0) + 1
+        if e.name == "aten::bmm":
+            split["expert_gemms"] += us / 1e3
+        elif under_range(e):
+            split["dispatch"] += us / 1e3
+    split["rest"] = total - sum(split.values())
+    top = sorted(own, key=own.get, reverse=True)[:8]
+    return dict(split, kernel_ms=total, kernels=n,
+                top_ops=[{"op": k, "ms": own[k], "calls": calls[k]}
+                         for k in top])
+
+
+def moe_phase(torch, T, dev, counters, by_name, rms_paths) -> dict:
+    """qwen3-moe-30b-a3b at full width and depth (48 layers, 128 experts,
+    top-8) with random weights drawn on the card at seed 0, one copy
+    resident at a time: (a) the launcher, paged; (b) the scheduler and
+    engine on phase 5 (b)'s workload; (c) a B = 8 decode round replayed
+    and eager, timed and profiled; (d) dense int8 on phase 6's first 4
+    prompts; (e) card against CPU at 2 layers on weights copied from the
+    card, with the routing agreement per layer.  Adds the paths' launches
+    to ``by_name`` and ``rms_paths``."""
+    import gc
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.serving import (Request, SamplingParams, Scheduler,
+                                     ServingEngine)
+    from repro_torch.serving.programs import CapturedProgram
+    arch = "qwen3-moe-30b-a3b"
+    cfg = get_config(arch)
+    L, K = cfg.num_layers, cfg.num_experts_per_tok
+    out = {}
+
+    def held() -> int:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated(dev)
+
+    def nbytes(tree) -> int:
+        return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+    # (a) the launcher, paged ---------------------------------------------
+    before = held()
+    check(before < 4 * 2**30, f"(a) {before} bytes held before the launcher")
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    gw = launcher.main([
+        "--arch", arch, "--paged", "--max-slots", "8", "--max-seq-len",
+        "1024", "--requests", "8", "--max-new", "32", "--shared-prefix",
+        "256", "--greedy", "--metrics-json", str(OUT / "moe_metrics.json")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_a = read_counts(counters)
+    sched = gw.replicas[0].scheduler
+    eng = sched.engine
+    setup_s = json.loads((OUT / "moe_metrics.json").read_text())["setup_s"]
+    rep = report_serving(torch, sched, "(a) moe launcher", dev)
+    check(rep["requests"] == 8, "(a) moe: not every request completed")
+    check(rep["prefix_hit_rate"] > 0, "(a) moe: no prefix-cache hit")
+    check_no_leaks(sched, "(a) moe")
+    check_programs(eng, "(a) moe", "prefill_paged",
+                   eng.prefill_batch * eng.prefill_chunk)
+    per_replay = {"launcher": check_round_launches(eng, launches_a,
+                                                   "(a) moe", cfg)}
+    check(eng.params["layers"]["moe"]["router"]["w"].dtype == torch.float32
+          and eng.params["layers"]["moe"]["wi"].dtype == torch.bfloat16,
+          "(a) moe: the router is not f32 or the experts not bf16")
+    out["launcher"] = dict(rep, setup_s=setup_s, wall_s=wall,
+                           weight_bytes=nbytes(eng.params),
+                           programs={n: {"captures": p.captures,
+                                         "replays": p.replays,
+                                         "capture_s": p.capture_s}
+                                     for n, p in eng.programs.items()})
+    print(f"(a) moe launcher: setup (weights + engine) {setup_s:.2f} s, "
+          f"weights {out['launcher']['weight_bytes']} bytes, wall "
+          f"{wall:.1f} s", flush=True)
+    del gw, sched, eng
+
+    # (b) the scheduler and engine driven directly -------------------------
+    before = held()
+    check(before < 4 * 2**30, f"(b) {before} bytes still held before the "
+          "weights are made (one copy at a time)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    torch.cuda.synchronize()
+    out["init"] = dict(init_s=time.perf_counter() - t0,
+                       weight_bytes=nbytes(params),
+                       init_peak_bytes=torch.cuda.max_memory_allocated(dev),
+                       held_before=before)
+    print(f"(b) moe: weights made on the card in {out['init']['init_s']:.2f}"
+          f" s, {out['init']['weight_bytes']} bytes, peak "
+          f"{out['init']['init_peak_bytes']} bytes ({before} held before)",
+          flush=True)
+    rs = np.random.default_rng(1)
+    shared = rs.integers(0, cfg.vocab_size, 256, dtype=np.int32)
+    prompts = [np.concatenate([shared, rs.integers(
+        0, cfg.vocab_size, int(rs.integers(64, 769)), dtype=np.int32)])
+        for _ in range(8)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = ServingEngine(cfg, params, max_seq_len=2048, max_slots=8,
+                        prefix_cache_blocks=256, paged=True,
+                        prefill_batch=4, device=dev)
+    sched = Scheduler(eng, prefill_token_budget=512, profile=True)
+    zero_counts(counters)
+    rids = [sched.submit(Request(p, SamplingParams(max_new_tokens=32,
+                                                   greedy=True)))
+            for p in prompts]
+    run_marking_warm(sched)
+    torch.cuda.synchronize()
+    launches_b = read_counts(counters)
+    rep = report_serving(torch, sched, "(b) moe direct", dev)
+    outs = [sched.output(r) for r in rids]
+    check(all(len(o) == 32 for o in outs),
+          "(b) moe: not every request completed")
+    check(all(((o >= 0) & (o < cfg.vocab_size)).all() for o in outs),
+          "(b) moe: token ids out of range")
+    check(rep["prefix_hit_rate"] > 0, "(b) moe: no prefix-cache hit")
+    check_no_leaks(sched, "(b) moe")
+    check(eng.recompiles.warm, "(b) moe: the engine never held both programs")
+    check_programs(eng, "(b) moe", "prefill_paged",
+                   eng.prefill_batch * eng.prefill_chunk)
+    per_replay["engine"] = check_round_launches(eng, launches_b, "(b) moe",
+                                                cfg)
+    out["direct"] = dict(rep, prompts=[len(p) for p in prompts],
+                         decode_replays=eng.programs["decode_step"].replays,
+                         prefill_replays=eng.programs["prefill_paged"].replays)
+    del sched, eng
+
+    # (c) one B = 8 decode round: replayed and eager, timed, profiled -------
+    lens = [512, 731, 950, 1170, 1389, 1609, 1828, 2048]
+    dc = decode_case(torch, np.random.default_rng(18), dev, B=8,
+                     KV=cfg.num_kv_heads, G=cfg.num_heads // cfg.num_kv_heads,
+                     D=cfg.resolved_head_dim, page=16, lengths=lens,
+                     garbage=False)
+    shape = (L, 1, dc["k_pages"].shape[0], 16, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    step_cache = {"layers": {n: torch.randn(shape, dtype=torch.bfloat16,
+                                            device=dev) for n in "kv"}}
+    step_in = {"tokens": torch.zeros((8, 1), dtype=torch.int32, device=dev),
+               "positions": (dc["lengths"] - 1).to(torch.int32),
+               "block_tables": dc["block_tables"]}
+    step = CapturedProgram("decode_step", lambda **b: T.decode_step(
+        params, cfg, dict(b, cache=step_cache))[0], step_in)
+    rs = np.random.default_rng(4)
+    step.feed(tokens=rs.integers(0, cfg.vocab_size, (8, 1), dtype=np.int32))
+    replayed = step.replay().clone()
+    eager = T.decode_step(params, cfg, dict(step_in, cache=step_cache))[0]
+    diff = float((replayed - eager).abs().max())
+    check(diff == 0.0 and step.captures == 1,
+          f"(c) moe: the replayed decode round differs from the eager one "
+          f"({diff})")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    for _ in range(20):
+        step.replay()
+    ev[1].record()
+    for _ in range(3):
+        T.decode_step(params, cfg, dict(step_in, cache=step_cache))
+    ev[2].record()
+    torch.cuda.synchronize()
+    replay_ms = ev[0].elapsed_time(ev[1]) / 20
+    eager_ms = ev[1].elapsed_time(ev[2]) / 3
+
+    def serve_step():
+        step.feed(tokens=rs.integers(0, cfg.vocab_size, (8, 1),
+                                     dtype=np.int32))
+        torch.argmax(step.replay()[:, 0], dim=-1).cpu()
+
+    for _ in range(3):
+        serve_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        serve_step()
+    served_ms = (time.perf_counter() - t0) * 1e3 / 10
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            serve_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    br = profile_breakdown(prof, wall_ms)
+    n_kernels = sum(e.count for e in prof.key_averages() if str(getattr(
+        e, "device_type", "")).endswith("CUDA")) / 5
+    with torch.profiler.profile(activities=acts) as prof:
+        T.decode_step(params, cfg, dict(step_in, cache=step_cache))
+        torch.cuda.synchronize()
+    split = moe_device_split(prof)
+    weight_ms = nbytes(params) / HBM_BYTES_PER_S * 1e3
+    out["decode_round"] = dict(
+        replay_ms=replay_ms, eager_ms=eager_ms, capture_s=step.capture_s,
+        served_step_ms=served_ms, kernels_per_step=n_kernels,
+        kernel_ms_per_step=br["kernel_ms"] / 5,
+        busy_share=br["kernel_ms"] / 5 / served_ms,
+        profiled_busy_share=br["busy_share"], eager_split_ms=split,
+        weights_read_bound_ms=weight_ms, replay_vs_eager_max_diff=diff,
+        top=br["top"][:6])
+    print("(c) moe B = 8 decode round (contexts 512-2048; replay and eager "
+          "by CUDA events; served steps by the host clock, kernels and busy "
+          "share from 5 under torch.profiler; the split from one eager step; "
+          "bound: every weight read once): "
+          + json.dumps(out["decode_round"]), flush=True)
+    check(n_kernels > 0 and split["kernel_ms"] > 0,
+          "(c) moe: the profiler saw no kernel")
+    del step, step_cache, step_in, dc, prof, replayed, eager
+
+    # (d) dense int8, 4 of phase 6's prompts ------------------------------
+    cfg8 = cfg.with_(kv_cache_dtype="int8")
+    rs = np.random.default_rng(3)
+    shared = rs.integers(0, cfg.vocab_size, 32, dtype=np.int32)
+    dense_prompts = [np.concatenate([shared, rs.integers(
+        0, cfg.vocab_size, int(rs.integers(16, 97)), dtype=np.int32)])
+        for _ in range(12)][:4]
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = ServingEngine(cfg8, params, paged=False, max_slots=8,
+                        max_seq_len=1024, prefill_chunk=16,
+                        prefix_cache_blocks=64, device=dev)
+    sched = Scheduler(eng, profile=True)
+    zero_counts(counters)
+    rids = [sched.submit(Request(p, SamplingParams(max_new_tokens=32,
+                                                   greedy=True)))
+            for p in dense_prompts]
+    run_marking_warm(sched)
+    torch.cuda.synchronize()
+    launches_d = read_counts(counters)
+    rep = report_serving(torch, sched, "(d) moe dense int8", dev)
+    outs = [sched.output(r) for r in rids]
+    steps = eng.decode_steps + eng.prefill_tokens_executed
+    check(all(len(o) == 32 for o in outs),
+          "(d) moe dense int8: not every request completed")
+    want = {"flash_attention_int8kv": L * steps,
+            "rmsnorm": (2 * L + 1) * steps,
+            "rmsnorm_one_pass": (2 * L + 1) * steps,
+            "paged_decode_attention": 0, "paged_prefill_attention": 0,
+            "flash_attention": 0}
+    got = {k: launches_d[k] for k in want}
+    check(got == want, f"(d) moe dense int8: launches {got}, want {want} "
+          f"from {steps} steps (decode steps + prefill tokens executed)")
+    check_no_leaks(sched, "(d) moe dense int8")
+    check(eng.recompiles.warm,
+          "(d) moe dense int8: the engine never held both programs")
+    check_programs(eng, "(d) moe dense int8", "prefill_chunk",
+                   eng.prefill_chunk)
+    out["dense_int8"] = dict(rep, kv_bytes=eng.kv.kv_bytes(),
+                             decode_steps=eng.decode_steps,
+                             prefill_tokens_executed=(
+                                 eng.prefill_tokens_executed),
+                             capture_s={n: p.capture_s for n, p in
+                                        eng.programs.items()})
+    del sched, eng
+
+    # the kernels line: this phase's main-path launches
+    for name in ("paged_decode_attention", "paged_prefill_attention"):
+        n = launches_a[name] + launches_b[name]
+        by_name[name]["launches"] += n
+        by_name[name]["launches_per_part"].append(n)
+        by_name[name]["moe_launches_per_replay"] = {
+            part: r[name] for part, r in per_replay.items()}
+    k = by_name["flash_attention_int8kv"]
+    k["launches_per_path"][f"dense serving {arch}"] = \
+        launches_d["flash_attention_int8kv"]
+    k["launches"] = sum(k["launches_per_path"].values())
+    rms_paths[f"serving {arch}"] = (launches_a["rmsnorm"]
+                                    + launches_b["rmsnorm"]
+                                    + launches_d["rmsnorm"])
+
+    # (e) card against CPU at 2 layers, on weights copied from the card ----
+    cfg2 = cfg.with_(num_layers=2)
+    p_cpu = _map(dict(params, layers=_map(params["layers"],
+                                          lambda t: t[:2])),
+                 lambda t: t.cpu())
+    del params
+    before = held()
+    check(before < 4 * 2**30, f"(e) {before} bytes held after freeing the "
+          "full-depth weights")
+    p_card = _map(p_cpu, lambda t: t.to(dev))
+    prompt = np.random.default_rng(2).integers(0, cfg.vocab_size, 48,
+                                               dtype=np.int32)
+    recorded = []
+    inner = moe_lib.moe_block
+
+    def recording(p, c, x):
+        recorded.append(x.detach().clone())
+        return inner(p, c, x)
+
+    results = {}
+    for where, p in ((dev, p_card), ("cpu", p_cpu)):
+        e = ServingEngine(cfg2, p, max_seq_len=64, max_slots=1, paged=True,
+                          prefill_batch=1, device=where)
+        moe_lib.moe_block = recording if where == "cpu" else inner
+        try:
+            slot, last = e.prefill_into_slot(prompt)
+        finally:
+            moe_lib.moe_block = inner
+        e.free_slot(slot)
+        toks = e.generate([Request(prompt, SamplingParams(
+            max_new_tokens=4, greedy=True))])[0]
+        results[str(where)] = (last, toks.tolist())
+        del e
+    (lg, tg), (lc, tc) = results[str(dev)], results["cpu"]
+    check(np.isfinite(lg).all() and lg.shape == (cfg.vocab_size,),
+          "(e) moe: card logits not finite or of the wrong shape")
+    logit_diff = float(np.abs(lg - lc).max())
+    # routing on the same layer inputs (what the CPU prefill fed each MoE
+    # block: 3 rounds of 16 tokens, layers in turn): card against CPU
+    agree, margins, flips = [], [], []
+    for li in range(2):
+        h = torch.cat([recorded[r * 2 + li][0] for r in range(
+            len(recorded) // 2)])[None]
+        pl_cpu = T._index(p_cpu["layers"]["moe"], li, 0)
+        pl_card = T._index(p_card["layers"]["moe"], li, 0)
+        probs, _, e_cpu = moe_lib.route(pl_cpu, cfg2, h)
+        _, _, e_card = moe_lib.route(pl_card, cfg2, h.to(dev))
+        e_card = e_card.cpu()
+        same = (e_card[..., :, None] == e_cpu[..., None, :]).any(-1)
+        agree.append(float(same.float().mean()))
+        top = torch.sort(probs, dim=-1, descending=True).values
+        margin = top[..., K - 1] - top[..., K]
+        margins.append(float(margin.min()))
+        for t in torch.nonzero(~same.all(-1)[0]).flatten().tolist():
+            flips.append(dict(layer=li, token=t,
+                              margin=float(margin[0, t])))
+    out["card_vs_cpu"] = dict(logit_diff=logit_diff, tokens_card=tg,
+                              tokens_cpu=tc, routing_agreement=agree,
+                              min_topk_margin=margins, flips=flips)
+    print(f"(e) moe 2-layer full-width paged, card vs CPU: last logits max "
+          f"|diff| {logit_diff:.3e} (tol {CPU_LOGIT_TOL}); greedy card {tg} "
+          f"cpu {tc}; (token, k) expert choices that agree on the same "
+          f"layer inputs, per layer: {agree}; min top-K margin per layer "
+          f"{margins}; flips {flips}", flush=True)
+    check(logit_diff <= CPU_LOGIT_TOL, "(e) moe: card and CPU logits disagree")
+    check(tg == tc, "(e) moe: card and CPU greedy tokens differ")
+    del p_card, p_cpu, recorded
+    held()
+    return out
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
 def report_serving(torch, sched, label: str, dev) -> dict:
     s = sched.metrics.summary()
     out = {"requests": s["requests_completed"],
@@ -2102,35 +2561,54 @@ def main() -> int:
                           starts=[4090, 4500, 0, 4200], C=16,
                           q_lens=[16, 5, 16, 0]),
     }
+    # qwen3-moe-30b-a3b's attention (KV 4, G 8, D 128) at the shapes its
+    # serving rounds give the paged kernels: a B = 8 decode round at
+    # contexts 512-2048, and the launcher's prefill tile (4 rows, C = 16)
+    # and phase 5's (C = 64), starts 0-1,024, with q_len = 0 rows (their
+    # decode part runs once, under the first label)
+    moe_lens = [512, 731, 950, 1170, 1389, 1609, 1828, 2048]
+    moe_sets = {
+        "qwen3-moe-30b-a3b C 16": dict(
+            KV=4, G=8, D=128, page=16, window=None, softcap=None,
+            lengths=moe_lens, starts=[0, 341, 683, 1024], C=16,
+            q_lens=[16, 9, 0, 16]),
+        "qwen3-moe-30b-a3b C 64": dict(
+            KV=4, G=8, D=128, page=16, window=None, softcap=None,
+            lengths=None, starts=[0, 256, 640, 1024], C=64,
+            q_lens=[64, 0, 37, 64]),
+    }
     worst = {}
-    for label, s in shape_sets.items():
-        dc = decode_case(torch, rng, dev, B=len(s["lengths"]), KV=s["KV"],
-                         G=s["G"], D=s["D"], page=s["page"],
-                         lengths=s["lengths"], window=s["window"],
-                         softcap=s["softcap"])
-        got = pa.paged_attention(*decode_args(dc), window=dc["window"],
-                                 softcap=dc["softcap"])
-        torch.cuda.synchronize()
-        ref_, mix = decode_bound(pa, dc)
-        err = (got.float() - ref_.float()).abs().max().item()
-        ratio = kref.rounding_bound_ratio(got, ref_, mix, pa.P_ROUNDING)
-        zero_ok = bool((got[3] == 0).all()) if 0 in s["lengths"] else True
-        print(f"decode  {label}: max_abs_err {err:.3e}; max |err| / bound "
-              f"{ratio:.3e} (bound 2^-14 (|P| @ |V|) / l + 2^-7 |plain|, "
-              f"fails above 1); length-0 row zeros: {zero_ok}")
-        check(ratio <= 1.0 and zero_ok,
-              f"decode kernel disagrees at {label} shapes")
-        worst["paged_decode_attention"] = max(
-            worst.get("paged_decode_attention", 0.0), err)
-        # the check's power: broken decode kernels, as plain versions on
-        # changed inputs, must each fail it
-        for what, wrong in decode_wrongs(torch, pa, kref, dc):
-            miss = kref.rounding_bound_ratio(wrong(), ref_, mix,
-                                             pa.P_ROUNDING)
-            print(f"decode  {label}: a kernel that {what} would read "
-                  f"{miss:.3e}")
-            check(miss > 1.0, f"the decode check misses a kernel that {what}")
-        del dc, got, ref_, mix
+    for label, s in {**shape_sets, **moe_sets}.items():
+        if s["lengths"]:
+            dc = decode_case(torch, rng, dev, B=len(s["lengths"]),
+                             KV=s["KV"], G=s["G"], D=s["D"], page=s["page"],
+                             lengths=s["lengths"], window=s["window"],
+                             softcap=s["softcap"])
+            got = pa.paged_attention(*decode_args(dc), window=dc["window"],
+                                     softcap=dc["softcap"])
+            torch.cuda.synchronize()
+            ref_, mix = decode_bound(pa, dc)
+            err = (got.float() - ref_.float()).abs().max().item()
+            ratio = kref.rounding_bound_ratio(got, ref_, mix, pa.P_ROUNDING)
+            zero_ok = (bool((got[3] == 0).all()) if 0 in s["lengths"]
+                       else True)
+            print(f"decode  {label}: max_abs_err {err:.3e}; max |err| / "
+                  f"bound {ratio:.3e} (bound 2^-14 (|P| @ |V|) / l + 2^-7 "
+                  f"|plain|, fails above 1); length-0 row zeros: {zero_ok}")
+            check(ratio <= 1.0 and zero_ok,
+                  f"decode kernel disagrees at {label} shapes")
+            worst["paged_decode_attention"] = max(
+                worst.get("paged_decode_attention", 0.0), err)
+            # the check's power: broken decode kernels, as plain versions
+            # on changed inputs, must each fail it
+            for what, wrong in decode_wrongs(torch, pa, kref, dc):
+                miss = kref.rounding_bound_ratio(wrong(), ref_, mix,
+                                                 pa.P_ROUNDING)
+                print(f"decode  {label}: a kernel that {what} would read "
+                      f"{miss:.3e}")
+                check(miss > 1.0,
+                      f"the decode check misses a kernel that {what}")
+            del dc, got, ref_, mix
 
         pc_ = prefill_case(torch, rng, dev, B=len(s["starts"]), KV=s["KV"],
                            G=s["G"], D=s["D"], page=s["page"], C=s["C"],
@@ -2142,7 +2620,8 @@ def main() -> int:
         got = pp.paged_prefill(*prefill_args(pc_), **kw)
         torch.cuda.synchronize()
         tc = pp.prefill_tensor_core.launches > n_tc
-        check(tc == pp.tensor_core_route(got.dtype, got.shape[-1]),
+        check(tc == pp.tensor_core_route(got.dtype, got.shape[-1])
+              and (tc or label not in moe_sets),
               f"the prefill call at {label} shapes took the wrong kernel")
         ref_, mix, p_rel = prefill_bound(pp, pc_)
         err = (got.float() - ref_.float()).abs().max().item()
@@ -2314,6 +2793,12 @@ def main() -> int:
             q_start=[n - 1 for n in z_lens]),
         "zamba2-1.2b replay": dict(
             Sq=1, H=32, KV=32, D=64, Skv=1024, q_start=[77], kv_len=[78]),
+        # qwen3-moe-30b-a3b in dense int8 mode: G 8, D 128
+        "qwen3-moe-30b-a3b decode": dict(
+            Sq=1, H=32, KV=4, D=128, Skv=2048, kv_len=path_lens,
+            q_start=[n - 1 for n in path_lens]),
+        "qwen3-moe-30b-a3b replay": dict(
+            Sq=1, H=32, KV=4, D=128, Skv=1024, q_start=[77], kv_len=[78]),
         "TPU test (2, 1, 256, 64)": dict(
             Sq=1, H=1, KV=1, D=64, Skv=256, q_start=[0, 0],
             kv_len=[256, 256], dtype="float32"),
@@ -2348,7 +2833,8 @@ def main() -> int:
         q, k8, ks, v8, vs, qs, n = args
         wrongs = []
         if label in ("qwen2-0.5b decode", "zamba2-1.2b decode",
-                     "zamba2-1.2b replay"):
+                     "zamba2-1.2b replay", "qwen3-moe-30b-a3b decode",
+                     "qwen3-moe-30b-a3b replay"):
             full = torch.full_like(n, spec["Skv"])
             tile = torch.where(n > 64, (n - 1) // 64 * 64, n)
             B8, _, H8, D8 = q.shape
@@ -2871,35 +3357,54 @@ def main() -> int:
         zcases.append(("flash_attention_int8kv", what, fn_, plain_, lib_,
                        int8_cost, zc, lambda got, want: int8_rel_err(
                            got, want) <= INT8_BF16_RTOL))
-    for kname, what, fn, plain, lib, cost, case, ok_of in zcases:
-        want, got = plain(), fn()
-        err = (got.float() - want.float()).abs().max().item()
-        check(ok_of(got, want), f"{kname} disagrees at zamba2's {what}")
-        del want, got
-        nbytes, flops = cost(case)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_flops = flops / BF16_FLOPS_PER_S * 1e3
-        z = dict(shapes=what, ms=time_ms(torch, fn, flush),
-                 plain_ms=time_ms(torch, plain, flush, reps=5),
-                 library_ms=None if lib is None else time_ms(torch, lib,
-                                                             flush),
-                 bound_ms=max(t_bytes, t_flops),
-                 bound_by="bytes" if t_bytes >= t_flops else "operations",
-                 max_abs_err=err)
-        entry = by_name[kname]
-        entry.setdefault("zamba2_shapes", []).append(z)
-        entry["max_abs_err"] = max(entry["max_abs_err"], err)
-        lib_txt = ("none" if z["library_ms"] is None
-                   else f"{z['library_ms']:.4f} ms")
-        print(f"{kname} at zamba2's {what}: kernel {z['ms']:.4f} ms, plain "
-              f"{z['plain_ms']:.4f} ms, library {lib_txt}, bound "
-              f"{z['bound_ms']:.5f} ms by {z['bound_by']}", flush=True)
+    time_cases(torch, zcases, "zamba2", "zamba2_shapes", by_name, flush)
     zstages = kernel_times_ms(torch, lambda: ssd.ssd_scan(*zsa, 256),
                               ssd.TC_KERNELS, flush)
     by_name["ssd_scan"]["zamba2_stages_ms"] = zstages
     print("ssd_scan launches at zamba2's N 64 (b 8, profiler): " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in zstages.items()), flush=True)
-    del zf, zfa, zs, zsa, zn, zgain, zcases, case
+    del zf, zfa, zs, zsa, zn, zgain, zcases
+    torch.cuda.empty_cache()
+
+    # the paged kernels and the int8 kernel at qwen3-moe-30b-a3b's shapes
+    # (KV 4, G 8, D 128): a B = 8 decode round at contexts 512-2048, the
+    # prefill tile at C = 16 and C = 64, the dense int8 decode step and
+    # the B = 1 prompt replay; each checked as in phase 3, then timed
+    # beside its plain version, its library call and its bound
+    mdc = decode_case(torch, rng, dev, B=8, KV=4, G=8, D=128, page=16,
+                      lengths=moe_lens, garbage=False)
+
+    def moe_decode_ok(got, want):
+        return kref.rounding_bound_ratio(
+            got, want, decode_bound(pa, mdc)[1], pa.P_ROUNDING) <= 1.0
+
+    mcases = [("paged_decode_attention",
+               f"q (8, 4, 8, 128) bf16, 16-token pages, contexts {moe_lens}",
+               lambda: pa.paged_attention(*decode_args(mdc)),
+               lambda: pa.paged_attention_plain(*decode_args(mdc)),
+               lambda: library_decode(torch, F, mdc), decode_cost, mdc,
+               moe_decode_ok)]
+    for C, starts in ((16, [0, 341, 683, 1024]), (64, [0, 256, 640, 1024])):
+        mpc = prefill_case(torch, rng, dev, B=4, KV=4, G=8, D=128, page=16,
+                           C=C, starts=starts, q_lens=[C] * 4)
+        fn_, plain_, lib_ = prefill_fns(mpc)
+        mcases.append(("paged_prefill_attention",
+                       f"q (4, 4, {C}*8, 128) bf16, C = {C}, starts "
+                       f"{starts}", fn_, plain_, lib_, prefill_cost, mpc,
+                       lambda got, want, c=mpc: prefill_ok(c, got, want)))
+    for label, what in (("qwen3-moe-30b-a3b decode",
+                         "q (8, 1, 32, 128) bf16, int8 K/V (8, 2048, 4, "
+                         f"128), kv_len {path_lens}"),
+                        ("qwen3-moe-30b-a3b replay",
+                         "q (1, 1, 32, 128) bf16, int8 K/V (1, 1024, 4, "
+                         "128), kv_len 78")):
+        mic = int8_case(torch, rng, dev, **int8_sets[label])
+        fn_, plain_, lib_ = int8_fns(mic)
+        mcases.append(("flash_attention_int8kv", what, fn_, plain_, lib_,
+                       int8_cost, mic, lambda got, want: int8_rel_err(
+                           got, want) <= INT8_BF16_RTOL))
+    time_cases(torch, mcases, "qwen3-moe", "moe_shapes", by_name, flush)
+    del mdc, mcases
     torch.cuda.empty_cache()
 
     # the repaired routes as kernels of their own: the f32 decode and
@@ -3497,6 +4002,14 @@ def main() -> int:
     by_name["rmsnorm"]["launches"] = sum(rms_paths.values())
     print(f"fleet phase {time.perf_counter() - t17:.1f} s: "
           + json.dumps(fleet), flush=True)
+
+    # 18. MoE serving at full width ----------------------------------------
+    phase("serving qwen3-moe-30b-a3b, full width, paged and dense int8")
+    t18 = time.perf_counter()
+    moe = moe_phase(torch, T, dev, counters, by_name, rms_paths)
+    by_name["rmsnorm"]["launches"] = sum(rms_paths.values())
+    print(f"moe phase {time.perf_counter() - t18:.1f} s: " + json.dumps(moe),
+          flush=True)
 
     # the D tail's launches over every path run (each zeroed just before
     # it): no ported config has a head dim that is not a multiple of 32

@@ -23,11 +23,18 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from repro_torch.models.moe import F32_SUFFIXES as _MOE_F32_SUFFIXES
 from repro_torch.models.ssm import F32_LEAVES as _SSM_F32_LEAVES
 
 # leaves the reference uses in f32 (norm scales as ``1 + scale``; the
-# mamba2 conv, dt bias, A_log and D): never narrowed
+# mamba2 conv, dt bias, A_log and D; the MoE router, whose last key ``w``
+# every linear shares, so it is matched on its path): never narrowed
 _F32_LEAVES = ("scale",) + _SSM_F32_LEAVES
+
+
+def _keeps_f32(keys) -> bool:
+    return (keys[-1] in _F32_LEAVES
+            or any(tuple(keys[-len(s):]) == s for s in _MOE_F32_SUFFIXES))
 
 
 def from_flat(flat: Mapping[str, np.ndarray], device="cpu",
@@ -37,8 +44,8 @@ def from_flat(flat: Mapping[str, np.ndarray], device="cpu",
     ``weight_dtype=None`` keeps every leaf's own dtype (the reference's
     f32 masters), so ``to_flat(from_flat(flat))`` is exact.  With a dtype
     (bf16), linear, bias and embedding leaves are held in it — the cast
-    the reference makes on every call, made once — while norm scales and
-    the mamba2 leaves used in f32 stay f32."""
+    the reference makes on every call, made once — while norm scales, the
+    mamba2 leaves used in f32 and the MoE router stay f32."""
     tree: Dict[str, Any] = {}
     for path, arr in flat.items():
         keys = path.split("/")
@@ -46,7 +53,7 @@ def from_flat(flat: Mapping[str, np.ndarray], device="cpu",
         for k in keys[:-1]:
             node = node.setdefault(k, {})
         t = torch.from_numpy(np.array(arr, copy=True))
-        if weight_dtype is not None and keys[-1] not in _F32_LEAVES:
+        if weight_dtype is not None and not _keeps_f32(keys):
             t = t.to(weight_dtype)
         node[keys[-1]] = t.to(device)
     return tree

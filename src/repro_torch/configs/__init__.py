@@ -4,8 +4,9 @@
 underscores.  Every entry exports CONFIG (the full-size numbers) and
 SMOKE_CONFIG (the reduced same-family variant for CPU tests), identical to
 the reference's.  The port carries the dense decoders, the ssm family
-(mamba2) and the hybrid family (zamba2) that its serving and training
-paths run, and the paper's 3DGAN (``gan3d``, kept out of ``ARCHS`` as in
+(mamba2), the hybrid family (zamba2) and the moe family (qwen3-moe,
+dbrx: served, not trained) that its serving and training paths run, and
+the paper's 3DGAN (``gan3d``, kept out of ``ARCHS`` as in
 the reference); the other families join with the slices that port them.
 """
 from __future__ import annotations
@@ -20,6 +21,8 @@ _MODULES = {
     "qwen2-0.5b": "qwen2_0p5b",
     "mamba2-1.3b": "mamba2_1p3b",
     "zamba2-1.2b": "zamba2_1p2b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "dbrx-132b": "dbrx_132b",
     "gan3d": "gan3d",
 }
 

@@ -13,9 +13,10 @@ from paged KV blocks (the CUDA paged kernels); without it, as in the
 reference, each slot owns a dense KV stripe (attended by the plain
 PyTorch attention, or by the int8 flash kernel for a config with
 ``kv_cache_dtype="int8"``).  Weights are random, from the port's
-``init_params`` at seed 0, made once on the device and shared by every
-in-process replica.  Prompts are built as the reference's launcher
-builds them: ``--shared-prefix K`` shared tokens, then 4-11 random ones.
+``init_params`` at seed 0, drawn once on the device by a generator
+there and shared by every in-process replica.
+Prompts are built as the reference's launcher builds them:
+``--shared-prefix K`` shared tokens, then 4-11 random ones.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --paged --replicas 3 --requests 24 --max-new 32 --shared-prefix 256
@@ -23,9 +24,14 @@ builds them: ``--shared-prefix K`` shared tokens, then 4-11 random ones.
       --smoke --device cpu --requests 4 --max-new 8   # dense mode
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --smoke --fabric local --replicas 2             # worker processes
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch qwen3-moe-30b-a3b --paged --max-slots 8 --max-seq-len 1024 \\
+      --requests 8 --max-new 32 --shared-prefix 256 --greedy   # MoE, 61 GB
 
-The ssm (mamba2-1.3b) and hybrid (zamba2-1.2b) families serve in dense
-mode only: their cache holds recurrent state, so ``--paged`` raises the KV
+The moe family (qwen3-moe-30b-a3b, dbrx-132b) serves paged and dense as
+the dense decoders do; dbrx at full width (263 GB in bf16) fits no single
+card.  The ssm (mamba2-1.3b) and hybrid (zamba2-1.2b) families serve in
+dense mode only: their cache holds recurrent state, so ``--paged`` raises the KV
 cache's ``ValueError`` and the engine keeps no prefix store, as in the
 reference.
 
@@ -205,9 +211,11 @@ def main(argv=None):
                   f"(partition {rep.capsule['partition']})")
     else:
         device = resolve_device(args.device)
-        # one set of weights on the device, shared by every replica
-        params = T.init_params(cfg, torch.Generator().manual_seed(0),
-                               device=device)
+        # one set of weights, drawn on the device one layer slice at a
+        # time and shared by every replica (a full-width qwen3-moe takes
+        # ~40 minutes to draw on the CPU)
+        params = T.init_params(cfg, torch.Generator(device=device)
+                               .manual_seed(0), device=device)
         engines = [ServingEngine(cfg, params, max_seq_len=args.max_seq_len,
                                  max_slots=args.max_slots, rng_seed=r,
                                  prefix_cache_blocks=args.prefix_cache_blocks,

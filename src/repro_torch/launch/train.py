@@ -15,7 +15,10 @@ gradients are averaged by ``hvd.allreduce``.  Rank 0 prints the
 reference's step and summary lines, then step time, tokens/s, each
 kernel's launches per step, the gradient exchange's calls and bytes per
 step and, on the card, peak device memory.  The dense (qwen2-0.5b,
-gemma2-2b), ssm (mamba2-1.3b) and hybrid (zamba2-1.2b) families train.
+gemma2-2b), ssm (mamba2-1.3b) and hybrid (zamba2-1.2b) families train;
+the moe family (qwen3-moe-30b-a3b, dbrx-132b) is refused before any
+process group is made: its AdamW state fits no single card, so it waits
+for sharded training (ROADMAP Queue 1 item 6).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --seq-len 1024 --global-batch 8 --steps 8
@@ -90,6 +93,7 @@ def main(argv=None) -> dict:
     from repro_torch.models import transformer as T
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    T.check_trainable(cfg)                       # before any process group
     if args.dtype:
         cfg = cfg.with_(dtype=args.dtype)
     with hvd.init(args.device, init_method=args.init_method) as device:

@@ -28,6 +28,34 @@ def truncated_normal_(t: torch.Tensor, stddev: float,
     return t.mul_(stddev)
 
 
+def drawer(generator: torch.Generator, device, dtype: torch.dtype):
+    """``draw(shape, std, f32=False)``: one truncated-normal leaf on
+    ``device`` in ``dtype`` (f32 where ``f32``), drawn on the generator's
+    device.  A CPU generator draws each leaf whole in f32.  A generator on
+    the card draws a leaf of more than two dims one slice of its leading
+    axis at a time, in f32, into the leaf preallocated in its dtype: a
+    full-width qwen3-moe (30.5 B parameters) is made in seconds, and no
+    whole stacked leaf (38.6 GB as f32 for its experts) is ever held in
+    f32.  The two differ because slices give other numbers than one whole
+    draw: ``trunc_normal_`` (torch 2.13) rejects out-of-range values and
+    redraws them over the whole tensor, so a CPU draw stays whole to keep
+    the weights every earlier seed gave."""
+    def whole(shape, std, f32=False):
+        t = truncated_normal_(torch.empty(shape, dtype=torch.float32), std,
+                              generator)
+        return t.to(device, torch.float32 if f32 else dtype)
+
+    def sliced(shape, std, f32=False):
+        out = torch.empty(shape, dtype=torch.float32 if f32 else dtype,
+                          device=device)
+        for part in (out if out.dim() > 2 else (out,)):
+            t = torch.empty(part.shape, dtype=torch.float32,
+                            device=generator.device)
+            part.copy_(truncated_normal_(t, std, generator))
+        return out
+    return whole if generator.device.type == "cpu" else sliced
+
+
 # ---------------------------------------------------------------------------
 # Linear
 # ---------------------------------------------------------------------------

@@ -38,9 +38,7 @@ def init_mamba2(cfg, generator: torch.Generator, lead=(), device="cpu",
     d_in_proj = 2 * di + 2 * G * N + H
     lead = tuple(lead)
 
-    def normal(shape, std, dtype):
-        t = torch.empty(lead + shape, dtype=torch.float32)
-        return nn.truncated_normal_(t, std, generator).to(device, dtype)
+    draw = nn.drawer(generator, device, weight_dtype)
 
     def const(v):
         return v.expand(lead + v.shape).contiguous().to(device)
@@ -50,17 +48,15 @@ def init_mamba2(cfg, generator: torch.Generator, lead=(), device="cpu",
                                          dtype=torch.float64))
     dt_init = torch.log(torch.expm1(dt_target)).float()
     return {
-        "in_proj": {"w": normal((d, d_in_proj), 1.0 / math.sqrt(d),
-                                weight_dtype)},
-        "conv_w": normal((w, conv_dim), 1.0 / math.sqrt(w), torch.float32),
+        "in_proj": {"w": draw(lead + (d, d_in_proj), 1.0 / math.sqrt(d))},
+        "conv_w": draw(lead + (w, conv_dim), 1.0 / math.sqrt(w), True),
         "conv_b": const(torch.zeros((conv_dim,), dtype=torch.float32)),
         "dt_bias": const(dt_init),
         "A_log": const(torch.log(torch.arange(1, H + 1,
                                               dtype=torch.float32))),
         "D": const(torch.ones((H,), dtype=torch.float32)),
         "norm": {"scale": const(torch.zeros((di,), dtype=torch.float32))},
-        "out_proj": {"w": normal((di, d), 1.0 / math.sqrt(di),
-                                 weight_dtype)},
+        "out_proj": {"w": draw(lead + (di, d), 1.0 / math.sqrt(di))},
     }
 
 

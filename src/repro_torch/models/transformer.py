@@ -1,12 +1,14 @@
 """The decoder stacks: dense (llama-style pre-norm GQA; qwen2 QKV bias;
 gemma2 local/global windows, logit softcaps, post-block norms, scaled
-embeddings), ssm (mamba2, attention-free) and hybrid (zamba2: mamba2
-layers with one weight-shared attention + MLP block applied after every
-``hybrid_attn_every`` of them).
+embeddings), moe (the dense stack with the top-k MoE block of
+``models/moe.py`` in place of the MLP: qwen3-moe, dbrx), ssm (mamba2,
+attention-free) and hybrid (zamba2: mamba2 layers with one weight-shared
+attention + MLP block applied after every ``hybrid_attn_every`` of them).
 
 Counterpart of ``repro.models.transformer`` for ``family`` in ``dense``,
-``ssm`` and ``hybrid``.  The parameter tree keeps the reference's layout
-— dense per-layer leaves stacked as ``(L // pat, pat, ...)`` where
+``moe``, ``ssm`` and ``hybrid``.  The parameter tree keeps the reference's
+layout — dense and moe per-layer leaves stacked as ``(L // pat, pat,
+...)`` (a moe layer's ``moe/wi`` is ``(L, 1, E, d, d_ff)``) where
 ``pat = len(layer_pattern(cfg))``, ssm leaves as ``(L, ...)``, hybrid
 mamba leaves as ``(G, E, ...)`` (``E = hybrid_attn_every``, ``G = L //
 E``) with the ``L % E`` tail layers as ``(R, ...)`` and the unstacked
@@ -18,13 +20,15 @@ mamba layer and each application of the shared block under
 are updated in place.
 
 Ported: the full-sequence ``forward`` and the losses of training
-(``lm_loss``, ``lm_loss_chunked``) for the three families; ``decode_step``
-for the three over a dense per-slot cache (``init_cache``: attention K/V
-in bf16, or int8 codes with per-token scales; the mamba layers' f32 SSM
-and conv state), and for dense decoders over paged KV; ``prefill_step``
-over paged KV for dense decoders (the other two have no positional
-cache, and the reference refuses them there too).  The other families
-come with the slices that need them.
+(``lm_loss``, ``lm_loss_chunked``) for the dense, ssm and hybrid
+families (the moe family's training waits for sharded training, ROADMAP
+Queue 1 item 6); ``decode_step`` for all four over a dense per-slot cache
+(``init_cache``: attention K/V in bf16, or int8 codes with per-token
+scales; the mamba layers' f32 SSM and conv state), and for dense and moe
+decoders over paged KV; ``prefill_step`` over paged KV for dense and moe
+decoders (the ssm and hybrid families have no positional cache, and the
+reference refuses them there too).  The other families come with the
+slices that need them.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import modules as nn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 
 
@@ -57,15 +62,29 @@ def layer_pattern(cfg):
 
 
 def _check_family(cfg, families) -> None:
-    """Raise for a family this entry point does not run yet: training and
-    ``decode_step`` run ``_FAMILIES``, paged prefill dense decoders."""
+    """Raise for a family this entry point does not run yet: serving
+    (``init_params``, ``init_cache``, ``decode_step``) runs ``_FAMILIES``,
+    paged prefill the families with a positional cache."""
     if cfg.family not in families:
         raise NotImplementedError(
             f"family {cfg.family!r} is ported with a later slice; here the "
             f"port runs {', '.join(families)}")
 
 
-_FAMILIES = ("dense", "ssm", "hybrid")
+def check_trainable(cfg) -> None:
+    """Raise for a family ``forward`` and the losses do not train: the
+    moe family waits for sharded training (its AdamW state fits no single
+    card), the unported families for their slices."""
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            "training the moe family waits for sharded training (ROADMAP "
+            "Queue 1 item 6): its AdamW state fits no single card; the port "
+            "serves it")
+    _check_family(cfg, _FAMILIES)
+
+
+_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_POSITIONAL = ("dense", "moe")       # attention caches with a token axis
 
 
 def _refuse_paged(cfg) -> None:
@@ -87,53 +106,50 @@ def init_params(cfg, generator: torch.Generator, device="cpu",
     """Random weights with the reference's truncated-normal stddevs
     (``transformer.init_params``).  The numbers are the port's own — a
     ``torch.Generator`` cannot reproduce ``jax.random`` — so parity tests
-    bridge the reference's weights instead.  Draws happen on the CPU from
-    ``generator`` (same weights whatever ``device``); linear, bias and
-    embedding leaves are then held in ``weight_dtype`` (default: the
-    config's compute dtype), norm scales and the leaves the reference uses
-    in f32 (``ssm.F32_LEAVES``) in f32."""
+    bridge the reference's weights instead.  Linear, bias and embedding
+    leaves are held in ``weight_dtype`` (default: the config's compute
+    dtype), norm scales and the leaves the reference uses in f32
+    (``ssm.F32_LEAVES``, the MoE router) in f32.
+
+    Every leaf is drawn on the generator's device (``modules.drawer``):
+    the weights depend on the generator and its seed, not on ``device``.
+    From ``torch.Generator(device="cuda")`` a full-width qwen3-moe is made
+    on the card in seconds, one layer slice in f32 at a time."""
     _check_family(cfg, _FAMILIES)
     wdt = weight_dtype or _dtype(cfg.dtype)
-    if cfg.family != "dense":
+    if cfg.family in ("ssm", "hybrid"):
         return _init_mamba_params(cfg, generator, device, wdt)
+    draw = nn.drawer(generator, device, wdt)
     L = cfg.num_layers
     pat = len(layer_pattern(cfg))
     assert L % pat == 0, (L, pat)
-    layers = _init_attn_mlp_layer(cfg, generator, (L // pat, pat), device,
-                                  wdt)
+    layers = _init_attn_mlp_layer(cfg, draw, (L // pat, pat), device, wdt)
     p: Dict[str, Any] = {
-        "embed": {"table": _normal((cfg.vocab_size, cfg.d_model), 0.02,
-                                   generator, device, wdt)},
+        "embed": {"table": draw((cfg.vocab_size, cfg.d_model), 0.02)},
         "final_norm": {"scale": _zeros((cfg.d_model,), device)},
         "layers": layers,
     }
     if not cfg.tie_embeddings:
         d = cfg.d_model
-        p["lm_head"] = {"w": _normal((d, cfg.vocab_size), 1.0 / math.sqrt(d),
-                                     generator, device, wdt)}
+        p["lm_head"] = {"w": draw((d, cfg.vocab_size), 1.0 / math.sqrt(d))}
     return p
-
-
-def _normal(shape, std, generator, device, dtype):
-    t = torch.empty(shape, dtype=torch.float32)
-    return nn.truncated_normal_(t, std, generator).to(device, dtype)
 
 
 def _zeros(shape, device, dtype=torch.float32):
     return torch.zeros(shape, dtype=dtype, device=device)
 
 
-def _init_attn_mlp_layer(cfg, generator, lead, device, wdt):
-    """One pre-norm attention + gated-MLP layer's leaves, stacked with
-    leading dims ``lead`` (``()`` for the hybrid family's shared block)."""
+def _init_attn_mlp_layer(cfg, draw, lead, device, wdt):
+    """One pre-norm attention + gated-MLP (or MoE) layer's leaves, stacked
+    with leading dims ``lead`` (``()`` for the hybrid family's shared
+    block); ``draw`` from ``modules.drawer``."""
     d, h, kvh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     dh, dff = cfg.resolved_head_dim, cfg.d_ff
     lead = tuple(lead)
 
     def lin(d_in, out, std=None, bias=False):
         out = (out,) if isinstance(out, int) else tuple(out)
-        p = {"w": _normal(lead + (d_in, *out), std or 1.0 / math.sqrt(d_in),
-                          generator, device, wdt)}
+        p = {"w": draw(lead + (d_in, *out), std or 1.0 / math.sqrt(d_in))}
         if bias:
             p["b"] = _zeros(lead + out, device, wdt)
         return p
@@ -149,8 +165,12 @@ def _init_attn_mlp_layer(cfg, generator, lead, device, wdt):
             "wv": lin(d, (kvh, dh), bias=cfg.qkv_bias),
             "wo": lin(h * dh, d, std=1.0 / math.sqrt(h * dh)),
         },
-        "mlp": {"wi": lin(d, dff), "wg": lin(d, dff), "wo": lin(dff, d)},
     }
+    if cfg.family == "moe":
+        layer["moe"] = moe_lib.init_moe(cfg, draw, lead)
+    else:
+        layer["mlp"] = {"wi": lin(d, dff), "wg": lin(d, dff),
+                        "wo": lin(dff, d)}
     if cfg.post_block_norm:
         layer["post_ln1"] = norm()
         layer["post_ln2"] = norm()
@@ -176,8 +196,8 @@ def _init_mamba_params(cfg, generator, device, wdt):
     ``tail_layers`` ``(R, ...)`` and one unstacked ``shared_attn`` layer
     (hybrid)."""
     p: Dict[str, Any] = {
-        "embed": {"table": _normal((cfg.vocab_size, cfg.d_model), 0.02,
-                                   generator, device, wdt)},
+        "embed": {"table": nn.drawer(generator, device, wdt)(
+            (cfg.vocab_size, cfg.d_model), 0.02)},
         "final_norm": {"scale": _zeros((cfg.d_model,), device)},
     }
     if cfg.family == "ssm":
@@ -189,7 +209,8 @@ def _init_mamba_params(cfg, generator, device, wdt):
     if R:
         p["tail_layers"] = _init_mamba_layers(cfg, generator, (R,), device,
                                               wdt)
-    p["shared_attn"] = _init_attn_mlp_layer(cfg, generator, (), device, wdt)
+    p["shared_attn"] = _init_attn_mlp_layer(
+        cfg, nn.drawer(generator, device, wdt), (), device, wdt)
     return p
 
 
@@ -227,7 +248,7 @@ def _cache_struct(cfg, batch: int, seq_len: int):
                 "conv": (lead + (batch, cfg.ssm_conv_width - 1, conv_dim),
                          torch.float32)}
 
-    if cfg.family == "dense":
+    if cfg.family in _POSITIONAL:
         pat = len(layer_pattern(cfg))
         return {"layers": attn_cache((cfg.num_layers // pat, pat))}
     if cfg.family == "ssm":
@@ -263,7 +284,9 @@ def _index(tree, *idx):
 
 def _apply_layer(p, cfg, x, x_sum, *, window, positions, cache,
                  cache_index, block_tables, q_lens=None):
-    """Pre-norm attention + MLP (+ gemma2 post-block norms).
+    """Pre-norm attention + MLP, or the MoE block where ``p`` has
+    ``"moe"`` (its aux loss is dropped: serving only) (+ gemma2
+    post-block norms).
 
     ``x`` is the residual stream in the compute dtype; ``x_sum`` is the
     same value in f32 *before* its last rounding, or None.  The port keeps
@@ -287,7 +310,10 @@ def _apply_layer(p, cfg, x, x_sum, *, window, positions, cache,
         a = nn.rmsnorm(p["post_ln1"], a, cfg.norm_eps, out_dtype=dt)
     x, x_sum = add(x, a)
     hn = nn.rmsnorm(p["ln2"], x_sum, cfg.norm_eps, out_dtype=dt)
-    m = nn.mlp(p["mlp"], hn, cfg.act, dtype=dt)
+    if "moe" in p:
+        m, _ = moe_lib.moe_block(p["moe"], cfg, hn)
+    else:
+        m = nn.mlp(p["mlp"], hn, cfg.act, dtype=dt)
     if cfg.post_block_norm:
         m = nn.rmsnorm(p["post_ln2"], m, cfg.norm_eps, out_dtype=dt)
     return add(x, m)
@@ -403,7 +429,8 @@ def forward(params, cfg, batch: Dict[str, Any], *, last_only: bool = False,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence causal forward (training, prefill).  batch: tokens
     (B, S).  Returns (logits (B, S, V) f32, aux_loss 0-d f32 (zero for
-    the three families here)).
+    the three families here; the moe family is refused until sharded
+    training, ROADMAP Queue 1 item 6)).
 
     last_only: unembed only the final position.  return_hidden: return the
     final-norm hidden states (B, S, d) in the compute dtype instead of
@@ -415,7 +442,7 @@ def forward(params, cfg, batch: Dict[str, Any], *, last_only: bool = False,
     once in the backward): its activations are recomputed in the
     backward, so attention or the SSD scan runs twice per layer per
     training step."""
-    _check_family(cfg, _FAMILIES)
+    check_trainable(cfg)
     x = _embed(params, cfg, batch["tokens"])
 
     def run(fn, p, *carry):
@@ -522,14 +549,16 @@ def decode_step(params, cfg, batch: Dict[str, Any]
     cache is the per-slot tree of ``init_cache`` (row b's token written
     at ``positions[b]``; a mamba layer's state advanced by one token);
     with them (dense decoders only) it is paged block storage.  Either
-    is updated in place.  Returns (logits (B, 1, V) f32, cache)."""
+    is updated in place.  Returns (logits (B, 1, V) f32, cache).
+    Dense and moe decoders take either cache; the ssm and hybrid families
+    the per-slot one."""
     _check_family(cfg, _FAMILIES)
     tokens, idx, cache = batch["tokens"], batch["positions"], batch["cache"]
     block_tables = batch.get("block_tables")
     if block_tables is not None:
         _refuse_paged(cfg)
     x = _embed(params, cfg, tokens)
-    if cfg.family == "dense":
+    if cfg.family in _POSITIONAL:
         x = _run_layers(params, cfg, x, cache, positions=idx[:, None],
                         cache_index=idx, block_tables=block_tables)
     elif cfg.family == "ssm":
@@ -563,10 +592,12 @@ def prefill_step(params, cfg, batch: Dict[str, Any]
     and their K/V routed to the trash block); cache — paged block storage,
     updated in place; block_tables (B, blocks_per_slot).  Returns
     (logits (B, C, V) f32, cache); logits at padding positions are
-    garbage — callers index only real tokens.  Dense decoders only: the
-    ssm and hybrid families raise ``ValueError``, as in the reference."""
+    garbage — callers index only real tokens, but every row of the tile
+    runs the MoE block and so counts against expert capacity, as in the
+    reference.  Dense and moe decoders only: the ssm and hybrid families
+    raise ``ValueError``, as in the reference."""
     _refuse_paged(cfg)
-    _check_family(cfg, ("dense",))
+    _check_family(cfg, _POSITIONAL)
     _require_paged(batch, "prefill_step")
     tokens, starts, cache = batch["tokens"], batch["positions"], batch["cache"]
     B, C = tokens.shape

@@ -29,6 +29,12 @@ sequences, dense per-slot stripes by default or paged blocks with
   int8 cache.  Logits stay **on the device** until ``sample_tokens``, the
   one host sync of a step.
 
+The moe family (qwen3-moe, dbrx) serves as the dense decoders do, paged
+or dense.  Every row of a round runs the MoE block and takes expert
+capacity, so each round feeds the reference's token ids and positions in
+every row: token 0 past a prompt's end in a paged tile or a dense chunk,
+``q_len = 0`` rows of a paged tile, idle slots' dummies in decode.
+
 The ssm (mamba2) and hybrid (zamba2) families serve in dense mode only,
 as in the reference: their cache holds each mamba layer's recurrent
 state (no token-position axis), so the KV cache refuses paged mode and

@@ -115,15 +115,16 @@ def test_scheduler_greedy_tokens_match_reference(weights, case):
 
 
 def test_engine_rejects_what_later_slices_port():
-    """MoE waits for its slice; the dense layout (the default, as the
-    reference's) is served now: one worst-case stripe per slot, bf16 or
-    int8 with per-token scales, and paged mode refuses int8 as the
-    reference does."""
+    """Enc-dec waits for its slice (MoE is served since its slice,
+    ``tests/test_torch_moe_serving.py``); the dense layout (the default,
+    as the reference's) is served now: one worst-case stripe per slot,
+    bf16 or int8 with per-token scales, and paged mode refuses int8 as
+    the reference does."""
     from repro_torch.models import transformer as PT
     cfg = port_smoke_config("qwen2-0.5b")
-    moe = cfg.with_(family="moe")
+    encdec = cfg.with_(family="encdec")
     with pytest.raises(NotImplementedError):
-        ServingEngine(moe, {}, max_seq_len=16, device="cpu")
+        ServingEngine(encdec, {}, max_seq_len=16, device="cpu")
     params = PT.init_params(cfg, torch.Generator().manual_seed(0))
     for kv_dtype, leaves in (("bfloat16", {"k", "v"}),
                              ("int8", {"k", "v", "k_scale", "v_scale"})):
