@@ -98,7 +98,19 @@ Phases (any failure exits nonzero):
               starts 0-1,024, q_len = 0 rows and zero padding rows (each
               checked to take the tensor-core kernel), the int8 kernel at
               q (8, 1, 32, 128) over int8 K/V (8, 2048, 4, 128) and the
-              B = 1 replay, with qwen2's broken variants;
+              B = 1 replay, with qwen2's broken variants.  The flash
+              kernel without the causal mask and with Sq != Skv at
+              whisper-small's shapes (``CROSS_SETS``: the encoder, q, k,
+              v (8, 1500, 12, 64); cross-attention, q (8, 448, 12, 64)
+              over k/v (8, 1500, 12, 64); decode cross-attention, one
+              query over 1,500), forward and backward, and at
+              qwen2-vl-72b's (2, 1024, 64 / 8, 128), causal, each within
+              the bound; broken variants above it: a causal mask where
+              none was asked, the last partial key tile dropped, Skv
+              taken as Sq (and the causal ones above for qwen2-vl); the
+              int8 kernel at whisper's dense int8 decode (q (8, 1, 12,
+              64) over int8 K/V (8, 448, 12, 64)) with qwen2's broken
+              variants;
 4. times    — each kernel at the main path's shapes (decode: B = 8,
               contexts 512-2048; prefill: B = 4, C = 64, and the launcher's
               B = 4, C = 16; flash: the qwen2 training shapes above; int8
@@ -128,7 +140,14 @@ Phases (any failure exits nonzero):
               144), whose ``launches`` in the kernels line is the sum of
               its own counter (``flash_d_tail``) over every path run;
               then qwen3-moe-30b-a3b's shapes of phase 3 (decode, prefill
-              at C = 16 and 64, int8 decode and B = 1 replay);
+              at C = 16 and 64, int8 decode and B = 1 replay); then
+              whisper-small's (flash at the encoder, cross-attention,
+              decode cross-attention and the decoder's causal (8, 448,
+              12, 64), against SDPA with ``is_causal`` as the call asks;
+              the int8 kernel at its decode) and qwen2-vl-72b's (flash at
+              (2, 1024, 64 / 8, 128); paged decode q (8, 8, 8, 128) at
+              contexts 512-2048; paged prefill at C = 16; RMSNorm on
+              2,048 x 8,192 training rows, the one-pass kernel's widest);
 5. serving  — full-width qwen2-0.5b (random weights, seed 0), paged: (a)
               the port's launcher ``repro_torch.launch.serve.main``; (b)
               the scheduler and engine driven directly with 8 prompts of
@@ -291,6 +310,38 @@ Phases (any failure exits nonzero):
               expert choices that agree on the same layer inputs, with
               the smallest top-K margin.  Init seconds, weight bytes,
               peaks, tokens/s, TTFT and decode gap are printed.
+19. qwen2-vl-72b at full width (d 8,192, 64 / 8 heads of 128, vocab
+              152,064, M-RoPE, 256 patch embeddings; weights drawn on
+              the card at seed 0): (a) training through
+              ``stepfn.make_train_step`` (the launcher's step, AdamW in
+              place)
+              at 1 layer (2 exceed the card's 79 GiB: ``PERF.md`` §4):
+              AdamW, B 2, S 1,024 (256 patches + 768 text), remat, 8
+              steps, step ms, tokens/s, peak, exactly 2 flash and 4 + 1
+              one-pass RMSNorm launches a layer a step, the loss
+              falling; the launcher ``--smoke`` on the card; (b) paged
+              serving at 32 layers (61.2 GB) through the scheduler and
+              engine on phase 5 (b)'s workload: 32 paged-decode / 32
+              tensor-core prefill launches a replay, 65 one-pass
+              RMSNorms a round, prefix hits, no leak, two captures; a
+              B = 8 decode round replayed == eager, timed against every
+              weight read once; (c) card against CPU at 2 layers:
+              text logits with the patch prefix and M-RoPE within
+              ``CPU_LOGIT_TOL``, the loss within ``TRAIN_LOSS_RTOL``,
+              4 equal greedy tokens of a paged serve;
+20. whisper-small whole (12 + 12 layers, d 768, 1,500 frames): (a) the
+              launcher ``--seq-len 448 --global-batch 8 --steps 8``:
+              exactly 72 flash launches a step (48 without the causal
+              mask), the loss falling; (b) dense serving through the
+              scheduler and engine, bf16 then int8 KV: 8 requests, each
+              with its own frames, 4-token prompts, 64 new tokens, 8
+              slots of 448; exact launches (one cross-attention flash a
+              layer a step, 12 encoder flashes a request, one int8 call
+              a layer a step in int8), two captures, the encoder's ms a
+              request, a B = 8 decode round replayed == eager; paged
+              mode refused; (c) card against CPU at full depth, bf16
+              and int8: equal greedy tokens, last prompt logits within
+              ``CPU_LOGIT_TOL``, other frames other tokens.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -790,6 +841,108 @@ def flash_pad_wrongs(torch, fa, q, k, v, kw):
                  **kw)[0][..., :D])]
 
 
+def cross_case(torch, rng, dev, *, B, Sq, Skv, H, KV, D, causal=False):
+    """Flash inputs with Sq queries over Skv keys (bf16, N(0, 1)): the
+    encdec encoder (square, not causal), cross-attention and its decode
+    (Sq < Skv, not causal), or a causal square case."""
+    mk = lambda *s: torch.tensor(rng.standard_normal(s), dtype=torch.bfloat16,
+                                 device=dev)
+    return dict(q=mk(B, Sq, H, D), k=mk(B, Skv, KV, D), v=mk(B, Skv, KV, D),
+                dout=mk(B, Sq, H, D), kw=dict(causal=causal, window=None,
+                                              softcap=None))
+
+
+def library_cross(torch, F, case):
+    """scaled_dot_product_attention on the same inputs, causal as the case
+    asks (``is_causal=False`` for the encoder and cross-attention), K/V
+    shared per group (``enable_gqa``), back in the model layout."""
+    q, k, v = (case[n].transpose(1, 2) for n in "qkv")
+    return F.scaled_dot_product_attention(
+        q, k, v, is_causal=case["kw"]["causal"], enable_gqa=True
+    ).transpose(1, 2)
+
+
+def cross_cost(case):
+    """(bytes, flops) of a flash call with Sq queries over Skv keys: q, k,
+    v read once, out and lse written once; 4 flops per (query head,
+    attended key, dim): every key without the causal mask, keys <= t with
+    it (square)."""
+    B, Sq, H, D = case["q"].shape
+    Skv, KV = case["k"].shape[1], case["k"].shape[2]
+    pairs = (sum(min(t + 1, Skv) for t in range(Sq)) if case["kw"]["causal"]
+             else Sq * Skv)
+    nbytes = (2 * (B * Sq * H * D * 2) + 2 * (B * Skv * KV * D * 2)
+              + B * H * Sq * 4)
+    return nbytes, 4 * B * H * D * pairs
+
+
+def cross_wrongs(torch, fa, q, k, v, kw, tile: int = 64):
+    """Broken non-causal flash kernels, as plain versions on the same
+    inputs: [(what, () -> out)]: the causal mask applied where none was
+    asked; the last partial key tile dropped (Skv not a tile multiple);
+    Skv taken as Sq (only the first Sq keys read, where Sq < Skv)."""
+    Sq, Skv = q.shape[1], k.shape[1]
+    plain = lambda qq, kk, vv, **o: fa.flash_attention_plain(
+        qq, kk, vv, **dict(kw, **o))[0]
+    out = [("applied a causal mask where none was asked",
+            lambda: plain(q, k, v, causal=True))]
+    full = Skv // tile * tile
+    if 0 < full < Skv:
+        out.append(("dropped the last partial key tile",
+                    lambda: plain(q, k[:, :full], v[:, :full])))
+    if Sq < Skv:
+        out.append(("took Skv as Sq",
+                    lambda: plain(q, k[:, :Sq], v[:, :Sq])))
+    return out
+
+
+# the flash kernel's new calls (whisper-small's, non-causal, MHA, D 64):
+# the encoder (1,500 frames, not a multiple of the 64-row tile), training's
+# cross-attention (448 decoder positions over 1,500 frames) and decode's
+# (one query over 1,500)
+CROSS_SETS = {
+    "whisper encoder": dict(B=8, Sq=1500, Skv=1500, H=12, KV=12, D=64),
+    "whisper cross": dict(B=8, Sq=448, Skv=1500, H=12, KV=12, D=64),
+    "whisper decode cross": dict(B=8, Sq=1, Skv=1500, H=12, KV=12, D=64),
+}
+
+
+def check_cross(torch, fa, kops, kref, case):
+    """The flash kernel on ``case`` against its plain version: the route
+    (tensor cores for bf16, D <= 128), the output element by element
+    within ``ref.rounding_bound_ratio``'s bound, the logsumexp within
+    LSE_TOL, dQ/dK/dV through the autograd Function within GRAD_TOL of the
+    largest; every broken variant of ``cross_wrongs`` above the bound.
+    Returns {route, tensor_cores (the route the rule asks for), err,
+    ratio, lse_err, grad_err, misses: {what: ratio}} for the caller to
+    check."""
+    qkv, kw = (case["q"], case["k"], case["v"]), case["kw"]
+    n_tc = fa.flash_fwd_tensor_core.launches
+    out, lse = fa.flash_attention(*qkv, **kw)
+    torch.cuda.synchronize()
+    tc = fa.flash_fwd_tensor_core.launches > n_tc
+    ref, mix, p_rel = flash_bound(fa, *qkv, kw)
+    _, ref_lse = fa.flash_attention_plain(*qkv, **kw)
+    res = dict(route="tensor cores" if tc else "CUDA cores",
+               err=(out.float() - ref.float()).abs().max().item(),
+               ratio=kref.rounding_bound_ratio(out, ref, mix, p_rel),
+               lse_err=(lse - ref_lse).abs().max().item())
+    ins = [t.clone().requires_grad_(True) for t in qkv]
+    got = torch.autograd.grad(kops.mha_flash_attention(*ins, **kw), ins,
+                              case["dout"])
+    ins = [t.clone().requires_grad_(True) for t in qkv]
+    want = torch.autograd.grad(fa.flash_attention_plain(*ins, **kw)[0], ins,
+                               case["dout"])
+    res["grad_err"] = max(((g.float() - r.float()).abs().max()
+                           / r.float().abs().max()).item()
+                          for g, r in zip(got, want))
+    res["tensor_cores"] = tc == fa.tensor_core_route(out.dtype,
+                                                     out.shape[-1])
+    res["misses"] = {what: kref.rounding_bound_ratio(wrong(), ref, mix, p_rel)
+                     for what, wrong in cross_wrongs(torch, fa, *qkv, kw)}
+    return res
+
+
 def sm_count(pa, t) -> int:
     """The SMs the split plans size a call on ``t``'s device by."""
     return pa.device_sm_count(t.device) if t.is_cuda else pa.SM_COUNT
@@ -1077,7 +1230,7 @@ def profile_breakdown(prof, wall_ms: float) -> dict:
 
 def profile_train_step(torch, cfg, dev) -> dict:
     """One full-width train step (seq 1024, batch 8, AdamW), the launcher's
-    ``dp`` step at world size 1 on NCCL (its gradient all_reduce
+    ``dp`` step (AdamW in place) at world size 1 on NCCL (its gradient all_reduce
     included), under ``torch.profiler``, after two unprofiled steps;
     device time by kernel family."""
     from repro_torch import optim
@@ -1906,6 +2059,8 @@ def eager_vs_replay(torch, T, eng, tokens, positions) -> float:
              "cache": eng.kv.cache}
     if eng.paged:
         batch["block_tables"] = eng.kv.device_block_tables()
+    if eng._enc_pool is not None:
+        batch["encoder_output"] = eng._enc_pool
     eager = T.decode_step(eng.params, eng.cfg, batch)[0][:, 0]
     return float((replayed - eager).abs().max())
 
@@ -2130,7 +2285,6 @@ def moe_phase(torch, T, dev, counters, by_name, rms_paths) -> dict:
     prompts; (e) card against CPU at 2 layers on weights copied from the
     card, with the routing agreement per layer.  Adds the paths' launches
     to ``by_name`` and ``rms_paths``."""
-    import gc
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as launcher
@@ -2143,17 +2297,8 @@ def moe_phase(torch, T, dev, counters, by_name, rms_paths) -> dict:
     L, K = cfg.num_layers, cfg.num_experts_per_tok
     out = {}
 
-    def held() -> int:
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        return torch.cuda.memory_allocated(dev)
-
-    def nbytes(tree) -> int:
-        return sum(t.numel() * t.element_size() for t in _leaves(tree))
-
     # (a) the launcher, paged ---------------------------------------------
-    before = held()
+    before = held_bytes(torch, dev)
     check(before < 4 * 2**30, f"(a) {before} bytes held before the launcher")
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts(counters)
@@ -2180,7 +2325,7 @@ def moe_phase(torch, T, dev, counters, by_name, rms_paths) -> dict:
           and eng.params["layers"]["moe"]["wi"].dtype == torch.bfloat16,
           "(a) moe: the router is not f32 or the experts not bf16")
     out["launcher"] = dict(rep, setup_s=setup_s, wall_s=wall,
-                           weight_bytes=nbytes(eng.params),
+                           weight_bytes=tree_bytes(eng.params),
                            programs={n: {"captures": p.captures,
                                          "replays": p.replays,
                                          "capture_s": p.capture_s}
@@ -2191,7 +2336,7 @@ def moe_phase(torch, T, dev, counters, by_name, rms_paths) -> dict:
     del gw, sched, eng
 
     # (b) the scheduler and engine driven directly -------------------------
-    before = held()
+    before = held_bytes(torch, dev)
     check(before < 4 * 2**30, f"(b) {before} bytes still held before the "
           "weights are made (one copy at a time)")
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2200,7 +2345,7 @@ def moe_phase(torch, T, dev, counters, by_name, rms_paths) -> dict:
                            device=dev)
     torch.cuda.synchronize()
     out["init"] = dict(init_s=time.perf_counter() - t0,
-                       weight_bytes=nbytes(params),
+                       weight_bytes=tree_bytes(params),
                        init_peak_bytes=torch.cuda.max_memory_allocated(dev),
                        held_before=before)
     print(f"(b) moe: weights made on the card in {out['init']['init_s']:.2f}"
@@ -2304,7 +2449,7 @@ def moe_phase(torch, T, dev, counters, by_name, rms_paths) -> dict:
         T.decode_step(params, cfg, dict(step_in, cache=step_cache))
         torch.cuda.synchronize()
     split = moe_device_split(prof)
-    weight_ms = nbytes(params) / HBM_BYTES_PER_S * 1e3
+    weight_ms = tree_bytes(params) / HBM_BYTES_PER_S * 1e3
     out["decode_round"] = dict(
         replay_ms=replay_ms, eager_ms=eager_ms, capture_s=step.capture_s,
         served_step_ms=served_ms, kernels_per_step=n_kernels,
@@ -2388,7 +2533,7 @@ def moe_phase(torch, T, dev, counters, by_name, rms_paths) -> dict:
                                           lambda t: t[:2])),
                  lambda t: t.cpu())
     del params
-    before = held()
+    before = held_bytes(torch, dev)
     check(before < 4 * 2**30, f"(e) {before} bytes held after freeing the "
           "full-depth weights")
     p_card = _map(p_cpu, lambda t: t.to(dev))
@@ -2449,7 +2594,500 @@ def moe_phase(torch, T, dev, counters, by_name, rms_paths) -> dict:
     check(logit_diff <= CPU_LOGIT_TOL, "(e) moe: card and CPU logits disagree")
     check(tg == tc, "(e) moe: card and CPU greedy tokens differ")
     del p_card, p_cpu, recorded
-    held()
+    held_bytes(torch, dev)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# qwen2-vl-72b (phase 19) and whisper-small (phase 20)
+# ---------------------------------------------------------------------------
+
+def held_bytes(torch, dev) -> int:
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated(dev)
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def decode_round(torch, T, cfg, params, dev, extra=None, lens=None,
+                 paged=True) -> dict:
+    """One B = 8 decode round at full width, as ``moe_phase`` (c): paged
+    at contexts 512-2048 on random K/V pages (or a dense random stripe of
+    ``max(lens)`` positions), captured and replayed against one eager
+    ``decode_step`` (bit for bit), both timed with CUDA events (20
+    replays, 3 eager steps), beside the bound of reading every weight
+    once.  ``extra``: more batch entries (the encoder pool)."""
+    import numpy as np
+    from repro_torch.serving.programs import CapturedProgram
+    lens = lens or [512, 731, 950, 1170, 1389, 1609, 1828, 2048]
+    KV, D = cfg.num_kv_heads, cfg.resolved_head_dim
+    if paged:
+        dc = decode_case(torch, np.random.default_rng(19), dev, B=8, KV=KV,
+                         G=cfg.num_heads // KV, D=D, page=16, lengths=lens,
+                         garbage=False)
+        lead = tuple(T._cache_struct(cfg, 1, 16)["layers"]["k"][0][:-4])
+        shape = lead + (dc["k_pages"].shape[0], 16, KV, D)
+        cache = {"layers": {n: torch.randn(shape, dtype=torch.bfloat16,
+                                           device=dev) for n in "kv"}}
+        step_in = {"positions": (dc["lengths"] - 1).to(torch.int32),
+                   "block_tables": dc["block_tables"]}
+    else:
+        cache = T.init_cache(cfg, 8, max(lens), device=dev)
+        for t in _leaves(cache):
+            t.copy_(torch.randint(-100, 100, t.shape, device=dev)
+                    if t.dtype == torch.int8 else
+                    torch.rand(t.shape, device=dev) * 0.02
+                    if t.dim() == 4 else torch.randn(t.shape, device=dev))
+        step_in = {"positions": torch.tensor([n - 1 for n in lens],
+                                             dtype=torch.int32, device=dev)}
+    step_in["tokens"] = torch.zeros((8, 1), dtype=torch.int32, device=dev)
+    extra = extra or {}
+    step = CapturedProgram("decode_step", lambda **b: T.decode_step(
+        params, cfg, dict(b, cache=cache, **extra))[0], step_in)
+    rs = np.random.default_rng(4)
+    step.feed(tokens=rs.integers(0, cfg.vocab_size, (8, 1), dtype=np.int32))
+    before = [t.clone() for t in _leaves(cache)]
+    replayed = step.replay().clone()
+    for t, b in zip(_leaves(cache), before):
+        t.copy_(b)
+    del before
+    eager = T.decode_step(params, cfg, dict(step_in, cache=cache,
+                                            **extra))[0]
+    diff = float((replayed - eager).abs().max())
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    for _ in range(20):
+        step.replay()
+    ev[1].record()
+    for _ in range(3):
+        T.decode_step(params, cfg, dict(step_in, cache=cache, **extra))
+    ev[2].record()
+    torch.cuda.synchronize()
+    return dict(replay_ms=ev[0].elapsed_time(ev[1]) / 20,
+                eager_ms=ev[1].elapsed_time(ev[2]) / 3,
+                capture_s=step.capture_s, captures=step.captures,
+                replay_vs_eager_max_diff=diff,
+                weights_read_bound_ms=tree_bytes(params) / HBM_BYTES_PER_S
+                * 1e3, contexts=lens)
+
+
+def vlm_phase(torch, T, dev, counters, by_name, rms_paths) -> dict:
+    """qwen2-vl-72b at full width (d 8,192, 64 / 8 heads of 128, d_ff
+    29,568, vocab 152,064, M-RoPE 16/24/24, 256 patch embeddings), random
+    weights from seed 0 drawn on the card: (a) training through
+    ``stepfn.make_train_step`` (the launcher's step, AdamW in place) at
+    1 layer (2 exceed the card), AdamW, B 2, S 1,024 (256 patches + 768 text
+    tokens), remat, 8 steps, then the launcher's smoke run; (b) paged
+    serving at 32 layers (61.2 GB of bf16 weights) through the scheduler
+    and engine on phase 5 (b)'s workload, a B = 8 decode round replayed
+    and eager; (c) card against CPU at 2 layers: forward logits with the
+    patch prefix and M-RoPE, the loss, greedy tokens of a short paged
+    serve.  Adds the paths' launches to ``by_name`` and ``rms_paths``."""
+    import numpy as np
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.core import hvd
+    from repro_torch.data import SyntheticTokenSource, TokenDatasetSpec
+    from repro_torch.distributed import stepfn
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.serving import (Request, SamplingParams, Scheduler,
+                                     ServingEngine)
+    arch = "qwen2-vl-72b"
+    full = get_config(arch)
+    out = {}
+
+    # (a) training at full width ------------------------------------------
+    def train(L):
+        cfg = full.with_(num_layers=L)
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            0), device=dev, weight_dtype=torch.float32)
+        opt = optim.adamw(3e-4, clip_norm=1.0)     # the launcher's
+        state = opt.init(params)
+        src = SyntheticTokenSource(TokenDatasetSpec(cfg.vocab_size, 1024, 2))
+        res = dict(layers=L, params=sum(t.numel() for t in _leaves(params)),
+                   losses=[], step_s=[], flash=[], rmsnorm=[], one_pass=[])
+        with hvd.init("cuda") as device:
+            groups = hvd.axis_groups({"data": 1})
+            step = stepfn.make_train_step(cfg, opt, groups, device=device)
+            zero_counts(counters)
+            for i in range(8):
+                batch = train_launcher.family_batch(cfg, src.batch(i), i)
+                n0 = {k: f.launches for k, f in counters.items()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, m = step(params, state, batch)
+                res["losses"].append(float(m["loss"]))
+                res["step_s"].append(time.perf_counter() - t0)
+                n1 = {k: f.launches for k, f in counters.items()}
+                res["flash"].append(n1["flash_attention"]
+                                    - n0["flash_attention"])
+                res["rmsnorm"].append(n1["rmsnorm"] - n0["rmsnorm"])
+                res["one_pass"].append(n1["rmsnorm_one_pass"]
+                                       - n0["rmsnorm_one_pass"])
+            launches = read_counts(counters)
+        res["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+        steady = res["step_s"][1:]
+        res["step_ms"] = sum(steady) / len(steady) * 1e3
+        res["tokens_per_s"] = 2 * 1024 / (res["step_ms"] / 1e3)
+        res["launches"] = launches
+        return res
+
+    held = held_bytes(torch, dev)
+    check(held < 4 * 2**30, f"(a) vlm: {held} bytes held before training")
+    # one layer: the step peaks at ~20 bytes a parameter (f32 params,
+    # AdamW state, gradients and the all_reduce's fused copy of them;
+    # 68.87 GB at 1 layer, 3.37 B parameters), so two layers (4.25 B)
+    # would need ~85 GB before any activation, all of the card's 85.5 GB
+    # (PERF.md section 4)
+    run = train(1)
+    launches = run.pop("launches")
+    L = run["layers"]
+    out["train"] = run
+    print("(a) vlm training (full width, make_train_step, AdamW in place, "
+          "B 2, S 1024 = 256 patches + 768 text, remat): "
+          + json.dumps(out["train"]), flush=True)
+    check(all(np.isfinite(run["losses"])), "(a) vlm: a loss is not finite")
+    check(run["losses"][-1] < run["losses"][0],
+          "(a) vlm: the loss did not fall over 8 steps")
+    # remat: each layer's attention twice a step, its two norms twice, the
+    # final norm once; every norm on the one-pass kernel (d 8,192)
+    check(run["flash"] == [2 * L] * 8, f"(a) vlm: flash launches a step "
+          f"{run['flash']}, want {2 * L}")
+    check(run["rmsnorm"] == [4 * L + 1] * 8 and run["one_pass"]
+          == run["rmsnorm"], f"(a) vlm: rmsnorm launches a step "
+          f"{run['rmsnorm']} (one pass {run['one_pass']}), want {4 * L + 1}")
+    check(launches["flash_attention_tensor_core"]
+          == launches["flash_attention"], "(a) vlm: a flash launch missed "
+          "the tensor-core kernel")
+    k = by_name["flash_attention"]
+    k["launches_per_path"][f"training {arch} ({L} layers)"] = \
+        launches["flash_attention"]
+    k["launches"] = sum(k["launches_per_path"].values())
+    rms_paths[f"training {arch}"] = launches["rmsnorm"]
+    held_bytes(torch, dev)
+    zero_counts(counters)
+    smoke = train_launcher.main(["--arch", arch, "--smoke", "--device",
+                                 "cuda", "--steps", "2"])
+    del smoke["params"]
+    lc = read_counts(counters)
+    out["launcher_smoke"] = {k: smoke[k] for k in ("losses",
+                                                    "launches_per_step")}
+    print("(a) vlm launcher --smoke on the card: "
+          + json.dumps(out["launcher_smoke"]), flush=True)
+    check(all(np.isfinite(smoke["losses"])) and lc["flash_attention"] > 0
+          and lc["rmsnorm"] > 0, "(a) vlm launcher smoke: no kernel ran or "
+          "a loss is not finite")
+
+    # (b) paged serving at 32 layers --------------------------------------
+    held = held_bytes(torch, dev)
+    check(held < 4 * 2**30, f"(b) vlm: {held} bytes held before serving")
+    cfg32 = full.with_(num_layers=32)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg32, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    torch.cuda.synchronize()
+    out["init"] = dict(init_s=time.perf_counter() - t0,
+                       weight_bytes=tree_bytes(params),
+                       init_peak_bytes=torch.cuda.max_memory_allocated(dev))
+    print(f"(b) vlm: 32 layers' weights made on the card in "
+          f"{out['init']['init_s']:.2f} s, {out['init']['weight_bytes']} "
+          "bytes", flush=True)
+    rs = np.random.default_rng(1)
+    shared = rs.integers(0, cfg32.vocab_size, 256, dtype=np.int32)
+    prompts = [np.concatenate([shared, rs.integers(
+        0, cfg32.vocab_size, int(rs.integers(64, 769)), dtype=np.int32)])
+        for _ in range(8)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = ServingEngine(cfg32, params, max_seq_len=2048, max_slots=8,
+                        prefix_cache_blocks=256, paged=True,
+                        prefill_batch=4, device=dev)
+    sched = Scheduler(eng, prefill_token_budget=512, profile=True)
+    zero_counts(counters)
+    rids = [sched.submit(Request(p, SamplingParams(max_new_tokens=32,
+                                                   greedy=True)))
+            for p in prompts]
+    run_marking_warm(sched)
+    torch.cuda.synchronize()
+    launches_b = read_counts(counters)
+    rep = report_serving(torch, sched, "(b) vlm paged, 32 layers", dev)
+    outs = [sched.output(r) for r in rids]
+    check(all(len(o) == 32 for o in outs), "(b) vlm: a request did not "
+          "complete")
+    check(rep["prefix_hit_rate"] > 0, "(b) vlm: no prefix-cache hit")
+    check_no_leaks(sched, "(b) vlm")
+    check_programs(eng, "(b) vlm", "prefill_paged",
+                   eng.prefill_batch * eng.prefill_chunk)
+    per_replay = check_round_launches(eng, launches_b, "(b) vlm", cfg32)
+    out["serve"] = dict(rep, per_replay=per_replay,
+                        decode_replays=eng.programs["decode_step"].replays,
+                        prefill_replays=eng.programs["prefill_paged"].replays,
+                        capture_s={n: p.capture_s for n, p in
+                                   eng.programs.items()})
+    del sched, eng
+    for name in ("paged_decode_attention", "paged_prefill_attention"):
+        by_name[name]["launches"] += launches_b[name]
+        by_name[name]["launches_per_part"].append(launches_b[name])
+    rms_paths[f"serving {arch}"] = launches_b["rmsnorm"]
+    out["decode_round"] = decode_round(torch, T, cfg32, params, dev)
+    print("(b) vlm B = 8 decode round, 32 layers (contexts 512-2048; CUDA "
+          "events; bound: every weight read once): "
+          + json.dumps(out["decode_round"]), flush=True)
+    check(out["decode_round"]["replay_vs_eager_max_diff"] == 0.0,
+          "(b) vlm: the replayed decode round differs from the eager one")
+
+    # (c) card against CPU at 2 layers, on weights copied from the card ----
+    cfg2 = full.with_(num_layers=2)
+    p_cpu = _map(dict(params, layers=_map(params["layers"],
+                                          lambda t: t[:2])),
+                 lambda t: t.cpu())
+    del params
+    held_bytes(torch, dev)
+    p_card = _map(p_cpu, lambda t: t.to(dev))
+    rng = np.random.default_rng(20)
+    P, text = cfg2.num_patches, 16
+    batch = {"patch_embeddings": torch.from_numpy((0.02 * rng.standard_normal(
+                 (1, P, cfg2.d_model))).astype(np.float32)),
+             "tokens": torch.from_numpy(rng.integers(
+                 0, cfg2.vocab_size, (1, text), dtype=np.int32)),
+             "mrope_positions": torch.from_numpy(rng.integers(
+                 0, P + text, (3, 1, P + text), dtype=np.int32)),
+             "labels": torch.from_numpy(rng.integers(
+                 0, cfg2.vocab_size, (1, P + text), dtype=np.int32))}
+    prompt = rng.integers(0, cfg2.vocab_size, 48, dtype=np.int32)
+    res = {}
+    t0 = time.perf_counter()
+    for where, p in ((dev, p_card), ("cpu", p_cpu)):
+        b = {k: v.to(where) for k, v in batch.items()}
+        with torch.no_grad():
+            logits = T.forward(p, cfg2, b)[0][0, P:].float().cpu()
+            loss = float(T.lm_loss(p, cfg2, b)[0])
+        e = ServingEngine(cfg2, p, max_seq_len=64, max_slots=1, paged=True,
+                          prefill_batch=1, device=where)
+        toks = e.generate([Request(prompt, SamplingParams(
+            max_new_tokens=4, greedy=True))])[0].tolist()
+        res[str(where)] = (logits, loss, toks)
+        del e
+    (lg, ls_g, tg), (lc, ls_c, tc) = res[str(dev)], res["cpu"]
+    diff = float((lg - lc).abs().max())
+    out["card_vs_cpu"] = dict(logit_diff=diff, loss_card=ls_g, loss_cpu=ls_c,
+                              tokens_card=tg, tokens_cpu=tc,
+                              seconds=time.perf_counter() - t0)
+    print(f"(c) vlm 2-layer full width, card vs CPU (256 patches + 16 text "
+          f"tokens, M-RoPE): text logits max |diff| {diff:.3e} (tol "
+          f"{CPU_LOGIT_TOL}); loss {ls_g:.6f} / {ls_c:.6f}; greedy (paged, "
+          f"48-token prompt) card {tg} cpu {tc}", flush=True)
+    check(bool(torch.isfinite(lg).all()) and lg.shape == (text,
+                                                          cfg2.vocab_size),
+          "(c) vlm: card logits not finite or of the wrong shape")
+    check(diff <= CPU_LOGIT_TOL, "(c) vlm: card and CPU logits disagree")
+    check(abs(ls_g - ls_c) <= TRAIN_LOSS_RTOL * abs(ls_c),
+          "(c) vlm: card and CPU losses disagree")
+    check(tg == tc, "(c) vlm: card and CPU greedy tokens differ")
+    del p_card, p_cpu
+    held_bytes(torch, dev)
+    return out
+
+
+def whisper_phase(torch, T, dev, counters, by_name, rms_paths) -> dict:
+    """whisper-small whole (12 + 12 layers, d 768, 12 heads of 64, 1,500
+    frames, LayerNorm, GELU), random weights from seed 0: (a) the launcher
+    ``--seq-len 448 --global-batch 8 --steps 8`` (flash launches a step
+    split causal / non-causal); (b) dense serving through the scheduler
+    and engine, bf16 KV then int8: 8 requests, each with its own frames
+    (1,500 x 768 from a numpy seed), 4-token prompts, 64 new tokens, 8
+    slots, max_seq_len 448 (whisper's decoder context); the encoder's ms
+    a request; a B = 8 decode round replayed == eager; paged mode
+    refused; (c) card against CPU at full depth, bf16 and int8: greedy
+    tokens identical, last prompt logits within CPU_LOGIT_TOL, other
+    frames other tokens.  Adds the paths' launches to ``by_name``."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.serving import (Request, SamplingParams, Scheduler,
+                                     ServingEngine)
+    arch = "whisper-small"
+    cfg = get_config(arch)
+    L, E = cfg.num_layers, cfg.encoder_layers
+    out = {}
+
+    # (a) training through the launcher -----------------------------------
+    held_bytes(torch, dev)
+    zero_counts(counters)
+    run = train_launcher.main(["--arch", arch, "--seq-len", "448",
+                               "--global-batch", "8", "--steps", "8"])
+    del run["params"]
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    per_step = run["launches_per_step"]
+    non_causal = launches["flash_non_causal"]
+    out["train"] = {k: run.get(k) for k in ("losses", "step_s",
+                                            "tokens_per_s",
+                                            "launches_per_step",
+                                            "max_memory_allocated")}
+    out["train"]["flash_non_causal_per_step"] = non_causal / 8
+    print("(a) whisper training (launcher, B 8, S 448, 1,500 frames): "
+          + json.dumps(out["train"]), flush=True)
+    losses = run["losses"]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "(a) whisper: the loss did not fall over 8 steps")
+    # remat: each encoder layer's attention, each decoder layer's self- and
+    # cross-attention, twice a step; LayerNorm has no kernel
+    want = 2 * (E + 2 * L)
+    check(per_step["flash_attention"] == [want] * 8,
+          f"(a) whisper: flash launches a step {per_step['flash_attention']}"
+          f", want {want}")
+    check(non_causal == 8 * 2 * (E + L), f"(a) whisper: {non_causal} "
+          f"non-causal flash launches, want {8 * 2 * (E + L)}")
+    check(launches["flash_attention_tensor_core"]
+          == launches["flash_attention"] and launches["rmsnorm"] == 0,
+          "(a) whisper: a flash launch missed the tensor-core kernel, or a "
+          "norm ran RMSNorm")
+    k = by_name["flash_attention"]
+    k["launches_per_path"][f"training {arch}"] = launches["flash_attention"]
+    k["launches"] = sum(k["launches_per_path"].values())
+
+    # (b) dense serving, bf16 then int8 ------------------------------------
+    held_bytes(torch, dev)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    rs = np.random.default_rng(21)
+    frames = [rs.standard_normal((cfg.encoder_seq, cfg.d_model)).astype(
+        np.float32) for _ in range(8)]
+    prompts = [rs.integers(0, cfg.vocab_size, 4, dtype=np.int32)
+               for _ in range(8)]
+    out["serve"] = {}
+    for label, c in (("bf16", cfg), ("int8",
+                                      cfg.with_(kv_cache_dtype="int8"))):
+        torch.cuda.reset_peak_memory_stats(dev)
+        eng = ServingEngine(c, params, max_seq_len=448, max_slots=8,
+                            prefill_chunk=16, prefix_cache_blocks=64,
+                            device=dev)
+        check(eng.prefix_cache is None, f"(b) whisper {label}: a prefix store")
+        sched = Scheduler(eng, profile=True)
+        zero_counts(counters)
+        rids = [sched.submit(Request(p, SamplingParams(
+            max_new_tokens=64, greedy=True), encoder_input=f))
+            for p, f in zip(prompts, frames)]
+        run_marking_warm(sched)
+        torch.cuda.synchronize()
+        lb = read_counts(counters)
+        rep = report_serving(torch, sched, f"(b) whisper dense {label}", dev)
+        outs = [sched.output(r) for r in rids]
+        check(all(len(o) == 64 for o in outs),
+              f"(b) whisper {label}: a request did not complete")
+        check_no_leaks(sched, f"(b) whisper {label}")
+        check(eng.recompiles.warm, f"(b) whisper {label}: the engine never "
+              "held both programs")
+        check_programs(eng, f"(b) whisper {label}", "prefill_chunk",
+                       eng.prefill_chunk)
+        steps = eng.decode_steps + eng.prefill_tokens_executed
+        # a decode step: one cross-attention flash a layer (and one int8
+        # call a layer for the int8 cache); the encoder at admission: one
+        # non-causal flash an encoder layer a request
+        want = {"flash_attention": L * steps + E * 8,
+                "flash_non_causal": L * steps + E * 8,
+                "flash_attention_int8kv": L * steps if label == "int8" else 0,
+                "rmsnorm": 0, "paged_decode_attention": 0,
+                "paged_prefill_attention": 0}
+        got = {k: lb[k] for k in want}
+        check(got == want, f"(b) whisper {label}: launches {got}, want {want}"
+              f" from {steps} steps and 8 encoder runs")
+        # the encoder at admission, one request at a time
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for i in range(4):
+            eng._encode_into_slot(i, frames[i])
+        ev[1].record()
+        torch.cuda.synchronize()
+        rnd = eager_vs_replay(torch, T, eng, [int(o[-1]) for o in outs],
+                              [4 + 63] * 8)
+        check(rnd == 0.0, f"(b) whisper {label}: the replayed decode round "
+              f"differs from the eager one ({rnd})")
+        out["serve"][label] = dict(
+            rep, encoder_ms=ev[0].elapsed_time(ev[1]) / 4,
+            decode_steps=eng.decode_steps,
+            prefill_tokens_executed=eng.prefill_tokens_executed,
+            kv_bytes=eng.kv.kv_bytes(), launches=got,
+            programs={n: {"captures": p.captures, "replays": p.replays,
+                          "capture_s": p.capture_s}
+                      for n, p in eng.programs.items()})
+        print(f"(b) whisper dense {label}: encoder "
+              f"{out['serve'][label]['encoder_ms']:.3f} ms a request; "
+              f"launches {got}", flush=True)
+        if label == "int8":
+            k = by_name["flash_attention_int8kv"]
+            k["launches_per_path"][f"dense serving {arch}"] = \
+                lb["flash_attention_int8kv"]
+            k["launches"] = sum(k["launches_per_path"].values())
+        k = by_name["flash_attention"]
+        k["launches_per_path"][f"dense serving {arch} {label}"] = \
+            lb["flash_attention"]
+        k["launches"] = sum(k["launches_per_path"].values())
+        out["decode_round_" + label] = decode_round(
+            torch, T, c, params, dev, extra={"encoder_output": eng._enc_pool},
+            lens=[1, 64, 128, 192, 256, 320, 384, 448], paged=False)
+        print(f"(b) whisper B = 8 decode round, dense {label} (contexts "
+              "1-448, the engine's encoder pool): "
+              + json.dumps(out["decode_round_" + label]), flush=True)
+        check(out["decode_round_" + label]["replay_vs_eager_max_diff"]
+              == 0.0, f"(b) whisper {label}: the replayed decode round "
+              "differs from the eager one")
+        del sched, eng
+    try:
+        ServingEngine(cfg, params, max_seq_len=448, paged=True, device=dev)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    print(f"(b) whisper paged: refused ({refused})", flush=True)
+    check(refused is not None and "non-positional" in refused,
+          "(b) whisper: paged mode was not refused")
+
+    # (c) card against CPU at full depth -----------------------------------
+    # one request a mode (the CPU runs the encoder and every step's
+    # 1,500-frame K/V projections in bf16 on its cores), its 4-token
+    # prompt in one 4-token chunk
+    p_cpu = _map(params, lambda t: t.cpu())
+    out["card_vs_cpu"] = {}
+    for label, c in (("bf16", cfg), ("int8",
+                                      cfg.with_(kv_cache_dtype="int8"))):
+        res = {}
+        for where, p in ((dev, params), ("cpu", p_cpu)):
+            e = ServingEngine(c, p, max_seq_len=64, max_slots=1,
+                              prefill_chunk=4, device=where)
+            slot, last = e.prefill_into_slot(prompts[0], frames[0])
+            e.free_slot(slot)
+            toks = e.generate([Request(prompts[0], SamplingParams(
+                max_new_tokens=8, greedy=True),
+                encoder_input=frames[0])])[0].tolist()
+            other = None
+            if where == dev:
+                other = e.generate([Request(prompts[0], SamplingParams(
+                    max_new_tokens=8, greedy=True),
+                    encoder_input=frames[1])])[0].tolist()
+            res[str(where)] = (last, toks, other)
+            del e
+        (lg, tg, og), (lc, tc, _) = res[str(dev)], res["cpu"]
+        diff = float(np.abs(lg - lc).max())
+        out["card_vs_cpu"][label] = dict(logit_diff=diff, tokens_card=tg,
+                                         tokens_cpu=tc, other_frames=og)
+        print(f"(c) whisper full depth {label}, card vs CPU: last prompt "
+              f"logits max |diff| {diff:.3e} (tol {CPU_LOGIT_TOL}); greedy "
+              f"card {tg} cpu {tc}; other frames {og}", flush=True)
+        check(np.isfinite(lg).all() and diff <= CPU_LOGIT_TOL,
+              f"(c) whisper {label}: card and CPU logits disagree")
+        check(tg == tc, f"(c) whisper {label}: card and CPU greedy tokens "
+              "differ")
+        check(og != tg, f"(c) whisper {label}: other frames gave the same "
+              "tokens")
+    del params, p_cpu
+    held_bytes(torch, dev)
     return out
 
 
@@ -2532,6 +3170,7 @@ def main() -> int:
                 "flash_attention_tensor_core": fa.flash_fwd_tensor_core,
                 "flash_attention_cuda_core": fa.flash_fwd_cuda_core,
                 "flash_attention_d_tail": fa.flash_d_tail,
+                "flash_non_causal": fa.FLASH_NON_CAUSAL,
                 "flash_attention_int8kv": fa.flash_attention_int8kv,
                 "ssd_scan": ssd.ssd_scan,
                 "ssd_tensor_core": ssd.ssd_tensor_core,
@@ -2721,6 +3360,8 @@ def main() -> int:
         # 96: tensor cores)
         "gemma2-27b D 144": dict(B=2, S=640, H=32, KV=16, D=144),
         "D 80": dict(B=2, S=600, H=8, KV=2, D=80),
+        # qwen2-vl-72b's training call: GQA 64 / 8, D 128
+        "qwen2-vl-72b": dict(B=2, S=1024, H=64, KV=8, D=128),
     }
     for label, s in flash_sets.items():
         fc = flash_case(torch, rng, dev, **s)
@@ -2771,6 +3412,32 @@ def main() -> int:
             check(miss > 1.0, f"the flash check misses a kernel that {what}")
         del fc, qkv, ref, mix
     torch.cuda.empty_cache()
+    # the flash kernel without the causal mask and with Sq != Skv
+    # (whisper-small's encoder, cross-attention and decode
+    # cross-attention), forward and backward, and its broken variants
+    for label, spec in CROSS_SETS.items():
+        cc = cross_case(torch, rng, dev, **spec)
+        r = check_cross(torch, fa, kops, kref, cc)
+        print(f"flash   {label} ({r['route']}, q {tuple(cc['q'].shape)} over "
+              f"k/v {tuple(cc['k'].shape)}, not causal): out max_abs_err "
+              f"{r['err']:.3e}; max |err| / bound {r['ratio']:.3e}; lse "
+              f"{r['lse_err']:.3e} (tol {LSE_TOL}); dq/dk/dv max err / max "
+              f"|grad| {r['grad_err']:.3e} (tol {GRAD_TOL}); broken: "
+              + ", ".join(f"a kernel that {w} would read {m:.3e}"
+                          for w, m in r["misses"].items()), flush=True)
+        check(r["tensor_cores"], f"the flash call at {label} took the wrong "
+              "kernel")
+        check(r["ratio"] <= 1.0 and r["lse_err"] <= LSE_TOL,
+              f"flash kernel disagrees at {label}")
+        check(r["grad_err"] <= GRAD_TOL,
+              f"flash gradients disagree at {label}")
+        for what, miss in r["misses"].items():
+            check(miss > 1.0, f"the flash check at {label} misses a kernel "
+                  f"that {what}")
+        worst["flash_attention"] = max(worst.get("flash_attention", 0.0),
+                                       r["err"])
+        del cc
+    torch.cuda.empty_cache()
 
     # the int8 flash kernel: at the dense serving path's decode shapes
     # (qwen2-0.5b: B 8, one query, H 14 over KV 2, D 64, 2048-position
@@ -2779,6 +3446,7 @@ def main() -> int:
     # q_start 0, kv_len Skv, f32 q and scales)
     path_lens = [1, 293, 586, 878, 1171, 1464, 1756, 2048]
     z_lens = [1, 147, 293, 439, 585, 731, 877, 1024]
+    w_lens = [1, 64, 128, 192, 256, 320, 384, 448]
     int8_sets = {
         "qwen2-0.5b decode": dict(
             Sq=1, H=14, KV=2, D=64, Skv=2048, kv_len=path_lens,
@@ -2799,6 +3467,11 @@ def main() -> int:
             q_start=[n - 1 for n in path_lens]),
         "qwen3-moe-30b-a3b replay": dict(
             Sq=1, H=32, KV=4, D=128, Skv=1024, q_start=[77], kv_len=[78]),
+        # whisper-small's decoder self-attention in dense int8 mode: MHA
+        # (G = 1), D 64, its 448-position context
+        "whisper-small decode": dict(
+            Sq=1, H=12, KV=12, D=64, Skv=448, kv_len=w_lens,
+            q_start=[n - 1 for n in w_lens]),
         "TPU test (2, 1, 256, 64)": dict(
             Sq=1, H=1, KV=1, D=64, Skv=256, q_start=[0, 0],
             kv_len=[256, 256], dtype="float32"),
@@ -2834,7 +3507,7 @@ def main() -> int:
         wrongs = []
         if label in ("qwen2-0.5b decode", "zamba2-1.2b decode",
                      "zamba2-1.2b replay", "qwen3-moe-30b-a3b decode",
-                     "qwen3-moe-30b-a3b replay"):
+                     "qwen3-moe-30b-a3b replay", "whisper-small decode"):
             full = torch.full_like(n, spec["Skv"])
             tile = torch.where(n > 64, (n - 1) // 64 * 64, n)
             B8, _, H8, D8 = q.shape
@@ -3405,6 +4078,99 @@ def main() -> int:
                            got, want) <= INT8_BF16_RTOL))
     time_cases(torch, mcases, "qwen3-moe", "moe_shapes", by_name, flush)
     del mdc, mcases
+    torch.cuda.empty_cache()
+
+    # the kernels at whisper-small's shapes (flash: the encoder, training's
+    # cross-attention and decoder self-attention, decode's cross-attention;
+    # the int8 kernel at its dense int8 decode step) and qwen2-vl-72b's
+    # (flash in training, GQA 64 / 8, D 128; paged decode at a B = 8
+    # round, contexts 512-2048; paged prefill at the engine's C = 16 tile;
+    # RMSNorm on its 2,048 x 8,192 training rows, the f32 sum in, bf16
+    # out: the one-pass route's widest rows); each checked as in phase 3,
+    # then timed beside its plain version, its library call (SDPA,
+    # is_causal as the call asks; the yardsticks of phase 4) and its bound
+    def flash_fns(case):
+        a, kw = (case["q"], case["k"], case["v"]), case["kw"]
+
+        def ok(got, want):
+            _, mix, p_rel = flash_bound(fa, *a, kw)
+            return kref.rounding_bound_ratio(got, want, mix, p_rel) <= 1.0
+        return (lambda: fa.flash_attention(*a, **kw)[0],
+                lambda: fa.flash_attention_plain(*a, **kw)[0],
+                lambda: library_cross(torch, F, case), ok)
+
+    wcases = []
+    for what, spec in (
+            ("encoder q, k, v (8, 1500, 12, 64) bf16, not causal",
+             CROSS_SETS["whisper encoder"]),
+            ("cross q (8, 448, 12, 64) over k/v (8, 1500, 12, 64) bf16, not "
+             "causal", CROSS_SETS["whisper cross"]),
+            ("decode cross q (8, 1, 12, 64) over k/v (8, 1500, 12, 64) bf16, "
+             "not causal", CROSS_SETS["whisper decode cross"]),
+            ("decoder self q, k, v (8, 448, 12, 64) bf16, causal",
+             dict(B=8, Sq=448, Skv=448, H=12, KV=12, D=64, causal=True))):
+        wc = cross_case(torch, rng, dev, **spec)
+        fn_, plain_, lib_, ok_ = flash_fns(wc)
+        wcases.append(("flash_attention", what, fn_, plain_, lib_,
+                       cross_cost, wc, ok_))
+    wic = int8_case(torch, rng, dev, **int8_sets["whisper-small decode"])
+    fn_, plain_, lib_ = int8_fns(wic)
+    wcases.append(("flash_attention_int8kv",
+                   "q (8, 1, 12, 64) bf16, int8 K/V (8, 448, 12, 64), kv_len "
+                   f"{w_lens}", fn_, plain_, lib_, int8_cost, wic,
+                   lambda got, want: int8_rel_err(got, want)
+                   <= INT8_BF16_RTOL))
+    time_cases(torch, wcases, "whisper-small", "whisper_shapes", by_name,
+               flush)
+    del wcases, wic
+    torch.cuda.empty_cache()
+    vlm_lens = [512, 731, 950, 1170, 1389, 1609, 1828, 2048]
+    vf = cross_case(torch, rng, dev, B=2, Sq=1024, Skv=1024, H=64, KV=8,
+                    D=128, causal=True)
+    fn_, plain_, lib_, ok_ = flash_fns(vf)
+    vcases = [("flash_attention",
+               "q (2, 1024, 64, 128), k/v (2, 1024, 8, 128) bf16, causal",
+               fn_, plain_, lib_, cross_cost, vf, ok_)]
+    vdc = decode_case(torch, rng, dev, B=8, KV=8, G=8, D=128, page=16,
+                      lengths=vlm_lens, garbage=False)
+
+    def vlm_decode_ok(got, want):
+        return kref.rounding_bound_ratio(
+            got, want, decode_bound(pa, vdc)[1], pa.P_ROUNDING) <= 1.0
+
+    vcases.append(("paged_decode_attention",
+                   f"q (8, 8, 8, 128) bf16, 16-token pages, contexts "
+                   f"{vlm_lens}", lambda: pa.paged_attention(
+                       *decode_args(vdc)),
+                   lambda: pa.paged_attention_plain(*decode_args(vdc)),
+                   lambda: library_decode(torch, F, vdc), decode_cost, vdc,
+                   vlm_decode_ok))
+    vpc = prefill_case(torch, rng, dev, B=4, KV=8, G=8, D=128, page=16, C=16,
+                       starts=[0, 341, 683, 1024], q_lens=[16] * 4)
+    fn_, plain_, lib_ = prefill_fns(vpc)
+    vcases.append(("paged_prefill_attention",
+                   "q (4, 8, 16*8, 128) bf16, C = 16, starts [0, 341, 683, "
+                   "1024]", fn_, plain_, lib_, prefill_cost, vpc,
+                   lambda got, want: prefill_ok(vpc, got, want)))
+    vn = dict(x=torch.randn((2048, 8192), dtype=torch.float32, device=dev),
+              scale=0.1 * torch.randn((8192,), dtype=torch.float32,
+                                      device=dev), out_dtype="bfloat16")
+    vgain = 1.0 + vn["scale"]
+    n_one = rn.rmsnorm_one_pass.launches
+    vcases.append(("rmsnorm", "2048 x 8192 f32 -> bf16 (one pass)",
+                   lambda: rn.rmsnorm(vn["x"], vn["scale"],
+                                      out_dtype=torch.bfloat16),
+                   lambda: rn.rmsnorm_ref(vn["x"], vn["scale"],
+                                          out_dtype=torch.bfloat16),
+                   lambda: F.rms_norm(vn["x"], (8192,), weight=vgain,
+                                      eps=1e-6),
+                   rmsnorm_cost, vn,
+                   lambda got, want: ulp_ratio(got, want) <= 1.0))
+    time_cases(torch, vcases, "qwen2-vl-72b", "vlm_shapes", by_name, flush)
+    check(rn.rmsnorm_one_pass.launches > n_one
+          and rn.one_pass_route(8192, True),
+          "RMSNorm at d 8192 missed the one-pass kernel")
+    del vcases, vf, vdc, vpc, vn, vgain
     torch.cuda.empty_cache()
 
     # the repaired routes as kernels of their own: the f32 decode and
@@ -4010,6 +4776,21 @@ def main() -> int:
     by_name["rmsnorm"]["launches"] = sum(rms_paths.values())
     print(f"moe phase {time.perf_counter() - t18:.1f} s: " + json.dumps(moe),
           flush=True)
+
+    # 19. qwen2-vl-72b at full width -----------------------------------------
+    phase("qwen2-vl-72b, full width: training, paged serving, card vs CPU")
+    t19 = time.perf_counter()
+    vlm = vlm_phase(torch, T, dev, counters, by_name, rms_paths)
+    by_name["rmsnorm"]["launches"] = sum(rms_paths.values())
+    print(f"vlm phase {time.perf_counter() - t19:.1f} s: " + json.dumps(vlm),
+          flush=True)
+
+    # 20. whisper-small whole --------------------------------------------------
+    phase("whisper-small: training, dense serving bf16 and int8, card vs CPU")
+    t20 = time.perf_counter()
+    whisper = whisper_phase(torch, T, dev, counters, by_name, rms_paths)
+    print(f"whisper phase {time.perf_counter() - t20:.1f} s: "
+          + json.dumps(whisper), flush=True)
 
     # the D tail's launches over every path run (each zeroed just before
     # it): no ported config has a head dim that is not a multiple of 32

@@ -26,10 +26,12 @@ import torch
 from repro_torch.models.moe import F32_SUFFIXES as _MOE_F32_SUFFIXES
 from repro_torch.models.ssm import F32_LEAVES as _SSM_F32_LEAVES
 
-# leaves the reference uses in f32 (norm scales as ``1 + scale``; the
-# mamba2 conv, dt bias, A_log and D; the MoE router, whose last key ``w``
-# every linear shares, so it is matched on its path): never narrowed
-_F32_LEAVES = ("scale",) + _SSM_F32_LEAVES
+# leaves the reference uses in f32 (norm scales, as ``1 + scale`` or as
+# LayerNorm's gain, and LayerNorm's ``bias``, which no linear's bias
+# (``b``) shares; the mamba2 conv, dt bias, A_log and D; the MoE router,
+# whose last key ``w`` every linear shares, so it is matched on its
+# path): never narrowed
+_F32_LEAVES = ("scale", "bias") + _SSM_F32_LEAVES
 
 
 def _keeps_f32(keys) -> bool:
@@ -44,8 +46,9 @@ def from_flat(flat: Mapping[str, np.ndarray], device="cpu",
     ``weight_dtype=None`` keeps every leaf's own dtype (the reference's
     f32 masters), so ``to_flat(from_flat(flat))`` is exact.  With a dtype
     (bf16), linear, bias and embedding leaves are held in it — the cast
-    the reference makes on every call, made once — while norm scales, the
-    mamba2 leaves used in f32 and the MoE router stay f32."""
+    the reference makes on every call, made once — while norm scales and
+    LayerNorm biases, the mamba2 leaves used in f32 and the MoE router
+    stay f32."""
     tree: Dict[str, Any] = {}
     for path, arr in flat.items():
         keys = path.split("/")

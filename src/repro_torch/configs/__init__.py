@@ -3,11 +3,11 @@
 ``--arch <id>`` ids use the reference's names (dashes); modules use
 underscores.  Every entry exports CONFIG (the full-size numbers) and
 SMOKE_CONFIG (the reduced same-family variant for CPU tests), identical to
-the reference's.  The port carries the dense decoders, the ssm family
-(mamba2), the hybrid family (zamba2) and the moe family (qwen3-moe,
-dbrx: served, not trained) that its serving and training paths run, and
-the paper's 3DGAN (``gan3d``, kept out of ``ARCHS`` as in
-the reference); the other families join with the slices that port them.
+the reference's.  The port carries every family its serving and training
+paths run: the dense decoders, the moe family (qwen3-moe, dbrx: served,
+not trained), the ssm family (mamba2), the hybrid family (zamba2), the
+vlm family (qwen2-vl) and the encdec family (whisper), and the paper's
+3DGAN (``gan3d``, kept out of ``ARCHS`` as in the reference).
 """
 from __future__ import annotations
 
@@ -23,6 +23,8 @@ _MODULES = {
     "zamba2-1.2b": "zamba2_1p2b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "dbrx-132b": "dbrx_132b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
+    "whisper-small": "whisper_small",
     "gan3d": "gan3d",
 }
 

@@ -2,15 +2,19 @@
 
 The numbers and defaults are the reference's, field for field, so a config
 resolves to the same shapes in both packages (gemma2-2b's head_dim, for
-example, resolves to 2304 / 8 = 288 here as in the reference).  The
-reference's dry-run helpers (``input_specs``, ``synthesize_inputs``) build
-JAX shape structs and have no counterpart here.
+example, resolves to 2304 / 8 = 288 here as in the reference).
+``InputShape``, ``input_specs`` and ``synthesize_inputs`` are the
+reference's definition of a batch: the same keys, shapes, dtypes and
+integer ranges, as ``(shape, dtype)`` pairs and tensors instead of JAX
+shape structs and arrays.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
+
+import torch
 
 
 @dataclass(frozen=True)
@@ -165,3 +169,87 @@ class ModelConfig:
             # decoder cross-attention
             n += self.num_layers * attn_params()
         return n
+
+
+# ---------------------------------------------------------------------------
+# Input shapes and the batch they define
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                         # train | prefill | decode
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape) -> dict:
+    """The reference's ``input_specs`` as nested ``(shape, dtype)`` pairs.
+
+    train/prefill: the batch of tokens (+ the stub frontend's embeddings:
+    frames (B, encoder_seq, d) for encdec; for vlm, patch embeddings (B,
+    num_patches, d), text tokens (B, S - num_patches) and M-RoPE positions
+    (3, B, S)), and labels (B, S) to train.  decode: one new token per
+    sequence, its positions (B,) and the decode cache of ``seq_len``
+    (``transformer._cache_struct``), plus the encoder output (encdec) or
+    (3, B, 1) M-RoPE positions (cfg.mrope)."""
+    from repro_torch.models import transformer as T   # imports this module
+
+    B, S, d = shape.global_batch, shape.seq_len, cfg.d_model
+    i32, bf16 = torch.int32, torch.bfloat16
+    specs: dict = {}
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "encdec":
+            specs["encoder_input"] = ((B, cfg.encoder_seq, d), bf16)
+            specs["tokens"] = ((B, S), i32)
+        elif cfg.family == "vlm":
+            specs["patch_embeddings"] = ((B, cfg.num_patches, d), bf16)
+            specs["tokens"] = ((B, S - cfg.num_patches), i32)
+            specs["mrope_positions"] = ((3, B, S), i32)
+        else:
+            specs["tokens"] = ((B, S), i32)
+        if shape.kind == "train":
+            specs["labels"] = ((B, S), i32)
+    else:
+        specs["tokens"] = ((B, 1), i32)
+        specs["positions"] = ((B,), i32)
+        specs["cache"] = T._cache_struct(cfg, B, S)
+        if cfg.family == "encdec":
+            specs["encoder_output"] = ((B, cfg.encoder_seq, d), bf16)
+        if cfg.mrope:
+            specs["mrope_positions"] = ((3, B, 1), i32)
+    return specs
+
+
+def synthesize_inputs(cfg: ModelConfig, shape: InputShape,
+                      generator: Optional[torch.Generator] = None,
+                      device="cpu") -> dict:
+    """Random tensors of ``input_specs``' shapes and dtypes, drawn from
+    ``generator`` (default: seed 0) in the order of the specs, on
+    ``device``.  Integer leaves as in the reference: token and label ids
+    in ``[0, vocab_size)``, every other integer (positions) in ``[0,
+    max(1, seq_len))``; float leaves N(0, 1) * 0.02 drawn in f32, then
+    cast.  (The reference folds a hash of each leaf's path into its key;
+    the numbers differ, the shapes, dtypes and ranges do not.)"""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    gdev = generator.device
+
+    def fill(path, spec):
+        shp, dtype = spec
+        if not dtype.is_floating_point:
+            hi = (cfg.vocab_size if "token" in path or "label" in path
+                  else max(1, shape.seq_len))
+            t = torch.randint(0, min(hi, 2 ** 30), shp, generator=generator,
+                              device=gdev, dtype=torch.int64)
+        else:
+            t = torch.randn(shp, generator=generator, device=gdev,
+                            dtype=torch.float32) * 0.02
+        return t.to(device=device, dtype=dtype)
+
+    def walk(prefix, tree):
+        if isinstance(tree, dict):
+            return {k: walk(f"{prefix}/{k}", v) for k, v in tree.items()}
+        return fill(prefix, tree)
+
+    return walk("", input_specs(cfg, shape))

@@ -22,7 +22,10 @@ of 32, the scale stays 1/sqrt(D) of the true D, and the output is cut back
 the logsumexp is unchanged).
 ``flash_attention.launches`` counts every launch;
 ``flash_fwd_tensor_core.launches`` and ``flash_fwd_cuda_core.launches``
-count each kernel's, and ``flash_d_tail.launches`` the padded calls'.
+count each kernel's, ``flash_d_tail.launches`` the padded calls' and
+``FLASH_NON_CAUSAL.launches`` the calls without the causal mask (the
+encdec encoder and cross-attention, where Sq and Skv differ: 448 queries
+over 1,500 frames in training, one over 1,500 in decode).
 
 ``flash_attention_int8kv`` is the counterpart of the reference's
 ``flash_attention_int8kv``: the same attention over int8 K/V with
@@ -51,6 +54,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention import (BLOCKS_PER_SM, SM_COUNT,
                                                  device_sm_count)
 from repro_torch.kernels.ref import attention_int8kv_ref, attention_ref
+
+FLASH_NON_CAUSAL = _build.counter("flash_non_causal")
 
 _fn = None
 _fn_tc = None
@@ -289,6 +294,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     else:
         out, lse = run_padded(_flash_launch, q, k, v, **kw)
     flash_attention.launches += 1
+    if not causal:
+        FLASH_NON_CAUSAL.launches += 1
     return out, lse
 
 

@@ -33,7 +33,12 @@ the dense decoders do; dbrx at full width (263 GB in bf16) fits no single
 card.  The ssm (mamba2-1.3b) and hybrid (zamba2-1.2b) families serve in
 dense mode only: their cache holds recurrent state, so ``--paged`` raises the KV
 cache's ``ValueError`` and the engine keeps no prefix store, as in the
-reference.
+reference.  qwen2-vl-72b (vlm) serves text, paged or dense, as the
+reference's engine does: no patches, plain RoPE at each token's position
+(its 80 layers, 145 GB in bf16, fit no single card; the engine serves
+it cut in depth).  whisper-small (encdec)
+is refused, with the reference's words; it serves through ``Scheduler``
+and ``ServingEngine``, each request carrying its frames.
 
 As in the reference: ``--tenant`` labels requests round-robin (per-tenant
 percentiles), ``--slo-config`` arms every replica's SLO monitor,
@@ -169,6 +174,10 @@ def main(argv=None):
     from repro_torch.serving.engine import resolve_device
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family == "encdec":
+        # as the reference: its prompts carry no frames (whisper serves
+        # through Scheduler + ServingEngine with each request's frames)
+        raise SystemExit("serve launcher targets decoder LMs")
     tenants = [t for arg in (args.tenant or ["default"])
                for t in arg.split(",") if t]
     slo_config = (SLOConfig.from_json(args.slo_config)

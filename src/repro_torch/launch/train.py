@@ -15,15 +15,29 @@ gradients are averaged by ``hvd.allreduce``.  Rank 0 prints the
 reference's step and summary lines, then step time, tokens/s, each
 kernel's launches per step, the gradient exchange's calls and bytes per
 step and, on the card, peak device memory.  The dense (qwen2-0.5b,
-gemma2-2b), ssm (mamba2-1.3b) and hybrid (zamba2-1.2b) families train;
-the moe family (qwen3-moe-30b-a3b, dbrx-132b) is refused before any
-process group is made: its AdamW state fits no single card, so it waits
-for sharded training (ROADMAP Queue 1 item 6).
+gemma2-2b), ssm (mamba2-1.3b), hybrid (zamba2-1.2b), vlm (qwen2-vl-72b)
+and encdec (whisper-small) families train; the moe family
+(qwen3-moe-30b-a3b, dbrx-132b) is refused before any process group is
+made: its AdamW state fits no single card, so it waits for sharded
+training (ROADMAP Queue 1 item 6).
+
+The encdec and vlm batches follow the reference's ``input_specs``
+(``configs.base``): the stub frontend's inputs come from
+``synthesize_inputs`` with a generator seeded by the step.  encdec, as
+the reference's launcher: its frames (B, 1500, d), with the source's
+tokens and labels.  vlm: patch embeddings (B, num_patches, d) and M-RoPE
+positions (3, B, S); the text is the source's first S - num_patches
+tokens and the labels are the text behind num_patches unread places (the
+loss drops the patch positions).  The reference's launcher overwrites
+the vlm text with the source's (B, S) tokens and then fails on the
+positions' shape (ROADMAP Queue 3).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --seq-len 1024 --global-batch 8 --steps 8
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \\
       --seq-len 1024 --global-batch 8 --steps 8
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small \\
+      --seq-len 448 --global-batch 8 --steps 8
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
       --arch qwen2-0.5b --smoke --strategy dp --device cpu --steps 4
 
@@ -64,6 +78,28 @@ def build_parser() -> argparse.ArgumentParser:
                     help="the process group's store (default env:// under "
                          "torchrun, a private file:// store alone)")
     return ap
+
+
+def family_batch(cfg, batch: dict, step: int) -> dict:
+    """The training batch of ``cfg``'s family at ``step``: the token
+    source's ``batch`` as it is, or with the encdec / vlm frontend's
+    inputs (see the module's docstring)."""
+    if cfg.family not in ("encdec", "vlm"):
+        return batch
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import InputShape, synthesize_inputs
+    B, S = batch["tokens"].shape
+    shape = InputShape("cli-train", S, B, "train")
+    extra = synthesize_inputs(cfg, shape,
+                              torch.Generator().manual_seed(step))
+    if cfg.family == "encdec":
+        return dict(extra, tokens=batch["tokens"], labels=batch["labels"])
+    P = cfg.num_patches
+    text = np.ascontiguousarray(batch["tokens"][:, :S - P])
+    labels = np.concatenate([np.zeros((B, P), np.int32), text], axis=1)
+    return dict(extra, tokens=text, labels=labels)
 
 
 def main(argv=None) -> dict:
@@ -124,11 +160,13 @@ def main(argv=None) -> dict:
         launches = {k: [] for k in counters}
         t0 = time.time()
         for i in range(args.steps):
+            # the batch (for encdec and vlm, the stub frontend's inputs
+            # drawn on the host) is made before the step's clock starts
+            batch = family_batch(cfg, source.batch(i), i)
             t_step = time.perf_counter()
             n0 = {k: f.launches for k, f in counters.items()}
             groups.reset_counts()
-            params, opt_state, m = step_fn(params, opt_state,
-                                           source.batch(i))
+            params, opt_state, m = step_fn(params, opt_state, batch)
             loss = float(m["loss"])             # waits for the step
             step_s.append(time.perf_counter() - t_step)
             calls, nbytes = groups.counts()[("data",)]

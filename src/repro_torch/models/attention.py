@@ -13,8 +13,13 @@ Counterpart of ``repro.models.attention``.  Three branches of
   written at each row's position in place; a bf16 cache is attended by
   the plain query-chunked ``attend`` (as in the reference, which runs no
   kernel there), an int8 cache (``quantize_kv``) by the CUDA int8 flash
-  kernel (``kernels.ops.int8kv_attention``).
-Cross-attention waits for the enc-dec family (ROADMAP Queue 1 item 11).
+  kernel (``kernels.ops.int8kv_attention``);
+- cross-attention (``kv_override``, the encdec decoder): K/V projected
+  from the encoder output on every call, no RoPE, no cache, attended
+  without a mask by the flash kernel (``causal=False``), in training and
+  serving alike.  The encoder's self-attention is the no-cache branch
+  with ``causal=False``.
+RoPE takes M-RoPE positions (3, B, S) for the vlm family (qwen2-vl).
 """
 from __future__ import annotations
 
@@ -32,22 +37,38 @@ NEG_INF = -2.0e38
 # RoPE
 # ---------------------------------------------------------------------------
 
-def _rope_angles(positions: torch.Tensor, head_dim: int,
-                 theta: float) -> torch.Tensor:
-    """positions: (B, S).  Returns (B, S, head_dim/2) f32 angles."""
+def _rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                 mrope_sections=None) -> torch.Tensor:
+    """positions: (B, S), or (3, B, S) for M-RoPE.  Returns (B, S,
+    head_dim/2) f32 angles.  With 3-D positions frequency i takes the
+    position row of its section (0 temporal, 1 height, 2 width;
+    ``mrope_sections`` frequencies each, summing to head_dim/2); 2-D
+    positions give plain RoPE whatever the config says (the reference's
+    decode passes (B, 1))."""
     half = head_dim // 2
     exps = torch.arange(half, dtype=torch.float32,
                         device=positions.device) / half
     inv_freq = 1.0 / (theta ** exps)                              # (half,)
+    if positions.dim() == 3:                                      # M-RoPE
+        if mrope_sections is None or sum(mrope_sections) != half:
+            raise ValueError(f"M-RoPE sections {mrope_sections} do not "
+                             f"split head_dim/2 = {half}")
+        sec_id = torch.repeat_interleave(
+            torch.arange(len(mrope_sections), device=positions.device),
+            torch.tensor(mrope_sections, device=positions.device))
+        pos = positions[sec_id].permute(1, 2, 0).float()         # (B,S,half)
+        return pos * inv_freq
     return positions.float()[..., None] * inv_freq[None, None, :]
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 10_000.0) -> torch.Tensor:
-    """x: (B, S, H, D); positions: (B, S).  Half-split rotation in f32,
-    cast back to x's dtype.  (M-RoPE joins with the VLM slice.)"""
+               theta: float = 10_000.0, mrope_sections=None
+               ) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) or (3, B, S) (M-RoPE, with
+    ``mrope_sections``).  Half-split rotation in f32, cast back to x's
+    dtype."""
     half = x.shape[-1] // 2
-    ang = _rope_angles(positions, x.shape[-1], theta)
+    ang = _rope_angles(positions, x.shape[-1], theta, mrope_sections)
     cos = torch.cos(ang)[:, :, None, :]                           # (B,S,1,half)
     sin = torch.sin(ang)[:, :, None, :]
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
@@ -175,6 +196,7 @@ def _dense_decode(cache, q, k, v, idx, *, scale, window, softcap, q_chunk):
 
 def attention_block(params, cfg, x: torch.Tensor, *,
                     positions: Optional[torch.Tensor] = None,
+                    causal: bool = True,
                     window: Optional[int] = None,
                     cache=None, cache_index: Optional[torch.Tensor] = None,
                     kv_override=None, use_rope: bool = True,
@@ -182,9 +204,17 @@ def attention_block(params, cfg, x: torch.Tensor, *,
                     q_lens: Optional[torch.Tensor] = None):
     """x: (B, S, d_model).  Returns (out, cache).
 
-    No cache (``cache is None``): causal self-attention over the whole
-    sequence (top-left: query t sees keys <= t, within ``window``), with
-    ``cfg.attn_logit_softcap``; differentiable.
+    positions: (B, S), or (3, B, S) M-RoPE positions (vlm); default
+    ``arange(S)`` per row.
+
+    No cache (``cache is None``): self-attention over the whole sequence,
+    causal (top-left: query t sees keys <= t, within ``window``) unless
+    ``causal=False`` (the encoder), with ``cfg.attn_logit_softcap``;
+    differentiable.
+
+    Cross-attention (``kv_override`` (B, Skv, d), the encoder output):
+    K/V projected from it, no RoPE, no cache (``cache`` is ignored, as in
+    the reference), every query sees every key; differentiable.
 
     Dense cache (``block_tables is None``): ``cache`` holds one layer's
     per-slot stripes ``{"k": (B, Smax, KV, D), "v": ...}`` (bf16), or int8
@@ -205,10 +235,6 @@ def attention_block(params, cfg, x: torch.Tensor, *,
     trash block ``num_blocks - 1``.  The returned cache is the same
     object.
     """
-    if kv_override is not None:
-        raise NotImplementedError(
-            "cross-attention is ported with the enc-dec family (ROADMAP "
-            "Queue 1 item 11)")
     B, S, _ = x.shape
     h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     dt = getattr(torch, cfg.dtype)
@@ -216,17 +242,20 @@ def attention_block(params, cfg, x: torch.Tensor, *,
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
 
     q = nn.linear(params["wq"], x, dtype=dt)                     # (B,S,h,dh)
-    k = nn.linear(params["wk"], x, dtype=dt)                     # (B,S,kv,dh)
-    v = nn.linear(params["wv"], x, dtype=dt)
-    if use_rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    kv_src = x if kv_override is None else kv_override.to(dt)
+    k = nn.linear(params["wk"], kv_src, dtype=dt)              # (B,Skv,kv,dh)
+    v = nn.linear(params["wv"], kv_src, dtype=dt)
+    if use_rope and kv_override is None:
+        sections = cfg.mrope_sections if cfg.mrope else None
+        q = apply_rope(q, positions, cfg.rope_theta, sections)
+        k = apply_rope(k, positions, cfg.rope_theta, sections)
 
     scale = cfg.attn_scale or (1.0 / math.sqrt(dh))
     sc = cfg.attn_logit_softcap
-    if cache is None:
-        out = kops.mha_flash_attention(q, k, v, causal=True, window=window,
-                                       softcap=sc, scale=scale)
+    if cache is None or kv_override is not None:
+        out = kops.mha_flash_attention(
+            q, k, v, causal=causal and kv_override is None, window=window,
+            softcap=sc, scale=scale)
         out = nn.linear(params["wo"], out.reshape(B, S, h * dh), dtype=dt)
         return out, None
     if block_tables is None:

@@ -90,6 +90,20 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6,
     return ops.rmsnorm(x, p["scale"], eps=eps, out_dtype=out_dtype)
 
 
+def layernorm(p, x: torch.Tensor, eps: float = 1e-5,
+              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """LayerNorm (whisper): (x - mean) * rsqrt(var + eps) * scale + bias,
+    all in f32 (the biased variance, as ``jnp.var``), the result in
+    ``out_dtype`` (default: x's dtype).  No TPU kernel computes it, so
+    this plain version is the port, as the reference's jnp is."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(out_dtype or x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Embedding
 # ---------------------------------------------------------------------------

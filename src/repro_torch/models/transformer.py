@@ -1,34 +1,39 @@
-"""The decoder stacks: dense (llama-style pre-norm GQA; qwen2 QKV bias;
+"""The model stacks: dense (llama-style pre-norm GQA; qwen2 QKV bias;
 gemma2 local/global windows, logit softcaps, post-block norms, scaled
 embeddings), moe (the dense stack with the top-k MoE block of
 ``models/moe.py`` in place of the MLP: qwen3-moe, dbrx), ssm (mamba2,
-attention-free) and hybrid (zamba2: mamba2 layers with one weight-shared
-attention + MLP block applied after every ``hybrid_attn_every`` of them).
+attention-free), hybrid (zamba2: mamba2 layers with one weight-shared
+attention + MLP block applied after every ``hybrid_attn_every`` of them),
+vlm (qwen2-vl: the dense stack with stub patch embeddings prepended to
+the text and M-RoPE positions) and encdec (whisper: a bidirectional
+encoder over stub frame embeddings and a causal decoder with
+cross-attention, LayerNorm, GELU and learned position embeddings).
 
-Counterpart of ``repro.models.transformer`` for ``family`` in ``dense``,
-``moe``, ``ssm`` and ``hybrid``.  The parameter tree keeps the reference's
-layout — dense and moe per-layer leaves stacked as ``(L // pat, pat,
-...)`` (a moe layer's ``moe/wi`` is ``(L, 1, E, d, d_ff)``) where
-``pat = len(layer_pattern(cfg))``, ssm leaves as ``(L, ...)``, hybrid
-mamba leaves as ``(G, E, ...)`` (``E = hybrid_attn_every``, ``G = L //
-E``) with the ``L % E`` tail layers as ``(R, ...)`` and the unstacked
-``shared_attn`` layer — so ``repro_torch.bridge`` moves weights between
-the packages leaf for leaf.  PyTorch runs eagerly: the reference's
-``lax.scan`` over layer groups is a Python loop (each dense group, each
-mamba layer and each application of the shared block under
-``torch.utils.checkpoint`` when ``cfg.remat``), and the decode caches
-are updated in place.
+Counterpart of ``repro.models.transformer``.  The parameter tree keeps
+the reference's layout — dense, vlm and moe per-layer leaves stacked as
+``(L // pat, pat, ...)`` (a moe layer's ``moe/wi`` is ``(L, 1, E, d,
+d_ff)``) where ``pat = len(layer_pattern(cfg))``, ssm leaves as ``(L,
+...)``, hybrid mamba leaves as ``(G, E, ...)`` (``E =
+hybrid_attn_every``, ``G = L // E``) with the ``L % E`` tail layers as
+``(R, ...)`` and the unstacked ``shared_attn`` layer, encdec decoder
+layers as ``(L, ...)`` beside the ``encoder`` subtree (its layers
+``(encoder_layers, ...)``, ``final_norm``, ``pos_embed``) — so
+``repro_torch.bridge`` moves weights between the packages leaf for leaf.
+PyTorch runs eagerly: the reference's ``lax.scan`` over layer groups is a
+Python loop (each dense group, each encoder or decoder layer, each mamba
+layer and each application of the shared block under
+``torch.utils.checkpoint`` when ``cfg.remat``), and the decode caches are
+updated in place.
 
 Ported: the full-sequence ``forward`` and the losses of training
-(``lm_loss``, ``lm_loss_chunked``) for the dense, ssm and hybrid
-families (the moe family's training waits for sharded training, ROADMAP
-Queue 1 item 6); ``decode_step`` for all four over a dense per-slot cache
-(``init_cache``: attention K/V in bf16, or int8 codes with per-token
-scales; the mamba layers' f32 SSM and conv state), and for dense and moe
-decoders over paged KV; ``prefill_step`` over paged KV for dense and moe
-decoders (the ssm and hybrid families have no positional cache, and the
-reference refuses them there too).  The other families come with the
-slices that need them.
+(``lm_loss``, ``lm_loss_chunked``) for every family but moe (its
+training waits for sharded training, ROADMAP Queue 1 item 6);
+``decode_step`` for all six over a dense per-slot cache (``init_cache``:
+attention K/V in bf16, or int8 codes with per-token scales; the mamba
+layers' f32 SSM and conv state), and for the dense, moe and vlm decoders
+over paged KV; ``prefill_step`` over paged KV for those three (the ssm,
+hybrid and encdec families have no cache that depends on token positions
+alone, and the reference refuses them there too).
 """
 from __future__ import annotations
 
@@ -74,7 +79,7 @@ def _check_family(cfg, families) -> None:
 def check_trainable(cfg) -> None:
     """Raise for a family ``forward`` and the losses do not train: the
     moe family waits for sharded training (its AdamW state fits no single
-    card), the unported families for their slices."""
+    card)."""
     if cfg.family == "moe":
         raise NotImplementedError(
             "training the moe family waits for sharded training (ROADMAP "
@@ -83,14 +88,24 @@ def check_trainable(cfg) -> None:
     _check_family(cfg, _FAMILIES)
 
 
-_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-_POSITIONAL = ("dense", "moe")       # attention caches with a token axis
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
+# caches whose K/V depend on the token positions alone (encdec's also on
+# the frames), the families paged storage takes
+_POSITIONAL = ("dense", "moe", "vlm")
+
+
+def positional_cache(cfg) -> bool:
+    """Whether ``cfg``'s decode cache holds K/V keyed by token positions
+    alone: the one cache paged block storage and token-keyed prefix reuse
+    take.  Not recurrent state (no token-position axis), nor decoder K/V
+    that depend on the encoder's frames too."""
+    return cfg.family in _POSITIONAL
 
 
 def _refuse_paged(cfg) -> None:
     """The reference's refusal of paged block storage for a family whose
-    cache holds recurrent state (no token-position axis)."""
-    if cfg.family in ("ssm", "hybrid"):
+    cache is not positional."""
+    if not positional_cache(cfg):
         raise ValueError(
             f"paged prefill needs a positional attention cache; family "
             f"{cfg.family!r} unsupported")
@@ -120,18 +135,30 @@ def init_params(cfg, generator: torch.Generator, device="cpu",
     if cfg.family in ("ssm", "hybrid"):
         return _init_mamba_params(cfg, generator, device, wdt)
     draw = nn.drawer(generator, device, wdt)
-    L = cfg.num_layers
-    pat = len(layer_pattern(cfg))
-    assert L % pat == 0, (L, pat)
-    layers = _init_attn_mlp_layer(cfg, draw, (L // pat, pat), device, wdt)
-    p: Dict[str, Any] = {
-        "embed": {"table": draw((cfg.vocab_size, cfg.d_model), 0.02)},
-        "final_norm": {"scale": _zeros((cfg.d_model,), device)},
-        "layers": layers,
-    }
+    L, d = cfg.num_layers, cfg.d_model
+    p: Dict[str, Any] = {}
+    if cfg.family == "encdec":
+        p["encoder"] = {
+            "layers": _init_attn_mlp_layer(cfg, draw, (cfg.encoder_layers,),
+                                           device, wdt),
+            "final_norm": _init_norm(cfg, (), device),
+            "pos_embed": draw((cfg.encoder_seq, d), 0.02),
+        }
+        p["layers"] = _init_attn_mlp_layer(cfg, draw, (L,), device, wdt,
+                                           cross=True)
+    else:
+        pat = len(layer_pattern(cfg))
+        assert L % pat == 0, (L, pat)
+        p["layers"] = _init_attn_mlp_layer(cfg, draw, (L // pat, pat),
+                                           device, wdt)
+    # drawn after the layers, the order the dense and moe weights of
+    # every seed have always been drawn in
+    p["embed"] = {"table": draw((cfg.vocab_size, d), 0.02)}
+    p["final_norm"] = _init_norm(cfg, (), device)
     if not cfg.tie_embeddings:
-        d = cfg.d_model
         p["lm_head"] = {"w": draw((d, cfg.vocab_size), 1.0 / math.sqrt(d))}
+    if cfg.max_pos_embed:
+        p["pos_embed"] = draw((cfg.max_pos_embed, d), 0.02)
     return p
 
 
@@ -139,10 +166,32 @@ def _zeros(shape, device, dtype=torch.float32):
     return torch.zeros(shape, dtype=dtype, device=device)
 
 
-def _init_attn_mlp_layer(cfg, draw, lead, device, wdt):
+def _init_norm(cfg, lead, device):
+    """A norm's f32 leaves stacked with leading dims ``lead``: RMSNorm's
+    ``scale`` (zeros: the gain is ``1 + scale``), or LayerNorm's ``scale``
+    (ones) and ``bias`` (zeros)."""
+    shape = tuple(lead) + (cfg.d_model,)
+    if cfg.norm_type == "layernorm":
+        return {"scale": torch.ones(shape, dtype=torch.float32,
+                                    device=device),
+                "bias": _zeros(shape, device)}
+    return {"scale": _zeros(shape, device)}
+
+
+def _norm(cfg, p, x, out_dtype=None):
+    """The config's norm (the reference's ``_norm``): LayerNorm (whisper)
+    or RMSNorm, in f32, the result in ``out_dtype`` (default x's)."""
+    if cfg.norm_type == "layernorm":
+        return nn.layernorm(p, x, cfg.norm_eps, out_dtype=out_dtype)
+    return nn.rmsnorm(p, x, cfg.norm_eps, out_dtype=out_dtype)
+
+
+def _init_attn_mlp_layer(cfg, draw, lead, device, wdt, cross=False):
     """One pre-norm attention + gated-MLP (or MoE) layer's leaves, stacked
     with leading dims ``lead`` (``()`` for the hybrid family's shared
-    block); ``draw`` from ``modules.drawer``."""
+    block); ``draw`` from ``modules.drawer``.  ``cross``: an encdec
+    decoder layer, with ``ln_cross`` and ``cross_attn`` (whose q/k/v
+    have no bias, as in the reference)."""
     d, h, kvh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     dh, dff = cfg.resolved_head_dim, cfg.d_ff
     lead = tuple(lead)
@@ -155,17 +204,18 @@ def _init_attn_mlp_layer(cfg, draw, lead, device, wdt):
         return p
 
     def norm():
-        return {"scale": _zeros(lead + (d,), device)}
+        return _init_norm(cfg, lead, device)
 
-    layer = {
-        "ln1": norm(), "ln2": norm(),
-        "attn": {
-            "wq": lin(d, (h, dh), bias=cfg.qkv_bias),
-            "wk": lin(d, (kvh, dh), bias=cfg.qkv_bias),
-            "wv": lin(d, (kvh, dh), bias=cfg.qkv_bias),
-            "wo": lin(h * dh, d, std=1.0 / math.sqrt(h * dh)),
-        },
-    }
+    def attention(bias):
+        return {"wq": lin(d, (h, dh), bias=bias),
+                "wk": lin(d, (kvh, dh), bias=bias),
+                "wv": lin(d, (kvh, dh), bias=bias),
+                "wo": lin(h * dh, d, std=1.0 / math.sqrt(h * dh))}
+
+    layer = {"ln1": norm(), "ln2": norm(), "attn": attention(cfg.qkv_bias)}
+    if cross:
+        layer["ln_cross"] = norm()
+        layer["cross_attn"] = attention(False)
     if cfg.family == "moe":
         layer["moe"] = moe_lib.init_moe(cfg, draw, lead)
     else:
@@ -227,7 +277,8 @@ def _cache_struct(cfg, batch: int, seq_len: int):
     one absmax scale per (token, kv head).  Mamba state: ``ssm`` ``(lead,
     batch, H, N, P)`` and ``conv`` ``(lead, batch, w - 1, d_inner + 2 G
     N)``, f32, with no sequence axis.  ``lead`` is ``(L // pat, pat)``
-    (dense), ``(L,)`` (ssm), or for the hybrid family ``(G, E)`` for the
+    (dense, vlm, moe), ``(L,)`` (ssm; encdec's decoder self-attention),
+    or for the hybrid family ``(G, E)`` for the
     mamba groups, ``(R,)`` for ``tail_layers`` and ``(G,)`` for
     ``shared_attn``, one K/V stripe per application of the shared block."""
     _check_family(cfg, _FAMILIES)
@@ -251,6 +302,8 @@ def _cache_struct(cfg, batch: int, seq_len: int):
     if cfg.family in _POSITIONAL:
         pat = len(layer_pattern(cfg))
         return {"layers": attn_cache((cfg.num_layers // pat, pat))}
+    if cfg.family == "encdec":
+        return {"layers": attn_cache((cfg.num_layers,))}
     if cfg.family == "ssm":
         return {"layers": mamba_cache((cfg.num_layers,))}
     E, G, R = _hybrid_groups(cfg)
@@ -283,10 +336,14 @@ def _index(tree, *idx):
 # ---------------------------------------------------------------------------
 
 def _apply_layer(p, cfg, x, x_sum, *, window, positions, cache,
-                 cache_index, block_tables, q_lens=None):
+                 cache_index, block_tables, q_lens=None, causal=True,
+                 encoder_out=None, use_rope=True):
     """Pre-norm attention + MLP, or the MoE block where ``p`` has
     ``"moe"`` (its aux loss is dropped: serving only) (+ gemma2
-    post-block norms).
+    post-block norms).  With ``encoder_out`` (encdec decoder layers) a
+    pre-norm cross-attention block over it sits between the two, with its
+    own residual add.  ``causal=False``: the encoder's self-attention;
+    ``use_rope=False``: learned positions (whisper).
 
     ``x`` is the residual stream in the compute dtype; ``x_sum`` is the
     same value in f32 *before* its last rounding, or None.  The port keeps
@@ -301,15 +358,20 @@ def _apply_layer(p, cfg, x, x_sum, *, window, positions, cache,
         s = a.float() + b.float()
         return s.to(dt), s
 
-    hn = nn.rmsnorm(p["ln1"], x if x_sum is None else x_sum, cfg.norm_eps,
-                    out_dtype=dt)
+    hn = _norm(cfg, p["ln1"], x if x_sum is None else x_sum, dt)
     a, _ = attn.attention_block(
-        p["attn"], cfg, hn, positions=positions, window=window, cache=cache,
-        cache_index=cache_index, block_tables=block_tables, q_lens=q_lens)
+        p["attn"], cfg, hn, positions=positions, causal=causal,
+        window=window, cache=cache, cache_index=cache_index,
+        block_tables=block_tables, q_lens=q_lens, use_rope=use_rope)
     if cfg.post_block_norm:
         a = nn.rmsnorm(p["post_ln1"], a, cfg.norm_eps, out_dtype=dt)
     x, x_sum = add(x, a)
-    hn = nn.rmsnorm(p["ln2"], x_sum, cfg.norm_eps, out_dtype=dt)
+    if encoder_out is not None:
+        hn = _norm(cfg, p["ln_cross"], x_sum, dt)
+        c, _ = attn.attention_block(p["cross_attn"], cfg, hn,
+                                    kv_override=encoder_out, use_rope=False)
+        x, x_sum = add(x, c)
+    hn = _norm(cfg, p["ln2"], x_sum, dt)
     if "moe" in p:
         m, _ = moe_lib.moe_block(p["moe"], cfg, hn)
     else:
@@ -371,24 +433,76 @@ def _unembed(params, cfg, x):
 
 
 def _logits(params, cfg, x):
-    return _unembed(params, cfg,
-                    nn.rmsnorm(params["final_norm"], x, cfg.norm_eps))
+    return _unembed(params, cfg, _norm(cfg, params["final_norm"], x))
 
 
 # ---------------------------------------------------------------------------
 # Forward (train / prefill): the whole sequence, no cache
 # ---------------------------------------------------------------------------
 
-def _forward_group(gp, cfg, x):
+def _forward_group(gp, cfg, x, positions=None):
     """One layer group of the no-cache forward.  The residual enters the
     group rounded (the reference's scan carry) and the ``x_sum`` rule of
-    ``_apply_layer`` holds inside it."""
+    ``_apply_layer`` holds inside it.  ``positions``: the vlm family's
+    M-RoPE positions (3, B, S), else None (``arange``)."""
     x_sum = None
     for i, win in enumerate(layer_pattern(cfg)):
         x, x_sum = _apply_layer(_index(gp, i), cfg, x, x_sum,
-                                window=win, positions=None, cache=None,
+                                window=win, positions=positions, cache=None,
                                 cache_index=None, block_tables=None)
     return x
+
+
+def _encoder_layer(lp, cfg, x):
+    """One encoder layer (bidirectional, learned positions, no cache): one
+    scan step of the reference's ``_encode``, so the residual enters it
+    rounded and the ``x_sum`` rule holds inside it."""
+    return _apply_layer(lp, cfg, x, None, window=None, positions=None,
+                        cache=None, cache_index=None, block_tables=None,
+                        causal=False, use_rope=False)[0]
+
+
+def _decoder_layer(lp, cfg, x, encoder_out):
+    """One encdec decoder layer of the no-cache forward (causal
+    self-attention, cross-attention over ``encoder_out``, MLP): one scan
+    step of the reference, with the ``x_sum`` rule across its three
+    residual adds."""
+    return _apply_layer(lp, cfg, x, None, window=None, positions=None,
+                        cache=None, cache_index=None, block_tables=None,
+                        encoder_out=encoder_out, use_rope=False)[0]
+
+
+def _run(cfg, fn, p, *carry):
+    """``fn(p, cfg, *carry)``, under ``torch.utils.checkpoint`` when
+    ``cfg.remat`` (its activations recomputed in the backward)."""
+    if cfg.remat:
+        return checkpoint(fn, p, cfg, *carry, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(p, cfg, *carry)
+
+
+def _encode(enc_params, cfg, encoder_input):
+    """The encdec encoder over stub frame embeddings (B, encoder_seq, d):
+    frames in the compute dtype plus the encoder's learned positions, its
+    bidirectional layers (each under checkpoint with ``cfg.remat``), the
+    encoder's final norm.  Returns (B, encoder_seq, d) in the compute
+    dtype: the K/V source of every decoder layer's cross-attention."""
+    dt = _dtype(cfg.dtype)
+    x = encoder_input.to(dt)
+    x = x + enc_params["pos_embed"][:x.shape[1]][None].to(dt)
+    for li in range(cfg.encoder_layers):
+        x = _run(cfg, _encoder_layer, _index(enc_params["layers"], li), x)
+    return _norm(cfg, enc_params["final_norm"], x)
+
+
+def _pos_rows(params, cfg, idx):
+    """Learned position embeddings at positions ``idx``, in the compute
+    dtype; positions past the table read its last row, as the reference's
+    gather clamps them (a dense prefill chunk's padding tokens can run
+    past it)."""
+    table = params["pos_embed"]
+    return table[idx.long().clamp(0, table.shape[0] - 1)].to(
+        _dtype(cfg.dtype))
 
 
 def _shared_block(p, cfg, x, x_sum):
@@ -428,9 +542,13 @@ def forward(params, cfg, batch: Dict[str, Any], *, last_only: bool = False,
             return_hidden: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence causal forward (training, prefill).  batch: tokens
-    (B, S).  Returns (logits (B, S, V) f32, aux_loss 0-d f32 (zero for
-    the three families here; the moe family is refused until sharded
-    training, ROADMAP Queue 1 item 6)).
+    (B, S); for vlm also patch_embeddings (B, P, d), prepended to the
+    text, and mrope_positions (3, B, P + S); for encdec encoder_input
+    (B, encoder_seq, d), which ``_encode`` turns into the decoder's
+    cross-attention source.  Returns (logits (B, S', V) f32, S' the whole
+    sequence (patches included), aux_loss 0-d f32 (zero for the families
+    here; the moe family is refused until sharded training, ROADMAP
+    Queue 1 item 6)).
 
     last_only: unembed only the final position.  return_hidden: return the
     final-norm hidden states (B, S, d) in the compute dtype instead of
@@ -443,30 +561,37 @@ def forward(params, cfg, batch: Dict[str, Any], *, last_only: bool = False,
     backward, so attention or the SSD scan runs twice per layer per
     training step."""
     check_trainable(cfg)
+    dt = _dtype(cfg.dtype)
     x = _embed(params, cfg, batch["tokens"])
+    positions = None
+    if cfg.family == "vlm":
+        x = torch.cat([batch["patch_embeddings"].to(dt), x], dim=1)
+        positions = batch["mrope_positions"]
+    if cfg.max_pos_embed:
+        x = x + params["pos_embed"][:x.shape[1]][None].to(dt)
 
-    def run(fn, p, *carry):
-        if cfg.remat:
-            return checkpoint(fn, p, cfg, *carry, use_reentrant=False,
-                              preserve_rng_state=False)
-        return fn(p, cfg, *carry)
-
-    if cfg.family == "hybrid":
+    layers = params["layers"]
+    if cfg.family == "encdec":
+        enc = _encode(params["encoder"], cfg, batch["encoder_input"])
+        for li in range(cfg.num_layers):
+            x = _run(cfg, _decoder_layer, _index(layers, li), x, enc)
+    elif cfg.family == "hybrid":
         x = _hybrid_trunk(
             params, cfg, x,
-            lambda p, x, x_sum, _: run(_apply_mamba_layer, p, x, x_sum),
-            lambda x, x_sum, _: run(_shared_block, params["shared_attn"], x,
-                                    x_sum))
+            lambda p, x, x_sum, _: _run(cfg, _apply_mamba_layer, p, x,
+                                        x_sum),
+            lambda x, x_sum, _: _run(cfg, _shared_block,
+                                     params["shared_attn"], x, x_sum))
     elif cfg.family == "ssm":
         for li in range(cfg.num_layers):
-            x, _ = run(_apply_mamba_layer, _index(params["layers"], li), x)
+            x, _ = _run(cfg, _apply_mamba_layer, _index(layers, li), x)
     else:
         for gi in range(cfg.num_layers // len(layer_pattern(cfg))):
-            x = run(_forward_group, _index(params["layers"], gi), x)
+            x = _run(cfg, _forward_group, _index(layers, gi), x, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if last_only:
         x = x[:, -1:]
-    x = nn.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = _norm(cfg, params["final_norm"], x)
     if return_hidden:
         return x, aux
     return _unembed(params, cfg, x), aux
@@ -486,13 +611,23 @@ def _loss_metrics(loss, aux):
                         "perplexity": torch.exp(loss)}
 
 
+def _text(cfg, x, labels):
+    """Drop the vlm family's patch positions from the logits (or hidden
+    states) and the labels: the loss covers the text alone."""
+    if cfg.family == "vlm":
+        return x[:, cfg.num_patches:], labels[:, cfg.num_patches:]
+    return x, labels
+
+
 def lm_loss(params, cfg, batch: Dict[str, Any]
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Next-token cross-entropy (logits[t] predicts labels[t + 1]) over
-    the full (B, S, V) f32 logits.  Returns (loss, metrics)."""
+    the full (B, S, V) f32 logits (the text positions only, for vlm).
+    Returns (loss, metrics)."""
     logits, aux = forward(params, cfg, batch)
+    logits, labels = _text(cfg, logits, batch["labels"])
     lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
-    tgt = batch["labels"][:, 1:].long()
+    tgt = labels[:, 1:].long()
     nll = -torch.gather(lp, -1, tgt[..., None])[..., 0]
     return _loss_metrics(nll.mean(), aux)
 
@@ -505,9 +640,10 @@ def lm_loss_chunked(params, cfg, batch: Dict[str, Any], *,
     logsumexp - target logit, and is recomputed in the backward
     (checkpointed), so the loss holds O(B * seq_chunk * V) at a time."""
     x, aux = _trunk(params, cfg, batch)
+    x, labels = _text(cfg, x, batch["labels"])
     B, S, _ = x.shape
     x = x[:, :-1]
-    tgt = batch["labels"][:, 1:].long()
+    tgt = labels[:, 1:].long()
     Sm = S - 1
     pad = (-Sm) % seq_chunk
     if pad:
@@ -548,19 +684,36 @@ def decode_step(params, cfg, batch: Dict[str, Any]
     and optionally block_tables (B, blocks_per_slot).  Without tables the
     cache is the per-slot tree of ``init_cache`` (row b's token written
     at ``positions[b]``; a mamba layer's state advanced by one token);
-    with them (dense decoders only) it is paged block storage.  Either
-    is updated in place.  Returns (logits (B, 1, V) f32, cache).
-    Dense and moe decoders take either cache; the ssm and hybrid families
-    the per-slot one."""
+    with them (dense, moe and vlm decoders) it is paged block storage.
+    Either is updated in place.  Returns (logits (B, 1, V) f32, cache).
+    The ssm, hybrid and encdec families take the per-slot cache only.
+    encdec: ``encoder_output`` (B, encoder_seq, d), each row's encoder
+    output, which every layer's cross-attention projects to K/V again
+    (as the reference does), and the learned position at ``positions``.
+    vlm: ``mrope_positions`` (3, B, 1) where given, else plain RoPE at
+    ``positions`` (the reference's engine serves text this way)."""
     _check_family(cfg, _FAMILIES)
     tokens, idx, cache = batch["tokens"], batch["positions"], batch["cache"]
     block_tables = batch.get("block_tables")
     if block_tables is not None:
         _refuse_paged(cfg)
     x = _embed(params, cfg, tokens)
+    if cfg.max_pos_embed:
+        x = x + _pos_rows(params, cfg, idx)[:, None]
+    positions = batch.get("mrope_positions")
+    if positions is None:
+        positions = idx[:, None]
     if cfg.family in _POSITIONAL:
-        x = _run_layers(params, cfg, x, cache, positions=idx[:, None],
+        x = _run_layers(params, cfg, x, cache, positions=positions,
                         cache_index=idx, block_tables=block_tables)
+    elif cfg.family == "encdec":
+        enc = batch["encoder_output"]
+        for li in range(cfg.num_layers):
+            x, _ = _apply_layer(
+                _index(params["layers"], li), cfg, x, None, window=None,
+                positions=positions, cache=_index(cache["layers"], li),
+                cache_index=idx, block_tables=None, encoder_out=enc,
+                use_rope=False)
     elif cfg.family == "ssm":
         for li in range(cfg.num_layers):
             x, _ = _apply_mamba_layer(_index(params["layers"], li), cfg, x,

@@ -8,7 +8,13 @@ checkpoint of one package's optimizer state restores in the other.
 Updates come back in f32 and ``apply_updates`` adds them to the params in
 f32, then casts to each param's dtype.  The learning rate of an update is
 the schedule at the count *before* the increment, as in the reference.
-Nothing is updated in place: every call returns new tensors.
+``update`` updates nothing in place: every call returns new tensors.
+AdamW also has ``update_in_place(grads, state, params)``, the
+counterpart of the reference's donated train step (``donate_argnums``):
+the same arithmetic, op for op (so the same bits), written leaf by leaf
+into the params, ``mu`` and ``nu`` (and the clip into the grads), so a
+step holds no second copy of any of them; the training step
+(``stepfn.make_train_step``) uses it wherever an optimizer has one.
 """
 from __future__ import annotations
 
@@ -56,10 +62,18 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 
 
+# elements an in-place update takes at a time (its f32 temporaries: 256 MB
+# each)
+IN_PLACE_CHUNK = 1 << 26
+
+
 @dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any], Tuple[Any, Any]]
+    # (grads, state, params) -> None: the update applied in place, where
+    # the optimizer has one
+    update_in_place: Optional[Callable[[Any, Any, Any], None]] = None
 
 
 def _zeros_like_f32(params):
@@ -159,7 +173,44 @@ def adamw(lr: ScalarOrSchedule, b1: float = 0.9, b2: float = 0.95,
         upd = tree_map(u, mu, nu, params)
         return upd, {"count": count, "mu": mu, "nu": nu}
 
-    return Optimizer(init, update)
+    def update_in_place(grads, state, params):
+        """``update`` then ``apply_updates``, written into ``params``,
+        ``state`` and ``grads`` leaf by leaf with the same ops in the same
+        order, each leaf in chunks of ``IN_PLACE_CHUNK`` elements (every
+        leaf is contiguous)."""
+        if clip_norm:
+            norm = global_norm(grads)
+            scale = torch.clamp(clip_norm / (norm + 1e-6), max=1.0)
+        step_lr = _lr_at(lr, state["count"])
+        count = state["count"] + 1
+        c = count.float()
+        bc1 = 1 - b1 ** c
+        bc2 = 1 - b2 ** c
+        neg_lr = -step_lr
+        for leaf in zip(_leaves(grads), _leaves(state["mu"]),
+                        _leaves(state["nu"]), _leaves(params)):
+            # elementwise, so chunk by chunk: the temporaries stay small
+            for g, m, n, p in zip(*(t.view(-1).split(IN_PLACE_CHUNK)
+                                    for t in leaf)):
+                if clip_norm:
+                    g.mul_(scale.to(g.dtype))
+                g = g.float()
+                m.mul_(b1).add_(g * (1 - b1))
+                t = g * (1 - b2)
+                n.mul_(b2).add_(t.mul_(g))
+                upd = (m / bc1).mul_(neg_lr)
+                t = torch.div(n, bc2, out=t).sqrt_().add_(eps)
+                upd.div_(t)
+                del t
+                if weight_decay:
+                    upd.sub_(step_lr * weight_decay * p.float())
+                if p.dtype == torch.float32:
+                    p.add_(upd)
+                else:
+                    p.copy_((p.float() + upd).to(p.dtype))
+        state["count"] = count
+
+    return Optimizer(init, update, update_in_place)
 
 
 def adam(lr: ScalarOrSchedule, **kw) -> Optimizer:

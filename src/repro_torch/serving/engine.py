@@ -44,6 +44,21 @@ past a prompt's end run through ``decode_step`` like its real ones, so
 they advance that state too, exactly as the reference's scanned chunk
 does; a cursor parked mid-prompt keeps the whole state in its copy.
 
+The encdec family (whisper) serves in dense mode only, as in the
+reference: its decoder's K/V depend on the encoder's frames as well as on
+the tokens, so the KV cache refuses paged mode and the prefix store.
+Each request's frames (``Request.encoder_input``, (encoder_seq, d)) run
+through the encoder once, at admission (``begin_prefill``), eagerly: the
+encoder runs once a request outside the rounds, on frames uploaded from
+host memory, which a capture may not read, and a program of its own would
+add a capture and a staging buffer for a step that is already one
+batched launch a layer.  Its output is copied in place into the slot's
+row of the encoder pool (``_enc_pool``, (max_slots, encoder_seq, d)),
+which every decode round reads whole; each dense prompt chunk reads the
+slot's row from the batch-1 staging buffer ``_enc1``, refreshed in place
+before the chunk.  Both stay at their addresses, so the captured rounds
+read them in place.
+
 Each round is one program (``serving/programs.py``), as each is one
 jitted program in the reference: ``decode_step`` (``(max_slots,)`` rows,
 in paged mode with the ``(max_slots, blocks_per_slot)`` table), the paged
@@ -96,7 +111,7 @@ class SamplingParams:
 class Request:
     prompt: np.ndarray                       # (prompt_len,) int32
     params: SamplingParams = field(default_factory=SamplingParams)
-    # enc-dec frame embeddings: unused by the dense decoders of this slice
+    # encdec frame embeddings (encoder_seq, d_model); decoders take none
     encoder_input: Optional[np.ndarray] = None
     # SLO tenant label: threaded submit -> scheduler -> metrics
     tenant: str = "default"
@@ -194,12 +209,13 @@ class ServingEngine:
         # prefills serially whatever the batch size
         self.prefill_batch = max(1, min(prefill_batch, max_slots))
         self.paged = paged
-        # a family whose cache holds recurrent state keeps no prefix store
-        # (its state depends on every token before, not one block's)
+        # a family whose cache is not positional keeps no prefix store:
+        # recurrent state depends on every token before, not one block's,
+        # and encdec's K/V on the frames too
         self.kv = PagedKVCache(
             cfg, max_slots, max_seq_len, block_size=kv_block_size,
             prefix_blocks=(prefix_cache_blocks
-                           if self._family_supports_prefix(cfg) else 0),
+                           if T.positional_cache(cfg) else 0),
             num_blocks=num_blocks, paged=paged, device=self.device)
         self.prefix_cache = None
         if self.kv.prefix_pool is not None:
@@ -227,13 +243,28 @@ class ServingEngine:
         # dense mode: the batch-1 staging stripe and the cursor it holds
         self._stripe = None
         self._stripe_owner: Optional[PrefillCursor] = None
+        # encdec: each slot's encoder output, and the batch-1 row a dense
+        # prompt chunk reads; both read by the captured rounds in place
+        self._enc_pool = self._enc1 = None
+        if cfg.family == "encdec":
+            shape = (cfg.encoder_seq, cfg.d_model)
+            dt = getattr(torch, cfg.dtype)
+            self._enc_pool = torch.zeros((max_slots,) + shape, dtype=dt,
+                                         device=self.device)
+            self._enc1 = torch.zeros((1,) + shape, dtype=dt,
+                                     device=self.device)
 
-    @staticmethod
-    def _family_supports_prefix(cfg) -> bool:
-        """Whether every cache leaf has a token-position axis, so cached
-        prompt blocks can be reused (the reference's rule)."""
-        return all(ax is not None
-                   for ax in PagedKVCache._seq_axis_per_leaf(cfg, 1))
+    @torch.no_grad()
+    def _encode_into_slot(self, slot: int, frames) -> None:
+        """Run the encoder over one request's frames (encoder_seq, d) and
+        copy its output into the slot's row of the encoder pool, in
+        place."""
+        if frames is None:
+            raise ValueError(f"family {self.cfg.family!r} needs each "
+                             "request's encoder_input (its frames)")
+        x = torch.as_tensor(np.asarray(frames, np.float32)).to(self.device)
+        self._enc_pool[slot].copy_(
+            T._encode(self.params["encoder"], self.cfg, x[None])[0])
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
@@ -259,8 +290,12 @@ class ServingEngine:
             if self.paged:
                 inputs["block_tables"] = self.kv.block_tables_dev
 
+            extra = ({} if self._enc_pool is None
+                     else {"encoder_output": self._enc_pool})
+
             def body(**batch):
-                return T.decode_step(params, cfg, dict(batch, cache=cache))[0]
+                return T.decode_step(params, cfg,
+                                     dict(batch, cache=cache, **extra))[0]
         elif name == "prefill_paged":
             inputs = {"tokens": self._zeros(Bp, C),
                       "positions": self._zeros(Bp),
@@ -276,13 +311,15 @@ class ServingEngine:
             inputs = {"tokens": self._zeros(C, 1),
                       "positions": self._zeros(C)}
             cache = self._stripe
+            extra = ({} if self._enc1 is None
+                     else {"encoder_output": self._enc1})
 
             def body(tokens, positions):
                 # the reference's scanned chunk: C decode steps at batch 1
                 return torch.stack([T.decode_step(params, cfg, {
                     "tokens": tokens[t:t + 1],
                     "positions": positions[t:t + 1],
-                    "cache": cache})[0][0, 0] for t in range(C)])
+                    "cache": cache, **extra})[0][0, 0] for t in range(C)])
         # what the body updates in place: the KV storage, or the stripe
         prog = self.programs[name] = CapturedProgram(
             name, body, inputs, state=[t for _, t in _leaves(cache)])
@@ -369,6 +406,8 @@ class ServingEngine:
                 # wait their FIFO turn hold no stripe yet
                 if sp and self.paged:
                     self.kv.load_prefix_blocks_paged(slot, pb)
+                if self._enc_pool is not None:
+                    self._encode_into_slot(slot, e)
         except Exception:
             for cur in cursors:              # all-or-nothing
                 self.kv.free_slot(cur.slot)
@@ -415,6 +454,8 @@ class ServingEngine:
         ``last_logits`` (on the device, cloned from the program's (C, V)
         output) when the prompt's last token runs in this chunk."""
         self._claim_stripe(cur)
+        if self._enc1 is not None:
+            self._enc1.copy_(self._enc_pool[cur.slot:cur.slot + 1])
         C = self.prefill_chunk
         ql = min(cur.remaining, C)
         chunk = np.zeros((C, 1), np.int32)

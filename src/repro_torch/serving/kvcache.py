@@ -26,7 +26,10 @@ ledger in the dense layout: their state leaves have a batch axis and no
 sequence axis, ``write_prefill`` copies a slot's whole state, and the
 block table models the logical footprint the scheduler admits against.
 As in the reference they report ``supports_prefix_cache = False``, and
-paged mode and the prefix store refuse them with ``ValueError``.
+paged mode and the prefix store refuse them with ``ValueError``; so does
+encdec (whisper), whose decoder self-attention K/V (a dense stripe per
+slot, ``(L, slots, max_seq_len, KV, D)``) depend on the encoder's frames
+as well as on the tokens.
 
 * ``KVBlockPool`` — a fixed budget of KV blocks handed out from a free
   ring (freed blocks go to the tail, recycled from the head), each with a
@@ -276,10 +279,11 @@ class PagedKVCache:
 
     @property
     def supports_prefix_cache(self) -> bool:
-        """Every cache leaf is positional (sliceable per token) and dense
-        decoders' KV depends on the token ids alone, so token-keyed reuse
-        is sound."""
-        return all(ax is not None for ax in self._seq_axes)
+        """The KV depends on the token positions alone
+        (``transformer.positional_cache``), so token-keyed reuse is sound,
+        and paged storage too, which the same test refuses, as in the
+        reference."""
+        return T.positional_cache(self.cfg)
 
     def _init_store(self, n_blocks: int):
         """Cache-shaped tree whose batch axis indexes ``n_blocks`` blocks

@@ -16,7 +16,12 @@ Checks:
 - the launcher's DP step (``stepfn.make_train_step``, the function the
   launcher builds its step with) at world size 2 from the reference's
   params, bridged, against the reference's ``stepfn.make_train_step(...,
-  make_host_mesh(), "dp", ...)`` on the whole batch for 3 steps.
+  make_host_mesh(), "dp", ...)`` on the whole batch for 3 steps;
+- the vlm family (qwen2-vl smoke, the launcher's batch with its (3, B, S)
+  M-RoPE positions) at world size 2 with microbatches 2 against the
+  one-rank, one-microbatch step: the loss and the gradients (read off an
+  SGD step at lr 1) agree, so each rank and microbatch took its rows of
+  ``mrope_positions`` on axis 1, with its own text and patches.
 
 Tolerances: against the one-rank run, losses rtol 1e-5 and parameters
 1e-5 absolute (``tests/test_torch_hvd.py``'s DP tolerances; observed
@@ -98,6 +103,41 @@ with hvd.init("cpu", init_method=store) as dev:
     rank = groups["data"].rank
 np.savez(os.path.join(out, f"dp{rank}.npz"), **bridge.to_flat(params))
 json.dump(losses, open(os.path.join(out, f"dp{rank}.json"), "w"))
+"""
+
+
+VLM_STEP = """
+import json, os, sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from repro_torch import bridge, optim
+from repro_torch.configs import get_smoke_config
+from repro_torch.core import hvd
+from repro_torch.data import SyntheticTokenSource, TokenDatasetSpec
+from repro_torch.distributed import stepfn
+from repro_torch.launch.train import family_batch
+from repro_torch.models import transformer as T
+store, out, micro = sys.argv[1], sys.argv[2], int(sys.argv[3])
+cfg = get_smoke_config("qwen2-vl-72b").with_(dtype="float32")
+with hvd.init("cpu", init_method=store):
+    groups = hvd.axis_groups({"data": int(os.environ["WORLD_SIZE"])})
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           weight_dtype=torch.float32)
+    opt = optim.sgd(1.0)
+    step = stepfn.make_train_step(cfg, opt, groups, microbatches=micro,
+                                  device="cpu")
+    batch = family_batch(cfg, SyntheticTokenSource(TokenDatasetSpec(
+        cfg.vocab_size, 24, 4)).batch(0), 0)
+    before = bridge.to_flat(optim.tree_map(torch.clone, params))
+    new, _, m = step(params, opt.init(params), batch)
+    rank = groups["data"].rank
+after = bridge.to_flat(new)
+np.savez(os.path.join(out, f"grads{rank}.npz"),
+         **{k: before[k] - after[k] for k in before})
+json.dump({"loss": float(m["loss"]),
+           "shapes": {k: list(v.shape) for k, v in batch.items()}},
+          open(os.path.join(out, f"vlm{rank}.json"), "w"))
 """
 
 
@@ -186,3 +226,30 @@ def test_dp_step_matches_the_reference_whole_batch_step(tmp_path):
         assert np.array_equal(got[0][k], got[1][k]), k
         np.testing.assert_allclose(got[0][k], want[k], rtol=0,
                                    atol=REF_PARAM_ATOL, err_msg=k)
+
+
+def test_vlm_dp_splits_mrope_positions_on_their_batch_axis(tmp_path):
+    """qwen2-vl smoke at world size 2 with microbatches 2 (one row each)
+    against one rank with one microbatch, on the launcher's batch (B 4,
+    S 24, 8 patches): the same loss and gradients within the DP
+    tolerances, on every rank."""
+    one, two = tmp_path / "one", tmp_path / "two"
+    one.mkdir()
+    two.mkdir()
+    hvd.run_ranks(VLM_STEP, 1, one, "1")
+    hvd.run_ranks(VLM_STEP, 2, two, "2")
+    want = json.loads((one / "vlm0.json").read_text())
+    assert want["shapes"] == {"patch_embeddings": [4, 8, 128],
+                              "tokens": [4, 16],
+                              "mrope_positions": [3, 4, 24],
+                              "labels": [4, 24]}
+    want_g = dict(np.load(one / "grads0.npz"))
+    for r in range(2):
+        got = json.loads((two / f"vlm{r}.json").read_text())
+        np.testing.assert_allclose(got["loss"], want["loss"],
+                                   rtol=LOSS_RTOL)
+        got_g = dict(np.load(two / f"grads{r}.npz"))
+        assert got_g.keys() == want_g.keys()
+        for k in want_g:
+            np.testing.assert_allclose(got_g[k], want_g[k], rtol=0,
+                                       atol=PARAM_ATOL, err_msg=k)

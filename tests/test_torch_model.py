@@ -161,11 +161,12 @@ def test_paged_attention_block_matches_reference(model, S):
 
 
 def test_other_attention_branches_wait_for_their_slice(model):
-    """Cross-attention raises, naming its ROADMAP item; the no-cache
-    branch (training's forward) runs; the dense-cache branch runs too
-    (one-token decode, this step's k/v written at the row's position in
-    place) and refuses a multi-token tile."""
-    cfg, pcfg, _, pparams = model
+    """Cross-attention (``kv_override``) matches the reference's on a
+    3-position source (no RoPE, no mask, the cache left alone); the
+    no-cache branch (training's forward) runs; the dense-cache branch runs
+    too (one-token decode, this step's k/v written at the row's position
+    in place) and refuses a multi-token tile."""
+    cfg, pcfg, params, pparams = model
     plp = PT._index(pparams["layers"], 0, 0)["attn"]
     x = torch.ones((1, 2, pcfg.d_model), dtype=torch.bfloat16)
     kv = torch.zeros((1, 4, pcfg.num_kv_heads, pcfg.resolved_head_dim),
@@ -178,8 +179,19 @@ def test_other_attention_branches_wait_for_their_slice(model):
     assert cache["k"][0, 2].any() and not cache["k"][0, :2].any()
     with pytest.raises(ValueError, match="one-token"):
         PA.attention_block(plp, pcfg, x, cache=cache, cache_index=idx)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        PA.attention_block(plp, pcfg, x, kv_override=x)
+    src = np.random.default_rng(5).standard_normal(
+        (1, 3, cfg.d_model)).astype(np.float32)
+    xq = np.random.default_rng(6).standard_normal(
+        (1, 2, cfg.d_model)).astype(np.float32)
+    lp = jax.tree.map(lambda a: a[0, 0], params["layers"])["attn"]
+    want, _ = A.attention_block(lp, cfg, jnp.asarray(xq, jnp.bfloat16),
+                                kv_override=jnp.asarray(src),
+                                use_rope=False)
+    got, none = PA.attention_block(plp, pcfg, _t(xq, torch.bfloat16),
+                                   kv_override=_t(src), use_rope=False,
+                                   cache=cache, cache_index=idx)
+    assert none is None and got.shape == (1, 2, pcfg.d_model)
+    _close_bf16(got, want)
     out, cache = PA.attention_block(plp, pcfg, x)
     assert out.shape == x.shape and cache is None
 

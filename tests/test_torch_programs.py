@@ -411,6 +411,12 @@ def cuda():
     return torch.device("cuda")
 
 
+def _frames(cfg, n, seed=12):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((cfg.encoder_seq, cfg.d_model)).astype(
+        np.float32) for _ in range(n)]
+
+
 def _card_engine(arch, kv_dtype, paged, dev):
     cfg = port_smoke_config(arch).with_(kv_cache_dtype=kv_dtype)
     params = PT.init_params(cfg, torch.Generator().manual_seed(0),
@@ -419,9 +425,11 @@ def _card_engine(arch, kv_dtype, paged, dev):
                         kv_block_size=16, paged=paged, prefill_batch=2,
                         device=dev)
     prompts = _prompts(cfg.vocab_size, (9, 30, 17), seed=11)
+    frames = _frames(cfg, 3) if cfg.family == "encdec" else None
     tokens = np.zeros(4, np.int32)
     positions = np.zeros(4, np.int32)
-    for p, (slot, last) in zip(prompts, eng.prefill_into_slots(prompts)):
+    for p, (slot, last) in zip(prompts, eng.prefill_into_slots(prompts,
+                                                               frames)):
         tokens[slot] = int(np.argmax(last))
         positions[slot] = len(p)
         eng.kv.ensure_capacity(slot, len(p) + 1)
@@ -435,14 +443,58 @@ def _eager_decode(eng, tokens, positions):
              "cache": eng.kv.cache}
     if eng.paged:
         batch["block_tables"] = eng.kv.device_block_tables()
+    if eng._enc_pool is not None:
+        batch["encoder_output"] = eng._enc_pool
     return PT.decode_step(eng.params, eng.cfg, batch)[0][:, 0]
+
+
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8"])
+def test_encdec_rounds_read_the_encoder_pool_in_place(kv_dtype):
+    """whisper smoke, dense: each request's encoder output lands in its
+    slot's row of the pool at admission (equal to ``_encode`` of its
+    frames); the pool and the batch-1 staging row keep their addresses
+    across prompt chunks and decode rounds; the last chunk read the slot's
+    row; a decode round through the program equals an eager
+    ``decode_step`` given the whole pool, from the same cache."""
+    from repro_torch.serving.kvcache import _leaves
+    eng, tokens, positions = _card_engine("whisper-small", kv_dtype, False,
+                                          torch.device("cpu"))
+    pool, enc1 = eng._enc_pool, eng._enc1
+    ptrs = (pool.data_ptr(), enc1.data_ptr())
+    cfg = eng.cfg
+    frames = _frames(cfg, 3)
+    with torch.no_grad():
+        want = PT._encode(eng.params["encoder"], cfg,
+                          torch.from_numpy(np.stack(frames)))
+    slots = sorted(np.flatnonzero(positions).tolist())
+    assert len(slots) == 3
+    for i, slot in enumerate(slots):
+        assert torch.equal(pool[slot], want[i])
+    assert torch.equal(enc1[0], pool[slots[-1]])
+    before = [t.clone() for _, t in _leaves(eng.kv.cache)]
+    replayed = eng.decode_once(tokens, positions).clone()
+    for (_, t), b in zip(_leaves(eng.kv.cache), before):
+        t.copy_(b)
+    eager = _eager_decode(eng, tokens, positions)
+    assert torch.equal(replayed, eager)
+    for _ in range(3):
+        eng.decode_once(tokens, positions)
+        positions[slots] += 1
+    eng.prefill_into_slot(_prompts(cfg.vocab_size, (5,), seed=2)[0],
+                          _frames(cfg, 1, seed=3)[0])
+    assert (eng._enc_pool.data_ptr(), eng._enc1.data_ptr()) == ptrs
+    progs = eng.programs
+    assert sorted(progs) == ["decode_step", "prefill_chunk"]
+    assert all(p.captures == 1 for p in progs.values())
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch,paged,kv_dtype", [
     ("qwen2-0.5b", True, "bfloat16"), ("qwen2-0.5b", False, "int8"),
-    ("mamba2-1.3b", False, "bfloat16"), ("zamba2-1.2b", False, "int8")],
-    ids=["paged", "dense-int8", "mamba2-dense", "zamba2-dense-int8"])
+    ("mamba2-1.3b", False, "bfloat16"), ("zamba2-1.2b", False, "int8"),
+    ("whisper-small", False, "bfloat16"), ("whisper-small", False, "int8")],
+    ids=["paged", "dense-int8", "mamba2-dense", "zamba2-dense-int8",
+         "whisper-dense", "whisper-dense-int8"])
 def test_cuda_replayed_decode_round_equals_eager(cuda, arch, paged,
                                                  kv_dtype):
     """The replayed round and an eager ``decode_step`` from the same

@@ -115,16 +115,26 @@ def test_scheduler_greedy_tokens_match_reference(weights, case):
 
 
 def test_engine_rejects_what_later_slices_port():
-    """Enc-dec waits for its slice (MoE is served since its slice,
-    ``tests/test_torch_moe_serving.py``); the dense layout (the default,
-    as the reference's) is served now: one worst-case stripe per slot,
+    """Every family serves now: whisper's smoke config (encdec) through
+    the engine, dense, each request with its frames (its parity with the
+    reference is ``tests/test_torch_encdec.py``); the dense layout (the
+    default, as the reference's) keeps one worst-case stripe per slot,
     bf16 or int8 with per-token scales, and paged mode refuses int8 as
     the reference does."""
     from repro_torch.models import transformer as PT
+    wcfg = port_smoke_config("whisper-small")
+    weng = ServingEngine(wcfg, PT.init_params(
+        wcfg, torch.Generator().manual_seed(0)), max_seq_len=16,
+        max_slots=2, device="cpu")
+    frames = np.random.default_rng(0).standard_normal(
+        (wcfg.encoder_seq, wcfg.d_model)).astype(np.float32)
+    [out] = weng.generate([Request(np.array([1, 2], np.int32),
+                                   SamplingParams(max_new_tokens=3,
+                                                  greedy=True),
+                                   encoder_input=frames)])
+    assert len(out) == 3 and ((out >= 0) & (out < wcfg.vocab_size)).all()
+    assert not weng.paged and weng.prefix_cache is None
     cfg = port_smoke_config("qwen2-0.5b")
-    encdec = cfg.with_(family="encdec")
-    with pytest.raises(NotImplementedError):
-        ServingEngine(encdec, {}, max_seq_len=16, device="cpu")
     params = PT.init_params(cfg, torch.Generator().manual_seed(0))
     for kv_dtype, leaves in (("bfloat16", {"k", "v"}),
                              ("int8", {"k", "v", "k_scale", "v_scale"})):
