@@ -48,7 +48,8 @@ Phases (any failure exits nonzero):
               the same broken variants above that bound.  The flash
               kernel's D tail (head dims padded to a multiple of 32 in
               the wrapper, ``flash_attention.run_padded``) at gemma2-27b's
-              head layout (B 2, S 640, H 32, KV 16, D 144: CUDA cores) and
+              head layout (B 2, S 640, H 32, KV 16, D 144: tensor cores,
+              at the padded 160) and
               at D 80 (B 2, S 600, H 8, KV 2: tensor cores), output, lse
               and gradients as above, and two broken D tails must fail
               (the scale of the padded D, junk in the padded columns).
@@ -185,7 +186,7 @@ Phases (any failure exits nonzero):
               with the same kernels: identical logits;
 8. training — full-width qwen2-0.5b through the port's launcher
               ``repro_torch.launch.train.main`` (seq 1024, batch 8, 8 AdamW
-              steps; ``--strategy dp``, as in phases 10 and 12: an NCCL
+              steps; ``--strategy dp``, as in phases 10, 12 and 20: an NCCL
               group at world size 1 and the gradients through
               ``hvd.allreduce``): every loss finite, the last below the first, the
               flash kernel launched on every layer of every step, each
@@ -342,6 +343,35 @@ Phases (any failure exits nonzero):
               mode refused; (c) card against CPU at full depth, bf16
               and int8: equal greedy tokens, last prompt logits within
               ``CPU_LOGIT_TOL``, other frames other tokens.
+21. sharded training at full width, cut in depth (weights drawn on the
+              card at seed 0, f32 masters, AdamW in place at lr 1e-4): (a)
+              gemma2-27b at 2 layers (one local / global pair; d 4,608,
+              32 / 16 heads of 144, vocab 256,000, softcaps 50 / 30), (b)
+              deepseek-coder-33b at 4 (56 / 8 heads of 128, d 7,168), (c)
+              qwen3-moe-30b-a3b at 2 (128 experts top-8, the aux loss in
+              the loss), each through the launcher's step
+              (``stepfn.make_train_step``, ``family_batch``) on
+              ``launch.mesh.make_host_mesh``'s (1, 1) groups under the
+              config's default strategy (``fsdp_tp``), B 2 x S 2,048, 8
+              steps: step ms, tokens/s, peak, the loss falling, exactly
+              2 L flash launches a step (all tensor cores; gemma2's all
+              through the D tail's 160), 2 x (2 or 4) L + 1 one-pass
+              RMSNorms, the data group's all_gathers and reduce_scatters a
+              step exactly the specs' (``sharded_data_formula``), the data
+              and model groups' collectives printed; (d) the D 160 route
+              with gemma2-27b's window 4,096 and softcap 50 at (1, 8,192,
+              32 / 16, 144), where the window binds, and at (a)'s shape:
+              within the tensor-core bound, the D-tail and window broken
+              variants above it, gradients, timed beside SDPA, the plain
+              version and the bound; (e) card against CPU at 2 layers of
+              each, one ``fsdp_tp`` step at seq 128, batch 1: loss and
+              gradient norm within the phase 9 tolerances; (f) qwen2-0.5b
+              at full width on the (1, 1) mesh: ``dp_tp`` and ``fsdp_tp``
+              against ``dp`` after 2 steps (losses within
+              ``TRAIN_LOSS_RTOL``, params within ``AT_ONE_PARAM_ATOL``;
+              ``dp_tp`` and ``fsdp_tp`` bit for bit), then the launcher
+              with no ``--strategy`` (its reference default, ``dp_tp``):
+              step time beside phase 8's ``dp`` run.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -388,6 +418,16 @@ GRAD_TOL = 2e-2                # max |grad err| / max |grad|: bf16 grads
 TRAIN_LOSS_RTOL = 1e-3         # one train step, card vs CPU: a mean over
                                # 254 token losses of bf16-computed logits
 TRAIN_GNORM_RTOL = 2e-2        # the gradient's global norm, same step
+AT_ONE_PARAM_ATOL = 1.2012e-3  # dp against dp_tp / fsdp_tp at (1, 1) after
+                               # 2 AdamW steps at lr 3e-4: the
+                               # cross-entropies round differently
+                               # (log_softmax against a max and a sum of
+                               # exponentials), and AdamW moves an entry by
+                               # up to lr |m^| / sqrt(v^) a step whatever
+                               # its gradient's size (at most 1 at step 1,
+                               # 1.0003 at step 2), so an entry whose
+                               # gradient is near 0 may move either way:
+                               # two runs part by at most 4.004 lr
 # 3DGAN, card against CPU: three (D, G) RMSProp step pairs in f32 (cuDNN
 # with TF32 off on the card, PyTorch's native convolutions on the CPU,
 # ``models/gan3d.py::_ieee_f32``: the same sums in another order; these
@@ -2542,9 +2582,9 @@ def moe_phase(torch, T, dev, counters, by_name, rms_paths) -> dict:
     recorded = []
     inner = moe_lib.moe_block
 
-    def recording(p, c, x):
+    def recording(p, c, x, **kw):
         recorded.append(x.detach().clone())
-        return inner(p, c, x)
+        return inner(p, c, x, **kw)
 
     results = {}
     for where, p in ((dev, p_card), ("cpu", p_cpu)):
@@ -2921,7 +2961,8 @@ def whisper_phase(torch, T, dev, counters, by_name, rms_paths) -> dict:
     held_bytes(torch, dev)
     zero_counts(counters)
     run = train_launcher.main(["--arch", arch, "--seq-len", "448",
-                               "--global-batch", "8", "--steps", "8"])
+                               "--global-batch", "8", "--steps", "8",
+                               "--strategy", "dp"])
     del run["params"]
     torch.cuda.synchronize()
     launches = read_counts(counters)
@@ -3088,6 +3129,443 @@ def whisper_phase(torch, T, dev, counters, by_name, rms_paths) -> dict:
               "tokens")
     del params, p_cpu
     held_bytes(torch, dev)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# sharded training (phase 21)
+# ---------------------------------------------------------------------------
+
+# the big configs of phase 21, cut in depth only (the cut printed)
+SHARDED_RUNS = (("gemma2-27b", 2), ("deepseek-coder-33b", 4),
+                ("qwen3-moe-30b-a3b", 2))
+SHARDED_SEQ, SHARDED_BATCH, SHARDED_STEPS = 2048, 2, 8
+# AdamW's rate for (a)-(c): at the launcher's 3e-4 the loss of the cut
+# deepseek-coder-33b rises over 8 steps under dp as under fsdp_tp
+# (scripts/torch_sharded_probe.py, PERF.md section 6); at 1e-4 each
+# falls.  qwen3-moe runs at 2 layers: at 4 (54.4 GB, it fits) its aux
+# loss grows over 8 steps at 5e-5 and 1e-4 alike and the loss does not
+# fall
+SHARDED_LR = 1e-4
+# the D tail's new route at gemma2-27b's local layers: the window binds at
+# S 8,192, and at phase 21 (a)'s shape
+D160_SETS = {
+    "gemma2-27b local, S 8192": dict(B=1, S=8192, H=32, KV=16, D=144,
+                                     window=4096, softcap=50.0),
+    "gemma2-27b local, (a)'s shape": dict(B=2, S=2048, H=32, KV=16, D=144,
+                                          window=4096, softcap=50.0),
+}
+
+
+def sharded_data_formula(cfg, specs, params):
+    """The data group's all_gather and reduce_scatter (calls, bytes) a
+    step at data size 1 from the specs: each leaf split over ``data``
+    gathered one layer group at a time, in the forward and again in the
+    remat's recompute (the leaves outside the stacks once), and each
+    gather's gradient reduce-scattered once."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models.transformer import layer_pattern
+    groups = cfg.num_layers // len(layer_pattern(cfg))
+    gathers = 2 if cfg.remat else 1
+    ag, rs = [0, 0], [0, 0]
+
+    def walk(t, s, top):
+        if isinstance(t, dict):
+            for k in t:
+                walk(t[k], s[k], top or k)
+            return
+        if "data" not in sh.axes_of(s):
+            return
+        n = t.numel() * t.element_size()
+        g, per = (gathers, groups) if top == "layers" else (1, 1)
+        ag[0] += g * per
+        ag[1] += g * n
+        rs[0] += per
+        rs[1] += n
+    walk(params, specs, None)
+    return {"all_gather": ag, "reduce_scatter": rs}
+
+
+def sharded_train(torch, T, cfg, dev, counters) -> dict:
+    """``cfg`` (full width, cut in depth) trained through the launcher's
+    step: ``stepfn.make_train_step`` with the launcher's AdamW and
+    ``family_batch`` on ``launch.mesh.make_host_mesh``'s groups under the
+    full config's default strategy, params from the port's
+    ``init_params`` at seed 0 drawn on the card, cut into this rank's
+    shards; AdamW at ``SHARDED_LR``.  Per step: loss, ms, kernel
+    launches, the data and model groups' collectives."""
+    from repro_torch import optim
+    from repro_torch.configs import default_strategy, get_config
+    from repro_torch.core import hvd
+    from repro_torch.data import SyntheticTokenSource, TokenDatasetSpec
+    from repro_torch.distributed import stepfn
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.launch.mesh import make_host_mesh
+    strategy = default_strategy(get_config(cfg.name))
+    torch.cuda.reset_peak_memory_stats(dev)
+    res = {"arch": cfg.name, "layers": cfg.num_layers, "strategy": strategy,
+           "losses": [], "aux_losses": [], "step_s": [], "launches": [],
+           "data": [], "model": []}
+    names = ("flash_attention", "flash_attention_d_tail",
+             "flash_attention_tensor_core", "rmsnorm", "rmsnorm_one_pass")
+    with hvd.init("cuda") as device:
+        groups = make_host_mesh()
+        full = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev, weight_dtype=torch.float32)
+        res["params"] = sum(t.numel() for t in _leaves(full))
+        opt = optim.adamw(SHARDED_LR, clip_norm=1.0)
+        params, state = stepfn.shard_state(full, cfg, opt, strategy, groups)
+        del full
+        step = stepfn.make_train_step(cfg, opt, groups, strategy=strategy,
+                                      device=device)
+        src = SyntheticTokenSource(TokenDatasetSpec(
+            cfg.vocab_size, SHARDED_SEQ, SHARDED_BATCH))
+        zero_counts(counters)
+        for i in range(SHARDED_STEPS):
+            batch = train_launcher.family_batch(cfg, src.batch(i), i)
+            n0 = {k: counters[k].launches for k in names}
+            groups.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            res["losses"].append(float(m["loss"]))
+            res["step_s"].append(time.perf_counter() - t0)
+            res["aux_losses"].append(float(m["aux_loss"]))
+            res["launches"].append({k: counters[k].launches - n0[k]
+                                    for k in names})
+            for axis in ("data", "model"):
+                g = groups[axis]
+                res[axis].append({kind: list(v)
+                                  for kind, v in g.kinds.items()})
+        launches = read_counts(counters)
+        res["formula"] = sharded_data_formula(
+            cfg, step.specs, stepfn.params_struct(cfg))
+        res["mesh"] = groups.shape
+        del params, state, step
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    steady = res["step_s"][1:]
+    res["step_ms"] = sum(steady) / len(steady) * 1e3
+    res["tokens_per_s"] = SHARDED_SEQ * SHARDED_BATCH / (res["step_ms"] / 1e3)
+    return res, launches
+
+
+def sharded_card_vs_cpu(torch, T, cfg, dev, *, seq: int = 128,
+                        batch: int = 1) -> dict:
+    """One ``fsdp_tp`` step of ``cfg`` on the card and on the CPU from the
+    same f32 weights (drawn on the card at seed 1, copied) and batch:
+    loss and the gradient's global norm within ``TRAIN_LOSS_RTOL`` and
+    ``TRAIN_GNORM_RTOL``.  Without remat on either side (it changes no
+    value, and the CPU's bf16 step is the slow part)."""
+    cfg = cfg.with_(remat=False)
+    import numpy as np
+    from repro_torch import optim
+    from repro_torch.core import hvd
+    from repro_torch.data import SyntheticTokenSource, TokenDatasetSpec
+    from repro_torch.distributed import stepfn
+    from repro_torch.launch.mesh import make_host_mesh
+    data = SyntheticTokenSource(TokenDatasetSpec(
+        cfg.vocab_size, seq, batch)).batch(0)
+    got = {}
+    card = T.init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                         device=dev, weight_dtype=torch.float32)
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        p = (card if where == dev else
+             _map(card, lambda t: t.to("cpu")))
+        if where != dev:
+            del card
+            torch.cuda.empty_cache()
+        o = optim.adamw(3e-4, clip_norm=1.0)
+        with hvd.init(where):
+            groups = make_host_mesh()
+            p, s = stepfn.shard_state(p, cfg, o, "fsdp_tp", groups)
+            _, _, m = stepfn.make_train_step(
+                cfg, o, groups, strategy="fsdp_tp", device=where)(p, s, data)
+        got[str(where)] = (float(m["loss"]), float(m["grad_norm"]),
+                           time.perf_counter() - t0)
+        del p, s, m
+    (lg, ng, tg), (lc, nc, tc) = got[str(dev)], got["cpu"]
+    print(f"(e) {cfg.name} {cfg.num_layers}-layer full-width fsdp_tp step, "
+          f"seq {seq}, batch {batch}: loss cuda {lg:.6f} cpu {lc:.6f} (rtol "
+          f"{TRAIN_LOSS_RTOL}); grad norm cuda {ng:.6f} cpu {nc:.6f} (rtol "
+          f"{TRAIN_GNORM_RTOL}); {tg:.1f} s / {tc:.1f} s", flush=True)
+    check(np.isfinite([lg, ng]).all(), f"(e) {cfg.name}: card step not "
+          "finite")
+    check(abs(lg - lc) <= TRAIN_LOSS_RTOL * abs(lc),
+          f"(e) {cfg.name}: card and CPU losses disagree")
+    check(abs(ng - nc) <= TRAIN_GNORM_RTOL * abs(nc),
+          f"(e) {cfg.name}: card and CPU gradient norms disagree")
+    return {"loss": [lg, lc], "grad_norm": [ng, nc], "seconds": [tg, tc]}
+
+
+def strategies_at_one(torch, T, cfg, dev, *, seq: int = 1024,
+                      batch: int = 8, steps: int = 2) -> dict:
+    """qwen2-0.5b at full width under ``dp``, ``dp_tp`` and ``fsdp_tp`` on
+    the (1, 1) host mesh, from the same weights and batches: losses and
+    the parameters (gathered) after ``steps`` AdamW steps."""
+    from repro_torch import optim
+    from repro_torch.core import hvd
+    from repro_torch.data import SyntheticTokenSource, TokenDatasetSpec
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed import stepfn
+    from repro_torch.launch.mesh import make_host_mesh
+    src = SyntheticTokenSource(TokenDatasetSpec(cfg.vocab_size, seq, batch))
+    out = {}
+    for strategy in ("dp", "dp_tp", "fsdp_tp"):
+        with hvd.init("cuda") as device:
+            groups = make_host_mesh()
+            params = T.init_params(
+                cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+                weight_dtype=torch.float32)
+            opt = optim.adamw(3e-4, clip_norm=1.0)
+            if strategy == "dp":
+                state = opt.init(params)
+            else:
+                params, state = stepfn.shard_state(params, cfg, opt,
+                                                   strategy, groups)
+            step = stepfn.make_train_step(cfg, opt, groups,
+                                          strategy=strategy, device=device)
+            losses = []
+            for i in range(steps):
+                params, state, m = step(params, state, src.batch(i))
+                losses.append(float(m["loss"]))
+            if strategy != "dp":
+                params = sh.unshard(params, step.specs, groups)
+            out[strategy] = {"losses": losses, "params": params}
+            del state, step
+    return out
+
+
+def d160_phase(torch, F, fa, kops, kref, dev, rng, entry) -> dict:
+    """Phase 21 (d): the flash D tail's tensor-core route (D 144 padded to
+    160) with gemma2-27b's local window 4,096 and softcap 50, where the
+    window binds (S 8,192) and at (a)'s shape: the output element by
+    element within the tensor-core bound (P in bf16: 2^-8), the broken
+    D-tail and window variants above it, the logsumexp, the gradients
+    against the plain version's; timed beside SDPA (causal, no window,
+    no softcap: the nearest library call), the plain version and the
+    bound.  The times go into the D tail's kernels-line ``entry``."""
+    flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device=dev)
+    out = {}
+    for label, s in D160_SETS.items():
+        fc = flash_case(torch, rng, dev, **s)
+        qkv, kw = (fc["q"], fc["k"], fc["v"]), fc["kw"]
+        n_tc = fa.flash_fwd_tensor_core.launches
+        n_tail = fa.flash_d_tail.launches
+        got, lse = fa.flash_attention(*qkv, **kw)
+        torch.cuda.synchronize()
+        check(fa.flash_fwd_tensor_core.launches == n_tc + 1
+              and fa.flash_d_tail.launches == n_tail + 1,
+              f"(d) the D 144 call at {label} missed the tensor-core route")
+        plain, mix, p_rel = flash_bound(fa, *qkv, kw)
+        check(p_rel == 2.0 ** -8, "(d) the D 160 route's bound is not the "
+              "tensor cores'")
+        ratio = kref.rounding_bound_ratio(got, plain, mix, p_rel)
+        _, want_lse = fa.flash_attention_plain(*qkv, **kw)
+        lse_err = (lse - want_lse).abs().max().item()
+        err = (got.float() - plain.float()).abs().max().item()
+        del got, lse, want_lse
+        # the window's variants where it binds; where it does not (S at
+        # most the window) the call is the causal one, and so are its
+        # broken variants
+        wkw = kw if s["S"] > s["window"] else dict(kw, window=None)
+        misses = {}
+        for what, wrong in (flash_wrongs(torch, fa, kref, *qkv, wkw)
+                            + flash_pad_wrongs(torch, fa, *qkv, kw)):
+            misses[what] = kref.rounding_bound_ratio(wrong(), plain, mix,
+                                                     p_rel)
+        del plain, mix
+        torch.cuda.empty_cache()
+        ins = [t.clone().requires_grad_(True) for t in qkv]
+        g_got = torch.autograd.grad(kops.mha_flash_attention(*ins, **kw),
+                                    ins, fc["dout"])
+        ins = [t.clone().requires_grad_(True) for t in qkv]
+        g_want = torch.autograd.grad(
+            fa.flash_attention_plain(*ins, **kw)[0], ins, fc["dout"])
+        gerr = max(((g.float() - w.float()).abs().max()
+                    / w.float().abs().max()).item()
+                   for g, w in zip(g_got, g_want))
+        del ins, g_got, g_want
+        torch.cuda.empty_cache()
+        nbytes, flops = flash_cost(fc)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_flops = flops / BF16_FLOPS_PER_S * 1e3
+        r = {"shape": s, "max_abs_err": err, "ratio": ratio,
+             "lse_err": lse_err, "grad_err": gerr, "misses": misses,
+             "ms": time_ms(torch, lambda: fa.flash_attention(*qkv, **kw),
+                           flush),
+             "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
+                 *qkv, **kw), flush, reps=3, warmup=1),
+             "library_ms": time_ms(torch, lambda: library_flash(
+                 torch, F, fc), flush),
+             "bound_ms": max(t_bytes, t_flops),
+             "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+             "bytes": nbytes, "flops": flops}
+        print(f"(d) flash D 144 -> 160 on the tensor cores, {label} "
+              f"{tuple(fc['q'].shape)} over KV {s['KV']}, window "
+              f"{s['window']}, softcap {s['softcap']}: max |err| / bound "
+              f"{ratio:.3e} (2^-8 (|P| @ |V|) / l + 2^-7 |plain|); lse "
+              f"{lse_err:.3e}; grads {gerr:.3e} (tol {GRAD_TOL}); kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
+              f"(causal only) {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms by {r['bound_by']}; broken: "
+              + ", ".join(f"a kernel that {w} would read {m:.3e}"
+                          for w, m in misses.items()), flush=True)
+        check(ratio <= 1.0 and lse_err <= LSE_TOL,
+              f"(d) the D 160 route disagrees at {label}")
+        check(gerr <= GRAD_TOL, f"(d) gradients disagree at {label}")
+        for what, miss in misses.items():
+            check(miss > 1.0, f"(d) the check at {label} misses a kernel "
+                  f"that {what}")
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        entry.setdefault("windowed", {})[label] = {
+            k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                              "bound_by", "max_abs_err")}
+        out[label] = r
+        del fc, qkv
+        torch.cuda.empty_cache()
+    del flush
+    return out
+
+
+def sharded_phase(torch, F, T, dev, counters, by_name, rms_paths,
+                  bare) -> dict:
+    """Phase 21: sharded training at full width (the module's
+    docstring)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.launch import train as train_launcher
+    out = {}
+
+    # (a)-(c) -------------------------------------------------------------
+    for arch, L in SHARDED_RUNS:
+        full = get_config(arch)
+        cfg = full.with_(num_layers=L)
+        check(held_bytes(torch, dev) < 4 * 2**30,
+              f"{arch}: memory held before training")
+        run, launches = sharded_train(torch, T, cfg, dev, counters)
+        print(f"({'abc'[len(out)]}) {arch} at full width (d {cfg.d_model}, "
+              f"{cfg.num_heads} / {cfg.num_kv_heads} heads of "
+              f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}), cut from "
+              f"{full.num_layers} to {L} layers, {run['strategy']} on mesh "
+              f"{run['mesh']}, B {SHARDED_BATCH} x S {SHARDED_SEQ}, "
+              f"{run['params']} parameters: "
+              + json.dumps({k: run[k] for k in (
+                  "losses", "aux_losses", "step_s", "step_ms",
+                  "tokens_per_s", "max_memory_allocated")})
+              + f"; launches a step {run['launches'][-1]}; data group a "
+              f"step {run['data'][-1]}; model group a step "
+              f"{run['model'][-1]}", flush=True)
+        check(all(np.isfinite(run["losses"])), f"{arch}: a loss is not "
+              "finite")
+        check(run["losses"][-1] < run["losses"][0],
+              f"{arch}: the loss did not fall over {SHARDED_STEPS} steps")
+        if cfg.family == "moe":
+            check(all(a > 0 for a in run["aux_losses"]),
+                  f"{arch}: no aux loss in the loss")
+        # remat: each layer's attention and norms twice a step, the final
+        # norm once; every flash on the tensor cores (gemma2's D 144
+        # through the D tail's 160), every norm on the one-pass kernel
+        norms = 4 if cfg.post_block_norm else 2
+        want = {"flash_attention": 2 * L,
+                "flash_attention_d_tail": 2 * L if cfg.resolved_head_dim % 32
+                else 0,
+                "flash_attention_tensor_core": 2 * L,
+                "rmsnorm": 2 * norms * L + 1,
+                "rmsnorm_one_pass": 2 * norms * L + 1}
+        for i, n in enumerate(run["launches"]):
+            check(n == want, f"{arch}: launches at step {i} {n}, want "
+                  f"{want}")
+        for i, d in enumerate(run["data"]):
+            check({k: d.get(k) for k in run["formula"]} == run["formula"],
+                  f"{arch}: data-group gathers at step {i} {d}, want "
+                  f"{run['formula']}")
+            check(d == run["data"][0] and run["model"][i]
+                  == run["model"][0], f"{arch}: collectives vary by step")
+        k = by_name["flash_attention"]
+        k["launches_per_path"][f"training {arch} ({L} layers, "
+                               f"{run['strategy']})"] = \
+            launches["flash_attention"]
+        k["launches"] = sum(k["launches_per_path"].values())
+        rms_paths[f"training {arch} ({run['strategy']})"] = \
+            launches["rmsnorm"]
+        out[arch] = {k: v for k, v in run.items() if k != "formula"}
+        torch.cuda.empty_cache()
+
+    # (d) the D 160 route where gemma2-27b's window binds ------------------
+    rng = np.random.default_rng(21)
+    out["d160"] = d160_phase(torch, F, fa, kops, kref, dev, rng,
+                             by_name["flash_attention_d_tail"])
+
+    # (e) card against CPU at full width, 2 layers (one local / global pair)
+    out["card_vs_cpu"] = {}
+    for arch, _ in SHARDED_RUNS:
+        check(held_bytes(torch, dev) < 4 * 2**30,
+              f"{arch}: memory held before the CPU check")
+        out["card_vs_cpu"][arch] = sharded_card_vs_cpu(
+            torch, T, get_config(arch).with_(num_layers=2), dev)
+
+    # (f) the strategies at (1, 1) against dp, qwen2-0.5b at full width ----
+    qcfg = get_config("qwen2-0.5b")
+    held_bytes(torch, dev)
+    at_one = strategies_at_one(torch, T, qcfg, dev)
+    dp = at_one["dp"]
+    res_f = {}
+    for strategy in ("dp_tp", "fsdp_tp"):
+        got = at_one[strategy]
+        d_loss = max(abs(a - b) / abs(b) for a, b in
+                     zip(got["losses"], dp["losses"]))
+        d_par = max((a - b).abs().max().item() for a, b in
+                    zip(_leaves(got["params"]), _leaves(dp["params"])))
+        res_f[strategy] = {"losses": got["losses"], "loss_rel": d_loss,
+                           "param_abs": d_par}
+        check(d_loss <= TRAIN_LOSS_RTOL and d_par <= AT_ONE_PARAM_ATOL,
+              f"(f) {strategy} at (1, 1) is not the dp step: losses "
+              f"{d_loss:.3e}, params {d_par:.3e}")
+    same = all(torch.equal(a, b) for a, b in
+               zip(_leaves(at_one["dp_tp"]["params"]),
+                   _leaves(at_one["fsdp_tp"]["params"])))
+    res_f["dp_tp_equals_fsdp_tp_bitwise"] = same
+    res_f["dp_losses"] = dp["losses"]
+    print("(f) qwen2-0.5b full width at (1, 1), 2 steps, B 8 x S 1024: "
+          + json.dumps(res_f) + f" (dp against *_tp: losses rtol "
+          f"{TRAIN_LOSS_RTOL}, params within {AT_ONE_PARAM_ATOL})",
+          flush=True)
+    check(same, "(f) dp_tp and fsdp_tp at (1, 1) differ")
+    del at_one, dp
+    held_bytes(torch, dev)
+    zero_counts(counters)
+    run = train_launcher.main(["--arch", "qwen2-0.5b", "--seq-len", "1024",
+                               "--global-batch", "8", "--steps", "8"])
+    del run["params"]
+    launches = read_counts(counters)
+    res_f["launcher"] = {k: run[k] for k in (
+        "strategy", "mesh", "losses", "step_s", "tokens_per_s",
+        "launches_per_step", "collectives_per_step",
+        "model_collectives_per_step", "max_memory_allocated")}
+    steady = run["step_s"][1:]
+    res_f["launcher"]["step_ms"] = sum(steady) / len(steady) * 1e3
+    bsteady = bare["step_s"][1:]
+    res_f["launcher"]["dp_step_ms"] = sum(bsteady) / len(bsteady) * 1e3
+    print("(f) the launcher with no --strategy: "
+          + json.dumps(res_f["launcher"]), flush=True)
+    check(run["strategy"] == "dp_tp", "(f) the launcher's default is not "
+          "dp_tp")
+    check(all(np.isfinite(run["losses"]))
+          and run["losses"][-1] < run["losses"][0],
+          "(f) the dp_tp launcher's loss did not fall")
+    check(all(n == 2 * qcfg.num_layers
+              for n in run["launches_per_step"]["flash_attention"]),
+          "(f) dp_tp flash launches a step")
+    by_name["flash_attention"]["launches_per_path"][
+        "training qwen2-0.5b (launcher, dp_tp)"] = launches["flash_attention"]
+    by_name["flash_attention"]["launches"] = sum(
+        by_name["flash_attention"]["launches_per_path"].values())
+    rms_paths["training qwen2-0.5b (launcher, dp_tp)"] = launches["rmsnorm"]
+    out["at_one"] = res_f
     return out
 
 
@@ -3356,8 +3834,8 @@ def main() -> int:
         # zamba2-1.2b's shared block in training: MHA, G = 1
         "zamba2-1.2b": dict(B=8, S=1024, H=32, KV=32, D=64),
         # head dims that are not multiples of 32 run padded (the D tail):
-        # gemma2-27b's head layout (D 144, to 160: CUDA cores) and D 80 (to
-        # 96: tensor cores)
+        # gemma2-27b's head layout (D 144, to 160) and D 80 (to 96), both on
+        # the tensor cores
         "gemma2-27b D 144": dict(B=2, S=640, H=32, KV=16, D=144),
         "D 80": dict(B=2, S=600, H=8, KV=2, D=80),
         # qwen2-vl-72b's training call: GQA 64 / 8, D 128
@@ -4180,7 +4658,8 @@ def main() -> int:
     # the flash D tail at gemma2-27b's head layout (D 144, padded to 160),
     # each checked as in phase 3 and timed beside its plain version, its
     # library call (gather + SDPA in f32; SDPA) and its bound (f32 flops at
-    # 67 TFLOP/s, bf16 at 989)
+    # 67 TFLOP/s, bf16 at 989); phase 21 (d) adds the D tail with gemma2's
+    # window and softcap
     from repro_torch.serving.profiling import paged_profile_cases
     prof_cases = paged_profile_cases(
         slots=8, num_blocks=512, page=16, blocks_per_slot=64,
@@ -4223,7 +4702,7 @@ def main() -> int:
              "src/repro/kernels/paged_prefill.py:111"),
             ("flash_attention_d_tail",
              "q (2, 2048, 32, 144), k/v (2, 2048, 16, 144) bf16, causal "
-             "(padded to D 160: CUDA cores)",
+             "(padded to D 160: tensor cores)",
              lambda: fa.flash_attention(*tfa)[0],
              lambda: fa.flash_attention_plain(*tfa)[0],
              lambda: library_flash(torch, F, tf), flash_cost, tf, tf_ok,
@@ -4572,7 +5051,8 @@ def main() -> int:
     from repro_torch.launch import train as train_launcher
     zero_counts(counters)
     run = train_launcher.main(["--arch", "qwen2-0.5b", "--seq-len", "1024",
-                               "--global-batch", "8", "--steps", "8"])
+                               "--global-batch", "8", "--steps", "8",
+                               "--strategy", "dp"])
     del run["params"]
     torch.cuda.synchronize()
     launches = read_counts(counters)
@@ -4628,7 +5108,8 @@ def main() -> int:
     mcfg = get_config("mamba2-1.3b")
     zero_counts(counters)
     run = train_launcher.main(["--arch", "mamba2-1.3b", "--seq-len", "1024",
-                               "--global-batch", "8", "--steps", "8"])
+                               "--global-batch", "8", "--steps", "8",
+                               "--strategy", "dp"])
     del run["params"]
     torch.cuda.synchronize()
     launches = read_counts(counters)
@@ -4690,7 +5171,8 @@ def main() -> int:
     E, G = zcfg.hybrid_attn_every, zcfg.num_layers // zcfg.hybrid_attn_every
     zero_counts(counters)
     run = train_launcher.main(["--arch", "zamba2-1.2b", "--seq-len", "1024",
-                               "--global-batch", "8", "--steps", "8"])
+                               "--global-batch", "8", "--steps", "8",
+                               "--strategy", "dp"])
     del run["params"]
     torch.cuda.synchronize()
     launches = read_counts(counters)
@@ -4792,13 +5274,24 @@ def main() -> int:
     print(f"whisper phase {time.perf_counter() - t20:.1f} s: "
           + json.dumps(whisper), flush=True)
 
+    # 21. sharded training ---------------------------------------------------
+    phase("sharded training: gemma2-27b, deepseek-coder-33b, qwen3-moe at "
+          "full width (fsdp_tp), the D 160 route, card vs CPU, (1, 1)")
+    t21 = time.perf_counter()
+    sharded = sharded_phase(torch, F, T, dev, counters, by_name, rms_paths,
+                            qwen2_bare)
+    by_name["rmsnorm"]["launches"] = sum(rms_paths.values())
+    print(f"sharded phase {time.perf_counter() - t21:.1f} s: "
+          + json.dumps(sharded), flush=True)
+
     # the D tail's launches over every path run (each zeroed just before
-    # it): no ported config has a head dim that is not a multiple of 32
+    # it): gemma2-27b's training in phase 21 (a)
     tail = by_name["flash_attention_d_tail"]
     tail["launches"] = sum(c["flash_attention_d_tail"] for c in PATH_COUNTS)
     tail["path_runs"] = len(PATH_COUNTS)
     print(f"flash D-tail launches over {len(PATH_COUNTS)} path runs: "
           f"{tail['launches']}", flush=True)
+    check(tail["launches"] > 0, "the flash D tail never ran on a path")
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

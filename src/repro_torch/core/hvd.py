@@ -22,6 +22,15 @@ they are still issued.
 A step is Horovod's contract: parameters and optimizer state replicated,
 each rank passes its own shard of the batch, gradients averaged, the same
 update applied everywhere, so the replicas stay identical bit for bit.
+
+The sharded strategies (``dp_tp``, ``fsdp_tp``: ``distributed/stepfn.py``)
+run collectives inside the model, as autograd Functions that count
+forward and backward alike: FSDP's :func:`all_gather_dim` (backward a
+reduce_scatter) and :func:`reduce_scatter_dim` over ``data``; Megatron's
+:func:`copy_to_group` (f), :func:`reduce_from_group` (g),
+:func:`scatter_to_group` and :func:`gather_from_group` over ``model``;
+:func:`mean_over_group` for a statistic of the whole global batch.  This
+module stays the port's one entry to ``torch.distributed``.
 """
 from __future__ import annotations
 
@@ -206,6 +215,16 @@ class Groups:
         return self._groups[tuple(a for a in self.axes if a in key)]
 
     @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return self.axes
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """``{axis: size}``: the layout read as a mesh
+        (``distributed.sharding`` takes it as one)."""
+        return {a: self[a].size for a in self.axes}
+
+    @property
     def world(self) -> Group:
         return self[self.axes]
 
@@ -353,6 +372,186 @@ def broadcast(tree, group: Group, root: int = 0):
         dist.broadcast(buf, src=group.ranks[root], group=group.pg)
         return buf
     return _fused(tree, op)
+
+
+def all_reduce_max(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """The elementwise max of ``t`` over ``group`` (no gradient: the
+    vocab-parallel cross-entropy's shift)."""
+    t = t.detach().clone()
+    group.count(t, "all_reduce")
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group.pg)
+    return t
+
+
+# ---------------------------------------------------------------------------
+# Collectives inside a model, with their gradients: FSDP over ``data``
+# (all_gather / reduce_scatter along a dim) and Megatron's tensor
+# parallelism over ``model`` (copy_to / reduce_from / scatter_to /
+# gather_from).  Each counts what this rank hands it, in the forward and
+# in the backward, and runs whatever the group's size.
+# ---------------------------------------------------------------------------
+
+def gather_dim(t: torch.Tensor, dim: int, group: Group) -> torch.Tensor:
+    """``t`` concatenated over ``group`` along ``dim`` (rank order)."""
+    t0 = t.movedim(dim, 0).contiguous()
+    out = t0.new_empty((group.size * t0.shape[0],) + tuple(t0.shape[1:]))
+    group.count(t0, "all_gather")
+    _all_gather(out, t0, group=group.pg)
+    return out.movedim(0, dim).contiguous()
+
+
+def _scatter_dim(t: torch.Tensor, dim: int, group: Group) -> torch.Tensor:
+    """This rank's slice along ``dim`` of the sum of ``t`` over
+    ``group``."""
+    t0 = t.movedim(dim, 0).contiguous()
+    if t0.shape[0] % group.size:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                         f"over {group.size} ranks")
+    out = t0.new_empty((t0.shape[0] // group.size,) + tuple(t0.shape[1:]))
+    group.count(t0, "reduce_scatter")
+    _reduce_scatter(out, t0, group=group.pg)
+    return out.movedim(0, dim).contiguous()
+
+
+def _slice_dim(t: torch.Tensor, dim: int, group: Group) -> torch.Tensor:
+    n = t.shape[dim] // group.size
+    return t.narrow(dim, group.rank * n, n).contiguous()
+
+
+def _sum(t: torch.Tensor, group: Group) -> torch.Tensor:
+    t = t.contiguous().clone()
+    group.count(t, "all_reduce")
+    dist.all_reduce(t, group=group.pg)
+    return t
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return gather_dim(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_dim(g, ctx.dim, ctx.group), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _scatter_dim(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_dim(g, ctx.dim, ctx.group), None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        return _sum(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _slice_dim(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_dim(g, ctx.dim, ctx.group), None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return gather_dim(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _slice_dim(g, ctx.dim, ctx.group), None, None
+
+
+class _MeanOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _sum(t, group).div_(group.size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group).div_(ctx.group.size), None
+
+
+def mean_over_group(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """The mean of ``t`` over the data ranks of ``group``, inside a loss
+    whose gradients the step then averages over the same ranks: a
+    statistic of the whole global batch (the MoE aux loss's router
+    means).  Backward: the gradients' mean over the group, the adjoint
+    when every rank's loss reads the mean."""
+    return _MeanOver.apply(t, group)
+
+
+def all_gather_dim(t: torch.Tensor, dim: int, group: Group) -> torch.Tensor:
+    """FSDP's gather of a parameter shard: ``t`` concatenated over
+    ``group`` along ``dim``.  Backward: the gradient reduce-scattered (each
+    rank gets the sum over the group of its shard's gradient)."""
+    return _AllGather.apply(t, dim, group)
+
+
+def reduce_scatter_dim(t: torch.Tensor, dim: int,
+                       group: Group) -> torch.Tensor:
+    """This rank's slice along ``dim`` of the sum of ``t`` over ``group``.
+    Backward: the gradient all-gathered."""
+    return _ReduceScatter.apply(t, dim, group)
+
+
+def copy_to_group(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """Megatron's f: a replicated activation entering a sharded region.
+    Identity forward; backward, the ranks' partial gradients
+    all_reduced."""
+    return _CopyTo.apply(t, group)
+
+
+def reduce_from_group(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """Megatron's g: the ranks' partial sums all_reduced into the
+    replicated value.  Backward: identity."""
+    return _ReduceFrom.apply(t, group)
+
+
+def scatter_to_group(t: torch.Tensor, dim: int,
+                     group: Group) -> torch.Tensor:
+    """This rank's slice along ``dim`` of a replicated ``t`` (a row-parallel
+    product's input that is whole).  Backward: the slices' gradients
+    all-gathered, so the replicated ``t`` gets its whole gradient on every
+    rank."""
+    return _ScatterTo.apply(t, dim, group)
+
+
+def gather_from_group(t: torch.Tensor, dim: int,
+                      group: Group) -> torch.Tensor:
+    """A shard made whole for a replicated computation: ``t`` concatenated
+    over ``group`` along ``dim``.  Backward: this rank's slice of the
+    (replicated) gradient."""
+    return _GatherFrom.apply(t, dim, group)
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,23 @@
 """The training step (counterpart of
-``repro.distributed.stepfn.make_train_step`` under the ``dp`` strategy).
+``repro.distributed.stepfn.make_train_step``), under the reference's three
+strategies (``distributed.sharding``).
 
-``step(params, opt_state, batch) -> (params, opt_state, metrics)`` on the
-``data`` axis of a process-group layout (``core/hvd.py``), at every world
-size: rank r of N takes rows ``[r B/N, (r+1) B/N)`` of the global batch,
-the value and gradient of the loss with respect to every parameter leaf
-(accumulated over microbatches in f32), the gradients averaged over the
-axis by ``hvd.allreduce``, then the optimizer's update on every rank (in
-place for AdamW).  Params are nested dicts of f32 master tensors (the
-reference's ``param_dtype``); compute runs in the config's dtype.  Sharded
-strategies (``dp_tp``, ``fsdp_tp``) wait for ROADMAP Queue 1 item 6.
+``step(params, opt_state, batch) -> (params, opt_state, metrics)`` on a
+process-group layout (``core/hvd.py``; ``launch.mesh``), at every world
+size.  ``dp``: rank r of N on the ``data`` axis takes rows ``[r B/N,
+(r+1) B/N)`` of the global batch, the value and gradient of the loss with
+respect to every parameter leaf (accumulated over microbatches in f32),
+the gradients averaged over the axis by ``hvd.allreduce``, then the
+optimizer's update on every rank (in place for AdamW).  ``dp_tp`` /
+``fsdp_tp`` on a ``(data, model)`` (or ``(pod, data, model)``) mesh: the
+params and the optimizer state are this rank's shards (``sharding.
+params_pspec``, ``opt_state_pspec``; ``sharding.shard`` cuts them from
+full trees), the batch splits over the data axes only (``batch_pspec``),
+the model runs tensor-parallel over ``model`` (``models/modules.py``),
+and under ``fsdp_tp`` each layer group's params are all-gathered over
+``data`` just before use and their gradients reduce-scattered.  Params
+are nested dicts of f32 master tensors (the reference's ``param_dtype``);
+compute runs in the config's dtype.
 """
 from __future__ import annotations
 
@@ -18,8 +26,17 @@ from typing import Any, Dict
 import torch
 
 from repro_torch import optim
+from repro_torch.distributed import sharding as sh
+from repro_torch.models import modules as nn
 from repro_torch.models import transformer as T
 from repro_torch.optim import tree_map
+
+
+def params_struct(cfg):
+    """The f32 params tree on the ``meta`` device: shapes and dtypes, no
+    memory (the reference's ``jax.eval_shape`` of ``init_params``)."""
+    return T.init_params(cfg, torch.Generator(), device="meta",
+                         weight_dtype=torch.float32)
 
 
 def value_and_grad(loss_fn, params, batch):
@@ -52,12 +69,37 @@ def _rows(key, v, start: int, n: int):
     return v[(slice(None),) * ax + (slice(start, start + n),)]
 
 
-def make_train_step(cfg, optimizer, groups, *, loss_variant: str = "plain",
-                    seq_chunk: int = 512, microbatches: int = 1,
-                    device="cuda"):
+def _grads(loss_fn, params, batch, microbatches: int, device):
+    """(loss, metrics, grads) of this rank's rows ``batch``, accumulated
+    over ``microbatches`` splits of them along each entry's batch axis
+    (``grad / microbatches`` summed in f32, the metrics and loss
+    averaged)."""
+    if microbatches == 1:
+        return value_and_grad(loss_fn, params, batch)
+    n = batch["tokens"].shape[0] // microbatches
+    grads = tree_map(lambda p: torch.zeros(
+        p.shape, dtype=torch.float32, device=p.device), params)
+    loss = torch.zeros((), dtype=torch.float32, device=device)
+    ms = []
+    for i in range(microbatches):
+        mb = {k: _rows(k, v, i * n, n) for k, v in batch.items()}
+        l_, m, g = value_and_grad(loss_fn, params, mb)
+        grads = tree_map(lambda a, gi: a + gi.float() / microbatches,
+                         grads, g)
+        loss = loss + l_ / microbatches
+        ms.append(m)
+    metrics = tree_map(lambda *a: torch.stack(a).mean(), ms[0], *ms[1:])
+    return loss, metrics, grads
+
+
+def make_train_step(cfg, optimizer, groups, *, strategy: str = "dp",
+                    loss_variant: str = "plain", seq_chunk: int = 512,
+                    microbatches: int = 1, device="cuda"):
     """Returns ``step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``, the ``dp`` strategy on the ``data`` axis of ``groups`` (an
-    ``hvd.axis_groups`` layout, made inside ``hvd.init``).
+    metrics)`` under ``strategy`` on ``groups`` (an ``hvd.axis_groups``
+    layout, made inside ``hvd.init``; ``launch.mesh.make_mesh``).  ``dp``
+    uses its ``data`` axis; ``dp_tp`` and ``fsdp_tp`` need a ``model``
+    axis too and are :func:`make_sharded_train_step`'s.
 
     ``batch`` is the whole global batch, as every rank draws it (a dict of
     numpy arrays or tensors); this rank's rows of it are moved to
@@ -89,6 +131,11 @@ def make_train_step(cfg, optimizer, groups, *, loss_variant: str = "plain",
     from repro_torch.core import hvd        # hvd imports this module
     from repro_torch.serving.engine import resolve_device
 
+    if strategy != "dp":
+        return make_sharded_train_step(
+            cfg, optimizer, groups, strategy=strategy,
+            loss_variant=loss_variant, microbatches=microbatches,
+            device=device)
     device = resolve_device(device)
     if loss_variant not in ("plain", "chunked_ce"):
         raise ValueError(f"unknown loss_variant {loss_variant!r}")
@@ -108,23 +155,8 @@ def make_train_step(cfg, optimizer, groups, *, loss_variant: str = "plain",
         n = B // data.size
         batch = {k: torch.as_tensor(_rows(k, v, data.rank * n, n)).to(device)
                  for k, v in batch.items()}
-        if microbatches == 1:
-            loss, metrics, grads = value_and_grad(loss_fn, params, batch)
-        else:
-            n //= microbatches
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            loss = torch.zeros((), dtype=torch.float32, device=device)
-            ms = []
-            for i in range(microbatches):
-                mb = {k: _rows(k, v, i * n, n) for k, v in batch.items()}
-                l_, m, g = value_and_grad(loss_fn, params, mb)
-                grads = tree_map(lambda a, gi: a + gi.float() / microbatches,
-                                 grads, g)
-                loss = loss + l_ / microbatches
-                ms.append(m)
-            metrics = tree_map(lambda *a: torch.stack(a).mean(), ms[0],
-                               *ms[1:])
+        loss, metrics, grads = _grads(loss_fn, params, batch, microbatches,
+                                      device)
         # rebinding ``grads`` frees the rank's own gradients before the
         # update (held through it, they would be a second copy of every
         # gradient at the optimizer's peak)
@@ -139,3 +171,144 @@ def make_train_step(cfg, optimizer, groups, *, loss_variant: str = "plain",
         return params, opt_state, dict(metrics, grad_norm=grad_norm)
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# dp_tp / fsdp_tp
+# ---------------------------------------------------------------------------
+
+def make_sharded_train_step(cfg, optimizer, groups, *, strategy: str,
+                            loss_variant: str = "plain",
+                            microbatches: int = 1, device="cuda"):
+    """The ``dp_tp`` / ``fsdp_tp`` step on ``groups`` (axes ``data`` and
+    ``model``, optionally ``pod`` before them).  ``params`` and
+    ``opt_state`` are this rank's shards (``shard_state``); ``batch`` is
+    the whole global batch as every rank draws it, of which this rank
+    takes the rows of its data coordinate (``sharding.batch_pspec``: the
+    whole batch where it does not split).
+
+    Gradients: a leaf split over ``data`` (``fsdp_tp``) arrives summed
+    over the data ranks by its all_gather's backward reduce_scatter; every
+    other leaf is all_reduced (one fused buffer per dtype and set of axes)
+    over the data axes it is replicated on; each is then divided by the
+    data axes' size, the mean over the global batch.  A leaf replicated
+    over ``model`` gets the same whole gradient on every model rank
+    (Megatron's f and g put the all_reduces there).  The clipping norm is
+    the global norm over every rank's shards: each leaf's sum of squares
+    counted on the ranks at coordinate 0 of the axes it is replicated
+    over, all_reduced over the world.  AdamW updates in place
+    (``update_in_place``), shard by shard.  metrics: ``loss`` and the
+    loss's metrics averaged over the data axes, ``grad_norm``."""
+    from repro_torch.core import hvd
+    from repro_torch.serving.engine import resolve_device
+
+    if strategy not in ("dp_tp", "fsdp_tp"):
+        raise ValueError(f"unknown sharded strategy {strategy!r}")
+    if loss_variant != "plain":
+        raise NotImplementedError(
+            f"loss_variant {loss_variant!r} under {strategy}: the sharded "
+            "step runs the plain loss (its vocab-parallel cross-entropy)")
+    if "model" not in groups.axis_names:
+        raise ValueError(f"{strategy} needs a 'model' axis; the layout has "
+                         f"{groups.axis_names}")
+    device = resolve_device(device)
+    specs = sh.params_pspec(params_struct(cfg), cfg, strategy, groups)
+    daxes = sh.data_axes(groups)
+    dgroup = groups[daxes]
+    shards = nn.Shards(specs, groups["model"],
+                       groups["data"] if strategy == "fsdp_tp" else None,
+                       batch=dgroup)
+
+    def loss_fn(p, b):
+        return T.lm_loss(p, cfg, b, shards=shards)
+
+    def rows(batch):
+        """This rank's rows of the global batch (``batch_pspec``)."""
+        from repro_torch.configs.base import InputShape
+        batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+        B, S = batch["tokens"].shape
+        bspec = sh.batch_pspec(batch, groups, cfg,
+                               InputShape("train", S, B, "train"), strategy)
+        return {k: v.to(device)
+                for k, v in sh.shard(batch, bspec, groups).items()}
+
+    def reduce_grads(grads):
+        by_axes = {}
+        for path, (g, spec) in _flat(grads, specs).items():
+            rest = tuple(a for a in daxes if a not in sh.axes_of(spec))
+            by_axes.setdefault(rest, {})[path] = g
+        out = {}
+        for rest, tree in by_axes.items():
+            if rest:
+                tree = hvd.allreduce(tree, groups[rest], average=False)
+            out.update(tree)
+        for g in out.values():
+            g.div_(dgroup.size)
+        return _unflat(out, grads)
+
+    def global_norm(grads):
+        sq = [torch.sum(torch.square(g.float())) for g, spec in
+              zip(optim.leaves(grads), optim.leaves(specs))
+              if all(groups[a].rank == 0 for a in groups.axis_names
+                     if a not in sh.axes_of(spec))]
+        total = (sum(sq) if sq else
+                 torch.zeros((), dtype=torch.float32, device=device))
+        return torch.sqrt(hvd.allreduce(total, groups.world, average=False))
+
+    def step(params, opt_state, batch: Dict[str, Any]):
+        batch = rows(batch)
+        n = batch["tokens"].shape[0]
+        if n % microbatches:
+            raise ValueError(f"{n} rows a rank are not a multiple of "
+                             f"microbatches {microbatches}")
+        loss, metrics, grads = _grads(loss_fn, params, batch, microbatches,
+                                      device)
+        grads = reduce_grads(grads)
+        grad_norm = global_norm(grads)
+        if optimizer.update_in_place is not None:
+            optimizer.update_in_place(grads, opt_state, params,
+                                      norm=grad_norm)
+        else:
+            updates, opt_state = optimizer.update(grads, opt_state, params,
+                                                  norm=grad_norm)
+            params = optim.apply_updates(params, updates)
+        metrics = hvd.allreduce(dict(metrics, loss=loss), dgroup)
+        return params, opt_state, dict(metrics, grad_norm=grad_norm)
+
+    step.specs = specs
+    return step
+
+
+def _flat(tree, specs, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(_flat(v, specs[k], path))
+        else:
+            out[path] = (v, specs[k])
+    return out
+
+
+def _unflat(flat, like, prefix=""):
+    return {k: (_unflat(flat, v, f"{prefix}/{k}" if prefix else k)
+                if isinstance(v, dict) else
+                flat[f"{prefix}/{k}" if prefix else k])
+            for k, v in like.items()}
+
+
+def state_specs(cfg, optimizer, strategy: str, groups):
+    """(param specs, optimizer-state specs) of ``cfg`` under ``strategy``
+    on ``groups``."""
+    pstruct = params_struct(cfg)
+    pspec = sh.params_pspec(pstruct, cfg, strategy, groups)
+    ostruct = optimizer.init(pstruct)
+    return pspec, sh.opt_state_pspec(ostruct, pspec)
+
+
+def shard_state(params, cfg, optimizer, strategy: str, groups):
+    """This rank's shards of full ``params`` and a fresh optimizer state
+    over them: ``(params, opt_state)``."""
+    pspec, _ = state_specs(cfg, optimizer, strategy, groups)
+    local = sh.shard(params, pspec, groups)
+    return local, optimizer.init(local)

@@ -13,16 +13,18 @@
 // ridge, so the flops bound it, on the tensor cores.
 //
 // Routing (kernels/flash_attention.py, by dtype and D, never by a failed
-// build or launch): bf16 with D <= 128 (D a multiple of 32) takes the
-// tensor-core kernel flash_fwd_tc_kernel; f32, and bf16 with D > 128
-// (gemma2-2b's D = 288), take the CUDA-core kernel flash_fwd_kernel.
+// build or launch): bf16 with D in {32, 64, 96, 128, 160} takes the
+// tensor-core kernel flash_fwd_tc_kernel (160 is gemma2-27b's D = 144
+// padded by the wrapper); f32, and bf16 with any other D (gemma2-2b's
+// D = 288), take the CUDA-core kernel flash_fwd_kernel.
 //
 // Tensor-core kernel (flash_fwd_tc_kernel<D, MT>), FlashAttention-2 style
 // with mma.sync.m16n8k16 (bf16 operands, f32 accumulators): one block of 4
 // warps per (b * H + h, 64 MT query rows), longest rows first; each warp
 // owns 16 MT query rows (MT = 2 for D <= 64, so every K and V fragment read
 // from shared memory feeds two row tiles; MT = 1 above, where the
-// accumulators would not fit in registers).  Q is loaded once (ldmatrix
+// accumulators would not fit in registers: at D = 160 a thread holds 80
+// f32 of O, 40 words of Q fragments and 32 f32 of S).  Q is loaded once (ldmatrix
 // into A fragments kept in registers).  K and V tiles of 64 keys stay bf16
 // in a two-stage ring in shared memory, filled with 16-byte cp.async: tile
 // n + 1 is in flight while tile n is multiplied.  Rows are padded by 8 bf16
@@ -38,7 +40,7 @@
 // block can reach are skipped.  The fragment, ldmatrix and softmax code is
 // tc_attention.cuh's, shared with the paged prefill kernel.  The output is
 // staged through shared memory for 16-byte stores.  Shared memory: (64 MT +
-// 4 * 64) * (D + 8) * 2 bytes, 55,296 at D = 64.  No wgmma, TMA or warp specialisation yet: mma.sync was
+// 4 * 64) * (D + 8) * 2 bytes, 55,296 at D = 64, 107,520 at D = 160.  No wgmma, TMA or warp specialisation yet: mma.sync was
 // the design that could be made right and checked within one change.
 //
 // Numerics of the tensor-core kernel: S from bf16 inputs is exact products
@@ -313,7 +315,7 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core kernel (bf16, D in {32, 64, 96, 128})
+// Tensor-core kernel (bf16, D in {32, 64, 96, 128, 160})
 // ---------------------------------------------------------------------------
 namespace tc {
 
@@ -544,7 +546,8 @@ extern "C" int flash_attention_fwd(
                               causal, window, softcap, s);
 }
 
-// The tensor-core kernel: bf16 q, k, v and out, D in {32, 64, 96, 128}.
+// The tensor-core kernel: bf16 q, k, v and out, D in {32, 64, 96, 128,
+// 160}.
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
 // a shape it does not take.
 extern "C" int flash_attention_fwd_tc(
@@ -565,6 +568,9 @@ extern "C" int flash_attention_fwd_tc(
                             causal, window, softcap, s);
     case 128:
       return tc::launch<128>(q, k, v, out, lse, B, H, KV, Sq, Skv, scale,
+                             causal, window, softcap, s);
+    case 160:  // gemma2-27b's D 144, padded by the wrapper
+      return tc::launch<160>(q, k, v, out, lse, B, H, KV, Sq, Skv, scale,
                              causal, window, softcap, s);
     default:
       return (int)cudaErrorInvalidValue;

@@ -12,14 +12,15 @@ their bound and design.
 ``flash_attention`` dispatches on the device of ``q``: a CPU tensor goes
 through the plain version (``repro_torch.kernels.ref.attention_ref``), a
 CUDA tensor launches a kernel or raises.  Which kernel is a rule on dtype
-and head dim (:func:`tensor_core_route`): bf16 with ``D <= 128`` runs the
+and head dim (:func:`tensor_core_route`): bf16 whose (padded) D is one of
+``TENSOR_CORE_HEAD_DIMS`` (32-128, and 160 for gemma2-27b's 144) runs the
 tensor-core kernel (mma.sync, P rounded to bf16 for the PV product), f32
-and ``D > 128`` the CUDA-core kernel (P in f32).  Both kernels take D a
-multiple of 32; any other D up to 288 (gemma2-27b's 144) runs through
-:func:`run_padded`: q, k and v gain zero columns up to the next multiple
-of 32, the scale stays 1/sqrt(D) of the true D, and the output is cut back
-(a zero column adds nothing to a score, its output column is dropped, and
-the logsumexp is unchanged).
+and every other D (gemma2-2b's 288) the CUDA-core kernel (P in f32).
+Both kernels take D a multiple of 32; any other D up to 288 (gemma2-27b's
+144) runs through :func:`run_padded`: q, k and v gain zero columns up to
+the next multiple of 32, the scale stays 1/sqrt(D) of the true D, and the
+output is cut back (a zero column adds nothing to a score, its output
+column is dropped, and the logsumexp is unchanged).
 ``flash_attention.launches`` counts every launch;
 ``flash_fwd_tensor_core.launches`` and ``flash_fwd_cuda_core.launches``
 count each kernel's, ``flash_d_tail.launches`` the padded calls' and
@@ -62,7 +63,8 @@ _fn_tc = None
 _fn_int8kv = None
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 288
-TENSOR_CORE_MAX_HEAD_DIM = 128
+# the tensor-core kernel's instantiations (csrc/flash_attention.cu)
+TENSOR_CORE_HEAD_DIMS = (32, 64, 96, 128, 160)
 INT8_ROWS = 16                  # folded query rows per row tile (int8 kernel)
 INT8_KEY_UNIT = 16              # an int8 split's keys are a multiple of this
 INT8_SMEM_BYTES = 64 * 1024     # an int8 split block's shared memory, at most
@@ -93,11 +95,13 @@ def _entry_tc():
 
 
 def tensor_core_route(dtype: torch.dtype, D: int) -> bool:
-    """The routing rule: bf16 with ``D <= 128`` runs the tensor-core
-    kernel; f32, and bf16 with ``D > 128`` (gemma2-2b's 288), the
-    CUDA-core kernel.  A true ``D`` and its padded one (``padded_head_dim``)
-    route alike, since 128 is a multiple of 32."""
-    return dtype == torch.bfloat16 and D <= TENSOR_CORE_MAX_HEAD_DIM
+    """The routing rule: bf16 whose padded head dim (``padded_head_dim``)
+    the tensor-core kernel is instantiated at (``TENSOR_CORE_HEAD_DIMS``:
+    up to 128, and 160, which gemma2-27b's 144 pads to) runs on the
+    tensor cores; f32, and bf16 at any other D (gemma2-2b's 288), on the
+    CUDA cores.  A true ``D`` and its padded one route alike."""
+    return (dtype == torch.bfloat16
+            and padded_head_dim(D) in TENSOR_CORE_HEAD_DIMS)
 
 
 def p_rounding(dtype: torch.dtype, D: int) -> float:

@@ -34,7 +34,6 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels.paged_attention import (BLOCKS_PER_SM,
                                                  KERNEL_DTYPES, SM_COUNT,
                                                  _check_cuda,
@@ -72,11 +71,15 @@ def _entry_tc():
     return _fn_tc
 
 
+# the tensor-core prefill kernel's instantiations (csrc/paged_prefill.cu)
+TENSOR_CORE_HEAD_DIMS = (32, 64, 96, 128)
+
+
 def tensor_core_route(dtype: torch.dtype, D: int) -> bool:
-    """The flash kernel's rule (bf16 with ``D <= 128``), for the head dims
-    the tensor-core prefill kernel is built for (multiples of 32); f32 and
-    every other ``D`` (gemma2-2b's 288) run the CUDA-core kernel."""
-    return _fa.tensor_core_route(dtype, D) and D % 32 == 0
+    """bf16 at a head dim the tensor-core prefill kernel is built for
+    (``TENSOR_CORE_HEAD_DIMS``); f32 and every other ``D`` (gemma2-2b's
+    288) run the CUDA-core kernel."""
+    return dtype == torch.bfloat16 and D in TENSOR_CORE_HEAD_DIMS
 
 
 def p_rounding(dtype: torch.dtype, D: int) -> float:

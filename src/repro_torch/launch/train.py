@@ -7,19 +7,26 @@ renders runs ``ch-run <image> -- python -m repro_torch.launch.train
 ``--dtype`` and ``--init-method``: random weights from the port's
 ``init_params`` at seed 0 held as f32 masters (broadcast from rank 0, as
 Horovod's recipe does), the synthetic Markov token source, the chosen
-optimizer with global-norm clipping at 1.0, and the ``dp`` strategy
-(``distributed.stepfn.make_train_step``) at every world size: inside
+optimizer with global-norm clipping at 1.0, and the strategy's step
+(``distributed.stepfn.make_train_step``) at every world size, inside
 ``hvd.init`` (NCCL on the card, gloo on the CPU; world size 1 without
-``torchrun``), each rank takes its rows of the global batch and the
-gradients are averaged by ``hvd.allreduce``.  Rank 0 prints the
+``torchrun``).  ``--strategy`` defaults as the reference's does: ``dp``
+with ``--smoke``, else ``configs.default_strategy`` (``dp_tp`` under 20 B
+parameters, ``fsdp_tp`` from 20 B).  The mesh is the reference's host
+mesh, every rank over ``data``, with a ``model`` axis of size 1
+(``launch.mesh.make_host_mesh``): the reference's has no ``model`` axis,
+so its launcher stops with ``KeyError: 'model'`` under ``dp_tp`` and
+``fsdp_tp``.  ``dp``: each rank takes its rows of the global batch and
+the gradients are averaged by ``hvd.allreduce``.  ``dp_tp`` /
+``fsdp_tp``: the params and AdamW state are cut into this rank's shards
+(``stepfn.shard_state``), the model runs tensor-parallel over ``model``
+and, under ``fsdp_tp``, gathers each layer group over ``data`` (a larger
+``model`` axis is ``stepfn.make_train_step`` on ``launch.mesh.make_mesh``;
+the launcher adds no flag the reference lacks).  Rank 0 prints the
 reference's step and summary lines, then step time, tokens/s, each
-kernel's launches per step, the gradient exchange's calls and bytes per
-step and, on the card, peak device memory.  The dense (qwen2-0.5b,
-gemma2-2b), ssm (mamba2-1.3b), hybrid (zamba2-1.2b), vlm (qwen2-vl-72b)
-and encdec (whisper-small) families train; the moe family
-(qwen3-moe-30b-a3b, dbrx-132b) is refused before any process group is
-made: its AdamW state fits no single card, so it waits for sharded
-training (ROADMAP Queue 1 item 6).
+kernel's launches per step, the data and model groups' collectives (calls
+and bytes) per step and, on the card, peak device memory.  Every family
+trains.
 
 The encdec and vlm batches follow the reference's ``input_specs``
 (``configs.base``): the stub frontend's inputs come from
@@ -42,8 +49,9 @@ positions' shape (ROADMAP Queue 3).
       --arch qwen2-0.5b --smoke --strategy dp --device cpu --steps 4
 
 ``--device`` defaults to ``cuda`` and fails without a card; ``--device
-cpu`` runs the kernels' plain PyTorch versions.  ``dp_tp`` and
-``fsdp_tp`` shard the model and wait for ROADMAP Queue 1 item 6.
+cpu`` runs the kernels' plain PyTorch versions.  ``--ckpt-dir`` saves
+whole leaves: under ``fsdp_tp`` every rank gathers them
+(``sharding.unshard``) and rank 0 writes them.
 """
 from __future__ import annotations
 
@@ -56,8 +64,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke config (CPU-sized)")
-    ap.add_argument("--strategy", default="dp",
-                    choices=["dp", "dp_tp", "fsdp_tp"])
+    ap.add_argument("--strategy", default=None,
+                    choices=["dp", "dp_tp", "fsdp_tp"],
+                    help="default: dp with --smoke, else the config's "
+                         "default_strategy")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--global-batch", type=int, default=8,
@@ -105,50 +115,60 @@ def family_batch(cfg, batch: dict, step: int) -> dict:
 def main(argv=None) -> dict:
     """Runs the training loop; returns the run's numbers (losses, step
     seconds, tokens/s, ``launches_per_step``: {kernel: [launches in each
-    step]}, ``collectives_per_step``: the calls and bytes this rank handed
-    the data group in each step, peak memory on a card) and its final
-    ``params``."""
+    step]}, ``collectives_per_step`` / ``model_collectives_per_step``:
+    the calls and bytes this rank handed the data / model group in each
+    step, peak memory on a card) and its final ``params`` (this rank's
+    shards under ``dp_tp`` / ``fsdp_tp``)."""
     args = build_parser().parse_args(argv)
-    if args.strategy != "dp":
-        raise NotImplementedError(
-            f"--strategy {args.strategy} shards the model over a mesh, which "
-            "is ported with sharded training (ROADMAP Queue 1 item 6)")
 
     import torch
     import torch.distributed as dist
 
     from repro_torch import checkpoint as ck
     from repro_torch import optim
-    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs import (default_strategy, get_config,
+                                     get_smoke_config)
+    from repro_torch.distributed import sharding as sh
     from repro_torch.core import hvd
     from repro_torch.data import SyntheticTokenSource, TokenDatasetSpec
     from repro_torch.distributed import stepfn
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import transformer as T
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     T.check_trainable(cfg)                       # before any process group
+    strategy = args.strategy or ("dp" if args.smoke
+                                 else default_strategy(cfg))
     if args.dtype:
         cfg = cfg.with_(dtype=args.dtype)
     with hvd.init(args.device, init_method=args.init_method) as device:
         world_size, rank = dist.get_world_size(), dist.get_rank()
-        groups = hvd.axis_groups({"data": world_size})
+        groups = make_host_mesh()
         lead = rank == 0
         opt = optim.get(args.optimizer, args.lr, clip_norm=1.0)
         if lead:
             print(f"arch={cfg.name} family={cfg.family} "
-                  f"strategy={args.strategy} device={device} "
+                  f"strategy={strategy} device={device} "
                   f"world_size={world_size} backend={dist.get_backend()} "
+                  f"mesh={groups.shape} "
                   f"params~{cfg.param_count()/1e6:.1f}M")
 
         params = hvd.broadcast(
             T.init_params(cfg, torch.Generator().manual_seed(0),
                           device=device, weight_dtype=torch.float32),
             groups.world)
-        opt_state = opt.init(params)
-        step_fn = stepfn.make_train_step(cfg, opt, groups, device=device)
+        pspec = ospec = None
+        if strategy == "dp":
+            opt_state = opt.init(params)
+        else:
+            pspec, ospec = stepfn.state_specs(cfg, opt, strategy, groups)
+            params, opt_state = stepfn.shard_state(params, cfg, opt,
+                                                   strategy, groups)
+        step_fn = stepfn.make_train_step(cfg, opt, groups,
+                                         strategy=strategy, device=device)
         source = SyntheticTokenSource(TokenDatasetSpec(
             cfg.vocab_size, args.seq_len, args.global_batch))
         if device.type == "cuda":
@@ -156,7 +176,7 @@ def main(argv=None) -> dict:
 
         counters = {"flash_attention": fa.flash_attention,
                     "ssd_scan": ssd.ssd_scan, "rmsnorm": rn.rmsnorm}
-        losses, step_s, per_step = [], [], []
+        losses, step_s, per_step, model_per_step = [], [], [], []
         launches = {k: [] for k in counters}
         t0 = time.time()
         for i in range(args.steps):
@@ -169,27 +189,38 @@ def main(argv=None) -> dict:
             params, opt_state, m = step_fn(params, opt_state, batch)
             loss = float(m["loss"])             # waits for the step
             step_s.append(time.perf_counter() - t_step)
-            calls, nbytes = groups.counts()[("data",)]
+            counts = groups.counts()
+            calls, nbytes = counts[("data",)]
             per_step.append({"calls": calls, "bytes": nbytes})
+            calls, nbytes = counts[("model",)]
+            model_per_step.append({"calls": calls, "bytes": nbytes})
             for k, f in counters.items():
                 launches[k].append(f.launches - n0[k])
             losses.append(loss)
             if lead and (i % 5 == 0 or i == args.steps - 1):
                 print(f"step {i:4d}  loss {loss:.4f}")
-            if (lead and args.ckpt_dir and args.ckpt_every
+            if (args.ckpt_dir and args.ckpt_every
                     and (i + 1) % args.ckpt_every == 0):
-                ck.save(args.ckpt_dir, i + 1,
-                        {"params": params, "opt": opt_state})
+                tree = {"params": params, "opt": opt_state}
+                if pspec is not None:           # every rank gathers
+                    tree = sh.unshard(tree, {"params": pspec, "opt": ospec},
+                                      groups)
+                if lead:
+                    ck.save(args.ckpt_dir, i + 1, tree)
+                del tree
 
         tokens = args.global_batch * args.seq_len
         steady = step_s[1:] or step_s           # step 0 pays the kernel build
         mean_s = sum(steady) / len(steady)
         result = {"arch": cfg.name, "device": str(device),
                   "world_size": world_size, "backend": dist.get_backend(),
+                  "strategy": strategy, "mesh": groups.shape,
                   "losses": losses, "step_s": step_s,
                   "tokens_per_step": tokens, "tokens_per_s": tokens / mean_s,
                   "launches_per_step": launches,
-                  "collectives_per_step": per_step, "params": params}
+                  "collectives_per_step": per_step,
+                  "model_collectives_per_step": model_per_step,
+                  "params": params}
         if lead:
             print(f"{args.steps} steps in {time.time()-t0:.1f}s; "
                   f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
@@ -197,7 +228,8 @@ def main(argv=None) -> dict:
                   f"{1 if len(step_s) > 1 else 0}-{len(step_s) - 1}); "
                   f"{result['tokens_per_s']:.0f} tokens/s; kernel launches "
                   f"per step {launches}; data-group collectives per step "
-                  f"{per_step[-1]}")
+                  f"{per_step[-1]}; model-group collectives per step "
+                  f"{model_per_step[-1]}")
         if device.type == "cuda":
             result["device_name"] = torch.cuda.get_device_name(device)
             result["max_memory_allocated"] = torch.cuda.max_memory_allocated(

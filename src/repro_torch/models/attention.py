@@ -20,6 +20,18 @@ Counterpart of ``repro.models.attention``.  Three branches of
   serving alike.  The encoder's self-attention is the no-cache branch
   with ``causal=False``.
 RoPE takes M-RoPE positions (3, B, S) for the vlm family (qwen2-vl).
+
+Tensor parallelism (the no-cache and cross-attention branches, given a
+``modules.Shards``): the rank's query heads are ``wq``'s local columns,
+and the head counts come from the weights' shapes.  Where ``wk`` / ``wv``
+split over ``model`` too, each rank attends its H / m query heads with
+its KV / m heads.  Where the KV heads do not split (``fit_spec`` dropped
+``model``: gemma2-27b's smoke config has 2 KV heads over a model axis of
+4) while the query heads do, the rank computes every KV head and attends
+with the ones its query heads' groups read.  Where the query heads do not
+split either, the attention is replicated, and ``wo`` (whose h * dh rows
+``fit_spec`` checks on their own) may still be row-parallel:
+``modules.row_linear`` then takes its slice of the whole output.
 """
 from __future__ import annotations
 
@@ -194,6 +206,21 @@ def _dense_decode(cache, q, k, v, idx, *, scale, window, softcap, q_chunk):
 # Full attention block (projections + rope + attend [+ cache])
 # ---------------------------------------------------------------------------
 
+def _local_kv(shards, k, v, h_local: int, group: int):
+    """The KV heads this rank's ``h_local`` query heads read, from every
+    KV head (computed replicated): query head j reads KV head j // group.
+    A contiguous run of KV heads where ``h_local`` is a multiple of the
+    group, else one KV head per query head (MHA locally).  The KV heads
+    enter the sharded region here, so their gradient is the ranks' sum."""
+    lo = shards.model.rank * h_local
+    k, v = shards.copy_in(k), shards.copy_in(v)
+    if h_local % group == 0:
+        sl = slice(lo // group, (lo + h_local) // group)
+        return k[:, :, sl], v[:, :, sl]
+    idx = (lo + torch.arange(h_local, device=k.device)) // group
+    return k[:, :, idx], v[:, :, idx]
+
+
 def attention_block(params, cfg, x: torch.Tensor, *,
                     positions: Optional[torch.Tensor] = None,
                     causal: bool = True,
@@ -201,7 +228,8 @@ def attention_block(params, cfg, x: torch.Tensor, *,
                     cache=None, cache_index: Optional[torch.Tensor] = None,
                     kv_override=None, use_rope: bool = True,
                     block_tables: Optional[torch.Tensor] = None,
-                    q_lens: Optional[torch.Tensor] = None):
+                    q_lens: Optional[torch.Tensor] = None,
+                    shards: Optional[nn.Shards] = None):
     """x: (B, S, d_model).  Returns (out, cache).
 
     positions: (B, S), or (3, B, S) M-RoPE positions (vlm); default
@@ -234,6 +262,9 @@ def attention_block(params, cfg, x: torch.Tensor, *,
     ``t >= q_lens[b]`` or positions past the table — go to the trailing
     trash block ``num_blocks - 1``.  The returned cache is the same
     object.
+
+    ``shards`` (training under ``dp_tp`` / ``fsdp_tp``): this rank's
+    heads, as the module's docstring says; no cache.
     """
     B, S, _ = x.shape
     h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -241,14 +272,24 @@ def attention_block(params, cfg, x: torch.Tensor, *,
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
 
-    q = nn.linear(params["wq"], x, dtype=dt)                     # (B,S,h,dh)
     kv_src = x if kv_override is None else kv_override.to(dt)
-    k = nn.linear(params["wk"], kv_src, dtype=dt)              # (B,Skv,kv,dh)
-    v = nn.linear(params["wv"], kv_src, dtype=dt)
+    q_split = shards is not None and shards.dim("wq", "w") is not None
+    kv_split = shards is not None and shards.dim("wk", "w") is not None
+    # x enters the sharded region once (one all_reduce of its gradient)
+    xm = shards.copy_in(x) if q_split or kv_split else x
+    q = nn.linear(params["wq"], xm if q_split else x, dtype=dt)  # (B,S,h,dh)
+    if kv_override is None:
+        kv_in = xm if kv_split else x
+    else:
+        kv_in = shards.copy_in(kv_src) if kv_split else kv_src
+    k = nn.linear(params["wk"], kv_in, dtype=dt)               # (B,Skv,kv,dh)
+    v = nn.linear(params["wv"], kv_in, dtype=dt)
     if use_rope and kv_override is None:
         sections = cfg.mrope_sections if cfg.mrope else None
         q = apply_rope(q, positions, cfg.rope_theta, sections)
         k = apply_rope(k, positions, cfg.rope_theta, sections)
+    if q_split and not kv_split:
+        k, v = _local_kv(shards, k, v, q.shape[2], h // kv)
 
     scale = cfg.attn_scale or (1.0 / math.sqrt(dh))
     sc = cfg.attn_logit_softcap
@@ -256,8 +297,12 @@ def attention_block(params, cfg, x: torch.Tensor, *,
         out = kops.mha_flash_attention(
             q, k, v, causal=causal and kv_override is None, window=window,
             softcap=sc, scale=scale)
-        out = nn.linear(params["wo"], out.reshape(B, S, h * dh), dtype=dt)
+        out = nn.row_linear(params["wo"], out.reshape(B, S, -1), dtype=dt,
+                            sh=None if shards is None else shards["wo"])
         return out, None
+    if shards is not None:
+        raise NotImplementedError("a sharded attention block runs the "
+                                  "no-cache and cross-attention branches")
     if block_tables is None:
         if S != 1:
             raise ValueError("the dense cache is one-token decode")

@@ -26,6 +26,26 @@ Everything is shape-static and free of host syncs (no ``nonzero``, no
 boolean indexing, no ``.item()``): the group size and the capacity come
 from Python ints, so a whole block runs inside a captured serving round
 (``serving/programs.py``).
+
+Training differentiates through all of it: the ``index_add_`` of the
+dispatch and the gather of the slots carry gradients to the tokens, the
+gate weights carry them to the router, and the aux loss is returned for
+the loss to add.  Expert parallelism (``modules.Shards`` splitting the
+experts over ``model``): the router, the capacity, the dispatch and the
+aux loss stay replicated and exact on every rank (the aux loss's router
+means are taken over the whole global batch, ``Shards.batch_mean``, as
+the reference's are; the dispatch groups are each rank's rows, the
+reference's too where its group size divides a rank's tokens, as it does
+at the full configs' shapes); each rank runs the
+gated MLP of its E / m experts over their slots of the ``(G, E, C, d)``
+buffer, sums the weighted outputs of the slots its experts hold into
+``(B, S, d)`` in f32, and the ranks' sums are all_reduced, then rounded
+once to x's dtype.  That is one all_reduce of B S d f32 values a layer
+instead of one of the buffer.  Against the reference's single f32 sum
+over a token's K slots it adds in another order (each rank's slots, then
+the ranks), so the f32 sum may differ in its last bits, and the bf16
+output by one ulp where that moves a rounding; at m = 1 it is the same
+sum.
 """
 from __future__ import annotations
 
@@ -98,10 +118,11 @@ def route(params, cfg, xg: torch.Tensor):
     return probs, gate / gate.sum(dim=-1, keepdim=True), eidx
 
 
-def moe_block(params, cfg, x: torch.Tensor
+def moe_block(params, cfg, x: torch.Tensor, shards=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``x`` ``(B, S, d)`` -> ``(out (B, S, d) in x's dtype, aux)``, aux the
-    Switch-style load-balance loss (0-d f32)."""
+    Switch-style load-balance loss (0-d f32).  ``shards``: expert
+    parallelism over ``model`` (the module's docstring)."""
     B, S, d = x.shape
     T = B * S
     E, K = cfg.num_experts, cfg.num_experts_per_tok
@@ -110,6 +131,7 @@ def moe_block(params, cfg, x: torch.Tensor
     G = T // Tg
     C = expert_capacity(Tg, cfg)
     xg = x.reshape(G, Tg, d)
+    ep = shards is not None and shards.dim("wi") is not None
 
     with torch.profiler.record_function(DISPATCH_RANGE):
         probs, gate, eidx = route(params, cfg, xg)
@@ -119,8 +141,10 @@ def moe_block(params, cfg, x: torch.Tensor
         first = torch.zeros(E, dtype=torch.float32, device=x.device)
         first.index_add_(0, eidx[..., 0].reshape(-1),
                          torch.ones(T, dtype=torch.float32, device=x.device))
-        aux = (cfg.router_aux_loss_coef * E) * torch.sum(
-            probs.mean(dim=(0, 1)) * (first / T))
+        me, ce = probs.mean(dim=(0, 1)), first / T
+        if shards is not None:          # over the whole global batch
+            me, ce = shards.batch_mean(me), shards.batch_mean(ce)
+        aux = (cfg.router_aux_loss_coef * E) * torch.sum(me * ce)
 
         safe_e, safe_r, keep = _dispatch_indices(eidx, C)      # (G, Tg K)
         # row of each slot in the flat (G E C, d) buffer; kept (e, r)
@@ -131,8 +155,21 @@ def moe_block(params, cfg, x: torch.Tensor
         tok = torch.arange(Tg * K, device=x.device) // K
         contrib = torch.where(keep[..., None], xg[:, tok].to(dt), 0)
         buf = torch.zeros((G * E * C, d), dtype=dt, device=x.device)
-        buf.index_add_(0, row.reshape(-1), contrib.reshape(-1, d))
+        buf = buf.index_add(0, row.reshape(-1), contrib.reshape(-1, d))
         buf = buf.view(G, E, C, d)
+        w = torch.where(keep, gate.reshape(G, Tg * K), 0.0)
+        if ep:
+            # this rank's experts [lo, lo + El): their slots of the buffer,
+            # the slots they hold; the gate weights enter the sharded
+            # region (their gradient is the ranks' sum)
+            El = params["wi"].shape[-3]
+            lo = shards.model.rank * El
+            buf = shards.split(buf, 1)
+            mine = keep & (safe_e >= lo) & (safe_e < lo + El)
+            row = (grp * El + (safe_e - lo).clamp(0, El - 1)) * C + safe_r
+            w = torch.where(mine, shards.copy_in(w), 0.0)
+        else:
+            El = E
 
     a = nn.activation(cfg.act)
     hg = torch.einsum("gecd,edf->gecf", buf, params["wg"].to(dt))
@@ -140,10 +177,11 @@ def moe_block(params, cfg, x: torch.Tensor
     ho = torch.einsum("gecf,efd->gecd", a(hg) * hi, params["wo"].to(dt))
 
     with torch.profiler.record_function(DISPATCH_RANGE):
-        slot_out = ho.reshape(G * E * C, d)[row]                # (G, Tg K, d)
-        w = torch.where(keep, gate.reshape(G, Tg * K), 0.0)
+        slot_out = ho.reshape(G * El * C, d)[row]               # (G, Tg K, d)
         out = (slot_out.float() * w[..., None]).reshape(G, Tg, K, d).sum(
             dim=2)
+        if ep:
+            out = shards.reduce_out(out)
     return out.reshape(B, S, d).to(x.dtype), aux
 
 

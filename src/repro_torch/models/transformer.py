@@ -26,12 +26,18 @@ layer and each application of the shared block under
 updated in place.
 
 Ported: the full-sequence ``forward`` and the losses of training
-(``lm_loss``, ``lm_loss_chunked``) for every family but moe (its
-training waits for sharded training, ROADMAP Queue 1 item 6);
-``decode_step`` for all six over a dense per-slot cache (``init_cache``:
-attention K/V in bf16, or int8 codes with per-token scales; the mamba
-layers' f32 SSM and conv state), and for the dense, moe and vlm decoders
-over paged KV; ``prefill_step`` over paged KV for those three (the ssm,
+(``lm_loss``, ``lm_loss_chunked``) for every family, the moe family's
+aux loss summed over its layers into the loss; under ``dp_tp`` /
+``fsdp_tp`` (``shards``: ``modules.Shards`` over the whole params tree)
+``forward`` and ``lm_loss`` run tensor-parallel over ``model`` — the
+embedding, the attention and MLP blocks, the MoE block's experts and the
+unembedding with the cross-entropy sharded as ``models/modules.py``,
+``attention.py`` and ``moe.py`` say, a mamba2 layer replicated — with
+each layer group's params all-gathered over ``data`` inside its
+checkpointed call under ``fsdp_tp``; ``decode_step`` for all six over a
+dense per-slot cache (``init_cache``: attention K/V in bf16, or int8
+codes with per-token scales; the mamba layers' f32 SSM and conv state),
+and for the dense, moe and vlm decoders over paged KV; ``prefill_step`` over paged KV for those three (the ssm,
 hybrid and encdec families have no cache that depends on token positions
 alone, and the reference refuses them there too).
 """
@@ -77,14 +83,8 @@ def _check_family(cfg, families) -> None:
 
 
 def check_trainable(cfg) -> None:
-    """Raise for a family ``forward`` and the losses do not train: the
-    moe family waits for sharded training (its AdamW state fits no single
-    card)."""
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            "training the moe family waits for sharded training (ROADMAP "
-            "Queue 1 item 6): its AdamW state fits no single card; the port "
-            "serves it")
+    """Raise for a family ``forward`` and the losses do not train (every
+    family of ``_FAMILIES`` trains)."""
     _check_family(cfg, _FAMILIES)
 
 
@@ -337,13 +337,12 @@ def _index(tree, *idx):
 
 def _apply_layer(p, cfg, x, x_sum, *, window, positions, cache,
                  cache_index, block_tables, q_lens=None, causal=True,
-                 encoder_out=None, use_rope=True):
+                 encoder_out=None, use_rope=True, shards=None):
     """Pre-norm attention + MLP, or the MoE block where ``p`` has
-    ``"moe"`` (its aux loss is dropped: serving only) (+ gemma2
-    post-block norms).  With ``encoder_out`` (encdec decoder layers) a
-    pre-norm cross-attention block over it sits between the two, with its
-    own residual add.  ``causal=False``: the encoder's self-attention;
-    ``use_rope=False``: learned positions (whisper).
+    ``"moe"`` (+ gemma2 post-block norms).  With ``encoder_out`` (encdec
+    decoder layers) a pre-norm cross-attention block over it sits between
+    the two, with its own residual add.  ``causal=False``: the encoder's
+    self-attention; ``use_rope=False``: learned positions (whisper).
 
     ``x`` is the residual stream in the compute dtype; ``x_sum`` is the
     same value in f32 *before* its last rounding, or None.  The port keeps
@@ -351,8 +350,11 @@ def _apply_layer(p, cfg, x, x_sum, *, window, positions, cache,
     bf16 rounding of an add into a following f32 convert, so a norm reads
     the residual add unrounded.  Each residual add returns both the
     rounded sum, which carries on, and the unrounded one, which the next
-    norm reads.  Returns ``(x, x_sum)``."""
+    norm reads.  ``shards``: the layer's ``modules.Shards`` (tensor
+    parallel).  Returns ``(x, x_sum, aux)``, aux the MoE block's
+    load-balance loss (None without one)."""
     dt = _dtype(cfg.dtype)
+    sh = (lambda k: None) if shards is None else (lambda k: shards[k])
 
     def add(a, b):
         s = a.float() + b.float()
@@ -362,31 +364,38 @@ def _apply_layer(p, cfg, x, x_sum, *, window, positions, cache,
     a, _ = attn.attention_block(
         p["attn"], cfg, hn, positions=positions, causal=causal,
         window=window, cache=cache, cache_index=cache_index,
-        block_tables=block_tables, q_lens=q_lens, use_rope=use_rope)
+        block_tables=block_tables, q_lens=q_lens, use_rope=use_rope,
+        shards=sh("attn"))
     if cfg.post_block_norm:
         a = nn.rmsnorm(p["post_ln1"], a, cfg.norm_eps, out_dtype=dt)
     x, x_sum = add(x, a)
     if encoder_out is not None:
         hn = _norm(cfg, p["ln_cross"], x_sum, dt)
         c, _ = attn.attention_block(p["cross_attn"], cfg, hn,
-                                    kv_override=encoder_out, use_rope=False)
+                                    kv_override=encoder_out, use_rope=False,
+                                    shards=sh("cross_attn"))
         x, x_sum = add(x, c)
     hn = _norm(cfg, p["ln2"], x_sum, dt)
+    aux = None
     if "moe" in p:
-        m, _ = moe_lib.moe_block(p["moe"], cfg, hn)
+        m, aux = moe_lib.moe_block(p["moe"], cfg, hn, shards=sh("moe"))
     else:
-        m = nn.mlp(p["mlp"], hn, cfg.act, dtype=dt)
+        m = nn.mlp(p["mlp"], hn, cfg.act, dtype=dt, sh=sh("mlp"))
     if cfg.post_block_norm:
         m = nn.rmsnorm(p["post_ln2"], m, cfg.norm_eps, out_dtype=dt)
-    return add(x, m)
+    return add(x, m) + (aux,)
 
 
-def _apply_mamba_layer(p, cfg, x, x_sum=None, cache=None):
+def _apply_mamba_layer(p, cfg, x, x_sum=None, cache=None, shards=None):
     """Pre-norm mamba2 block plus the residual, with ``_apply_layer``'s
     ``(x, x_sum)`` convention: the norm reads ``x_sum`` (the residual
     before its last rounding) when given.  ``cache``: this layer's
     ``{"ssm", "conv"}`` decode state, updated in place (the engine's
-    programs read it at its address).  Returns ``(x, x_sum)``."""
+    programs read it at its address).  ``shards``: the layer's params made
+    whole (``Shards.replicate``) and the block run replicated.  Returns
+    ``(x, x_sum)``."""
+    if shards is not None:
+        p = shards.replicate(p)
     dt = _dtype(cfg.dtype)
     h = nn.rmsnorm(p["ln1"], x if x_sum is None else x_sum, cfg.norm_eps,
                    out_dtype=dt)
@@ -398,9 +407,10 @@ def _apply_mamba_layer(p, cfg, x, x_sum=None, cache=None):
     return s.to(dt), s
 
 
-def _embed(params, cfg, tokens):
+def _embed(params, cfg, tokens, shards=None):
     dt = _dtype(cfg.dtype)
-    x = nn.embed(params["embed"], tokens, dtype=dt)
+    x = nn.embed(params["embed"], tokens, dtype=dt,
+                 sh=None if shards is None else shards["embed"])
     if cfg.embed_scale:
         x = x * nn.const(math.sqrt(cfg.d_model), x)
     return x
@@ -414,7 +424,7 @@ def _run_layers(params, cfg, x, cache, *, positions, cache_index,
     for gi in range(groups):
         x_sum = None             # a group boundary rounds the stream
         for i, win in enumerate(windows):
-            x, x_sum = _apply_layer(
+            x, x_sum, _ = _apply_layer(
                 _index(layers, gi, i), cfg, x, x_sum, window=win,
                 positions=positions, cache=_index(lcache, gi, i),
                 cache_index=cache_index, block_tables=block_tables,
@@ -422,11 +432,25 @@ def _run_layers(params, cfg, x, cache, *, positions, cache_index,
     return x
 
 
-def _unembed(params, cfg, x):
-    """Final-norm hidden states -> f32 logits (final softcap applied)."""
+def _vocab_shards(cfg, shards):
+    """The ``Shards`` of the unembedding where it splits the vocabulary
+    over ``model`` (the logits are then this rank's slice), else None."""
+    if shards is None:
+        return None
+    sh = shards["embed"] if cfg.tie_embeddings else shards["lm_head"]
+    leaf = "table" if cfg.tie_embeddings else "w"
+    return sh if sh.dim(leaf) is not None else None
+
+
+def _unembed(params, cfg, x, shards=None):
+    """Final-norm hidden states -> f32 logits (final softcap applied);
+    this rank's vocabulary slice where ``_vocab_shards`` says so."""
+    vsh = _vocab_shards(cfg, shards)
     if cfg.tie_embeddings:
-        logits = nn.unembed(params["embed"], x)
+        logits = nn.unembed(params["embed"], x, sh=vsh)
     else:
+        if vsh is not None:
+            x = vsh.copy_in(x)
         logits = nn.linear(params["lm_head"], x,
                            dtype=_dtype(cfg.dtype)).float()
     return nn.softcap(logits, cfg.final_logit_softcap)
@@ -440,36 +464,50 @@ def _logits(params, cfg, x):
 # Forward (train / prefill): the whole sequence, no cache
 # ---------------------------------------------------------------------------
 
-def _forward_group(gp, cfg, x, positions=None):
+def _forward_group(gp, cfg, x, aux, positions=None, shards=None):
     """One layer group of the no-cache forward.  The residual enters the
     group rounded (the reference's scan carry) and the ``x_sum`` rule of
-    ``_apply_layer`` holds inside it.  ``positions``: the vlm family's
-    M-RoPE positions (3, B, S), else None (``arange``)."""
+    ``_apply_layer`` holds inside it; each MoE layer's aux loss is added
+    to ``aux`` in layer order (the reference's carry).  ``positions``: the
+    vlm family's M-RoPE positions (3, B, S), else None (``arange``).
+    ``shards``: the group's params are all-gathered over ``data`` here
+    (inside the checkpointed call: the backward gathers them again) and
+    the layers run tensor-parallel.  Returns ``(x, aux)``."""
+    if shards is not None:
+        gp = shards.gather(gp)
     x_sum = None
     for i, win in enumerate(layer_pattern(cfg)):
-        x, x_sum = _apply_layer(_index(gp, i), cfg, x, x_sum,
-                                window=win, positions=positions, cache=None,
-                                cache_index=None, block_tables=None)
-    return x
+        x, x_sum, a = _apply_layer(_index(gp, i), cfg, x, x_sum,
+                                   window=win, positions=positions,
+                                   cache=None, cache_index=None,
+                                   block_tables=None, shards=shards)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
-def _encoder_layer(lp, cfg, x):
+def _encoder_layer(lp, cfg, x, shards=None):
     """One encoder layer (bidirectional, learned positions, no cache): one
     scan step of the reference's ``_encode``, so the residual enters it
     rounded and the ``x_sum`` rule holds inside it."""
+    if shards is not None:
+        lp = shards.gather(lp)
     return _apply_layer(lp, cfg, x, None, window=None, positions=None,
                         cache=None, cache_index=None, block_tables=None,
-                        causal=False, use_rope=False)[0]
+                        causal=False, use_rope=False, shards=shards)[0]
 
 
-def _decoder_layer(lp, cfg, x, encoder_out):
+def _decoder_layer(lp, cfg, x, encoder_out, shards=None):
     """One encdec decoder layer of the no-cache forward (causal
     self-attention, cross-attention over ``encoder_out``, MLP): one scan
     step of the reference, with the ``x_sum`` rule across its three
     residual adds."""
+    if shards is not None:
+        lp = shards.gather(lp)
     return _apply_layer(lp, cfg, x, None, window=None, positions=None,
                         cache=None, cache_index=None, block_tables=None,
-                        encoder_out=encoder_out, use_rope=False)[0]
+                        encoder_out=encoder_out, use_rope=False,
+                        shards=shards)[0]
 
 
 def _run(cfg, fn, p, *carry):
@@ -481,17 +519,24 @@ def _run(cfg, fn, p, *carry):
     return fn(p, cfg, *carry)
 
 
-def _encode(enc_params, cfg, encoder_input):
+def _encode(enc_params, cfg, encoder_input, shards=None):
     """The encdec encoder over stub frame embeddings (B, encoder_seq, d):
     frames in the compute dtype plus the encoder's learned positions, its
     bidirectional layers (each under checkpoint with ``cfg.remat``), the
     encoder's final norm.  Returns (B, encoder_seq, d) in the compute
-    dtype: the K/V source of every decoder layer's cross-attention."""
+    dtype: the K/V source of every decoder layer's cross-attention.
+    ``shards``: the encoder subtree's (tensor parallel)."""
     dt = _dtype(cfg.dtype)
+    lsh = None
+    if shards is not None:
+        top = {k: v for k, v in enc_params.items() if k != "layers"}
+        enc_params = dict(shards.gather(top), layers=enc_params["layers"])
+        lsh = shards["layers"]
     x = encoder_input.to(dt)
     x = x + enc_params["pos_embed"][:x.shape[1]][None].to(dt)
     for li in range(cfg.encoder_layers):
-        x = _run(cfg, _encoder_layer, _index(enc_params["layers"], li), x)
+        x = _run(cfg, _encoder_layer, _index(enc_params["layers"], li), x,
+                 lsh)
     return _norm(cfg, enc_params["final_norm"], x)
 
 
@@ -505,11 +550,14 @@ def _pos_rows(params, cfg, idx):
         _dtype(cfg.dtype))
 
 
-def _shared_block(p, cfg, x, x_sum):
+def _shared_block(p, cfg, x, x_sum, shards=None):
     """The hybrid family's shared attention + MLP block, no cache (the
-    reference applies it with ``window=None``)."""
+    reference applies it with ``window=None``).  Returns ``(x, x_sum)``."""
+    if shards is not None:
+        p = shards.gather(p)
     return _apply_layer(p, cfg, x, x_sum, window=None, positions=None,
-                        cache=None, cache_index=None, block_tables=None)
+                        cache=None, cache_index=None, block_tables=None,
+                        shards=shards)[:2]
 
 
 def _hybrid_trunk(params, cfg, x, mamba, shared):
@@ -539,16 +587,16 @@ def _hybrid_trunk(params, cfg, x, mamba, shared):
 
 
 def forward(params, cfg, batch: Dict[str, Any], *, last_only: bool = False,
-            return_hidden: bool = False
+            return_hidden: bool = False, shards: Optional[nn.Shards] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence causal forward (training, prefill).  batch: tokens
     (B, S); for vlm also patch_embeddings (B, P, d), prepended to the
     text, and mrope_positions (3, B, P + S); for encdec encoder_input
     (B, encoder_seq, d), which ``_encode`` turns into the decoder's
     cross-attention source.  Returns (logits (B, S', V) f32, S' the whole
-    sequence (patches included), aux_loss 0-d f32 (zero for the families
-    here; the moe family is refused until sharded training, ROADMAP
-    Queue 1 item 6)).
+    sequence (patches included), aux_loss 0-d f32: the MoE layers'
+    load-balance losses summed in layer order, zero for the other
+    families).
 
     last_only: unembed only the final position.  return_hidden: return the
     final-norm hidden states (B, S, d) in the compute dtype instead of
@@ -559,10 +607,22 @@ def forward(params, cfg, batch: Dict[str, Any], *, last_only: bool = False,
     layers and the shared block would hold all of their activations at
     once in the backward): its activations are recomputed in the
     backward, so attention or the SSD scan runs twice per layer per
-    training step."""
+    training step.
+
+    ``shards``: the whole tree's ``modules.Shards`` (``dp_tp`` /
+    ``fsdp_tp``; the params are this rank's slices).  The leaves outside
+    the layer stacks are gathered over ``data`` once, up front; each layer
+    group's inside its checkpointed call; the logits are this rank's
+    vocabulary slice where the unembedding splits it (``_vocab_shards``)."""
     check_trainable(cfg)
     dt = _dtype(cfg.dtype)
-    x = _embed(params, cfg, batch["tokens"])
+    sh = (lambda k: None) if shards is None else (lambda k: shards[k])
+    if shards is not None:
+        stacks = ("layers", "tail_layers", "shared_attn", "encoder")
+        top = shards.gather({k: v for k, v in params.items()
+                             if k not in stacks})
+        params = dict(params, **top)
+    x = _embed(params, cfg, batch["tokens"], shards)
     positions = None
     if cfg.family == "vlm":
         x = torch.cat([batch["patch_embeddings"].to(dt), x], dim=1)
@@ -571,30 +631,36 @@ def forward(params, cfg, batch: Dict[str, Any], *, last_only: bool = False,
         x = x + params["pos_embed"][:x.shape[1]][None].to(dt)
 
     layers = params["layers"]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "encdec":
-        enc = _encode(params["encoder"], cfg, batch["encoder_input"])
+        enc = _encode(params["encoder"], cfg, batch["encoder_input"],
+                      sh("encoder"))
         for li in range(cfg.num_layers):
-            x = _run(cfg, _decoder_layer, _index(layers, li), x, enc)
+            x = _run(cfg, _decoder_layer, _index(layers, li), x, enc,
+                     sh("layers"))
     elif cfg.family == "hybrid":
+        def mamba(p, x, x_sum, where):
+            return _run(cfg, _apply_mamba_layer, p, x, x_sum, None,
+                        sh(where[0]))
         x = _hybrid_trunk(
-            params, cfg, x,
-            lambda p, x, x_sum, _: _run(cfg, _apply_mamba_layer, p, x,
-                                        x_sum),
+            params, cfg, x, mamba,
             lambda x, x_sum, _: _run(cfg, _shared_block,
-                                     params["shared_attn"], x, x_sum))
+                                     params["shared_attn"], x, x_sum,
+                                     sh("shared_attn")))
     elif cfg.family == "ssm":
         for li in range(cfg.num_layers):
-            x, _ = _run(cfg, _apply_mamba_layer, _index(layers, li), x)
+            x, _ = _run(cfg, _apply_mamba_layer, _index(layers, li), x,
+                        None, None, sh("layers"))
     else:
         for gi in range(cfg.num_layers // len(layer_pattern(cfg))):
-            x = _run(cfg, _forward_group, _index(layers, gi), x, positions)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            x, aux = _run(cfg, _forward_group, _index(layers, gi), x, aux,
+                          positions, sh("layers"))
     if last_only:
         x = x[:, -1:]
     x = _norm(cfg, params["final_norm"], x)
     if return_hidden:
         return x, aux
-    return _unembed(params, cfg, x), aux
+    return _unembed(params, cfg, x, shards), aux
 
 
 def _trunk(params, cfg, batch):
@@ -619,15 +685,22 @@ def _text(cfg, x, labels):
     return x, labels
 
 
-def lm_loss(params, cfg, batch: Dict[str, Any]
+def lm_loss(params, cfg, batch: Dict[str, Any],
+            shards: Optional[nn.Shards] = None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Next-token cross-entropy (logits[t] predicts labels[t + 1]) over
-    the full (B, S, V) f32 logits (the text positions only, for vlm).
-    Returns (loss, metrics)."""
-    logits, aux = forward(params, cfg, batch)
+    the full (B, S, V) f32 logits (the text positions only, for vlm), plus
+    the MoE aux loss.  Returns (loss, metrics).  ``shards``: tensor
+    parallel (``forward``); over a vocabulary split across ``model`` the
+    cross-entropy is ``modules.vocab_parallel_nll``."""
+    logits, aux = forward(params, cfg, batch, shards=shards)
     logits, labels = _text(cfg, logits, batch["labels"])
-    lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
     tgt = labels[:, 1:].long()
+    vsh = _vocab_shards(cfg, shards)
+    if vsh is not None:
+        nll = nn.vocab_parallel_nll(logits[:, :-1].float(), tgt, vsh)
+        return _loss_metrics(nll.mean(), aux)
+    lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
     nll = -torch.gather(lp, -1, tgt[..., None])[..., 0]
     return _loss_metrics(nll.mean(), aux)
 
@@ -709,7 +782,7 @@ def decode_step(params, cfg, batch: Dict[str, Any]
     elif cfg.family == "encdec":
         enc = batch["encoder_output"]
         for li in range(cfg.num_layers):
-            x, _ = _apply_layer(
+            x, _, _ = _apply_layer(
                 _index(params["layers"], li), cfg, x, None, window=None,
                 positions=positions, cache=_index(cache["layers"], li),
                 cache_index=idx, block_tables=None, encoder_out=enc,
@@ -727,7 +800,7 @@ def decode_step(params, cfg, batch: Dict[str, Any]
                 params["shared_attn"], cfg, x, x_sum, window=None,
                 positions=idx[:, None],
                 cache=_index(cache["shared_attn"], gi), cache_index=idx,
-                block_tables=None))
+                block_tables=None)[:2])
     return _logits(params, cfg, x), cache
 
 

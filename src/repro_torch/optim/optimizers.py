@@ -56,8 +56,12 @@ def global_norm(tree) -> torch.Tensor:
                           for x in _leaves(tree)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, norm=None):
+    """``grads`` scaled to a global norm of at most ``max_norm``; ``norm``
+    is the caller's where the gradients are shards (the sharded train
+    step's norm over every rank), else this tree's."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 
@@ -70,10 +74,12 @@ IN_PLACE_CHUNK = 1 << 26
 @dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Any], Any]
-    update: Callable[[Any, Any, Any], Tuple[Any, Any]]
-    # (grads, state, params) -> None: the update applied in place, where
-    # the optimizer has one
-    update_in_place: Optional[Callable[[Any, Any, Any], None]] = None
+    # (grads, state, params, norm=None) -> (updates, state); ``norm``: the
+    # gradients' global norm for clipping where the caller has it (shards)
+    update: Callable[..., Tuple[Any, Any]]
+    # (grads, state, params, norm=None) -> None: the update applied in
+    # place, where the optimizer has one
+    update_in_place: Optional[Callable[..., None]] = None
 
 
 def _zeros_like_f32(params):
@@ -102,9 +108,9 @@ def sgd(lr: ScalarOrSchedule, momentum: float = 0.0,
             s["mu"] = _zeros_like_f32(params)
         return s
 
-    def update(grads, state, params):
+    def update(grads, state, params, norm=None):
         if clip_norm:
-            grads, _ = clip_by_global_norm(grads, clip_norm)
+            grads, _ = clip_by_global_norm(grads, clip_norm, norm)
         step_lr = _lr_at(lr, state["count"])
         g32 = _f32(grads)
         if momentum:
@@ -126,9 +132,9 @@ def rmsprop(lr: ScalarOrSchedule, decay: float = 0.9, eps: float = 1e-8,
     def init(params):
         return {"count": _count(params), "nu": _zeros_like_f32(params)}
 
-    def update(grads, state, params):
+    def update(grads, state, params, norm=None):
         if clip_norm:
-            grads, _ = clip_by_global_norm(grads, clip_norm)
+            grads, _ = clip_by_global_norm(grads, clip_norm, norm)
         step_lr = _lr_at(lr, state["count"])
         g32 = _f32(grads)
         nu = tree_map(lambda n, g: decay * n + (1 - decay) * g * g,
@@ -151,9 +157,9 @@ def adamw(lr: ScalarOrSchedule, b1: float = 0.9, b2: float = 0.95,
         return {"count": _count(params), "mu": _zeros_like_f32(params),
                 "nu": _zeros_like_f32(params)}
 
-    def update(grads, state, params):
+    def update(grads, state, params, norm=None):
         if clip_norm:
-            grads, _ = clip_by_global_norm(grads, clip_norm)
+            grads, _ = clip_by_global_norm(grads, clip_norm, norm)
         count = state["count"] + 1
         step_lr = _lr_at(lr, state["count"])
         g32 = _f32(grads)
@@ -173,13 +179,14 @@ def adamw(lr: ScalarOrSchedule, b1: float = 0.9, b2: float = 0.95,
         upd = tree_map(u, mu, nu, params)
         return upd, {"count": count, "mu": mu, "nu": nu}
 
-    def update_in_place(grads, state, params):
+    def update_in_place(grads, state, params, norm=None):
         """``update`` then ``apply_updates``, written into ``params``,
         ``state`` and ``grads`` leaf by leaf with the same ops in the same
         order, each leaf in chunks of ``IN_PLACE_CHUNK`` elements (every
         leaf is contiguous)."""
         if clip_norm:
-            norm = global_norm(grads)
+            if norm is None:
+                norm = global_norm(grads)
             scale = torch.clamp(clip_norm / (norm + 1e-6), max=1.0)
         step_lr = _lr_at(lr, state["count"])
         count = state["count"] + 1

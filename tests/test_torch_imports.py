@@ -52,6 +52,11 @@ def test_port_imports_neither_jax_nor_the_reference():
             "src/repro_torch/models/moe.py",
             "src/repro_torch/configs/qwen3_moe_30b_a3b.py",
             "src/repro_torch/configs/dbrx_132b.py",
+            "src/repro_torch/configs/gemma2_27b.py",
+            "src/repro_torch/configs/deepseek_coder_33b.py",
+            "src/repro_torch/distributed/sharding.py",
+            "src/repro_torch/distributed/stepfn.py",
+            "src/repro_torch/launch/mesh.py",
             "examples/torch_quickstart.py",
             "examples/torch_deploy_supermuc.py"} <= names
     bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"

@@ -12,12 +12,16 @@ On the CPU:
   gives the plain version's output and logsumexp, the route of the padded
   D is the true D's, and the two broken D-tail paths (the scale of the
   padded D, junk in the padded columns) read above the kernel's bound.
+  The routing rule: bf16 at D 144 (padded to 160) takes the tensor-core
+  kernel and its 2^-8 rounding of P; D 288 stays on the CUDA cores; the
+  paged prefill kernel, built without a D 160 instantiation, keeps D 144
+  off its tensor cores.
 
 On the card (``gpu``): the f32 routes launch the f32 decode instantiation
 and the CUDA-core prefill kernel, within the bound, with the broken
-variants above it; the flash kernel at gemma2-27b's head layout (D 144)
-and at D 80 within its bound, logsumexp and gradients, the broken D-tail
-paths above it.
+variants above it; the flash kernel at gemma2-27b's head layout (D 144,
+on the tensor cores at its padded 160) and at D 80 within its bound,
+logsumexp and gradients, the broken D-tail paths above it.
 """
 from __future__ import annotations
 
@@ -166,6 +170,23 @@ def test_padded_head_dim(D, want):
         fa.tensor_core_route(torch.bfloat16, want)
 
 
+def test_d144_takes_the_tensor_cores_and_288_the_cuda_cores():
+    """bf16 at gemma2-27b's D 144 (padded to 160, an instantiation of the
+    tensor-core kernel) routes to the tensor cores, with P's bf16 rounding
+    in its bound; gemma2-2b's 288 and every f32 call stay on the CUDA
+    cores; the paged prefill kernel keeps its own head dims."""
+    assert fa.padded_head_dim(144) == 160
+    for D in (144, 160, 136):
+        assert fa.tensor_core_route(torch.bfloat16, D)
+        assert fa.p_rounding(torch.bfloat16, D) == 2.0 ** -8
+        assert not fa.tensor_core_route(torch.float32, D)
+        assert not pp.tensor_core_route(torch.bfloat16, D)
+    for D in (192, 288):
+        assert not fa.tensor_core_route(torch.bfloat16, D)
+        assert fa.p_rounding(torch.bfloat16, D) == 2.0 ** -14
+    assert fa.TENSOR_CORE_HEAD_DIMS == (32, 64, 96, 128, 160)
+
+
 @pytest.mark.parametrize("label", list(FLASH_TAIL_SETS))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_padded_call_gives_the_plain_result(label, dtype):
@@ -295,21 +316,22 @@ def test_cuda_f32_prefill_within_bound(cuda, label):
 @pytest.mark.parametrize("label", list(FLASH_TAIL_SETS))
 def test_cuda_flash_d_tail_within_bound(cuda, label):
     """The flash kernel at a head dim that is not a multiple of 32: the
-    route of the true D (tensor cores at D 80, CUDA cores at D 144), the
-    output within that kernel's bound, the logsumexp within 1e-3, the
-    gradients within 2e-2 of the largest; the broken D-tail paths above
-    the bound."""
+    route of the true D (tensor cores at D 80, and at D 144 through the D
+    160 instantiation), the output within that kernel's bound (P rounded
+    to bf16: 2^-8), the logsumexp within 1e-3, the gradients within 2e-2
+    of the largest; the broken D-tail paths above the bound."""
     c = _flash_case(label, cuda)
     q, k, v, kw = c["q"], c["k"], c["v"], c["kw"]
     D = q.shape[-1]
     n_tc, n_tail = fa.flash_fwd_tensor_core.launches, fa.flash_d_tail.launches
     out, lse = fa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert (fa.flash_fwd_tensor_core.launches > n_tc) == \
-        fa.tensor_core_route(q.dtype, D)
+    assert fa.tensor_core_route(q.dtype, D)
+    assert fa.flash_fwd_tensor_core.launches == n_tc + 1
     assert fa.flash_d_tail.launches == n_tail + 1
     assert out.shape == q.shape
     plain, mix, p_rel = cs.flash_bound(fa, q, k, v, kw)
+    assert p_rel == 2.0 ** -8
     assert ref.rounding_bound_ratio(out, plain, mix, p_rel) <= 1.0
     _, want_lse = fa.flash_attention_plain(q, k, v, **kw)
     assert (lse - want_lse).abs().max().item() <= cs.LSE_TOL

@@ -12,7 +12,13 @@ the port against the reference on the same numpy inputs and the same
 - ``prefill_step`` / ``decode_step`` logits at the qwen3-moe and dbrx
   smoke configs (paged, then dense decode), the init tree against the
   reference's layout, the router held in f32 by the bridge and by
-  ``init_params``, the slice-by-slice draw reproducible, training refused.
+  ``init_params``, the slice-by-slice draw reproducible;
+- training: ``forward``'s aux loss (the layers' load-balance losses summed),
+  ``lm_loss`` and ``lm_loss_chunked`` and their gradients through the
+  dispatch at both smoke configs, in bf16 and f32, and the launcher;
+- expert parallelism: ``moe_block`` with its experts split over a
+  ``model`` group of 2 gloo ranks against the unsharded block (output,
+  aux loss, the gradients of x, the router and every expert).
 
 Tolerances: dispatch indices and capacities exact; ``moe_block`` in bf16
 within one bf16 ulp of its largest |output| (2^-7 max |out|) and at least
@@ -21,7 +27,13 @@ by 1-2 ulps, from one element of ``a(hg) * hi`` one ulp apart, the
 reference's ``jax.nn.silu`` (``lax.logistic``) against the port's op-by-op
 silu, carried through ``wo``), in f32 within 1e-6 (GEMMs summed in
 another order) and the aux loss within 1e-6 relative; step
-logits within atol 1e-2 (``test_torch_model.py``'s).  On the card
+logits within atol 1e-2 (``test_torch_model.py``'s); training as
+``test_torch_train.py`` holds the dense family: losses rtol 1e-3 in bf16
+and 1e-5 in f32, the aux loss rtol 1e-3 / 1e-5, gradients by each leaf's
+relative norm error within 3e-2 (bf16) and 1e-4 (f32); expert parallel
+against unsharded in f32 within 1e-6 (the combine sums each rank's slots,
+then the ranks: f32 sums in another order) and the aux loss exactly.  On
+the card
 (``gpu``): ``moe_block`` against the CPU plain path on the same weights
 (bf16 within one ulp of the largest output, identical routing), and
 ``init_params`` on the card's generator reproducible and made without a
@@ -365,19 +377,147 @@ def test_dense_decode_logits_match_reference(model, kv_dtype):
 
 
 def test_training_the_moe_family_is_refused():
-    """MoE training waits for sharded training (ROADMAP Queue 1 item 6):
-    ``forward``, the losses and the launcher refuse it."""
+    """No longer refused: ``forward`` and the losses run the moe family
+    (its aux loss in the loss) and the launcher trains it, under ``dp``
+    (the ``--smoke`` default) and ``fsdp_tp``, with the same losses at
+    world size 1."""
     from repro_torch.launch import train
     pcfg = port_smoke_config("qwen3-moe-30b-a3b")
     p = PT.init_params(pcfg, torch.Generator().manual_seed(0))
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
              "labels": torch.zeros((1, 4), dtype=torch.int32)}
-    for fn in (PT.forward, PT.lm_loss, PT.lm_loss_chunked):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            fn(p, pcfg, batch)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        train.main(["--arch", "dbrx-132b", "--smoke", "--device", "cpu",
-                    "--steps", "1"])
+    _, aux = PT.forward(p, pcfg, batch)
+    for fn in (PT.lm_loss, PT.lm_loss_chunked):
+        loss, m = fn(p, pcfg, batch)
+        assert float(m["aux_loss"]) == float(aux) > 0.0
+        assert float(loss) == pytest.approx(float(m["ce_loss"] + aux))
+    argv = ["--arch", "dbrx-132b", "--smoke", "--device", "cpu", "--steps",
+            "2", "--seq-len", "16", "--global-batch", "2", "--dtype",
+            "float32"]
+    dp = train.main(argv)
+    fsdp = train.main(argv + ["--strategy", "fsdp_tp"])
+    assert (dp["strategy"], fsdp["strategy"]) == ("dp", "fsdp_tp")
+    assert np.isfinite(dp["losses"]).all()
+    np.testing.assert_allclose(fsdp["losses"], dp["losses"], rtol=1e-5)
+
+
+TRAIN_RTOL = {"bfloat16": dict(loss=1e-3, aux=1e-3, grad=3e-2),
+              "float32": dict(loss=1e-5, aux=1e-5, grad=1e-4)}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_losses_and_grads_match_reference(model, dtype):
+    """``lm_loss`` (and ``lm_loss_chunked``) with the aux loss, and the
+    gradient of every leaf through the router, the dispatch's
+    ``index_add`` and the slots' gather, against ``jax.value_and_grad``
+    of the reference's ``lm_loss`` on the same f32 weights and batch."""
+    from repro.data import SyntheticTokenSource, TokenDatasetSpec
+    from repro_torch.distributed import stepfn as pstep
+    cfg, pcfg, params, _, flat = model
+    cfg, pcfg = cfg.with_(dtype=dtype), pcfg.with_(dtype=dtype)
+    batch = SyntheticTokenSource(TokenDatasetSpec(cfg.vocab_size, 24,
+                                                  2)).batch(0)
+    (want, wm), jg = jax.jit(jax.value_and_grad(
+        lambda p, b: T.lm_loss(p, cfg, b), has_aux=True))(
+            params, {k: jnp.asarray(v) for k, v in batch.items()})
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    pparams = bridge.from_flat(flat)
+    got, gm, pg = pstep.value_and_grad(lambda p, b: PT.lm_loss(p, pcfg, b),
+                                       pparams, tb)
+    with torch.no_grad():
+        got_c, _ = PT.lm_loss_chunked(pparams, pcfg, tb, seq_chunk=8)
+    tol = TRAIN_RTOL[dtype]
+    assert float(wm["aux_loss"]) > 0.0
+    np.testing.assert_allclose(float(gm["aux_loss"]), float(wm["aux_loss"]),
+                               rtol=tol["aux"])
+    for g in (got, got_c):
+        np.testing.assert_allclose(float(g), float(want), rtol=tol["loss"])
+    jg = {k: np.asarray(v) for k, v in _flatten_with_paths(jg).items()}
+    pg = bridge.to_flat(pg)
+    assert set(jg) == set(pg)
+    errs = {k: float(np.linalg.norm(pg[k] - jg[k]) / np.linalg.norm(jg[k]))
+            for k in jg}
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= tol["grad"], (worst, errs[worst])
+    # the router learns from the gates and the aux loss
+    assert np.linalg.norm(pg["layers/moe/router/w"]) > 0.0
+
+
+EP_PROG = """
+import os, sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import hvd
+from repro_torch.distributed import sharding as sh
+from repro_torch.models import moe as PM
+from repro_torch.models.modules import Shards
+store, out = sys.argv[1], sys.argv[2]
+cfg = ModelConfig(name="t", family="moe", num_layers=1, d_model=64,
+                  num_heads=4, num_kv_heads=2, d_ff=48, vocab_size=11,
+                  num_experts=8, num_experts_per_tok=2, moe_group_size=16,
+                  dtype="float32")
+g = torch.Generator().manual_seed(0)
+draw = lambda shape, std, f32=False: torch.randn(shape, generator=g) * std
+full = PM.init_moe(cfg, draw)
+x = torch.randn((2, 23, 64), generator=g)
+dout = torch.randn((2, 23, 64), generator=g)
+with hvd.init("cpu", init_method=store):
+    groups = hvd.axis_groups({"model": int(os.environ["WORLD_SIZE"])})
+    specs = {k: sh.param_spec("moe/" + k, tuple(v.shape), cfg,
+                              "dp_tp", groups)
+             for k, v in full.items() if k != "router"}
+    specs["router"] = {"w": sh.param_spec("moe/router/w",
+                                          (64, 8), cfg, "dp_tp", groups)}
+    local = sh.shard(full, specs, groups)
+    leaves = [t.requires_grad_(True) for t in
+              (local["router"]["w"], local["wi"], local["wg"], local["wo"])]
+    xs = x.clone().requires_grad_(True)
+    o, aux = PM.moe_block(local, cfg, xs, Shards(specs, groups["model"]))
+    grads = torch.autograd.grad((o * dout).sum() + aux, [xs] + leaves)
+    calls = groups["model"].calls
+    whole = sh.unshard({"wi": grads[2], "wg": grads[3], "wo": grads[4]},
+                       {k: specs[k] for k in ("wi", "wg", "wo")}, groups)
+    rank = groups["model"].rank
+np.savez(os.path.join(out, f"ep{rank}.npz"), out=o.detach().numpy(),
+         aux=aux.detach().numpy(), x=grads[0].numpy(),
+         router=grads[1].numpy(), **{k: v.numpy() for k, v in whole.items()},
+         calls=np.array(calls),
+         spec_wi=np.array(str(specs["wi"])))
+"""
+
+
+def test_expert_parallel_block_matches_the_unsharded_block(tmp_path):
+    """``moe_block`` with 8 experts over a ``model`` group of 2 (4 each),
+    in f32, against the unsharded block on the same weights: output and
+    aux loss, and the gradients of x, the router and the experts (the
+    experts' gathered back whole); both ranks agree bit for bit."""
+    from repro_torch.core import hvd
+    hvd.run_ranks(EP_PROG, 2, tmp_path)
+    got = [dict(np.load(tmp_path / f"ep{r}.npz")) for r in range(2)]
+    assert str(got[0]["spec_wi"]) == "('model', None, None)"
+    # one all_reduce of the combine forward, the split's all_gather and
+    # the gates' all_reduce backward
+    assert int(got[0]["calls"]) == 3
+    for k in got[0]:
+        np.testing.assert_array_equal(got[0][k], got[1][k], err_msg=k)
+    c, pc = _cfgs(dtype="float32")
+    g = torch.Generator().manual_seed(0)
+    draw = lambda shape, std, f32=False: torch.randn(shape, generator=g) * std
+    full = PM.init_moe(pc, draw)
+    x = torch.randn((2, 23, 64), generator=g).requires_grad_(True)
+    dout = torch.randn((2, 23, 64), generator=g)
+    leaves = [t.requires_grad_(True) for t in
+              (full["router"]["w"], full["wi"], full["wg"], full["wo"])]
+    o, aux = PM.moe_block(full, pc, x)
+    want = torch.autograd.grad((o * dout).sum() + aux, [x] + leaves)
+    assert float(got[0]["aux"]) == aux.item()
+    np.testing.assert_allclose(got[0]["out"], o.detach().numpy(),
+                               atol=F32_ATOL, rtol=0)
+    for name, w in zip(("x", "router", "wi", "wg", "wo"), want):
+        np.testing.assert_allclose(got[0][name], w.numpy(), atol=F32_ATOL,
+                                   rtol=0, err_msg=name)
 
 
 # ---------------------------------------------------------------------------

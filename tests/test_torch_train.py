@@ -300,9 +300,20 @@ def test_train_launcher_on_cpu():
     # plain versions on the CPU: no kernel launches
     assert out["launches_per_step"] == {
         "flash_attention": [0, 0], "ssd_scan": [0, 0], "rmsnorm": [0, 0]}
-    with pytest.raises(NotImplementedError, match="item 6"):
-        train.main(["--arch", "qwen2-0.5b", "--smoke", "--device", "cpu",
-                    "--strategy", "fsdp_tp"])
+    assert out["strategy"] == "dp" and out["mesh"] == {"data": 1,
+                                                       "model": 1}
+    # the sharded strategies run on the host mesh's model axis of size 1:
+    # the same losses as dp up to the vocab-parallel cross-entropy's
+    # arithmetic (a max and a sum of exponentials for log_softmax's)
+    for strategy in ("dp_tp", "fsdp_tp"):
+        sharded = train.main(["--arch", "gemma2-2b", "--smoke", "--device",
+                              "cpu", "--steps", "2", "--seq-len", "16",
+                              "--global-batch", "2", "--strategy", strategy])
+        assert sharded["strategy"] == strategy
+        np.testing.assert_allclose(sharded["losses"], out["losses"],
+                                   rtol=LOSS_RTOL)
+        assert all(c["calls"] > 0 for c in
+                   sharded["model_collectives_per_step"])
 
 
 def test_mamba2_launcher_on_cpu():
