@@ -363,8 +363,10 @@ Phases (any failure exits nonzero):
               32 / 16, 144), where the window binds, and at (a)'s shape:
               within the tensor-core bound, the D-tail and window broken
               variants above it, gradients, timed beside SDPA, the plain
-              version and the bound; (e) card against CPU at 2 layers of
-              each, one ``fsdp_tp`` step at seq 128, batch 1: loss and
+              version and the bound; (e) card against CPU at
+              ``SHARDED_CPU_LAYERS`` (2 layers, deepseek-coder-33b's cut
+              to 1 to keep the script within its time limit),
+              one ``fsdp_tp`` step at seq 128, batch 1: loss and
               gradient norm within the phase 9 tolerances; (f) qwen2-0.5b
               at full width on the (1, 1) mesh: ``dp_tp`` and ``fsdp_tp``
               against ``dp`` after 2 steps (losses within
@@ -372,6 +374,40 @@ Phases (any failure exits nonzero):
               ``dp_tp`` and ``fsdp_tp`` bit for bit), then the launcher
               with no ``--strategy`` (its reference default, ``dp_tp``):
               step time beside phase 8's ``dp`` run.
+22. the steps by input shape (``stepfn.make_step_for_shape``) on the
+    (1, 1) mesh under the config's default strategy (``dp_tp``), weights
+    from ``init_params`` at seed 0 (f32, drawn on the card), inputs from
+    ``synthesize_inputs`` (drawn on the card): (a) qwen2-0.5b whole (24
+    layers, d 896) at ``decode_32k`` (B 128 x 32,768: 51.5 GB of bf16
+    cache, then the int8 cache), ``long_500k`` (B 1 x 524,288, window
+    8,192) — eight serve steps each from 8 before the end of the cache —,
+    ``prefill_32k`` whole (B 32 x 32,768) and
+    ``train_4k`` with its batch cut from 256 to ``STEP_TRAIN_B`` (the f32
+    logits of 256 x 4,096 x 151,936 words do not fit): ms a step,
+    tokens/s, the peak, exact launches a step (flash 24 a prefill, 48 a
+    train step; int8 24 a serve step; RMSNorm 49, 97 in training); (b)
+    deepseek-coder-33b at full width cut to ``STEP_DEEPSEEK_LAYERS``
+    layers at ``long_500k``, the window on every layer; (c) the window is
+    real: at qwen2's ``long_500k`` the cache positions older than
+    ``pos - 8,191`` filled with garbage leave the logits bit for bit with
+    ``long_context`` and move them without it; (d) card against CPU at 2
+    layers: the prefill step and the serve step (bf16 and int8 caches)
+    within ``CPU_LOGIT_TOL``; (e) the dry-run (``launch.dryrun.
+    count_step``, on ``meta``) of (a)'s four step kinds at (1, 1):
+    ``argument_size`` equal to the bytes handed to the step, and
+    ``peak_memory_per_device`` within ``DRYRUN_PEAK_RTOL`` of the card's
+    peak over a step (``max_memory_allocated`` after
+    ``reset_peak_memory_stats`` with the arguments resident, less what
+    else was resident), both printed with the gap.  After each step of
+    (a) and (b), every kernel it launched is held against its plain
+    version at the step's shape, at phase 3's tolerances, with phase 3's
+    broken variants failing: the int8 kernel on layer 0's cache as the
+    step left it (B 128 x 32,768, the split plan of that shape) with a
+    query at the timed positions and at positions spread over the
+    stripe; flash at prefill's (1, 32,768, 14 / 2,
+    64) on its first 512 and last 2,048 query rows (the plain version
+    chunked by query rows) and at train's (2, 4,096) whole with its
+    gradients; RMSNorm at the step's rows.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -580,15 +616,13 @@ def library_flash(torch, F, case):
 
 
 def flash_cost(case):
-    """(bytes, flops): q, k, v read once, out and lse written once; 4
-    flops per (query head, attended key, dim), counting the keys each row
-    attends under the causal and window masks."""
+    """(bytes, flops) of a causal flash call: the kernel's own count,
+    ``flash_attention.cost``."""
+    from repro_torch.kernels import flash_attention as fa
     B, S, H, D = case["q"].shape
-    KV = case["k"].shape[2]
-    w = case["kw"]["window"]
-    pairs = sum(min(t + 1, w) if w else t + 1 for t in range(S))
-    nbytes = 2 * (B * S * H * D * 2) + 2 * (B * S * KV * D * 2) + B * H * S * 4
-    return nbytes, 4 * B * H * D * pairs
+    return fa.cost(B, S, case["k"].shape[1], H, case["k"].shape[2], D,
+                   causal=True, window=case["kw"]["window"],
+                   itemsize=case["q"].element_size())
 
 
 def int8_case(torch, rng, dev, *, Sq, H, KV, D, Skv, q_start, kv_len,
@@ -630,24 +664,17 @@ def int8_args(case):
 
 
 def int8_cost(case):
-    """(bytes, flops): q and out once, and per row the int8 K and V codes
-    and their scales of the keys its queries can reach (the run's kv_len,
-    causal, the window) once per kv head; 4 flops per (query head,
-    attended key, dim), each query counting the keys it attends."""
+    """(bytes, flops) of an int8 call for this run's q_start and kv_len:
+    the kernel's own count, ``flash_attention.int8_cost``."""
+    from repro_torch.kernels import flash_attention as fa
     B, Sq, H, D = case["q"].shape
     Skv, KV = case["k8"].shape[1], case["k8"].shape[2]
-    w = case["kw"]["window"]
-    keys = attended = 0
-    for qs, n in zip(case["q_start"].tolist(), case["kv_len"].tolist()):
-        span = lambda p: (max(0, p - w + 1) if w else 0, min(n, Skv, p + 1))
-        lo, hi = span(qs)[0], span(qs + Sq - 1)[1]
-        keys += max(0, hi - lo)
-        attended += sum(max(0, b - a)
-                        for a, b in map(span, range(qs, qs + Sq)))
-    q_bytes = case["q"].numel() * case["q"].element_size()
-    nbytes = (2 * q_bytes + keys * KV * (2 * D + 2 * case["k_scale"]
-                                         .element_size()) + 8 * B)
-    return nbytes, 4 * H * D * attended
+    return fa.int8_cost(B, Sq, H, KV, D, Skv,
+                        q_start=case["q_start"].tolist(),
+                        kv_len=case["kv_len"].tolist(),
+                        window=case["kw"]["window"],
+                        itemsize=case["q"].element_size(),
+                        scale_bytes=case["k_scale"].element_size())
 
 
 def library_int8(torch, F, case, kd, vd):
@@ -713,20 +740,13 @@ def mamba_scan_case(torch, rng, dev, *, b, S, seed, arch="mamba2-1.3b"):
 
 
 def ssd_cost(case, chunk):
-    """(bytes, flops): x, dt, A, B, C read once, y written once.  Per
-    chunk, 2 flops for each multiply-add: the masked C.B^T product
-    (L(L+1)/2 N, j <= i only) once per group, as every head of a group
-    shares it; per head the masked M.x product (L(L+1)/2 P), the state's
-    contribution to y and the state update (L N P each)."""
+    """(bytes, flops) of one scan: the kernel's own count,
+    ``ssd_scan.cost``."""
+    from repro_torch.kernels import ssd_scan
     b, S, H, P = case["x"].shape
     G, N = case["B"].shape[2], case["B"].shape[3]
-    L = min(chunk, S)
-    nc = -(-S // L)
-    tri = L * (L + 1) // 2
-    mac = b * nc * (G * tri * N + H * (tri * P + 2 * L * N * P))
-    nbytes = 2 * (b * S * H * P * 2) + 2 * (b * S * G * N * 2) \
-        + b * S * H * 4 + H * 4
-    return nbytes, 2 * mac
+    return ssd_scan.cost(b, S, H, P, G, N, min(chunk, S),
+                         case["x"].element_size())
 
 
 def ssd_bound(ssd, args, chunk):
@@ -790,12 +810,13 @@ def rmsnorm_wrongs(rn, ref, x, scale, out_dtype):
 
 
 def rmsnorm_cost(case):
-    """(bytes, flops): x read once, y written once, the scale read once;
-    4 flops per element (square-add, the two scalings, 1 + scale)."""
-    x, out_dtype = case["x"], case["out_dtype"]
-    n = x.numel()
-    out_bytes = 2 if out_dtype == "bfloat16" else 4
-    return n * (x.element_size() + out_bytes) + x.shape[-1] * 4, 4 * n
+    """(bytes, flops) of one call: the kernel's own count,
+    ``rmsnorm.cost``."""
+    from repro_torch.kernels import rmsnorm
+    x = case["x"]
+    return rmsnorm.cost(x.numel() // x.shape[-1], x.shape[-1],
+                        x.element_size(),
+                        2 if case["out_dtype"] == "bfloat16" else 4)
 
 
 def norm_err(got, ref) -> float:
@@ -903,17 +924,13 @@ def library_cross(torch, F, case):
 
 
 def cross_cost(case):
-    """(bytes, flops) of a flash call with Sq queries over Skv keys: q, k,
-    v read once, out and lse written once; 4 flops per (query head,
-    attended key, dim): every key without the causal mask, keys <= t with
-    it (square)."""
+    """(bytes, flops) of a flash call with Sq queries over Skv keys, with
+    or without the causal mask: ``flash_attention.cost``."""
+    from repro_torch.kernels import flash_attention as fa
     B, Sq, H, D = case["q"].shape
-    Skv, KV = case["k"].shape[1], case["k"].shape[2]
-    pairs = (sum(min(t + 1, Skv) for t in range(Sq)) if case["kw"]["causal"]
-             else Sq * Skv)
-    nbytes = (2 * (B * Sq * H * D * 2) + 2 * (B * Skv * KV * D * 2)
-              + B * H * Sq * 4)
-    return nbytes, 4 * B * H * D * pairs
+    return fa.cost(B, Sq, case["k"].shape[1], H, case["k"].shape[2], D,
+                   causal=case["kw"]["causal"],
+                   itemsize=case["q"].element_size())
 
 
 def cross_wrongs(torch, fa, q, k, v, kw, tile: int = 64):
@@ -3147,6 +3164,11 @@ SHARDED_SEQ, SHARDED_BATCH, SHARDED_STEPS = 2048, 2, 8
 # loss grows over 8 steps at 5e-5 and 1e-4 alike and the loss does not
 # fall
 SHARDED_LR = 1e-4
+# phase 21 (e)'s depths on the CPU: deepseek-coder-33b cut from 2 to 1
+# layer (the CPU's bf16 steps took 193 s at 2 each; qwen3-moe at 1 layer
+# read 0.998 of the loss tolerance, at 2 0.21)
+SHARDED_CPU_LAYERS = {"gemma2-27b": 2, "deepseek-coder-33b": 1,
+                      "qwen3-moe-30b-a3b": 2}
 # the D tail's new route at gemma2-27b's local layers: the window binds at
 # S 8,192, and at phase 21 (a)'s shape
 D160_SETS = {
@@ -3155,6 +3177,511 @@ D160_SETS = {
     "gemma2-27b local, (a)'s shape": dict(B=2, S=2048, H=32, KV=16, D=144,
                                           window=4096, softcap=50.0),
 }
+
+
+STEP_TRAIN_B = 2               # train_4k's 256 rows cut to 2 (memory)
+STEP_DEEPSEEK_LAYERS = 8       # deepseek-coder-33b's 62 layers cut to 8
+STEP_SERVE_STEPS = 8
+DRYRUN_PEAK_RTOL = 0.05        # the dry-run's peak against the card's
+
+
+def _step_args(torch, cfg, shape, dev, params, seed=0):
+    """The arguments of ``make_step_for_shape``'s step for ``shape``: the
+    params, a fresh AdamW state (train), and ``synthesize_inputs`` drawn
+    on the card at ``seed``; a serve step's rows all start 8 positions
+    before the end of the cache."""
+    from repro_torch import optim
+    from repro_torch.configs.base import synthesize_inputs
+    batch = synthesize_inputs(cfg, shape,
+                              torch.Generator(device=dev).manual_seed(seed),
+                              device=dev)
+    if shape.kind == "decode":
+        batch["positions"].fill_(shape.seq_len - STEP_SERVE_STEPS)
+    if shape.kind == "train":
+        return (params, optim.adamw(1e-4).init(params), batch)
+    return (params, batch)
+
+
+def _timed(torch, fn, *args):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+STEP_FLASH_BLOCKS = ((0, 512), (-2048, None))   # prefill's query rows held
+
+
+def rows_plain(torch, q, k, v, q0: int, *, absv: bool = False, hi=None,
+               chunk: int = 256):
+    """Plain causal attention of the query rows ``q`` (B, n, H, D), at
+    positions ``q0 ..``, over k / v (B, Skv, KV, D), in f32, ``chunk``
+    rows at a time (the (B, H, S, S) scores of a 32,768-position prompt
+    do not fit).  ``absv``: over |V| (the bound's (|P| @ |V|) / l);
+    ``hi``: a broken mask, ``hi(pos)`` the keys a row sees.  Returns (out
+    (B, n, H, D) f32, lse (B, H, n) f32)."""
+    B, n, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    kf, vf = k.float(), (v.float().abs() if absv else v.float())
+    kpos = torch.arange(Skv, device=q.device)
+    outs, lses = [], []
+    for c in range(0, n, chunk):
+        qc = q[:, c:c + chunk].float()
+        m = qc.shape[1]
+        s = torch.einsum("bqkgd,btkd->bkgqt", qc.reshape(B, m, KV, G, D),
+                         kf) / math.sqrt(D)
+        qpos = q0 + c + torch.arange(m, device=q.device)
+        lim = qpos + 1 if hi is None else hi(qpos)
+        s = s.masked_fill(kpos[None, :] >= lim[:, None], float("-inf"))
+        lses.append(torch.logsumexp(s, dim=-1).reshape(B, H, m))
+        outs.append(torch.einsum("bkgqt,btkd->bqkgd", torch.softmax(s, -1),
+                                 vf).reshape(B, m, H, D))
+        del s
+    return torch.cat(outs, dim=1), torch.cat(lses, dim=2)
+
+
+def hold_flash_rows(torch, fa, kref, dev, rng, *, S, H, KV, D) -> dict:
+    """Flash at a prompt of ``S`` (B 1, N(0, 1) bf16) against the plain
+    version on the rows of ``STEP_FLASH_BLOCKS``: the rounding bound
+    (phase 3's, fails above 1) and the lse within ``LSE_TOL``; phase 3's
+    broken kernels (the causal mask one key late, a row's last partial kv
+    tile dropped, the wrong kv head, l not rescaled) must each fail."""
+    fc = flash_case(torch, rng, dev, B=1, S=S, H=H, KV=KV, D=D)
+    q, k, v = fc["q"], fc["k"], fc["v"]
+    del fc["dout"]
+    out, lse = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    p_rel = fa.p_rounding(q.dtype, D)
+    idx = (torch.arange(H, device=dev) + (H == KV)) % KV
+    kh, vh = k[:, :, idx].contiguous(), v[:, :, idx].contiguous()
+    # rows 64 m .. 64 m + 62 see keys [0, 64 m) (rows below 64 whole)
+    tile = lambda p: torch.where(((p + 1) % 64 == 0) | (p < 64), p + 1,
+                                 p // 64 * 64)
+    no_rescale = kref.flash_tiles_ref(q, k, v, causal=True, block_k=64,
+                                      rescale_l=False)[0]
+    res = {"err": 0.0, "ratio": 0.0, "lse_err": 0.0, "misses": {}}
+    for a, b in STEP_FLASH_BLOCKS:
+        q0 = a % S
+        rows = slice(q0, S if b is None else b)
+        qb = q[:, rows]
+        plain, plse = rows_plain(torch, qb, k, v, q0)
+        plain = plain.to(q.dtype)
+        mix, _ = rows_plain(torch, qb, k, v, q0, absv=True)
+        got = out[:, rows]
+        res["err"] = max(res["err"], (got.float() - plain.float()).abs()
+                         .max().item())
+        res["ratio"] = max(res["ratio"], kref.rounding_bound_ratio(
+            got, plain, mix, p_rel))
+        res["lse_err"] = max(res["lse_err"], (lse[..., rows] - plse).abs()
+                             .max().item())
+        wrongs = {
+            "applied the causal mask one key late":
+                lambda: rows_plain(torch, qb, k, v, q0 + 1)[0],
+            "dropped each row's last partial kv tile":
+                lambda: rows_plain(torch, qb, k, v, q0, hi=tile)[0],
+            "read kv head h % KV instead of h // G":
+                lambda: rows_plain(torch, qb, kh, vh, q0)[0],
+            "did not rescale the running sum l":
+                lambda: no_rescale[:, rows]}
+        for what, wrong in wrongs.items():
+            # the blocks are one output: a broken kernel fails where any
+            # row reads above the bound
+            miss = kref.rounding_bound_ratio(wrong().to(q.dtype), plain, mix,
+                                             p_rel)
+            res["misses"][what] = max(res["misses"].get(what, 0.0), miss)
+        del plain, mix, plse
+    return res
+
+
+def hold_flash_whole(torch, fa, kops, kref, dev, rng, *, B, S, H, KV,
+                     D) -> dict:
+    """Flash at (B, S) whole, as phase 3 holds it: the rounding bound,
+    the lse, dq / dk / dv through ``mha_flash_attention`` against the
+    plain version's autograd (``GRAD_TOL``), and ``flash_wrongs``."""
+    fc = flash_case(torch, rng, dev, B=B, S=S, H=H, KV=KV, D=D)
+    qkv, kw = (fc["q"], fc["k"], fc["v"]), fc["kw"]
+    out, lse = fa.flash_attention(*qkv, **kw)
+    torch.cuda.synchronize()
+    _, ref_lse = fa.flash_attention_plain(*qkv, **kw)
+    ref, mix, p_rel = flash_bound(fa, *qkv, kw)
+    res = {"err": (out.float() - ref.float()).abs().max().item(),
+           "ratio": kref.rounding_bound_ratio(out, ref, mix, p_rel),
+           "lse_err": (lse - ref_lse).abs().max().item()}
+    del out, lse, ref_lse
+    ins = [t.clone().requires_grad_(True) for t in qkv]
+    got = torch.autograd.grad(kops.mha_flash_attention(*ins, **kw), ins,
+                              fc["dout"])
+    ins = [t.clone().requires_grad_(True) for t in qkv]
+    want = torch.autograd.grad(fa.flash_attention_plain(*ins, **kw)[0], ins,
+                               fc["dout"])
+    res["grad_err"] = max(((g.float() - r.float()).abs().max()
+                           / r.float().abs().max()).item()
+                          for g, r in zip(got, want))
+    del ins, got, want
+    res["misses"] = {what: kref.rounding_bound_ratio(wrong(), ref, mix, p_rel)
+                     for what, wrong in flash_wrongs(torch, fa, kref, *qkv,
+                                                     kw)}
+    return res
+
+
+def hold_int8_cache(torch, fa, kref, dev, rng, cache, positions) -> dict:
+    """The int8 kernel on layer 0's cache leaves (B, Skv, KV, D), a N(0, 1)
+    query (B, 1, H, D) in the scales' dtype at ``positions`` (q_start, and
+    kv_len one past it), against ``attention_int8kv_ref`` (phase 3's
+    element rule, ``INT8_BF16_RTOL``), and phase 3's broken kernels (one
+    split's partial dropped from the combine of this shape's split plan,
+    the scales ignored, kv_len ignored, a row's last partial 64-key tile
+    dropped, its newest key missed), which must each fail."""
+    k8, ks, v8, vs = (cache[n] for n in ("k", "k_scale", "v", "v_scale"))
+    B, Skv, KV, D = k8.shape
+    H = cache["heads"]
+    G = H // KV
+    q = torch.tensor(rng.standard_normal((B, 1, H, D)), dtype=ks.dtype,
+                     device=dev)
+    qs = positions.to(device=dev, dtype=torch.int32)
+    n = qs + 1
+    args = (q, k8, ks, v8, vs, qs, n)
+    got = fa.flash_attention_int8kv(*args)
+    torch.cuda.synchronize()
+    ref = kref.attention_int8kv_ref(*args)
+    per, splits = fa.int8_split_plan(B, KV, Skv, D, G,
+                                     fa.device_sm_count(q.device))
+    res = {"err": (got.float() - ref.float()).abs().max().item(),
+           "rel": int8_rel_err(got, ref), "keys_per_split": per,
+           "splits": splits}
+    del got
+    keep = drop_first_live(torch, [kref.int8kv_split_ranges(
+        a, b, Skv, G, per, splits, row0=0, rows=G)
+        for a, b in zip(qs.tolist(), n.tolist())])
+    full = torch.full_like(n, Skv)
+    tile = torch.where(n > 64, (n - 1) // 64 * 64, n)
+    plain = kref.attention_int8kv_ref
+    wrongs = {
+        "dropped one split's partial from the combine":
+            lambda: kref.int8kv_split_ref(*args, keys_per_split=per,
+                                          keep=keep),
+        "ignored the scales":
+            lambda: plain(q, k8, torch.ones_like(ks), v8, torch.ones_like(vs),
+                          qs, n),
+        "ignored kv_len (the whole stripe)":
+            lambda: plain(q, k8, ks, v8, vs, full - 1, full),
+        "dropped each row's last partial 64-key tile":
+            lambda: plain(q, k8, ks, v8, vs, qs, tile),
+        "missed each row's newest key":
+            lambda: plain(q, k8, ks, v8, vs, qs, (n - 1).clamp(min=1))}
+    res["misses"] = {}
+    for what, wrong in wrongs.items():
+        res["misses"][what] = int8_rel_err(wrong(), ref)
+    return res
+
+
+def hold_rmsnorm_rows(torch, rn, kref, dev, rng, rows: int, d: int) -> dict:
+    """RMSNorm at the step's ``rows`` x ``d`` (N(0, 1) inputs, a 0.1 N(0, 1)
+    gain), bf16 and f32 in, bf16 out, and f32 to f32, on the one-pass
+    kernel: within one ulp of the plain version (``ulp_ratio``), the
+    broken ``rmsnorm_wrongs`` above it."""
+    sc = torch.tensor(0.1 * rng.standard_normal(d), dtype=torch.float32,
+                      device=dev)
+    x32 = torch.randn((rows, d), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(rows))
+    res = {"err": 0.0, "ulp": 0.0, "misses": {}}
+    for din, dout in ((torch.bfloat16, torch.bfloat16),
+                      (torch.float32, torch.bfloat16),
+                      (torch.float32, torch.float32)):
+        x = x32.to(din)
+        n_one = rn.rmsnorm_one_pass.launches
+        got = rn.rmsnorm(x, sc, out_dtype=dout)
+        torch.cuda.synchronize()
+        check(rn.rmsnorm_one_pass.launches == n_one + 1,
+              f"RMSNorm at {rows} x {d} missed the one-pass kernel")
+        ref = rn.rmsnorm_ref(x, sc, out_dtype=dout)
+        res["err"] = max(res["err"], (got.float() - ref.float()).abs()
+                         .max().item())
+        res["ulp"] = max(res["ulp"], ulp_ratio(got, ref))
+        del got
+        for what, wrong in rmsnorm_wrongs(rn, kref, x, sc, dout):
+            res["misses"][what] = min(res["misses"].get(what, math.inf),
+                                      ulp_ratio(wrong(), ref))
+        del x, ref
+    return res
+
+
+def hold_step_kernels(torch, cfg, shape, dev, batch, label: str) -> dict:
+    """Every kernel ``shape``'s step launched, held against its plain
+    version at the step's shape (the module's docstring, phase 22), each
+    check and each broken variant asserted; the launches made here are
+    the comparison's, read after the step's counts.  The int8 query's
+    rows: half at the timed serve calls' positions (where the steps wrote
+    the model's own K/V), half spread over the stripe from position 0
+    (where the cache holds the drawn codes, whose keys are large enough
+    that one key more or less shows in the output)."""
+    import numpy as np
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import rmsnorm as rn
+    rng = np.random.default_rng(22)
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    out = {}
+    if shape.kind == "decode" and cfg.kv_cache_dtype == "int8":
+        c = {n: t[0, 0] for n, t in batch["cache"]["layers"].items()}
+        S, B = shape.seq_len, shape.global_batch
+        timed = (S - STEP_SERVE_STEPS + 1
+                 + torch.arange(B // 2) % (STEP_SERVE_STEPS - 1))
+        spread = (torch.arange(B - B // 2) * (S - STEP_SERVE_STEPS)
+                  // (B - B // 2))
+        out["flash_attention_int8kv"] = r = hold_int8_cache(
+            torch, fa, kref, dev, rng, dict(c, heads=H),
+            torch.cat([timed, spread]))
+        check(r["rel"] <= INT8_BF16_RTOL, f"{label}: the int8 kernel "
+              f"disagrees on layer 0's cache ({r['rel']:.3e})")
+    elif shape.kind == "prefill":
+        out["flash_attention"] = r = hold_flash_rows(
+            torch, fa, kref, dev, rng, S=shape.seq_len, H=H, KV=KV, D=D)
+        check(r["ratio"] <= 1.0 and r["lse_err"] <= LSE_TOL,
+              f"{label}: flash disagrees at S {shape.seq_len}")
+    elif shape.kind == "train":
+        out["flash_attention"] = r = hold_flash_whole(
+            torch, fa, kops, kref, dev, rng, B=shape.global_batch,
+            S=shape.seq_len, H=H, KV=KV, D=D)
+        check(r["ratio"] <= 1.0 and r["lse_err"] <= LSE_TOL
+              and r["grad_err"] <= GRAD_TOL,
+              f"{label}: flash disagrees at (B {shape.global_batch}, S "
+              f"{shape.seq_len})")
+    held_bytes(torch, dev)
+    rows = shape.global_batch * (1 if shape.kind == "decode"
+                                 else shape.seq_len)
+    out["rmsnorm"] = r = hold_rmsnorm_rows(torch, rn, kref, dev, rng, rows,
+                                           cfg.d_model)
+    check(r["ulp"] <= 1.0, f"{label}: RMSNorm disagrees at {rows} rows")
+    print(f"{label}: kernels against their plain versions at the step's "
+          "shape: " + json.dumps(out), flush=True)
+    for name, r in out.items():
+        tol = INT8_BF16_RTOL if name == "flash_attention_int8kv" else 1.0
+        for what, miss in r["misses"].items():
+            check(miss > tol, f"{label}: the {name} check misses a kernel "
+                  f"that {what} ({miss:.3e})")
+    held_bytes(torch, dev)
+    return out
+
+
+def run_shape(torch, T, cfg, shape, dev, groups, counters, params,
+              label: str) -> dict:
+    """(a)/(b)/(e) for one shape: the step, a warm-up call (not for
+    prefill, whose call takes seconds and allocates nothing on its first
+    run that it does not on the next), then ``STEP_SERVE_STEPS - 1`` serve
+    steps (each at the next position) or one call, the first timed call's
+    peak against the dry-run's and every timed call's launches, which
+    are counted from 0 over them."""
+    from repro_torch.distributed import stepfn
+    from repro_torch.launch import dryrun
+    step, _ = stepfn.make_step_for_shape(cfg, groups, "dp_tp", shape)
+    args = _step_args(torch, cfg, shape, dev, params)
+    arg_bytes = sum(tree_bytes(a) for a in args)
+    rec = dryrun.count_step(cfg, shape, "dp_tp", {"data": 1, "model": 1})
+    if shape.kind != "prefill":
+        _timed(torch, step, *args)                  # warm-up
+    if shape.kind == "decode":
+        args[1]["positions"].add_(1)
+    calls = STEP_SERVE_STEPS - 1 if shape.kind == "decode" else 1
+    zero_counts(counters)
+    secs = []
+    for i in range(calls):
+        if i == 0:
+            held = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        out, dt = _timed(torch, step, *args)
+        if i == 0:
+            card_peak = (torch.cuda.max_memory_allocated(dev) - held
+                         + arg_bytes)
+        secs.append(dt)
+        if shape.kind == "decode":
+            args[1]["positions"].add_(1)
+    launches = read_counts(counters)
+    logits = out[0] if shape.kind == "decode" else out
+    if shape.kind == "train":
+        logits = out[2]["loss"]
+    check(bool(torch.isfinite(logits).all()), f"{label}: output not finite")
+    tokens = shape.global_batch * (1 if shape.kind == "decode"
+                                   else shape.seq_len)
+    ms = sorted(secs)[len(secs) // 2] * 1e3
+    gap = (rec["peak_memory_per_device"] - card_peak) / card_peak
+    res = {"step_ms_median": ms, "step_ms": [t * 1e3 for t in secs],
+           "tokens_per_s": tokens / (ms / 1e3),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "argument_bytes": arg_bytes,
+           "dryrun_argument_size": rec["argument_size"],
+           "card_peak": card_peak,
+           "dryrun_peak": rec["peak_memory_per_device"], "peak_gap": gap,
+           "dryrun_flops": rec["flops"], "dryrun_trace_s": rec["trace_s"],
+           "launches_per_call": {k: v // calls for k, v in launches.items()
+                                 if v}}
+    print(f"{label}: " + json.dumps(res), flush=True)
+    check(rec["argument_size"] == arg_bytes,
+          f"{label}: dry-run argument_size {rec['argument_size']} != "
+          f"{arg_bytes} bytes handed to the step")
+    check(abs(gap) <= DRYRUN_PEAK_RTOL,
+          f"{label}: dry-run peak {rec['peak_memory_per_device']} vs the "
+          f"card's {card_peak} ({gap:+.2%})")
+    del out, step
+    res["kernel_checks"] = hold_step_kernels(torch, cfg, shape, dev,
+                                             args[-1], label)
+    del args
+    return res, launches
+
+
+def step_phase(torch, T, dev, counters, by_name, rms_paths) -> dict:
+    """Phase 22: the steps by input shape (the module's docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SHAPES, InputShape
+    from repro_torch.core import hvd
+    from repro_torch.distributed import stepfn
+    from repro_torch.launch.mesh import make_host_mesh
+    out = {}
+    qcfg = get_config("qwen2-0.5b")
+    L = qcfg.num_layers
+    check(held_bytes(torch, dev) < 4 * 2**30, "memory held before phase 22")
+    want = {"decode_32k": {"flash_attention_int8kv": 0, "rmsnorm": 2 * L + 1},
+            "decode_32k int8": {"flash_attention_int8kv": L,
+                                "rmsnorm": 2 * L + 1},
+            "long_500k": {"flash_attention": 0, "rmsnorm": 2 * L + 1},
+            "prefill_32k": {"flash_attention": L, "rmsnorm": 2 * L + 1},
+            "train_4k": {"flash_attention": 2 * L, "rmsnorm": 4 * L + 1}}
+    with hvd.init("cuda"):
+        groups = make_host_mesh()
+        params = T.init_params(qcfg, torch.Generator(device=dev).manual_seed(
+            0), device=dev, weight_dtype=torch.float32)
+        # (a), (e) ----------------------------------------------------------
+        runs = (("decode_32k", "bfloat16", None), ("decode_32k", "int8", None),
+                ("long_500k", "bfloat16", None),
+                ("prefill_32k", "bfloat16", None),
+                ("train_4k", "bfloat16", STEP_TRAIN_B))
+        for name, kv, B in runs:
+            base = SHAPES[name]
+            shape = InputShape(name, base.seq_len, B or base.global_batch,
+                               base.kind)
+            key = name + (" int8" if kv == "int8" else "")
+            label = (f"(a) qwen2-0.5b {key} (B {shape.global_batch} x S "
+                     f"{shape.seq_len}"
+                     + (f", batch cut from {base.global_batch}" if B else "")
+                     + ")")
+            res, launches = run_shape(torch, T, qcfg.with_(kv_cache_dtype=kv),
+                                      shape, dev, groups, counters, params,
+                                      label)
+            for k, n in want[key].items():
+                check(res["launches_per_call"].get(k, 0) == n,
+                      f"{label}: {k} launched "
+                      f"{res['launches_per_call'].get(k, 0)} times a call, "
+                      f"want {n}")
+            path = f"step {key} qwen2-0.5b"
+            for k in ("flash_attention", "flash_attention_int8kv"):
+                if launches[k]:
+                    e = by_name[k]
+                    e["launches_per_path"][path] = launches[k]
+                    e["launches"] = sum(e["launches_per_path"].values())
+            rms_paths[path] = launches["rmsnorm"]
+            out[key] = res
+            held_bytes(torch, dev)
+
+        # (c) the window is real at long_500k -------------------------------
+        shape = SHAPES["long_500k"]
+        args = _step_args(torch, qcfg, shape, dev, params, seed=1)
+        P = shape.seq_len - 1
+        args[1]["positions"].fill_(P)
+        windowed, _ = stepfn.make_step_for_shape(qcfg, groups, "dp_tp", shape)
+        full = stepfn.make_serve_step(qcfg, groups, "dp_tp", shape,
+                                      long_context=False)
+        a = windowed(*args)[0].clone()
+        old = P - qcfg.long_context_window + 1    # the oldest key it sees
+        for leaf in _leaves(args[1]["cache"]):
+            leaf[..., :old, :, :].normal_(0.0, 4.0)
+        b = windowed(*args)[0].clone()
+        c = full(*args)[0]
+        torch.cuda.synchronize()
+        moved = (c - b).abs().max().item()
+        out["window"] = {"bitwise_with_long_context": bool(torch.equal(a, b)),
+                         "max_change_without": moved}
+        print(f"(c) qwen2-0.5b long_500k at position {P}: positions < {old} "
+              f"filled with garbage: logits with long_context bit for bit "
+              f"{out['window']['bitwise_with_long_context']}; without it "
+              f"they move by {moved:.4f}", flush=True)
+        check(torch.equal(a, b), "(c) the window leaked: garbage outside it "
+              "moved the long_context logits")
+        check(moved > 1e-3, "(c) without long_context the garbage changed "
+              "nothing")
+        del args, a, b, c, params, windowed, full
+        held_bytes(torch, dev)
+
+        # (b) deepseek-coder-33b at long_500k, cut in depth -----------------
+        dfull = get_config("deepseek-coder-33b")
+        dcfg = dfull.with_(num_layers=STEP_DEEPSEEK_LAYERS)
+        dparams = T.init_params(dcfg, torch.Generator(device=dev).manual_seed(
+            0), device=dev, weight_dtype=torch.float32)
+        label = (f"(b) deepseek-coder-33b long_500k (d {dcfg.d_model}, "
+                 f"{dcfg.num_heads} / {dcfg.num_kv_heads} heads of "
+                 f"{dcfg.resolved_head_dim}, window "
+                 f"{dcfg.long_context_window} on every layer; cut from "
+                 f"{dfull.num_layers} to {dcfg.num_layers} layers)")
+        res, launches = run_shape(torch, T, dcfg, SHAPES["long_500k"], dev,
+                                  groups, counters, dparams, label)
+        check(res["launches_per_call"].get("rmsnorm", 0)
+              == 2 * dcfg.num_layers + 1, f"{label}: rmsnorm launches")
+        rms_paths["step long_500k deepseek-coder-33b"] = launches["rmsnorm"]
+        out["deepseek long_500k"] = res
+        del dparams
+        held_bytes(torch, dev)
+
+    # (d) card against CPU at 2 layers -------------------------------------
+    out["card_vs_cpu"] = step_card_vs_cpu(torch, T, qcfg.with_(num_layers=2),
+                                          dev)
+    by_name["rmsnorm"]["launches"] = sum(rms_paths.values())
+    return out
+
+
+def step_card_vs_cpu(torch, T, cfg, dev) -> dict:
+    """(d): the prefill step (B 2 x S 64) and the serve step (B 2, a cache
+    of 256, rows at 100 and 255; bf16 and int8 caches) at (1, 1) on the
+    card and on the CPU (gloo) from the same f32 weights and inputs: the
+    logits within ``CPU_LOGIT_TOL``."""
+    from repro_torch.configs.base import InputShape, synthesize_inputs
+    from repro_torch.core import hvd
+    from repro_torch.distributed import stepfn
+    from repro_torch.launch.mesh import make_host_mesh
+    params = T.init_params(cfg, torch.Generator().manual_seed(3),
+                           weight_dtype=torch.float32)
+    cases = {"prefill": (cfg, InputShape("prefill_32k", 64, 2, "prefill")),
+             "serve": (cfg, InputShape("decode_32k", 256, 2, "decode")),
+             "serve int8": (cfg.with_(kv_cache_dtype="int8"),
+                            InputShape("decode_32k", 256, 2, "decode"))}
+    got = {}
+    for where in (dev, "cpu"):
+        p = _map(params, lambda t: t.to(where))
+        with hvd.init(where):
+            groups = make_host_mesh()
+            for key, (c, shape) in cases.items():
+                batch = synthesize_inputs(c, shape,
+                                          torch.Generator().manual_seed(4))
+                if shape.kind == "decode":
+                    batch["positions"] = torch.tensor([100, 255],
+                                                      dtype=torch.int32)
+                batch = _map(batch, lambda t: t.to(where))
+                step, _ = stepfn.make_step_for_shape(c, groups, "dp_tp",
+                                                     shape, device=where)
+                o = step(p, batch)
+                got.setdefault(key, []).append(
+                    (o[0] if shape.kind == "decode" else o).float().cpu())
+    res = {}
+    for key, (card, cpu) in got.items():
+        err = (card - cpu).abs().max().item()
+        res[key] = err
+        check(bool(torch.isfinite(card).all()) and err <= CPU_LOGIT_TOL,
+              f"(d) {key}: card and CPU logits {err:.4f} apart")
+    print(f"(d) qwen2-0.5b at 2 layers, full width, card vs CPU: max |logit "
+          f"diff| " + json.dumps(res) + f" (tolerance {CPU_LOGIT_TOL})",
+          flush=True)
+    return res
 
 
 def sharded_data_formula(cfg, specs, params):
@@ -3500,13 +4027,14 @@ def sharded_phase(torch, F, T, dev, counters, by_name, rms_paths,
     out["d160"] = d160_phase(torch, F, fa, kops, kref, dev, rng,
                              by_name["flash_attention_d_tail"])
 
-    # (e) card against CPU at full width, 2 layers (one local / global pair)
+    # (e) card against CPU at full width, cut in depth
     out["card_vs_cpu"] = {}
     for arch, _ in SHARDED_RUNS:
         check(held_bytes(torch, dev) < 4 * 2**30,
               f"{arch}: memory held before the CPU check")
         out["card_vs_cpu"][arch] = sharded_card_vs_cpu(
-            torch, T, get_config(arch).with_(num_layers=2), dev)
+            torch, T, get_config(arch).with_(
+                num_layers=SHARDED_CPU_LAYERS[arch]), dev)
 
     # (f) the strategies at (1, 1) against dp, qwen2-0.5b at full width ----
     qcfg = get_config("qwen2-0.5b")
@@ -5283,6 +5811,15 @@ def main() -> int:
     by_name["rmsnorm"]["launches"] = sum(rms_paths.values())
     print(f"sharded phase {time.perf_counter() - t21:.1f} s: "
           + json.dumps(sharded), flush=True)
+
+    # 22. the steps by input shape -----------------------------------------
+    phase("the steps by input shape: qwen2-0.5b decode_32k (bf16, int8), "
+          "long_500k, prefill_32k, train_4k; deepseek-coder-33b long_500k; "
+          "the window; card vs CPU; the dry-run against the card")
+    t22 = time.perf_counter()
+    steps = step_phase(torch, T, dev, counters, by_name, rms_paths)
+    print(f"step phase {time.perf_counter() - t22:.1f} s: "
+          + json.dumps(steps), flush=True)
 
     # the D tail's launches over every path run (each zeroed just before
     # it): gemma2-27b's training in phase 21 (a)

@@ -3,9 +3,10 @@
 The numbers and defaults are the reference's, field for field, so a config
 resolves to the same shapes in both packages (gemma2-2b's head_dim, for
 example, resolves to 2304 / 8 = 288 here as in the reference).
-``InputShape``, ``input_specs`` and ``synthesize_inputs`` are the
-reference's definition of a batch: the same keys, shapes, dtypes and
-integer ranges, as ``(shape, dtype)`` pairs and tensors instead of JAX
+``InputShape``, ``SHAPES``, ``shape_skips``, ``input_specs`` and
+``synthesize_inputs`` are the reference's definition of a batch: the same
+four input shapes, the same skipped pairs, the same keys, shapes, dtypes
+and integer ranges, as ``(shape, dtype)`` pairs and tensors instead of JAX
 shape structs and arrays.
 """
 from __future__ import annotations
@@ -183,6 +184,30 @@ class InputShape:
     kind: str                         # train | prefill | decode
 
 
+SHAPES = {
+    "train_4k":    InputShape("train_4k",    4_096,   256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  InputShape("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   InputShape("long_500k",   524_288, 1,   "decode"),
+}
+
+
+def shape_skips(cfg: ModelConfig, shape: InputShape) -> Optional[str]:
+    """The reason ``(cfg, shape)`` is skipped, or None (the reference's
+    rule: ``long_500k`` is not run for the encdec family, nor for a dense
+    or vlm model with no window of any kind)."""
+    if shape.name == "long_500k":
+        if cfg.family == "encdec":
+            return ("enc-dec audio model: 500k-token decode has no audio "
+                    "analogue and decoder is pure full attention (see "
+                    "DESIGN.md)")
+        if cfg.family in ("dense", "vlm") and not (
+                cfg.local_global_pattern or cfg.sliding_window
+                or cfg.long_context_window):
+            return "pure full-attention arch without a sliding-window variant"
+    return None
+
+
 def input_specs(cfg: ModelConfig, shape: InputShape) -> dict:
     """The reference's ``input_specs`` as nested ``(shape, dtype)`` pairs.
 
@@ -230,13 +255,16 @@ def synthesize_inputs(cfg: ModelConfig, shape: InputShape,
     in ``[0, vocab_size)``, every other integer (positions) in ``[0,
     max(1, seq_len))``; float leaves N(0, 1) * 0.02 drawn in f32, then
     cast.  (The reference folds a hash of each leaf's path into its key;
-    the numbers differ, the shapes, dtypes and ranges do not.)"""
+    the numbers differ, the shapes, dtypes and ranges do not.)  A
+    generator on the card draws a leaf of more than two dims one slice of
+    its leading axis at a time into the leaf (as ``modules.drawer``), so a
+    full-size decode cache (51.5 GB at ``decode_32k`` for qwen2-0.5b) is
+    never held as f32 or int64 whole."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     gdev = generator.device
 
-    def fill(path, spec):
-        shp, dtype = spec
+    def draw(path, shp, dtype):
         if not dtype.is_floating_point:
             hi = (cfg.vocab_size if "token" in path or "label" in path
                   else max(1, shape.seq_len))
@@ -246,6 +274,15 @@ def synthesize_inputs(cfg: ModelConfig, shape: InputShape,
             t = torch.randn(shp, generator=generator, device=gdev,
                             dtype=torch.float32) * 0.02
         return t.to(device=device, dtype=dtype)
+
+    def fill(path, spec):
+        shp, dtype = spec
+        if gdev.type == "cpu" or len(shp) <= 2:
+            return draw(path, shp, dtype)
+        out = torch.empty(shp, dtype=dtype, device=device)
+        for part in out:
+            part.copy_(draw(path, part.shape, dtype))
+        return out
 
     def walk(prefix, tree):
         if isinstance(tree, dict):

@@ -4,8 +4,9 @@
 M-RoPE (temporal/height/width sections 16/24/24 of head_dim/2=64); the
 ViT/projector frontend is a stub, as in the reference: ``input_specs``
 provides (B, 256, 8192) patch embeddings, prepended to the text.
-``long_context_window`` is the reference's number; the port has no
-long-context variant, so nothing reads it.
+``long_context_window`` is the reference's number, read by the
+long-context variant (``transformer.layer_pattern(cfg, long_context=True)``,
+the ``long_500k`` shape).
 """
 from repro_torch.configs.base import ModelConfig
 

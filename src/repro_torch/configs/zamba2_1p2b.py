@@ -3,8 +3,8 @@
 38L Mamba2 backbone, d_model=2048, ssm_state=64; one weight-SHARED
 attention+MLP block (32H, kv=32 MHA, d_ff=8192) applied every 6 mamba
 layers (6 groups of 6 + 2 tail mamba layers).  ``long_context_window``
-is the reference's number; the port has no long-context variant, so
-nothing reads it.
+is the reference's number: the shared block's window under the
+long-context variant (the ``long_500k`` shape).
 """
 from repro_torch.configs.base import ModelConfig
 

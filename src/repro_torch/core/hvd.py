@@ -31,6 +31,12 @@ reduce_scatter) and :func:`reduce_scatter_dim` over ``data``; Megatron's
 :func:`scatter_to_group` and :func:`gather_from_group` over ``model``;
 :func:`mean_over_group` for a statistic of the whole global batch.  This
 module stays the port's one entry to ``torch.distributed``.
+
+:func:`abstract_groups` lays out a world that does not exist (the dry-run's
+production meshes, ``launch/dryrun.py``): one rank's groups with their
+rank lists and no process group.  Every collective counts on them exactly
+as on a real group and returns an output of the right shape without
+communicating; they take ``meta`` tensors only.
 """
 from __future__ import annotations
 
@@ -167,16 +173,35 @@ def run_ranks(prog: str, world: int, out, *args: str, device="cpu",
 # Groups: the mesh axes
 # ---------------------------------------------------------------------------
 
+ABSTRACT = object()     # the process group of an abstract layout's groups
+
+
 class Group:
     """This rank's communicator over some axes of the layout, with the
     counts of what this rank handed its collectives: in all (``calls``,
-    ``bytes``) and by kind of collective (``kinds``)."""
+    ``bytes``) and by kind of collective (``kinds``).  ``pg`` is
+    :data:`ABSTRACT` for a group of :func:`abstract_groups`, whose world
+    rank ``me`` is given."""
 
-    def __init__(self, axes: Tuple[str, ...], ranks: List[int], pg):
+    def __init__(self, axes: Tuple[str, ...], ranks: List[int], pg,
+                 me: Optional[int] = None):
         self.axes, self.ranks, self.pg = axes, ranks, pg
         self.size = len(ranks)
-        self.rank = ranks.index(dist.get_rank())
+        self.rank = ranks.index(dist.get_rank() if me is None else me)
         self.reset()
+
+    def live(self, *ts: torch.Tensor) -> bool:
+        """Whether a collective on ``ts`` communicates: always on a real
+        group; never on an abstract one, which takes ``meta`` tensors
+        only and raises on any other."""
+        if self.pg is not ABSTRACT:
+            return True
+        for t in ts:
+            if t.device.type != "meta":
+                raise ValueError(
+                    f"an abstract group ({self.axes}) takes meta tensors "
+                    f"only, got one on {t.device}")
+        return False
 
     def reset(self) -> None:
         self.calls = 0
@@ -197,9 +222,13 @@ class Group:
         (each collective's output shape in the compiled program): an
         all_gather gives ``size`` x what it was handed, a reduce_scatter
         1 / ``size``, an all_reduce or a broadcast as much."""
+        return sum(self.output_bytes_by_kind().values())
+
+    def output_bytes_by_kind(self) -> Dict[str, int]:
+        """:meth:`output_bytes` by kind of collective."""
         scale = {"all_gather": self.size, "reduce_scatter": 1 / self.size}
-        return int(sum(n * scale.get(kind, 1)
-                       for kind, (_, n) in self.kinds.items()))
+        return {kind: int(n * scale.get(kind, 1))
+                for kind, (_, n) in self.kinds.items()}
 
 
 class Groups:
@@ -237,20 +266,14 @@ class Groups:
             g.reset()
 
 
-def axis_groups(shape: Dict[str, int]) -> Groups:
-    """Lay the world out row-major over ``shape`` (the last axis fastest,
-    like MPI ranks on a Cartesian communicator) and make this rank's group
-    for each set of axes.  Every rank makes every group, in one order, as
-    ``dist.new_group`` requires."""
+def _layout(shape: Dict[str, int], me: int, new_group) -> Groups:
+    """Rank ``me``'s group for each set of axes of the row-major layout
+    ``shape``.  ``new_group(ranks)`` makes each group's process group
+    (called for every group of the world, in one order); None makes
+    :data:`ABSTRACT` groups, this rank's alone."""
     sizes = list(shape.values())
-    n = 1
-    for s in sizes:
-        n *= s
-    if n != dist.get_world_size():
-        raise ValueError(f"layout {shape} holds {n} ranks; the world has "
-                         f"{dist.get_world_size()}")
     coords = list(itertools.product(*(range(s) for s in sizes)))
-    me = coords[dist.get_rank()]
+    mine = coords[me]
     names = list(shape)
     groups = {}
     for k in range(1, len(names) + 1):
@@ -260,12 +283,41 @@ def axis_groups(shape: Dict[str, int]) -> Groups:
             def key(c):
                 return tuple(c[i] for i in range(len(c)) if i not in free)
 
-            for fixed in sorted({key(c) for c in coords}):
+            for fixed in (sorted({key(c) for c in coords})
+                          if new_group else [key(mine)]):
                 ranks = [r for r, c in enumerate(coords) if key(c) == fixed]
-                pg = dist.new_group(ranks)
-                if key(me) == fixed:
-                    groups[axes] = Group(axes, ranks, pg)
+                pg = new_group(ranks) if new_group else ABSTRACT
+                if key(mine) == fixed:
+                    groups[axes] = Group(axes, ranks, pg, me)
     return Groups(tuple(names), groups)
+
+
+def axis_groups(shape: Dict[str, int]) -> Groups:
+    """Lay the world out row-major over ``shape`` (the last axis fastest,
+    like MPI ranks on a Cartesian communicator) and make this rank's group
+    for each set of axes.  Every rank makes every group, in one order, as
+    ``dist.new_group`` requires."""
+    n = 1
+    for s in shape.values():
+        n *= s
+    if n != dist.get_world_size():
+        raise ValueError(f"layout {shape} holds {n} ranks; the world has "
+                         f"{dist.get_world_size()}")
+    return _layout(shape, dist.get_rank(), dist.new_group)
+
+
+def abstract_groups(shape: Dict[str, int], rank: int = 0) -> Groups:
+    """Rank ``rank``'s groups of the row-major layout ``shape``, for every
+    set of axes, with their ``ranks`` lists and no process group (no
+    ``init_process_group``, at any size).  Their collectives count as on
+    real groups and return outputs of the right shape, on ``meta``
+    tensors only (``Group.live``)."""
+    n = 1
+    for s in shape.values():
+        n *= s
+    if not 0 <= rank < n:
+        raise ValueError(f"rank {rank} outside the layout {shape}")
+    return _layout(shape, rank, None)
 
 
 def rank(group: Group) -> int:
@@ -320,7 +372,8 @@ def allreduce(tree, group: Group, average: bool = True):
         if average:
             _mean_dtype_check(buf)
         group.count(buf, "all_reduce")
-        dist.all_reduce(buf, group=group.pg)
+        if group.live(buf):
+            dist.all_reduce(buf, group=group.pg)
         return buf.div_(group.size) if average else buf
     return _fused(tree, op)
 
@@ -332,7 +385,8 @@ def allgather(tree, group: Group):
         t = t.reshape(1) if t.ndim == 0 else t.contiguous()
         out = t.new_empty((group.size * t.shape[0],) + tuple(t.shape[1:]))
         group.count(t, "all_gather")
-        _all_gather(out, t, group=group.pg)
+        if group.live(t):
+            _all_gather(out, t, group=group.pg)
         return out
     return tree_map(g, tree)
 
@@ -353,12 +407,15 @@ def hierarchical_allreduce(tree, inner: Group, outer: Group,
             buf = torch.cat([buf, buf.new_zeros(pad)])
         shard = buf.new_empty(buf.numel() // inner.size)
         inner.count(buf, "reduce_scatter")
-        _reduce_scatter(shard, buf, group=inner.pg)
+        if inner.live(buf):
+            _reduce_scatter(shard, buf, group=inner.pg)
         outer.count(shard, "all_reduce")
-        dist.all_reduce(shard, group=outer.pg)
+        if outer.live(shard):
+            dist.all_reduce(shard, group=outer.pg)
         full = torch.empty_like(buf)
         inner.count(shard, "all_gather")
-        _all_gather(full, shard, group=inner.pg)
+        if inner.live(shard):
+            _all_gather(full, shard, group=inner.pg)
         full = full[:n]
         return full.div_(inner.size * outer.size) if average else full
     return _fused(tree, op)
@@ -369,7 +426,8 @@ def broadcast(tree, group: Group, root: int = 0):
     initial-variable broadcast): one ``broadcast`` per dtype."""
     def op(buf):
         group.count(buf, "broadcast")
-        dist.broadcast(buf, src=group.ranks[root], group=group.pg)
+        if group.live(buf):
+            dist.broadcast(buf, src=group.ranks[root], group=group.pg)
         return buf
     return _fused(tree, op)
 
@@ -379,7 +437,8 @@ def all_reduce_max(t: torch.Tensor, group: Group) -> torch.Tensor:
     vocab-parallel cross-entropy's shift)."""
     t = t.detach().clone()
     group.count(t, "all_reduce")
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group.pg)
+    if group.live(t):
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group.pg)
     return t
 
 
@@ -396,7 +455,8 @@ def gather_dim(t: torch.Tensor, dim: int, group: Group) -> torch.Tensor:
     t0 = t.movedim(dim, 0).contiguous()
     out = t0.new_empty((group.size * t0.shape[0],) + tuple(t0.shape[1:]))
     group.count(t0, "all_gather")
-    _all_gather(out, t0, group=group.pg)
+    if group.live(t0):
+        _all_gather(out, t0, group=group.pg)
     return out.movedim(0, dim).contiguous()
 
 
@@ -409,7 +469,8 @@ def _scatter_dim(t: torch.Tensor, dim: int, group: Group) -> torch.Tensor:
                          f"over {group.size} ranks")
     out = t0.new_empty((t0.shape[0] // group.size,) + tuple(t0.shape[1:]))
     group.count(t0, "reduce_scatter")
-    _reduce_scatter(out, t0, group=group.pg)
+    if group.live(t0):
+        _reduce_scatter(out, t0, group=group.pg)
     return out.movedim(0, dim).contiguous()
 
 
@@ -421,7 +482,8 @@ def _slice_dim(t: torch.Tensor, dim: int, group: Group) -> torch.Tensor:
 def _sum(t: torch.Tensor, group: Group) -> torch.Tensor:
     t = t.contiguous().clone()
     group.count(t, "all_reduce")
-    dist.all_reduce(t, group=group.pg)
+    if group.live(t):
+        dist.all_reduce(t, group=group.pg)
     return t
 
 

@@ -1,6 +1,10 @@
-"""The training step (counterpart of
-``repro.distributed.stepfn.make_train_step``), under the reference's three
-strategies (``distributed.sharding``).
+"""The step builders by input shape (counterpart of
+``repro.distributed.stepfn``): the training step under the reference's
+three strategies (``distributed.sharding``), the prefill step (the
+full-sequence forward that emits only the last position's logits) and
+the serve step (one token against a ``seq_len`` cache, written in place),
+and :func:`make_step_for_shape`, which picks one for a
+``configs.base.SHAPES`` entry.
 
 ``step(params, opt_state, batch) -> (params, opt_state, metrics)`` on a
 process-group layout (``core/hvd.py``; ``launch.mesh``), at every world
@@ -37,6 +41,11 @@ def params_struct(cfg):
     memory (the reference's ``jax.eval_shape`` of ``init_params``)."""
     return T.init_params(cfg, torch.Generator(), device="meta",
                          weight_dtype=torch.float32)
+
+
+def opt_state_struct(cfg, optimizer):
+    """The optimizer's state over :func:`params_struct`, on ``meta``."""
+    return optimizer.init(params_struct(cfg))
 
 
 def value_and_grad(loss_fn, params, batch):
@@ -94,7 +103,8 @@ def _grads(loss_fn, params, batch, microbatches: int, device):
 
 def make_train_step(cfg, optimizer, groups, *, strategy: str = "dp",
                     loss_variant: str = "plain", seq_chunk: int = 512,
-                    microbatches: int = 1, device="cuda"):
+                    microbatches: int = 1, device="cuda",
+                    long_context: bool = False, local_rows: bool = False):
     """Returns ``step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` under ``strategy`` on ``groups`` (an ``hvd.axis_groups``
     layout, made inside ``hvd.init``; ``launch.mesh.make_mesh``).  ``dp``
@@ -127,7 +137,12 @@ def make_train_step(cfg, optimizer, groups, *, strategy: str = "dp",
     ~36: params, AdamW state, the gradients and their fused all_reduce
     buffer, all f32), which is what lets a full-width qwen2-vl-72b layer
     train on one card.  An optimizer without one (SGD, RMSProp) updates
-    functionally and returns new trees."""
+    functionally and returns new trees.
+
+    ``long_context``: the losses' (``transformer.layer_pattern``).
+    ``local_rows``: the step takes this rank's rows, already cut and on
+    the device (:func:`make_step_for_shape`'s convention), in place of
+    the global batch."""
     from repro_torch.core import hvd        # hvd imports this module
     from repro_torch.serving.engine import resolve_device
 
@@ -135,7 +150,7 @@ def make_train_step(cfg, optimizer, groups, *, strategy: str = "dp",
         return make_sharded_train_step(
             cfg, optimizer, groups, strategy=strategy,
             loss_variant=loss_variant, microbatches=microbatches,
-            device=device)
+            device=device, long_context=long_context, local_rows=local_rows)
     device = resolve_device(device)
     if loss_variant not in ("plain", "chunked_ce"):
         raise ValueError(f"unknown loss_variant {loss_variant!r}")
@@ -143,8 +158,9 @@ def make_train_step(cfg, optimizer, groups, *, strategy: str = "dp",
 
     def loss_fn(p, b):
         if loss_variant == "chunked_ce":
-            return T.lm_loss_chunked(p, cfg, b, seq_chunk=seq_chunk)
-        return T.lm_loss(p, cfg, b)
+            return T.lm_loss_chunked(p, cfg, b, seq_chunk=seq_chunk,
+                                     long_context=long_context)
+        return T.lm_loss(p, cfg, b, long_context=long_context)
 
     def step(params, opt_state, batch: Dict[str, Any]):
         B = batch["tokens"].shape[0]
@@ -153,8 +169,11 @@ def make_train_step(cfg, optimizer, groups, *, strategy: str = "dp",
                              f"data axis {data.size} x microbatches "
                              f"{microbatches}")
         n = B // data.size
-        batch = {k: torch.as_tensor(_rows(k, v, data.rank * n, n)).to(device)
-                 for k, v in batch.items()}
+        return local(params, opt_state, {
+            k: torch.as_tensor(_rows(k, v, data.rank * n, n)).to(device)
+            for k, v in batch.items()})
+
+    def local(params, opt_state, batch: Dict[str, Any]):
         loss, metrics, grads = _grads(loss_fn, params, batch, microbatches,
                                       device)
         # rebinding ``grads`` frees the rank's own gradients before the
@@ -170,7 +189,7 @@ def make_train_step(cfg, optimizer, groups, *, strategy: str = "dp",
         metrics = hvd.allreduce(dict(metrics, loss=loss), data)
         return params, opt_state, dict(metrics, grad_norm=grad_norm)
 
-    return step
+    return local if local_rows else step
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +198,9 @@ def make_train_step(cfg, optimizer, groups, *, strategy: str = "dp",
 
 def make_sharded_train_step(cfg, optimizer, groups, *, strategy: str,
                             loss_variant: str = "plain",
-                            microbatches: int = 1, device="cuda"):
+                            microbatches: int = 1, device="cuda",
+                            long_context: bool = False,
+                            local_rows: bool = False):
     """The ``dp_tp`` / ``fsdp_tp`` step on ``groups`` (axes ``data`` and
     ``model``, optionally ``pod`` before them).  ``params`` and
     ``opt_state`` are this rank's shards (``shard_state``); ``batch`` is
@@ -198,7 +219,8 @@ def make_sharded_train_step(cfg, optimizer, groups, *, strategy: str,
     counted on the ranks at coordinate 0 of the axes it is replicated
     over, all_reduced over the world.  AdamW updates in place
     (``update_in_place``), shard by shard.  metrics: ``loss`` and the
-    loss's metrics averaged over the data axes, ``grad_norm``."""
+    loss's metrics averaged over the data axes, ``grad_norm``.
+    ``local_rows``: as :func:`make_train_step`'s."""
     from repro_torch.core import hvd
     from repro_torch.serving.engine import resolve_device
 
@@ -220,7 +242,8 @@ def make_sharded_train_step(cfg, optimizer, groups, *, strategy: str,
                        batch=dgroup)
 
     def loss_fn(p, b):
-        return T.lm_loss(p, cfg, b, shards=shards)
+        return T.lm_loss(p, cfg, b, shards=shards,
+                         long_context=long_context)
 
     def rows(batch):
         """This rank's rows of the global batch (``batch_pspec``)."""
@@ -256,7 +279,9 @@ def make_sharded_train_step(cfg, optimizer, groups, *, strategy: str,
         return torch.sqrt(hvd.allreduce(total, groups.world, average=False))
 
     def step(params, opt_state, batch: Dict[str, Any]):
-        batch = rows(batch)
+        return local(params, opt_state, rows(batch))
+
+    def local(params, opt_state, batch: Dict[str, Any]):
         n = batch["tokens"].shape[0]
         if n % microbatches:
             raise ValueError(f"{n} rows a rank are not a multiple of "
@@ -276,7 +301,7 @@ def make_sharded_train_step(cfg, optimizer, groups, *, strategy: str,
         return params, opt_state, dict(metrics, grad_norm=grad_norm)
 
     step.specs = specs
-    return step
+    return local if local_rows else step
 
 
 def _flat(tree, specs, prefix=""):
@@ -312,3 +337,133 @@ def shard_state(params, cfg, optimizer, strategy: str, groups):
     pspec, _ = state_specs(cfg, optimizer, strategy, groups)
     local = sh.shard(params, pspec, groups)
     return local, optimizer.init(local)
+
+
+# ---------------------------------------------------------------------------
+# Prefill and serve steps (inference)
+# ---------------------------------------------------------------------------
+
+def _inference_shards(cfg, groups, strategy: str, cache_specs=None):
+    """The ``modules.Shards`` an inference step runs its layers with:
+    None under ``dp`` (every rank holds the whole model and its own rows),
+    else this rank's params' specs over ``model`` (and ``data`` under
+    ``fsdp_tp``), with no batch group (no statistic of the batch is
+    taken) and the cache's specs for the serve step."""
+    if strategy == "dp":
+        if groups.shape.get("model", 1) != 1:
+            raise NotImplementedError(
+                "an inference step under dp runs on a layout whose model "
+                "axis is 1")
+        return None
+    if strategy not in ("dp_tp", "fsdp_tp"):
+        raise ValueError(f"unknown strategy {strategy!r}")
+    specs = sh.params_pspec(params_struct(cfg), cfg, strategy, groups)
+    return nn.Shards(specs, groups["model"],
+                     groups["data"] if strategy == "fsdp_tp" else None,
+                     groups=groups, cache=cache_specs)
+
+
+def _batch_specs(cfg, groups, strategy: str, shape):
+    from repro_torch.configs.base import input_specs
+    return sh.batch_pspec(input_specs(cfg, shape), groups, cfg, shape,
+                          strategy)
+
+
+def make_prefill_step(cfg, groups, strategy: str, shape, *,
+                      long_context: bool = False, device="cuda"):
+    """``step(params, batch) -> logits (b, 1, V) f32``: the full-sequence
+    forward of this rank's rows, unembedding only the last position
+    (``forward(last_only=True)``), under ``torch.no_grad``, tensor
+    parallel where ``strategy`` shards (``dp_tp`` / ``fsdp_tp``), the
+    vocabulary's slices all-gathered so every rank holds whole logits.
+    ``params`` are this rank's shards, ``batch`` its rows (cut from the
+    global batch by ``sharding.batch_pspec``, the ``specs`` that
+    :func:`make_step_for_shape` returns); the batch is moved to
+    ``device``."""
+    from repro_torch.serving.engine import resolve_device
+    device = resolve_device(device)
+    shards = _inference_shards(cfg, groups, strategy)
+
+    def step(params, batch):
+        batch = {k: v.to(device) for k, v in batch.items()}
+        with torch.no_grad():
+            logits, _ = T.forward(params, cfg, batch, last_only=True,
+                                  shards=shards, long_context=long_context)
+            return T.gather_vocab(cfg, logits, shards)
+
+    return step
+
+
+def make_serve_step(cfg, groups, strategy: str, shape, *,
+                    long_context: bool = False, device="cuda"):
+    """``step(params, batch) -> (logits (b, 1, V) f32, cache)``: one
+    token per row against a ``shape.seq_len`` dense cache
+    (``transformer.decode_step``), the cache written in place (the
+    reference donates it, ``donate_argnums=(1,)``: one copy of it is
+    held).  ``params`` are this rank's shards; ``batch`` holds this
+    rank's rows of tokens and positions and its shard of the cache by
+    ``sharding.batch_pspec`` (the ``specs`` that
+    :func:`make_step_for_shape` returns), whose layout the attention follows (heads over
+    ``model``, the sequence over a group, or whole); the logits are whole
+    on every rank.  Tokens and positions are moved to ``device``; the
+    cache must be there."""
+    from repro_torch.serving.engine import resolve_device
+    device = resolve_device(device)
+    bspec = _batch_specs(cfg, groups, strategy, shape)
+    shards = _inference_shards(cfg, groups, strategy, bspec["cache"])
+
+    def step(params, batch):
+        batch = {k: (v if k == "cache" else v.to(device))
+                 for k, v in batch.items()}
+        return T.decode_step(params, cfg, batch, shards=shards,
+                             long_context=long_context)
+
+    return step
+
+
+def make_step_for_shape(cfg, groups, strategy: str, shape, optimizer=None,
+                        *, device="cuda"):
+    """The step of ``shape``'s kind (``configs.base.SHAPES``) and the
+    structs of its arguments: ``(step, structs)``.  ``long_context`` is
+    set exactly for ``long_500k``.  Every step takes this rank's rows
+    (and cache shard), cut from the global batch by ``structs["specs"]
+    ["batch"]``.  train: ``step(params, opt_state, batch)``
+    (``make_train_step`` with ``local_rows``), AdamW at 1e-4 unless
+    ``optimizer`` is given; prefill: ``step(params, batch)``; decode: the
+    serve step.  ``structs``: this rank's local
+    ``params``, ``opt_state`` (train only) and ``batch`` as ``meta``
+    tensors, cut by the specs, and their ``specs``."""
+    from repro_torch.configs.base import input_specs
+    long_context = shape.name == "long_500k"
+    pstruct = params_struct(cfg)
+    pspec = sh.params_pspec(pstruct, cfg, strategy, groups)
+    bstruct = input_specs(cfg, shape)
+    bspec = _batch_specs(cfg, groups, strategy, shape)
+    mesh = groups.shape
+    structs = {"params": _local_meta(pstruct, pspec, mesh),
+               "batch": _local_meta(bstruct, bspec, mesh),
+               "specs": {"params": pspec, "batch": bspec}}
+    if shape.kind == "train":
+        optimizer = optimizer or optim.adamw(1e-4)
+        ostruct = optimizer.init(pstruct)
+        ospec = sh.opt_state_pspec(ostruct, pspec)
+        structs["opt_state"] = _local_meta(ostruct, ospec, mesh)
+        structs["specs"]["opt_state"] = ospec
+        return make_train_step(cfg, optimizer, groups, strategy=strategy,
+                               device=device, long_context=long_context,
+                               local_rows=True), structs
+    make = make_prefill_step if shape.kind == "prefill" else make_serve_step
+    return make(cfg, groups, strategy, shape, long_context=long_context,
+                device=device), structs
+
+
+def _local_meta(tree, specs, mesh_shape):
+    """``meta`` tensors of each leaf's local shape (tensors or ``(shape,
+    dtype)`` pairs)."""
+    if isinstance(tree, dict):
+        return {k: _local_meta(v, specs[k], mesh_shape)
+                for k, v in tree.items()}
+    shape, dtype = ((tree[0], tree[1]) if isinstance(tree, tuple)
+                    else (tuple(tree.shape), tree.dtype))
+    return torch.empty(sh.local_shape(specs, tuple(shape), mesh_shape),
+                       dtype=dtype, device="meta")

@@ -25,6 +25,13 @@ kernel.  :data:`counters` holds them all, so a captured CUDA graph
 (``serving/programs.py``), whose replays run no Python, can read what its
 capture launched and add that per replay.
 
+The ``meta`` device: every wrapper takes ``meta`` tensors too, for the
+dry-run's accounting (``launch/dryrun.py``).  There it launches nothing
+and counts no launch: it allocates the kernel's outputs and workspaces as
+``meta`` tensors (so a memory count sees them) and adds the work of the
+call, from the ``cost`` function beside each kernel, to
+:data:`meta_cost`.
+
 Nothing here runs at import: the CPU tests import every module of the port on
 a machine with no ``nvcc``.
 """
@@ -138,6 +145,31 @@ def check(status: int, what: str) -> None:
     """Raise on a nonzero ``cudaGetLastError()`` from a launch."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {status}")
+
+
+class MetaCost:
+    """The work the kernels' ``meta`` routes stood for since the last
+    :meth:`reset`: ``flops`` and ``bytes`` in all, and ``by_kernel``
+    ``{wrapper: [calls, bytes, flops]}``."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.flops = 0
+        self.bytes = 0
+        self.by_kernel: Dict[str, list] = {}
+
+    def add(self, name: str, nbytes: int, flops: int) -> None:
+        self.bytes += int(nbytes)
+        self.flops += int(flops)
+        k = self.by_kernel.setdefault(name, [0, 0, 0])
+        k[0] += 1
+        k[1] += int(nbytes)
+        k[2] += int(flops)
+
+
+meta_cost = MetaCost()
 
 
 def counted(fn: Callable) -> Callable:

@@ -11,7 +11,9 @@ their bound and design.
 
 ``flash_attention`` dispatches on the device of ``q``: a CPU tensor goes
 through the plain version (``repro_torch.kernels.ref.attention_ref``), a
-CUDA tensor launches a kernel or raises.  Which kernel is a rule on dtype
+CUDA tensor launches a kernel or raises, a ``meta`` tensor allocates what
+the CUDA route allocates (the padded copies of a D tail, out, lse) and
+adds :func:`cost` to ``_build.meta_cost``.  Which kernel is a rule on dtype
 and head dim (:func:`tensor_core_route`): bf16 whose (padded) D is one of
 ``TENSOR_CORE_HEAD_DIMS`` (32-128, and 160 for gemma2-27b's 144) runs the
 tensor-core kernel (mma.sync, P rounded to bf16 for the PV product), f32
@@ -34,8 +36,12 @@ per-token scales, dequantized after the load, plus per-row query positions
 (``q_start``, ``kv_len``) for the dense int8 decode cache.  Its kernel
 (``csrc/flash_attention_int8kv.cu``) splits the key axis by
 :func:`int8_split_plan` (shapes only) and merges the splits' partials in a
-second kernel of the same call.  It dispatches and counts the same way; its
-plain version is ``ref.attention_int8kv_ref``.
+second kernel of the same call.  It dispatches and counts the same way
+(:func:`int8_cost`); its plain version is ``ref.attention_int8kv_ref``.
+With ``return_lse`` it also returns each row's log-sum-exp, computed from
+the partials' (m, l) that the split kernel writes (the combine's own
+weights), in PyTorch after the launch: the serve step's merge of
+sequence slices needs it.
 
 The backward (``flash_attention_bwd``) is PyTorch on any device: the JAX
 package has no backward kernel (its gradient is XLA's autodiff of the jnp
@@ -92,6 +98,53 @@ def _entry_tc():
         fn.restype = ctypes.c_int
         _fn_tc = fn
     return _fn_tc
+
+
+def _pairs(Sq: int, Skv: int, causal: bool, window: Optional[int]) -> int:
+    """(query, key) pairs a flash call attends: query t sees keys ``<= t``
+    under ``causal`` and within ``window``."""
+    import numpy as np
+    t = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(t + 1, Skv) if causal else np.full(Sq, Skv, np.int64)
+    lo = np.maximum(t - window + 1, 0) if window else np.zeros(Sq, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def cost(B: int, Sq: int, Skv: int, H: int, KV: int, D: int, *,
+         causal: bool = True, window: Optional[int] = None,
+         itemsize: int = 2):
+    """(bytes, flops) of one flash forward: q, k, v read once, out and lse
+    written once; 4 flops per (query head, attended key, dim), counting
+    the keys each query attends under the causal and window masks."""
+    nbytes = (itemsize * (2 * B * Sq * H * D + 2 * B * Skv * KV * D)
+              + 4 * B * H * Sq)
+    return nbytes, 4 * B * H * D * _pairs(Sq, Skv, causal, window)
+
+
+def int8_cost(B: int, Sq: int, H: int, KV: int, D: int, Skv: int, *,
+              q_start=None, kv_len=None, window: Optional[int] = None,
+              itemsize: int = 2, scale_bytes: int = 2):
+    """(bytes, flops) of one int8 call: q and out once, and per row the
+    int8 K and V codes and their scales of the keys its queries can reach
+    (kv_len, causal, the window) once per kv head; 4 flops per (query
+    head, attended key, dim).  ``q_start`` / ``kv_len``: each row's; None
+    counts every row's queries at the end of the cache (``q_start = Skv -
+    Sq``, ``kv_len = Skv``: the most the shapes can need, the ``meta``
+    route's count)."""
+    if q_start is None:
+        q_start, kv_len = [max(0, Skv - Sq)] * B, [Skv] * B
+    w = window
+    keys = attended = 0
+    for qs, n in zip(q_start, kv_len):
+        def span(p):
+            return (max(0, p - w + 1) if w else 0, min(n, Skv, p + 1))
+        lo, hi = span(qs)[0], span(qs + Sq - 1)[1]
+        keys += max(0, hi - lo)
+        attended += sum(max(0, b - a) for a, b in
+                        map(span, range(qs, qs + Sq)))
+    q_bytes = B * Sq * H * D * itemsize
+    nbytes = 2 * q_bytes + keys * KV * (2 * D + 2 * scale_bytes) + 8 * B
+    return nbytes, 4 * H * D * attended
 
 
 def tensor_core_route(dtype: torch.dtype, D: int) -> bool:
@@ -289,10 +342,16 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, scale=scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     _check_cuda(q, k, v)
     kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
+    if q.device.type == "meta":
+        B, Sq, H, D = q.shape
+        _build.meta_cost.add("flash_attention", *cost(
+            B, Sq, k.shape[1], H, k.shape[2], D, causal=causal,
+            window=window, itemsize=q.element_size()))
+        return run_padded(_flash_launch, q, k, v, **kw)
     if padded_head_dim(q.shape[-1]) != q.shape[-1]:
         out, lse = flash_d_tail(q, k, v, **kw)
     else:
@@ -317,6 +376,8 @@ def _flash_launch(q, k, v, *, scale, causal, window, softcap):
     B, Sq, H, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        return out, lse
     launch = (flash_fwd_tensor_core if tensor_core_route(q.dtype, D)
               else flash_fwd_cuda_core)
     launch(q, k, v, out, lse, scale, causal, window, softcap)
@@ -460,7 +521,8 @@ def flash_attention_int8kv(q, k8, k_scale, v8, v_scale, q_start, kv_len, *,
                            causal: bool = True,
                            window: Optional[int] = None,
                            softcap: Optional[float] = None,
-                           scale: Optional[float] = None):
+                           scale: Optional[float] = None,
+                           return_lse: bool = False):
     """Attention over int8 K/V with per-token scales and per-row query
     positions (forward only: the reference has no gradient through it).
 
@@ -470,14 +532,17 @@ def flash_attention_int8kv(q, k8, k_scale, v8, v_scale, q_start, kv_len, *,
     Returns (B, Sq, H, D) in q's dtype; see ``ref.attention_int8kv_ref``
     for the function and its rounding.  A CPU tensor runs that plain
     version; a CUDA tensor launches ``csrc/flash_attention_int8kv.cu`` or
-    raises."""
+    raises; a ``meta`` tensor allocates the output and the partials and
+    adds :func:`int8_cost`.  ``return_lse``: ``(out, lse)``, lse (B, Sq,
+    H) f32 the log-sum-exp of each row's masked scores (-inf for a row
+    with no valid key), from the partials."""
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
     if q.device.type == "cpu":
         return attention_int8kv_ref(q, k8, k_scale, v8, v_scale, q_start,
-                                    kv_len, **kw)
-    if q.device.type != "cuda":
+                                    kv_len, return_lse=return_lse, **kw)
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(
             f"flash_attention_int8kv: no kernel for device {q.device}")
     _check_int8kv_cuda(q, k8, k_scale, v8, v_scale, q_start, kv_len)
@@ -493,6 +558,11 @@ def flash_attention_int8kv(q, k8, k_scale, v8, v_scale, q_start, kv_len, *,
                           device=q.device)
     part_acc = torch.empty((B, KV, splits, R, D), dtype=torch.float32,
                            device=q.device)
+    if q.device.type == "meta":
+        _build.meta_cost.add("flash_attention_int8kv", *int8_cost(
+            B, Sq, H, KV, D, Skv, window=window, itemsize=q.element_size(),
+            scale_bytes=k_scale.element_size()))
+        return (out, _int8_lse(part_ml, Sq)) if return_lse else out
     fn = _entry_int8kv()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -504,6 +574,24 @@ def flash_attention_int8kv(q, k8, k_scale, v8, v_scale, q_start, kv_len, *,
                     int(window or 0), float(softcap or 0.0), stream)
     _build.check(status, "flash_attention_int8kv")
     flash_attention_int8kv.launches += 1
-    return out
+    return (out, _int8_lse(part_ml, Sq)) if return_lse else out
+
+
+def _int8_lse(part_ml, Sq: int):
+    """Each row's log-sum-exp from the split kernel's partials
+    (``part_ml`` (B, KV, splits, Sq * G, 2): m and l = sum exp(s - m) of
+    each split, l = 0 for a split with no valid key): M + log sum_i l_i
+    exp(m_i - M) over the splits with l_i > 0, -inf where there is none.
+    Returns (B, Sq, KV * G)."""
+    m, l = part_ml[..., 0], part_ml[..., 1]
+    live = l > 0
+    M = torch.where(live, m, float("-inf")).amax(dim=2, keepdim=True)
+    Ms = torch.where(torch.isfinite(M), M, 0.0)
+    tot = torch.where(live, l * torch.exp(m - Ms), 0.0).sum(dim=2)
+    lse = torch.where(tot > 0, Ms[:, :, 0] + torch.log(tot), float("-inf"))
+    B, KV, R = lse.shape
+    G = R // Sq
+    return lse.reshape(B, KV, Sq, G).permute(0, 2, 1, 3).reshape(
+        B, Sq, KV * G)
 
 

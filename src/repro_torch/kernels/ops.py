@@ -47,7 +47,8 @@ def mha_flash_attention(q, k, v, *, causal: bool = True,
 def int8kv_attention(q, k8, k_scale, v8, v_scale, q_start, kv_len, *,
                      window: Optional[int] = None,
                      softcap: Optional[float] = None,
-                     scale: Optional[float] = None):
+                     scale: Optional[float] = None,
+                     return_lse: bool = False):
     """Model-layout causal attention over an int8 K/V cache (forward only).
 
     q: (B, Sq, H, D), H = G * KV; k8, v8: (B, Skv, KV, D) int8 (not
@@ -55,12 +56,14 @@ def int8kv_attention(q, k8, k_scale, v8, v_scale, q_start, kv_len, *,
     q_start: (B,) position of each row's first query; kv_len: (B,) keys
     valid per row (decode: ``q_start = pos``, ``kv_len = pos + 1``).
     Returns (B, Sq, H, D) in q's dtype.  The kernel takes the scales in
-    q's dtype: the cache's bf16 scales widen exactly for an f32 model."""
+    q's dtype: the cache's bf16 scales widen exactly for an f32 model.
+    ``return_lse``: ``(out, lse (B, Sq, H) f32)``, each row's log-sum-exp
+    (the merge of sequence slices, ``attention.merge_slices``)."""
     return _fa.flash_attention_int8kv(
         q.contiguous(), k8, k_scale.to(q.dtype), v8, v_scale.to(q.dtype),
         q_start.to(torch.int32).contiguous(),
         kv_len.to(torch.int32).contiguous(), causal=True, window=window,
-        softcap=softcap, scale=scale)
+        softcap=softcap, scale=scale, return_lse=return_lse)
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,

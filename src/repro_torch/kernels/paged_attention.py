@@ -12,7 +12,8 @@ decode path).  See the source's header for its bound and design.
 
 ``paged_attention`` dispatches on the device of ``q``: a CPU tensor goes
 through the plain version (``repro_torch.kernels.ref``), a CUDA tensor
-launches the kernels or raises.  The kernels take q and the pages in bf16
+launches the kernels or raises, a ``meta`` tensor allocates the output and
+the split's partials and adds :func:`cost` to ``_build.meta_cost``.  The kernels take q and the pages in bf16
 or in f32 (one dtype for all three; the source is instantiated on each,
 and a split holds half the pages in f32); the output is in q's dtype.
 ``paged_attention.launches`` counts wrapper calls that launched (each
@@ -67,6 +68,8 @@ _sm_counts = {}
 def device_sm_count(device) -> int:
     """The streaming multiprocessors of a CUDA ``device``, read once per
     device (the split plans size their grids by it)."""
+    if torch.device(device).type != "cuda":
+        return SM_COUNT                   # the meta route's plan
     idx = torch.device(device).index
     if idx is None:
         idx = torch.cuda.current_device()
@@ -75,6 +78,24 @@ def device_sm_count(device) -> int:
         n = _sm_counts[idx] = torch.cuda.get_device_properties(
             idx).multi_processor_count
     return n
+
+
+def cost(q_shape, pps: int, *, lengths=None, page: int = 0,
+         window: Optional[int] = None, itemsize: int = 2):
+    """(bytes, flops) a decode call needs (``q_shape`` (B, KV, G, D),
+    ``pps`` pages a row's table): q read and the output written once, the
+    K and V positions each row attends (window included) read once, the
+    lengths and tables; 4 flops per (query head, position, dim).
+    ``lengths``: each row's valid positions; None counts every row at its
+    table's full extent, ``pps * page`` (the most the shapes can need:
+    the ``meta`` route's count)."""
+    B, KV, G, D = q_shape
+    if lengths is None:
+        lengths = [pps * page] * B
+    pos = sum(min(n, window) if window else n for n in lengths)
+    q_bytes = B * KV * G * D * itemsize
+    nbytes = 2 * q_bytes + pos * KV * D * itemsize * 2 + B * 4 * (1 + pps)
+    return nbytes, 4 * pos * KV * G * D
 
 
 def split_plan(B: int, KV: int, pps: int, page: int, D: int,
@@ -156,7 +177,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
         return paged_attention_plain(q, k_pages, v_pages, block_tables,
                                      lengths, scale=scale, window=window,
                                      softcap=softcap)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"paged_attention: no kernel for device {q.device}")
     _check_cuda(q, k_pages, v_pages, block_tables, lengths=lengths)
     B, KV, G, D = q.shape
@@ -171,6 +192,11 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     out = torch.empty_like(q)
     _launch(q, k_pages, v_pages, block_tables, lengths, out, scale, window,
             softcap)
+    if q.device.type == "meta":
+        _build.meta_cost.add("paged_attention", *cost(
+            q.shape, block_tables.shape[1], page=k_pages.shape[1],
+            window=window, itemsize=q.element_size()))
+        return out
     paged_attention.launches += 1
     return out
 
@@ -188,6 +214,8 @@ def _launch(q, k_pages, v_pages, block_tables, lengths, out, scale, window,
                           device=q.device)
     part_acc = torch.empty((B, KV, splits, G, D), dtype=torch.float32,
                            device=q.device)
+    if q.device.type == "meta":
+        return
     fn = _entry(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -21,7 +21,9 @@ See the source's header for their bound and design.
 
 ``paged_prefill`` dispatches on the device of ``q``: a CPU tensor goes
 through the plain version (``repro_torch.kernels.ref``), a CUDA tensor
-launches a kernel or raises.  ``paged_prefill.launches`` counts every
+launches a kernel or raises, a ``meta`` tensor allocates the output (and
+the tensor-core route's partials) and adds :func:`cost` to
+``_build.meta_cost``.  ``paged_prefill.launches`` counts every
 launch; ``prefill_tensor_core.launches`` and ``prefill_cuda_core.launches``
 count each kernel's.
 """
@@ -91,6 +93,34 @@ def p_rounding(dtype: torch.dtype, D: int) -> float:
     return 2.0 ** -8 if tensor_core_route(dtype, D) else 2.0 ** -14
 
 
+def cost(q_shape, group: int, pps: int, *, starts=None, q_lens=None,
+         page: int = 0, window: Optional[int] = None, itemsize: int = 2):
+    """(bytes, flops) a prefill call needs (``q_shape`` (B, KV, C * G,
+    D), ``pps`` pages a row's table): q read and the output written once,
+    each row's reachable history read once; 4 flops per (query head,
+    attended key, dim), causal and window masks counted.  ``starts`` /
+    ``q_lens``: each row's first position and valid queries; None counts
+    every row's C queries at the end of its table's extent (the most the
+    shapes can need: the ``meta`` route's count)."""
+    B, KV, CG, D = q_shape
+    C = CG // group
+    if starts is None:
+        starts, q_lens = [max(0, pps * page - C)] * B, [C] * B
+    w = window
+    hist = attended = 0
+    for s, ql in zip(starts, q_lens):
+        if ql == 0:
+            continue
+        lo = max(0, s - w + 1) if w else 0
+        hist += s + ql - lo                      # positions read
+        for c in range(ql):
+            p = s + c
+            attended += p + 1 - (max(0, p - w + 1) if w else 0)
+    q_bytes = B * KV * CG * D * itemsize
+    nbytes = 2 * q_bytes + hist * KV * D * itemsize * 2 + B * 4 * (2 + pps)
+    return nbytes, 4 * attended * KV * group * D
+
+
 def split_plan(B: int, KV: int, pps: int, page: int, D: int, rows: int,
                sm_count: int = SM_COUNT):
     """``(keys_per_split, splits)`` for a tensor-core prefill call, from
@@ -148,7 +178,7 @@ def paged_prefill(q, k_pages, v_pages, block_tables, start_pos, q_lens, *,
                                    start_pos, q_lens, group=group,
                                    scale=scale, window=window,
                                    softcap=softcap)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"paged_prefill: no kernel for device {q.device}")
     _check_cuda(q, k_pages, v_pages, block_tables, start_pos=start_pos,
                 q_lens=q_lens)
@@ -159,6 +189,11 @@ def paged_prefill(q, k_pages, v_pages, block_tables, start_pos, q_lens, *,
               else prefill_cuda_core)
     launch(q, k_pages, v_pages, block_tables, start_pos, q_lens, out, group,
            scale, window, softcap)
+    if q.device.type == "meta":
+        _build.meta_cost.add("paged_prefill", *cost(
+            q.shape, group, block_tables.shape[1], page=k_pages.shape[1],
+            window=window, itemsize=q.element_size()))
+        return out
     paged_prefill.launches += 1
     return out
 
@@ -179,6 +214,8 @@ def prefill_tensor_core(q, k_pages, v_pages, block_tables, start_pos, q_lens,
                           device=q.device)
     part_acc = torch.empty((B, KV, splits, CG, D), dtype=torch.float32,
                            device=q.device)
+    if q.device.type == "meta":
+        return
     fn = _entry_tc()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -199,6 +236,8 @@ def prefill_cuda_core(q, k_pages, v_pages, block_tables, start_pos, q_lens,
     B, KV, CG, D = q.shape
     NP, page = k_pages.shape[0], k_pages.shape[1]
     pps = block_tables.shape[1]
+    if q.device.type == "meta":
+        return
     fn = _entry(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -299,7 +299,8 @@ def dequantize_kv(k8, k_scale, v8, v_scale, dtype):
 def attention_int8kv_ref(q, k8, k_scale, v8, v_scale, q_start, kv_len, *,
                          causal: bool = True, window: Optional[int] = None,
                          softcap: Optional[float] = None,
-                         scale: Optional[float] = None):
+                         scale: Optional[float] = None,
+                         return_lse: bool = False):
     """Attention over an int8 K/V cache with per-row query positions.
 
     q: (B, Sq, H, D) f32 or bf16; k8, v8: (B, Skv, KV, D) int8; k_scale,
@@ -310,7 +311,9 @@ def attention_int8kv_ref(q, k8, k_scale, v8, v_scale, q_start, kv_len, *,
     dequantized as in ``dequantize_kv``; softmax attention in f32.  Rows
     with no valid key return zeros.  Returns (B, Sq, H, D) in q's dtype.
     With ``q_start = 0`` and ``kv_len = Skv`` this is the function of the
-    TPU kernel ``flash_attention_int8kv`` (per folded head)."""
+    TPU kernel ``flash_attention_int8kv`` (per folded head).
+    ``return_lse``: also the log-sum-exp of each row's masked scores,
+    (B, Sq, H) f32, -inf for a row with no valid key."""
     B, Sq, H, D = q.shape
     Skv, KV = k8.shape[1], k8.shape[2]
     G = H // KV
@@ -335,7 +338,12 @@ def attention_int8kv_ref(q, k8, k_scale, v8, v_scale, q_start, kv_len, *,
     out = torch.einsum("bkgqt,btkd->bqkgd", p, v)
     any_valid = mask.any(dim=2)[:, :, None, None, None]
     out = torch.where(any_valid, out, torch.zeros_like(out))
-    return out.reshape(B, Sq, H, D).to(q.dtype)
+    out = out.reshape(B, Sq, H, D).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(mask.any(dim=2)[:, None, None, :],
+                      torch.logsumexp(s, dim=-1), float("-inf"))
+    return out, lse.permute(0, 3, 1, 2).reshape(B, Sq, H)
 
 
 def int8kv_split_ranges(q_start: int, kv_len: int, Skv: int, G: int,

@@ -15,7 +15,8 @@ or bf16), so a norm can read the unrounded f32 residual and hand bf16 on.
 
 ``rmsnorm`` dispatches on the device of ``x``: a CPU tensor goes through
 the plain version (``repro_torch.kernels.ref.rmsnorm_ref``), a CUDA tensor
-launches a kernel or raises.  ``rmsnorm.launches`` counts kernel launches
+launches a kernel or raises, a ``meta`` tensor allocates the output and
+adds :func:`cost` to ``_build.meta_cost``.  ``rmsnorm.launches`` counts kernel launches
 only; ``rmsnorm_one_pass.launches`` and ``rmsnorm_two_pass.launches`` count
 them by route.
 
@@ -82,6 +83,14 @@ def one_pass_plan(d: int):
     return ppt, tpr, max(1, ONE_PASS_BLOCK // tpr)
 
 
+def cost(rows: int, d: int, in_bytes: int, out_bytes: int):
+    """(bytes, flops) of one call on ``rows`` rows of ``d``: x read once,
+    y written once, the scale read once; 4 flops an element
+    (square-add, the two scalings, 1 + scale)."""
+    n = rows * d
+    return n * (in_bytes + out_bytes) + d * 4, 4 * n
+
+
 @_build.counted
 def rmsnorm_one_pass(x, scale, out, eps):
     """Launch the one-pass kernel into ``out`` (rows of x's last dim)."""
@@ -119,7 +128,7 @@ def rmsnorm(x, scale, *, eps: float = 1e-6,
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return rmsnorm_ref(x, scale, eps, out_dtype)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"rmsnorm: no kernel for device {x.device}")
     d = x.shape[-1]
     if x.dtype not in _DTYPES or out_dtype not in _DTYPES:
@@ -135,6 +144,10 @@ def rmsnorm(x, scale, *, eps: float = 1e-6,
     rows = x.numel() // d if d else 0
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     if rows == 0:
+        return out
+    if x.device.type == "meta":
+        _build.meta_cost.add("rmsnorm", *cost(rows, d, x.element_size(),
+                                              out.element_size()))
         return out
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, scale, out))
     if one_pass_route(d, aligned):

@@ -22,7 +22,9 @@ S to a chunk multiple.
 
 ``ssd_scan`` dispatches on the device of ``x``: a CPU tensor goes through
 the plain version (``repro_torch.kernels.ref.ssd_scan_ref``), a CUDA tensor
-launches a scan or raises.  ``ssd_scan.launches`` counts scans, one a call;
+launches a scan or raises, a ``meta`` tensor allocates the output (and the
+tensor-core route's workspaces) and adds :func:`cost` to
+``_build.meta_cost``.  ``ssd_scan.launches`` counts scans, one a call;
 ``ssd_tensor_core.launches`` and ``ssd_cuda_core.launches`` count them by
 route (a tensor-core scan is the ``TC_KERNELS``' launches, one each).
 
@@ -135,6 +137,22 @@ def _check_cuda(x, dt, A, B, C, L):
                          "ops.ssd pads it")
 
 
+def cost(b: int, S: int, H: int, P: int, G: int, N: int, L: int,
+         itemsize: int = 2):
+    """(bytes, flops) of one scan: x, dt, A, B, C read once, y written
+    once (x, B, C, y of ``itemsize``).  Per chunk, 2 flops for each
+    multiply-add: the masked C.B^T product (L(L+1)/2 N, j <= i only) once
+    per group, as every head of a group shares it; per head the masked
+    M.x product (L(L+1)/2 P), the state's contribution to y and the state
+    update (L N P each)."""
+    nc = -(-S // L)
+    tri = L * (L + 1) // 2
+    mac = b * nc * (G * tri * N + H * (tri * P + 2 * L * N * P))
+    nbytes = (2 * (b * S * H * P * itemsize) + 2 * (b * S * G * N * itemsize)
+              + b * S * H * 4 + H * 4)
+    return nbytes, 2 * mac
+
+
 def tc_workspaces(x, B, L):
     """The tensor-core scan's f32 workspaces: CB (b, nc, G, L, L), cum and
     dt (b, nc, H, L) each, the state entering each chunk (b, nc, H, N,
@@ -158,6 +176,8 @@ def ssd_tensor_core(x, dt, A, B, C, y, L):
     b, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     ws = tc_workspaces(x, B, L)
+    if x.device.type == "meta":
+        return
     fn = _entry_tc()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -192,7 +212,7 @@ def ssd_scan(x, dt, A, B, C, chunk: int):
     in x's dtype."""
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, B, C, chunk)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"ssd_scan: no kernel for device {x.device}")
     S, P, N = x.shape[1], x.shape[3], B.shape[3]
     L = min(chunk, S)
@@ -200,9 +220,15 @@ def ssd_scan(x, dt, A, B, C, chunk: int):
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    launch = (ssd_tensor_core if tensor_core_route(x.dtype, N, P, L)
-              else ssd_cuda_core)
-    launch(x, dt, A, B, C, y, L)
+    tc = tensor_core_route(x.dtype, N, P, L)
+    if x.device.type == "meta":
+        if tc:
+            ssd_tensor_core(x, dt, A, B, C, y, L)   # its workspaces
+        b, S, H = x.shape[:3]
+        _build.meta_cost.add("ssd_scan", *cost(b, S, H, P, B.shape[2], N, L,
+                                               x.element_size()))
+        return y
+    (ssd_tensor_core if tc else ssd_cuda_core)(x, dt, A, B, C, y, L)
     ssd_scan.launches += 1
     return y
 

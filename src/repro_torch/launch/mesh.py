@@ -15,8 +15,8 @@ model)``.  The host mesh is ``(world size,)`` over ``data`` with a
 ``fsdp_tp``.
 
 Figures of the card the roofline reads, from NVIDIA's H100 SXM data
-sheet: dense bf16 tensor-core peak, HBM3 bandwidth, and NVLink 4's
-bandwidth per card (both directions together).
+sheet: dense bf16 tensor-core peak, HBM3 bandwidth and capacity, and
+NVLink 4's bandwidth per card (both directions together).
 """
 from __future__ import annotations
 
@@ -30,6 +30,8 @@ PRODUCTION = {
 H100_SXM_PEAK_FLOPS_BF16 = 989e12     # FLOP/s, dense
 H100_SXM_HBM_BW = 3.35e12             # bytes/s
 H100_SXM_NVLINK_BW = 900e9            # bytes/s per card
+H100_SXM_HBM_BYTES = 80 * 10**9       # HBM3 capacity, 80 GB (the dry-run's
+                                      # ``fits``)
 
 
 class AbstractMesh:

@@ -21,8 +21,8 @@ Counterpart of ``repro.models.attention``.  Three branches of
   with ``causal=False``.
 RoPE takes M-RoPE positions (3, B, S) for the vlm family (qwen2-vl).
 
-Tensor parallelism (the no-cache and cross-attention branches, given a
-``modules.Shards``): the rank's query heads are ``wq``'s local columns,
+Tensor parallelism (given a ``modules.Shards``): the rank's query heads
+are ``wq``'s local columns,
 and the head counts come from the weights' shapes.  Where ``wk`` / ``wv``
 split over ``model`` too, each rank attends its H / m query heads with
 its KV / m heads.  Where the KV heads do not split (``fit_spec`` dropped
@@ -32,6 +32,19 @@ with the ones its query heads' groups read.  Where the query heads do not
 split either, the attention is replicated, and ``wo`` (whose h * dh rows
 ``fit_spec`` checks on their own) may still be row-parallel:
 ``modules.row_linear`` then takes its slice of the whole output.
+
+A sharded dense decode cache (the serve step under ``dp_tp`` /
+``fsdp_tp``; ``sharding.batch_pspec`` lays it out) takes one of three
+layouts, read from its leaves' specs: (a) the KV heads over ``model``:
+the rank projects its heads, writes its stripe and attends, as
+unsharded; (b) the sequence over a group (``model`` where the KV heads
+do not divide it, the data axes at B = 1): the rank holds a contiguous
+slice of every position range, the step's K/V are written by the rank
+whose slice holds the position (a masked in-place write), every rank
+attends all its query heads over its slice at global key positions, and
+the slices are merged exactly by the log-sum-exp rule over the group
+(:func:`merge_slices`); (c) unsharded.  Under (b) over ``model`` the
+query heads are gathered whole first where ``wq`` splits them.
 """
 from __future__ import annotations
 
@@ -67,7 +80,8 @@ def _rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
                              f"split head_dim/2 = {half}")
         sec_id = torch.repeat_interleave(
             torch.arange(len(mrope_sections), device=positions.device),
-            torch.tensor(mrope_sections, device=positions.device))
+            torch.tensor(mrope_sections, device=positions.device),
+            output_size=half)
         pos = positions[sec_id].permute(1, 2, 0).float()         # (B,S,half)
         return pos * inv_freq
     return positions.float()[..., None] * inv_freq[None, None, :]
@@ -146,6 +160,53 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.cat(outs, dim=1)
 
 
+def attend_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   scale: float, window: Optional[int],
+                   softcap_val: Optional[float], q_positions: torch.Tensor,
+                   k_positions: torch.Tensor):
+    """Causal attention of ``q`` over one slice of the keys, for an exact
+    merge of slices (:func:`merge_slices`).  q: (B, Sq, KV, G, D); k, v:
+    (B, n, KV, D) at global positions ``k_positions`` (n,); q_positions
+    (B, Sq).  Returns (out (B, Sq, KV * G, D) f32, normalised over the
+    slice, lse (B, Sq, KV * G) f32, the log-sum-exp of the row's masked
+    scores); a row with no valid key in the slice has out 0 and lse
+    -inf."""
+    B, Sq, KV, G, D = q.shape
+    s = torch.einsum("bqkgd,btkd->bkgqt", q.float(), k.float()) * scale
+    s = nn.softcap(s, softcap_val)
+    qp = q_positions[:, None, None, :, None].long()
+    kp = k_positions.long()
+    ok = kp <= qp
+    if window is not None:
+        ok = ok & ((qp - kp) < window)
+    s = torch.where(ok, s, torch.full_like(s, float("-inf")))
+    lse = torch.logsumexp(s, dim=-1)                        # (B,KV,G,Sq)
+    live = ok.any(dim=-1)
+    p = torch.exp(s - torch.where(live, lse, 0.0)[..., None])
+    out = torch.einsum("bkgqt,btkd->bqkgd", p, v.float())
+    lse = torch.where(live, lse, float("-inf"))
+    return (out.reshape(B, Sq, KV * G, D),
+            lse.permute(0, 3, 1, 2).reshape(B, Sq, KV * G))
+
+
+def merge_slices(out: torch.Tensor, lse: torch.Tensor, group
+                 ) -> torch.Tensor:
+    """The exact merge of the ranks' attention over their key slices:
+    ``out`` (..., D) normalised over this rank's slice and ``lse`` (...)
+    its log-sum-exp (-inf: no valid key here, which contributes zero).
+    One all_reduce of the max over ``group``, then one of the rescaled
+    outputs and weights together (both counted, ``core/hvd.py``).
+    Returns the whole attention (..., D) in f32."""
+    from repro_torch.core import hvd
+    m = hvd.all_reduce_max(lse, group)
+    w = torch.exp(lse - torch.where(torch.isfinite(m), m, 0.0))
+    packed = torch.cat([out.float() * w[..., None], w[..., None]], dim=-1)
+    packed = hvd.reduce_from_group(packed, group)
+    den = packed[..., -1:]
+    return torch.where(den > 0, packed[..., :-1] / den.clamp(min=1e-30),
+                       0.0)
+
+
 # ---------------------------------------------------------------------------
 # The dense decode cache
 # ---------------------------------------------------------------------------
@@ -162,16 +223,19 @@ def quantize_kv(x: torch.Tensor):
 
 
 def _write_rows(cache, rows: torch.Tensor, idx: torch.Tensor,
-                vals) -> None:
+                vals, lo=None) -> None:
     """``cache[name][rows, idx] = val`` in place for each (name, val),
     dropping rows whose ``idx`` is past the cache, as the reference's
     scatter drops out-of-bounds updates (dense prefill replays its padding
-    tokens there).  No host sync."""
-    S = cache["k"].shape[1]
-    inside = idx < S
-    safe = idx.clamp(max=S - 1)
+    tokens there).  ``lo``: ``{name: first position}`` of a leaf that
+    holds one slice of the sequence, whose rank writes only the rows
+    whose position falls in it.  No host sync."""
     for name, val in vals:
         leaf = cache[name]
+        S = leaf.shape[1]
+        local = idx - (lo or {}).get(name, 0)
+        inside = (local >= 0) & (local < S)
+        safe = local.clamp(0, S - 1)
         mask = inside.reshape((-1,) + (1,) * (val.dim() - 1))
         leaf.index_put_((rows, safe), torch.where(
             mask, val.to(leaf.dtype), leaf[rows, safe]))
@@ -202,6 +266,50 @@ def _dense_decode(cache, q, k, v, idx, *, scale, window, softcap, q_chunk):
     return out.reshape(B, 1, H, D)
 
 
+def _split_decode(cache, seq, q, k, v, idx, *, scale, window, softcap):
+    """Layout (b) of the module's docstring: ``cache`` holds this rank's
+    slice of the sequence of each leaf ``seq`` names (``{leaf: (group,
+    index)}``; the others whole), q (B, 1, H, D) all the heads the rank
+    attends, k / v (B, 1, KV, D) this step's.  The step's K/V (quantized
+    first for int8) are written by the rank whose slice holds
+    ``idx[b]``; the rank attends over the K slice (the plain
+    ``attend_partial`` for bf16, the int8 kernel with ``q_start`` and
+    ``kv_len`` rebased to the slice, which returns the row log-sum-exp
+    too) and the slices are merged over the K leaf's group.  Returns
+    (B, 1, H, D) in q's dtype."""
+    B, _, H, D = q.shape
+    KV = k.shape[2]
+    rows = torch.arange(B, device=q.device)
+    lo = {name: index * cache[name].shape[1]
+          for name, (_, index) in seq.items()}
+    n = cache["k"].shape[1]
+    k_lo = lo.get("k", 0)
+    if "k_scale" in cache:
+        k8, ks = quantize_kv(k[:, 0])
+        v8, vs = quantize_kv(v[:, 0])
+        _write_rows(cache, rows, idx, (("k", k8), ("v", v8),
+                                       ("k_scale", ks), ("v_scale", vs)),
+                    lo)
+
+        def scales(name):        # the scales of the K slice's positions
+            s0 = k_lo - lo.get(name, 0)
+            return cache[name][:, s0:s0 + n].contiguous()
+        out, lse = kops.int8kv_attention(
+            q, cache["k"], scales("k_scale"), cache["v"], scales("v_scale"),
+            (idx - k_lo).clamp(min=0), (idx + 1 - k_lo).clamp(0, n),
+            window=window, softcap=softcap, scale=scale, return_lse=True)
+    else:
+        _write_rows(cache, rows, idx, (("k", k[:, 0]), ("v", v[:, 0])), lo)
+        out, lse = attend_partial(
+            q.reshape(B, 1, KV, H // KV, D), cache["k"], cache["v"],
+            scale=scale, window=window, softcap_val=softcap,
+            q_positions=idx[:, None],
+            k_positions=torch.arange(k_lo, k_lo + n, device=q.device))
+    if "k" in seq:
+        out = merge_slices(out, lse, seq["k"][0])
+    return out.to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Full attention block (projections + rope + attend [+ cache])
 # ---------------------------------------------------------------------------
@@ -229,7 +337,8 @@ def attention_block(params, cfg, x: torch.Tensor, *,
                     kv_override=None, use_rope: bool = True,
                     block_tables: Optional[torch.Tensor] = None,
                     q_lens: Optional[torch.Tensor] = None,
-                    shards: Optional[nn.Shards] = None):
+                    shards: Optional[nn.Shards] = None,
+                    cache_seq=None):
     """x: (B, S, d_model).  Returns (out, cache).
 
     positions: (B, S), or (3, B, S) M-RoPE positions (vlm); default
@@ -263,8 +372,11 @@ def attention_block(params, cfg, x: torch.Tensor, *,
     trash block ``num_blocks - 1``.  The returned cache is the same
     object.
 
-    ``shards`` (training under ``dp_tp`` / ``fsdp_tp``): this rank's
-    heads, as the module's docstring says; no cache.
+    ``shards`` (``dp_tp`` / ``fsdp_tp``): this rank's heads, as the
+    module's docstring says: the no-cache and cross-attention branches,
+    and the dense cache in the layouts there, ``cache_seq`` (``{leaf:
+    (group, index)}``) naming the leaves whose sequence splits (layout
+    (b); None: layout (a) or (c)).
     """
     B, S, _ = x.shape
     h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -288,7 +400,9 @@ def attention_block(params, cfg, x: torch.Tensor, *,
         sections = cfg.mrope_sections if cfg.mrope else None
         q = apply_rope(q, positions, cfg.rope_theta, sections)
         k = apply_rope(k, positions, cfg.rope_theta, sections)
-    if q_split and not kv_split:
+    seq_model = bool(cache_seq) and "k" in cache_seq and \
+        "model" in cache_seq["k"][0].axes
+    if q_split and not kv_split and not seq_model:
         k, v = _local_kv(shards, k, v, q.shape[2], h // kv)
 
     scale = cfg.attn_scale or (1.0 / math.sqrt(dh))
@@ -300,16 +414,25 @@ def attention_block(params, cfg, x: torch.Tensor, *,
         out = nn.row_linear(params["wo"], out.reshape(B, S, -1), dtype=dt,
                             sh=None if shards is None else shards["wo"])
         return out, None
-    if shards is not None:
+    if shards is not None and block_tables is not None:
         raise NotImplementedError("a sharded attention block runs the "
-                                  "no-cache and cross-attention branches")
+                                  "dense cache, not paged storage")
     if block_tables is None:
         if S != 1:
             raise ValueError("the dense cache is one-token decode")
-        out = _dense_decode(cache, q, k, v, cache_index.to(torch.long),
-                            scale=scale, window=window, softcap=sc,
-                            q_chunk=cfg.attn_q_chunk)
-        out = nn.linear(params["wo"], out.reshape(B, S, h * dh), dtype=dt)
+        idx = cache_index.to(torch.long)
+        if cache_seq:
+            if seq_model and q_split:      # every head, on every rank
+                from repro_torch.core import hvd
+                q = hvd.gather_dim(q, 2, shards.model)
+            out = _split_decode(cache, cache_seq, q, k, v, idx, scale=scale,
+                                window=window, softcap=sc)
+        else:
+            out = _dense_decode(cache, q, k, v, idx, scale=scale,
+                                window=window, softcap=sc,
+                                q_chunk=cfg.attn_q_chunk)
+        out = nn.row_linear(params["wo"], out.reshape(B, S, -1), dtype=dt,
+                            sh=None if shards is None else shards["wo"])
         return out, cache
     kc, vc = cache["k"], cache["v"]
     npages, bs = kc.shape[0], kc.shape[1]

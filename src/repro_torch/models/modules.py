@@ -88,14 +88,19 @@ class Shards:
     ``fsdp_tp``, its ``data`` group (the params arrive as ``data`` shards
     and :meth:`gather` makes them whole along that axis).  ``batch``: the
     group of the data axes the batch splits over, for statistics of the
-    whole global batch (:meth:`batch_mean`)."""
+    whole global batch (:meth:`batch_mean`).  For the serve step
+    (``transformer.decode_step``): ``groups``, the whole layout
+    (``hvd.Groups``), and ``cache``, the dense cache's spec tree, both
+    handed down unchanged by indexing."""
 
-    def __init__(self, specs, model, data=None, batch=None):
+    def __init__(self, specs, model, data=None, batch=None, groups=None,
+                 cache=None):
         self.specs, self.model, self.data = specs, model, data
-        self.batch = batch
+        self.batch, self.groups, self.cache = batch, groups, cache
 
     def __getitem__(self, key) -> "Shards":
-        return Shards(self.specs[key], self.model, self.data, self.batch)
+        return Shards(self.specs[key], self.model, self.data, self.batch,
+                      self.groups, self.cache)
 
     def dim(self, *keys, axis: str = "model") -> Optional[int]:
         """The dim of leaf ``keys`` split over ``axis`` (negative), or

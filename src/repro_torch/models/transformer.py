@@ -63,13 +63,25 @@ def _dtype(name: str) -> torch.dtype:
 # Layer pattern: windows per position in the layer group
 # ---------------------------------------------------------------------------
 
-def layer_pattern(cfg):
+def layer_pattern(cfg, long_context: bool = False):
     """Window sizes (None = full attention), one per layer of a group.
-    gemma2 alternates (local, global).  (The reference's ``long_context``
-    variant, for its 500k-token dry-run shapes, has no caller here.)"""
+    gemma2 alternates (local, global).  ``long_context`` (the
+    ``long_500k`` shape): the global layers take ``cfg.long_context_window``
+    (gemma2's is None, so its pattern stays), and a model with no window
+    of its own takes it on every layer."""
     if cfg.local_global_pattern:
-        return (cfg.sliding_window, None)
-    return (cfg.sliding_window,)
+        g_win = cfg.long_context_window if long_context else None
+        return (cfg.sliding_window, g_win)
+    win = cfg.sliding_window
+    if long_context and cfg.long_context_window is not None:
+        win = cfg.long_context_window if win is None else win
+    return (win,)
+
+
+def _shared_window(cfg, long_context: bool):
+    """The hybrid family's shared block's window: full attention, or
+    ``cfg.long_context_window`` under the long-context variant."""
+    return cfg.long_context_window if long_context else None
 
 
 def _check_family(cfg, families) -> None:
@@ -313,14 +325,25 @@ def _cache_struct(cfg, batch: int, seq_len: int):
     return c
 
 
+def _cache_map(fn, node):
+    if isinstance(node, dict):
+        return {k: _cache_map(fn, v) for k, v in node.items()}
+    return fn(*node)
+
+
 def init_cache(cfg, batch: int, seq_len: int, device="cpu"):
     """Zeros of ``_cache_struct``: the per-slot decode cache."""
-    def zeros(node):
-        if isinstance(node, dict):
-            return {k: zeros(v) for k, v in node.items()}
-        shape, dtype = node
-        return torch.zeros(shape, dtype=dtype, device=device)
-    return zeros(_cache_struct(cfg, batch, seq_len))
+    return _cache_map(lambda shape, dtype: torch.zeros(
+        shape, dtype=dtype, device=device), _cache_struct(cfg, batch,
+                                                           seq_len))
+
+
+def init_cache_specs(cfg, batch: int, seq_len: int):
+    """``_cache_struct`` as ``meta`` tensors: shapes and dtypes, no memory
+    (the reference's ``ShapeDtypeStruct`` tree)."""
+    return _cache_map(lambda shape, dtype: torch.empty(
+        shape, dtype=dtype, device="meta"), _cache_struct(cfg, batch,
+                                                          seq_len))
 
 
 def _index(tree, *idx):
@@ -331,13 +354,27 @@ def _index(tree, *idx):
     return tree[idx]
 
 
+def _unstack(tree):
+    """The slices of a stacked tree along its leading dim, as a list of
+    trees: one ``unbind`` a leaf, whose backward stacks the slices'
+    gradients once (indexing each slice instead gives each a gradient of
+    the whole stack, zeros but its slice, summed: memory traffic that
+    grows with the square of the depth)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 # ---------------------------------------------------------------------------
 # Per-layer apply
 # ---------------------------------------------------------------------------
 
 def _apply_layer(p, cfg, x, x_sum, *, window, positions, cache,
                  cache_index, block_tables, q_lens=None, causal=True,
-                 encoder_out=None, use_rope=True, shards=None):
+                 encoder_out=None, use_rope=True, shards=None,
+                 cache_seq=None):
     """Pre-norm attention + MLP, or the MoE block where ``p`` has
     ``"moe"`` (+ gemma2 post-block norms).  With ``encoder_out`` (encdec
     decoder layers) a pre-norm cross-attention block over it sits between
@@ -351,8 +388,10 @@ def _apply_layer(p, cfg, x, x_sum, *, window, positions, cache,
     the residual add unrounded.  Each residual add returns both the
     rounded sum, which carries on, and the unrounded one, which the next
     norm reads.  ``shards``: the layer's ``modules.Shards`` (tensor
-    parallel).  Returns ``(x, x_sum, aux)``, aux the MoE block's
-    load-balance loss (None without one)."""
+    parallel); ``cache_seq``: where the sequence of each of the layer's
+    dense cache leaves splits (``attention.attention_block``).  Returns
+    ``(x, x_sum, aux)``, aux the MoE block's load-balance loss (None
+    without one)."""
     dt = _dtype(cfg.dtype)
     sh = (lambda k: None) if shards is None else (lambda k: shards[k])
 
@@ -365,7 +404,7 @@ def _apply_layer(p, cfg, x, x_sum, *, window, positions, cache,
         p["attn"], cfg, hn, positions=positions, causal=causal,
         window=window, cache=cache, cache_index=cache_index,
         block_tables=block_tables, q_lens=q_lens, use_rope=use_rope,
-        shards=sh("attn"))
+        shards=sh("attn"), cache_seq=cache_seq)
     if cfg.post_block_norm:
         a = nn.rmsnorm(p["post_ln1"], a, cfg.norm_eps, out_dtype=dt)
     x, x_sum = add(x, a)
@@ -386,22 +425,39 @@ def _apply_layer(p, cfg, x, x_sum, *, window, positions, cache,
     return add(x, m) + (aux,)
 
 
-def _apply_mamba_layer(p, cfg, x, x_sum=None, cache=None, shards=None):
+def _apply_mamba_layer(p, cfg, x, x_sum=None, cache=None, shards=None,
+                       cache_specs=None):
     """Pre-norm mamba2 block plus the residual, with ``_apply_layer``'s
     ``(x, x_sum)`` convention: the norm reads ``x_sum`` (the residual
     before its last rounding) when given.  ``cache``: this layer's
     ``{"ssm", "conv"}`` decode state, updated in place (the engine's
     programs read it at its address).  ``shards``: the layer's params made
-    whole (``Shards.replicate``) and the block run replicated.  Returns
+    whole (``Shards.replicate``) and the block run replicated; a state
+    leaf that ``cache_specs`` splits over ``model`` (the SSM state by
+    head, the conv state by channel) is all-gathered over ``model`` for
+    the block, and the rank keeps its slice of the new state.  Returns
     ``(x, x_sum)``."""
     if shards is not None:
         p = shards.replicate(p)
     dt = _dtype(cfg.dtype)
     h = nn.rmsnorm(p["ln1"], x if x_sum is None else x_sum, cfg.norm_eps,
                    out_dtype=dt)
-    m, new_cache = ssm_lib.mamba2_block(p["mamba"], cfg, h, cache=cache)
+    split = {}
+    state = cache
+    if cache is not None and cache_specs is not None:
+        from repro_torch.core import hvd
+        from repro_torch.distributed.sharding import model_dim
+        split = {k: model_dim(cache_specs[k]) for k in cache}
+        state = {k: (t if split[k] is None else
+                     hvd.gather_dim(t, split[k], shards.model))
+                 for k, t in cache.items()}
+    m, new_cache = ssm_lib.mamba2_block(p["mamba"], cfg, h, cache=state)
     if cache is not None:
         for name, t in new_cache.items():
+            d = split.get(name)
+            if d is not None:
+                n = cache[name].shape[d]
+                t = t.narrow(d, shards.model.rank * n, n)
             cache[name].copy_(t)
     s = x.float() + m.float()
     return s.to(dt), s
@@ -417,18 +473,25 @@ def _embed(params, cfg, tokens, shards=None):
 
 
 def _run_layers(params, cfg, x, cache, *, positions, cache_index,
-                block_tables, q_lens=None):
-    windows = layer_pattern(cfg)
+                block_tables, q_lens=None, long_context=False, shards=None,
+                seq=None):
+    """The dense, moe and vlm layer groups over a cache.  ``shards``: the
+    ``layers`` subtree's (each group's params gathered over ``data``, the
+    layers tensor parallel), ``seq`` the layers' ``cache_seq``."""
+    windows = layer_pattern(cfg, long_context)
     groups = cfg.num_layers // len(windows)
     layers, lcache = params["layers"], cache["layers"]
     for gi in range(groups):
+        gp = _index(layers, gi)
+        if shards is not None:
+            gp = shards.gather(gp)
         x_sum = None             # a group boundary rounds the stream
         for i, win in enumerate(windows):
             x, x_sum, _ = _apply_layer(
-                _index(layers, gi, i), cfg, x, x_sum, window=win,
+                _index(gp, i), cfg, x, x_sum, window=win,
                 positions=positions, cache=_index(lcache, gi, i),
                 cache_index=cache_index, block_tables=block_tables,
-                q_lens=q_lens)
+                q_lens=q_lens, shards=shards, cache_seq=seq)
     return x
 
 
@@ -464,7 +527,8 @@ def _logits(params, cfg, x):
 # Forward (train / prefill): the whole sequence, no cache
 # ---------------------------------------------------------------------------
 
-def _forward_group(gp, cfg, x, aux, positions=None, shards=None):
+def _forward_group(gp, cfg, x, aux, positions=None, shards=None,
+                   windows=None):
     """One layer group of the no-cache forward.  The residual enters the
     group rounded (the reference's scan carry) and the ``x_sum`` rule of
     ``_apply_layer`` holds inside it; each MoE layer's aux loss is added
@@ -472,11 +536,13 @@ def _forward_group(gp, cfg, x, aux, positions=None, shards=None):
     vlm family's M-RoPE positions (3, B, S), else None (``arange``).
     ``shards``: the group's params are all-gathered over ``data`` here
     (inside the checkpointed call: the backward gathers them again) and
-    the layers run tensor-parallel.  Returns ``(x, aux)``."""
+    the layers run tensor-parallel.  ``windows``: the group's
+    ``layer_pattern`` (default: without the long-context variant).
+    Returns ``(x, aux)``."""
     if shards is not None:
         gp = shards.gather(gp)
     x_sum = None
-    for i, win in enumerate(layer_pattern(cfg)):
+    for i, win in enumerate(windows or layer_pattern(cfg)):
         x, x_sum, a = _apply_layer(_index(gp, i), cfg, x, x_sum,
                                    window=win, positions=positions,
                                    cache=None, cache_index=None,
@@ -534,9 +600,8 @@ def _encode(enc_params, cfg, encoder_input, shards=None):
         lsh = shards["layers"]
     x = encoder_input.to(dt)
     x = x + enc_params["pos_embed"][:x.shape[1]][None].to(dt)
-    for li in range(cfg.encoder_layers):
-        x = _run(cfg, _encoder_layer, _index(enc_params["layers"], li), x,
-                 lsh)
+    for lp in _unstack(enc_params["layers"]):
+        x = _run(cfg, _encoder_layer, lp, x, lsh)
     return _norm(cfg, enc_params["final_norm"], x)
 
 
@@ -550,12 +615,12 @@ def _pos_rows(params, cfg, idx):
         _dtype(cfg.dtype))
 
 
-def _shared_block(p, cfg, x, x_sum, shards=None):
-    """The hybrid family's shared attention + MLP block, no cache (the
-    reference applies it with ``window=None``).  Returns ``(x, x_sum)``."""
+def _shared_block(p, cfg, x, x_sum, shards=None, window=None):
+    """The hybrid family's shared attention + MLP block, no cache, at
+    ``window`` (``_shared_window``).  Returns ``(x, x_sum)``."""
     if shards is not None:
         p = shards.gather(p)
-    return _apply_layer(p, cfg, x, x_sum, window=None, positions=None,
+    return _apply_layer(p, cfg, x, x_sum, window=window, positions=None,
                         cache=None, cache_index=None, block_tables=None,
                         shards=shards)[:2]
 
@@ -574,20 +639,19 @@ def _hybrid_trunk(params, cfg, x, mamba, shared):
     ``("tail_layers", li)``); ``shared(x, x_sum, gi)`` applies the shared
     block in group ``gi``; each returns ``(x, x_sum)``."""
     E, G, R = _hybrid_groups(cfg)
-    for gi in range(G):
+    for gi, group in enumerate(_unstack(params["layers"])):
         x_sum = None
-        for i in range(E):
-            x, x_sum = mamba(_index(params["layers"], gi, i), x, x_sum,
-                             ("layers", gi, i))
+        for i, lp in enumerate(_unstack(group)):
+            x, x_sum = mamba(lp, x, x_sum, ("layers", gi, i))
         x, _ = shared(x, x_sum, gi)
-    for li in range(R):
-        x, _ = mamba(_index(params["tail_layers"], li), x, None,
-                     ("tail_layers", li))
+    for li, lp in enumerate(_unstack(params["tail_layers"]) if R else ()):
+        x, _ = mamba(lp, x, None, ("tail_layers", li))
     return x
 
 
 def forward(params, cfg, batch: Dict[str, Any], *, last_only: bool = False,
-            return_hidden: bool = False, shards: Optional[nn.Shards] = None
+            return_hidden: bool = False, shards: Optional[nn.Shards] = None,
+            long_context: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence causal forward (training, prefill).  batch: tokens
     (B, S); for vlm also patch_embeddings (B, P, d), prepended to the
@@ -613,15 +677,14 @@ def forward(params, cfg, batch: Dict[str, Any], *, last_only: bool = False,
     ``fsdp_tp``; the params are this rank's slices).  The leaves outside
     the layer stacks are gathered over ``data`` once, up front; each layer
     group's inside its checkpointed call; the logits are this rank's
-    vocabulary slice where the unembedding splits it (``_vocab_shards``)."""
+    vocabulary slice where the unembedding splits it (``_vocab_shards``).
+
+    ``long_context``: the windows of ``layer_pattern(cfg, True)`` and, for
+    the hybrid family, the shared block's ``_shared_window``."""
     check_trainable(cfg)
     dt = _dtype(cfg.dtype)
     sh = (lambda k: None) if shards is None else (lambda k: shards[k])
-    if shards is not None:
-        stacks = ("layers", "tail_layers", "shared_attn", "encoder")
-        top = shards.gather({k: v for k, v in params.items()
-                             if k not in stacks})
-        params = dict(params, **top)
+    params = _gather_top(params, shards)
     x = _embed(params, cfg, batch["tokens"], shards)
     positions = None
     if cfg.family == "vlm":
@@ -635,9 +698,8 @@ def forward(params, cfg, batch: Dict[str, Any], *, last_only: bool = False,
     if cfg.family == "encdec":
         enc = _encode(params["encoder"], cfg, batch["encoder_input"],
                       sh("encoder"))
-        for li in range(cfg.num_layers):
-            x = _run(cfg, _decoder_layer, _index(layers, li), x, enc,
-                     sh("layers"))
+        for lp in _unstack(layers):
+            x = _run(cfg, _decoder_layer, lp, x, enc, sh("layers"))
     elif cfg.family == "hybrid":
         def mamba(p, x, x_sum, where):
             return _run(cfg, _apply_mamba_layer, p, x, x_sum, None,
@@ -646,15 +708,17 @@ def forward(params, cfg, batch: Dict[str, Any], *, last_only: bool = False,
             params, cfg, x, mamba,
             lambda x, x_sum, _: _run(cfg, _shared_block,
                                      params["shared_attn"], x, x_sum,
-                                     sh("shared_attn")))
+                                     sh("shared_attn"),
+                                     _shared_window(cfg, long_context)))
     elif cfg.family == "ssm":
-        for li in range(cfg.num_layers):
-            x, _ = _run(cfg, _apply_mamba_layer, _index(layers, li), x,
-                        None, None, sh("layers"))
+        for lp in _unstack(layers):
+            x, _ = _run(cfg, _apply_mamba_layer, lp, x, None, None,
+                        sh("layers"))
     else:
-        for gi in range(cfg.num_layers // len(layer_pattern(cfg))):
-            x, aux = _run(cfg, _forward_group, _index(layers, gi), x, aux,
-                          positions, sh("layers"))
+        windows = layer_pattern(cfg, long_context)
+        for gp in _unstack(layers):
+            x, aux = _run(cfg, _forward_group, gp, x, aux, positions,
+                          sh("layers"), windows)
     if last_only:
         x = x[:, -1:]
     x = _norm(cfg, params["final_norm"], x)
@@ -663,9 +727,10 @@ def forward(params, cfg, batch: Dict[str, Any], *, last_only: bool = False,
     return _unembed(params, cfg, x, shards), aux
 
 
-def _trunk(params, cfg, batch):
+def _trunk(params, cfg, batch, long_context: bool = False):
     """``forward`` up to (excluding) the unembedding: (hidden, aux)."""
-    return forward(params, cfg, batch, return_hidden=True)
+    return forward(params, cfg, batch, return_hidden=True,
+                   long_context=long_context)
 
 
 # ---------------------------------------------------------------------------
@@ -686,14 +751,16 @@ def _text(cfg, x, labels):
 
 
 def lm_loss(params, cfg, batch: Dict[str, Any],
-            shards: Optional[nn.Shards] = None
+            shards: Optional[nn.Shards] = None, *, long_context: bool = False
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Next-token cross-entropy (logits[t] predicts labels[t + 1]) over
     the full (B, S, V) f32 logits (the text positions only, for vlm), plus
     the MoE aux loss.  Returns (loss, metrics).  ``shards``: tensor
     parallel (``forward``); over a vocabulary split across ``model`` the
-    cross-entropy is ``modules.vocab_parallel_nll``."""
-    logits, aux = forward(params, cfg, batch, shards=shards)
+    cross-entropy is ``modules.vocab_parallel_nll``.  ``long_context``:
+    ``forward``'s."""
+    logits, aux = forward(params, cfg, batch, shards=shards,
+                          long_context=long_context)
     logits, labels = _text(cfg, logits, batch["labels"])
     tgt = labels[:, 1:].long()
     vsh = _vocab_shards(cfg, shards)
@@ -706,13 +773,13 @@ def lm_loss(params, cfg, batch: Dict[str, Any],
 
 
 def lm_loss_chunked(params, cfg, batch: Dict[str, Any], *,
-                    seq_chunk: int = 512
+                    seq_chunk: int = 512, long_context: bool = False
                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """The same loss without the (B, S, V) logits: the trunk runs once,
     then each chunk of ``seq_chunk`` positions unembeds, takes
     logsumexp - target logit, and is recomputed in the backward
     (checkpointed), so the loss holds O(B * seq_chunk * V) at a time."""
-    x, aux = _trunk(params, cfg, batch)
+    x, aux = _trunk(params, cfg, batch, long_context)
     x, labels = _text(cfg, x, batch["labels"])
     B, S, _ = x.shape
     x = x[:, :-1]
@@ -750,9 +817,48 @@ def _require_paged(batch, what: str):
 # Decode step (one token per row against a dense or paged cache)
 # ---------------------------------------------------------------------------
 
+def _gather_top(params, shards):
+    """The leaves outside the layer stacks, gathered over ``data`` once
+    (``fsdp_tp``); the identity without ``shards``."""
+    if shards is None:
+        return params
+    stacks = ("layers", "tail_layers", "shared_attn", "encoder")
+    return dict(params, **shards.gather({k: v for k, v in params.items()
+                                         if k not in stacks}))
+
+
+def gather_vocab(cfg, logits, shards=None):
+    """Whole (.., V) logits from this rank's ``_unembed``: where the
+    vocabulary splits over ``model`` the ranks' slices are all-gathered
+    (counted), so every rank holds the reference's replicated output."""
+    vsh = _vocab_shards(cfg, shards)
+    if vsh is not None:
+        from repro_torch.core import hvd
+        logits = hvd.gather_dim(logits, -1, vsh.model)
+    return logits
+
+
+def _seq_split(shards, specs):
+    """``{leaf: (group, index)}`` for each leaf of one attention cache
+    whose sequence dim ``specs`` splits (the ``batch_pspec`` of a decode
+    shape: over ``model`` where the KV heads do not divide it, over the
+    data axes at B = 1): the group of those axes and this rank's slice
+    index on them, row-major.  None where nothing splits."""
+    from repro_torch.distributed import sharding as shd
+    out = {}
+    for name, spec in specs.items():
+        entry = spec[-3] if name in ("k", "v") else spec[-2]
+        axes = shd._axes(entry)
+        if axes:
+            out[name] = (shards.groups[axes],
+                         shd._coord(shards.groups, axes)[0])
+    return out or None
+
+
 @torch.no_grad()
-def decode_step(params, cfg, batch: Dict[str, Any]
-                ) -> Tuple[torch.Tensor, Any]:
+def decode_step(params, cfg, batch: Dict[str, Any], *,
+                shards: Optional[nn.Shards] = None,
+                long_context: bool = False) -> Tuple[torch.Tensor, Any]:
     """One-token decode.  batch: tokens (B, 1), positions (B,), cache,
     and optionally block_tables (B, blocks_per_slot).  Without tables the
     cache is the per-slot tree of ``init_cache`` (row b's token written
@@ -764,44 +870,80 @@ def decode_step(params, cfg, batch: Dict[str, Any]
     output, which every layer's cross-attention projects to K/V again
     (as the reference does), and the learned position at ``positions``.
     vlm: ``mrope_positions`` (3, B, 1) where given, else plain RoPE at
-    ``positions`` (the reference's engine serves text this way)."""
+    ``positions`` (the reference's engine serves text this way).
+    ``long_context``: the windows of ``layer_pattern(cfg, True)`` (and
+    the hybrid shared block's ``_shared_window``).
+
+    ``shards`` (the serve step under ``dp_tp`` / ``fsdp_tp``): the params
+    are this rank's shards, the batch its rows and the dense cache its
+    shard by ``shards.cache`` (the cache's specs, ``sharding.batch_pspec``)
+    on ``shards.groups``.  The layers run as ``forward`` runs them (each
+    group's params gathered over ``data``, tensor parallel over
+    ``model``, a mamba layer replicated with its state gathered), the
+    attention over the cache's layout (``attention.attention_block``),
+    and the logits are whole on every rank (``gather_vocab``)."""
     _check_family(cfg, _FAMILIES)
     tokens, idx, cache = batch["tokens"], batch["positions"], batch["cache"]
     block_tables = batch.get("block_tables")
     if block_tables is not None:
         _refuse_paged(cfg)
-    x = _embed(params, cfg, tokens)
+        if shards is not None:
+            raise NotImplementedError("a sharded serve step runs the dense "
+                                      "per-slot cache")
+    sh = (lambda k: None) if shards is None else (lambda k: shards[k])
+    cspecs = None if shards is None else shards.cache
+    params = _gather_top(params, shards)
+    x = _embed(params, cfg, tokens, shards)
     if cfg.max_pos_embed:
         x = x + _pos_rows(params, cfg, idx)[:, None]
     positions = batch.get("mrope_positions")
     if positions is None:
         positions = idx[:, None]
+
+    def seq(key):
+        return None if cspecs is None else _seq_split(shards, cspecs[key])
+
+    def gathered(p, key):
+        return p if shards is None else shards[key].gather(p)
+
     if cfg.family in _POSITIONAL:
         x = _run_layers(params, cfg, x, cache, positions=positions,
-                        cache_index=idx, block_tables=block_tables)
+                        cache_index=idx, block_tables=block_tables,
+                        long_context=long_context, shards=sh("layers"),
+                        seq=seq("layers"))
     elif cfg.family == "encdec":
         enc = batch["encoder_output"]
         for li in range(cfg.num_layers):
             x, _, _ = _apply_layer(
-                _index(params["layers"], li), cfg, x, None, window=None,
-                positions=positions, cache=_index(cache["layers"], li),
-                cache_index=idx, block_tables=None, encoder_out=enc,
-                use_rope=False)
+                gathered(_index(params["layers"], li), "layers"), cfg, x,
+                None, window=None, positions=positions,
+                cache=_index(cache["layers"], li), cache_index=idx,
+                block_tables=None, encoder_out=enc, use_rope=False,
+                shards=sh("layers"), cache_seq=seq("layers"))
     elif cfg.family == "ssm":
         for li in range(cfg.num_layers):
-            x, _ = _apply_mamba_layer(_index(params["layers"], li), cfg, x,
-                                      cache=_index(cache["layers"], li))
+            x, _ = _apply_mamba_layer(
+                _index(params["layers"], li), cfg, x,
+                cache=_index(cache["layers"], li), shards=sh("layers"),
+                cache_specs=None if cspecs is None else cspecs["layers"])
     else:
+        shared = gathered(params["shared_attn"], "shared_attn")
+        win = _shared_window(cfg, long_context)
         x = _hybrid_trunk(
             params, cfg, x,
             lambda p, x, x_sum, where: _apply_mamba_layer(
-                p, cfg, x, x_sum, cache=_index(cache[where[0]], *where[1:])),
+                p, cfg, x, x_sum, cache=_index(cache[where[0]], *where[1:]),
+                shards=sh(where[0]),
+                cache_specs=None if cspecs is None else cspecs[where[0]]),
             lambda x, x_sum, gi: _apply_layer(
-                params["shared_attn"], cfg, x, x_sum, window=None,
+                shared, cfg, x, x_sum, window=win,
                 positions=idx[:, None],
                 cache=_index(cache["shared_attn"], gi), cache_index=idx,
-                block_tables=None)[:2])
-    return _logits(params, cfg, x), cache
+                block_tables=None, shards=sh("shared_attn"),
+                cache_seq=seq("shared_attn"))[:2])
+    logits = _unembed(params, cfg, _norm(cfg, params["final_norm"], x),
+                      shards)
+    return gather_vocab(cfg, logits, shards), cache
 
 
 # ---------------------------------------------------------------------------
@@ -809,8 +951,8 @@ def decode_step(params, cfg, batch: Dict[str, Any]
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def prefill_step(params, cfg, batch: Dict[str, Any]
-                 ) -> Tuple[torch.Tensor, Any]:
+def prefill_step(params, cfg, batch: Dict[str, Any], *,
+                 long_context: bool = False) -> Tuple[torch.Tensor, Any]:
     """One chunk of batched paged prefill: ``C`` tokens for every row.
 
     batch: tokens (B, C); positions (B,) — each row's *start* position;
@@ -821,7 +963,8 @@ def prefill_step(params, cfg, batch: Dict[str, Any]
     garbage — callers index only real tokens, but every row of the tile
     runs the MoE block and so counts against expert capacity, as in the
     reference.  Dense and moe decoders only: the ssm and hybrid families
-    raise ``ValueError``, as in the reference."""
+    raise ``ValueError``, as in the reference.  ``long_context``: the
+    windows of ``layer_pattern(cfg, True)``."""
     _refuse_paged(cfg)
     _check_family(cfg, _POSITIONAL)
     _require_paged(batch, "prefill_step")
@@ -832,5 +975,5 @@ def prefill_step(params, cfg, batch: Dict[str, Any]
     x = _embed(params, cfg, tokens)
     x = _run_layers(params, cfg, x, cache, positions=positions,
                     cache_index=starts, block_tables=batch["block_tables"],
-                    q_lens=batch["q_lens"])
+                    q_lens=batch["q_lens"], long_context=long_context)
     return _logits(params, cfg, x), cache

@@ -156,6 +156,16 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def make_serve_step(cfg, *, long_context: bool = False):
+    """``serve_step(params, batch) -> (logits, cache)``: one token per
+    row, ``transformer.decode_step`` (batch: tokens (B, 1), positions
+    (B,), cache, and encoder_output / mrope_positions where the family
+    takes them; the cache is written in place)."""
+    def serve_step(params, batch):
+        return T.decode_step(params, cfg, batch, long_context=long_context)
+    return serve_step
+
+
 def _to_device(tree, device: torch.device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}

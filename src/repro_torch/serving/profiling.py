@@ -79,44 +79,25 @@ class StepProfiler:
 def decode_cost(case) -> Tuple[int, int]:
     """(bytes, flops) a paged decode call needs for these inputs (the
     kernel layout: ``q`` (B, KV, G, D), ``lengths``, ``window``,
-    ``block_tables``): q read and the output written once, the K and V
-    positions each row attends (window included) read once, the lengths
-    and tables; 4 flops per (query head, position, dim)."""
-    B, KV, G, D = case["q"].shape
-    e = case["q"].element_size()
-    lens = case["lengths"].tolist()
-    w = case["window"]
-    pos = sum(min(n, w) if w else n for n in lens)
-    q_bytes = B * KV * G * D * e
-    nbytes = 2 * q_bytes + pos * KV * D * e * 2 + B * 4 * (
-        1 + case["block_tables"].shape[1])
-    return nbytes, 4 * pos * KV * G * D
+    ``block_tables``): the kernel's own count,
+    ``kernels.paged_attention.cost``, at the rows' lengths."""
+    from repro_torch.kernels import paged_attention as pa
+    return pa.cost(tuple(case["q"].shape), case["block_tables"].shape[1],
+                   lengths=case["lengths"].tolist(), window=case["window"],
+                   itemsize=case["q"].element_size())
 
 
 def prefill_cost(case) -> Tuple[int, int]:
     """(bytes, flops) a paged prefill call needs for these inputs (``q``
     (B, KV, C*G, D), ``group``, ``start_pos``, ``q_lens``, ``window``,
-    ``block_tables``): q read and the output written once, each row's
-    reachable history read once; 4 flops per (query head, attended key,
-    dim), causal and window masks counted."""
-    B, KV, CG, D = case["q"].shape
-    e = case["q"].element_size()
-    G = case["group"]
-    starts, qls = case["start_pos"].tolist(), case["q_lens"].tolist()
-    w = case["window"]
-    hist = attended = 0
-    for s, ql in zip(starts, qls):
-        if ql == 0:
-            continue
-        lo = max(0, s - w + 1) if w else 0
-        hist += s + ql - lo                      # positions read
-        for c in range(ql):
-            p = s + c
-            attended += p + 1 - (max(0, p - w + 1) if w else 0)
-    q_bytes = B * KV * CG * D * e
-    nbytes = 2 * q_bytes + hist * KV * D * e * 2 + B * 4 * (
-        2 + case["block_tables"].shape[1])
-    return nbytes, 4 * attended * KV * G * D
+    ``block_tables``): the kernel's own count,
+    ``kernels.paged_prefill.cost``, at the rows' starts and lengths."""
+    from repro_torch.kernels import paged_prefill as pp
+    return pp.cost(tuple(case["q"].shape), case["group"],
+                   case["block_tables"].shape[1],
+                   starts=case["start_pos"].tolist(),
+                   q_lens=case["q_lens"].tolist(), window=case["window"],
+                   itemsize=case["q"].element_size())
 
 
 def _wall_s(fn: Callable, args, kwargs, device: torch.device,

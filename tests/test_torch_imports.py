@@ -57,6 +57,7 @@ def test_port_imports_neither_jax_nor_the_reference():
             "src/repro_torch/distributed/sharding.py",
             "src/repro_torch/distributed/stepfn.py",
             "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/launch/dryrun.py",
             "examples/torch_quickstart.py",
             "examples/torch_deploy_supermuc.py"} <= names
     bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"

@@ -164,25 +164,52 @@ def test_kernel_layout_plain_versions_fold_like_ops():
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
+    """A tensor on a device with no kernel (a stand-in on ``xpu``) is
+    refused; ``meta`` tensors take the accounting route (outputs of the
+    kernel's shapes, no launch) since the dry-run reads it."""
+    from types import SimpleNamespace
+    from repro_torch.kernels import _build
+
+    def elsewhere(t):
+        return SimpleNamespace(device=torch.device("xpu"), shape=t.shape,
+                               dtype=t.dtype)
+
     q = torch.zeros((1, 1, 2, 8), device="meta")
     pages = torch.zeros((2, 8, 1, 8), device="meta")
     tbl = torch.zeros((1, 1), dtype=torch.int32, device="meta")
     lens = torch.ones((1,), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        pa.paged_attention(q, pages, pages, tbl, lens)
-    with pytest.raises(ValueError, match="no kernel"):
-        pp.paged_prefill(q, pages, pages, tbl, lens, lens, group=2)
-    with pytest.raises(ValueError, match="no kernel"):
-        fa.flash_attention(q, pages[:1], pages[:1])
-    with pytest.raises(ValueError, match="no kernel"):
-        rn.rmsnorm(q, torch.zeros((8,), device="meta"))
     x = torch.zeros((1, 4, 2, 8), device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        ssd.ssd_scan(x, x[..., 0], x[0, 0, :, 0], x, x, 4)
     k8 = torch.zeros((1, 4, 1, 8), dtype=torch.int8, device="meta")
+    xq, xx = elsewhere(q), elsewhere(x)
     with pytest.raises(ValueError, match="no kernel"):
-        fa.flash_attention_int8kv(q, k8, k8[..., 0], k8, k8[..., 0], lens,
+        pa.paged_attention(xq, pages, pages, tbl, lens)
+    with pytest.raises(ValueError, match="no kernel"):
+        pp.paged_prefill(xq, pages, pages, tbl, lens, lens, group=2)
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.flash_attention(xq, pages[:1], pages[:1])
+    with pytest.raises(ValueError, match="no kernel"):
+        rn.rmsnorm(xq, torch.zeros((8,), device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        ssd.ssd_scan(xx, x[..., 0], x[0, 0, :, 0], x, x, 4)
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.flash_attention_int8kv(xq, k8, k8[..., 0], k8, k8[..., 0], lens,
                                   lens)
+    launches = _build.launch_counts()
+    got = [pa.paged_attention(q, pages, pages, tbl, lens),
+           pp.paged_prefill(q, pages, pages, tbl, lens, lens, group=2),
+           fa.flash_attention(q, pages[:1], pages[:1])[0],
+           rn.rmsnorm(q, torch.zeros((8,), device="meta")),
+           ssd.ssd_scan(x, torch.zeros((1, 4, 2), device="meta"),
+                        torch.zeros((2,), device="meta"),
+                        torch.zeros((1, 4, 1, 8), device="meta"),
+                        torch.zeros((1, 4, 1, 8), device="meta"), 4),
+           fa.flash_attention_int8kv(
+               q, k8, torch.zeros((1, 4, 1), device="meta"), k8,
+               torch.zeros((1, 4, 1), device="meta"), lens, lens)]
+    assert all(t.device.type == "meta" for t in got)
+    assert [tuple(t.shape) for t in got] == [(1, 1, 2, 8)] * 4 + [
+        (1, 4, 2, 8), (1, 1, 2, 8)]
+    assert _build.launch_counts() == launches
 
 
 # ---------------------------------------------------------------------------
