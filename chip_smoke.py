@@ -198,7 +198,8 @@ Phases (any failure exits nonzero):
               seq 128, batch 2, on the same weights on both: loss and the
               gradient's global norm within tolerance;
 10. training mamba2-1.3b, full width, through the launcher (seq 1024,
-              batch 8, 8 AdamW steps): losses finite and falling, exactly
+              batch 8, ``RECURRENT_TRAIN_STEPS`` AdamW steps): losses
+              finite and falling, exactly
               96 SSD scans (48 layers x 2 with remat), every one on the
               tensor-core route, and 193 RMSNorm launches in every step,
               every one on the one-pass kernel, step time, tokens/s, peak
@@ -208,7 +209,8 @@ Phases (any failure exits nonzero):
               same weights on both: loss and gradient norm within
               tolerance;
 12. training zamba2-1.2b, full width, through the launcher (seq 1024,
-              batch 8, 8 AdamW steps, remat per mamba layer and per
+              batch 8, ``RECURRENT_TRAIN_STEPS`` AdamW steps, remat per
+              mamba layer and per
               application of the shared block): losses finite and falling,
               exactly 12 flash launches (6 applications x 2), 76 SSD scans
               (38 layers x 2) and 177 RMSNorms in every step, each on the
@@ -218,7 +220,8 @@ Phases (any failure exits nonzero):
               (one group of six and the shared block, a tail of two) at
               seq 512, batch 2: loss and gradient norm within tolerance;
 14. dense serving of mamba2-1.3b and zamba2-1.2b, full width — phase 6's
-              workload (8 slots x 1,024, chunk 16, 64 prefix blocks asked
+              workload cut to ``RECURRENT_REQUESTS`` prompts (8 slots x
+              1,024, chunk 16, 64 prefix blocks asked
               for: the engine keeps none) for zamba2 with int8 KV, zamba2
               with bf16 KV (first 4 prompts) and mamba2: every round a
               replay of the engine's two programs, captured once; exactly
@@ -364,8 +367,9 @@ Phases (any failure exits nonzero):
               within the tensor-core bound, the D-tail and window broken
               variants above it, gradients, timed beside SDPA, the plain
               version and the bound; (e) card against CPU at
-              ``SHARDED_CPU_LAYERS`` (2 layers, deepseek-coder-33b's cut
-              to 1 to keep the script within its time limit),
+              ``SHARDED_CPU_LAYERS`` (gemma2-27b's 2 layers,
+              deepseek-coder-33b's and qwen3-moe's cut to 1 to keep the
+              script within its time limit),
               one ``fsdp_tp`` step at seq 128, batch 1: loss and
               gradient norm within the phase 9 tolerances; (f) qwen2-0.5b
               at full width on the (1, 1) mesh: ``dp_tp`` and ``fsdp_tp``
@@ -408,6 +412,43 @@ Phases (any failure exits nonzero):
     64) on its first 512 and last 2,048 query rows (the plain version
     chunked by query rows) and at train's (2, 4,096) whole with its
     gradients; RMSNorm at the step's rows.
+23. the chunked cross-entropy sharded, ``remat_policy``, the examples
+    (weights from ``init_params`` at seed 0, drawn on the card): (a)
+    gemma2-27b at 2 layers under ``fsdp_tp`` (the tied vocabulary of
+    256,000) and qwen3-moe-30b-a3b at 2 under ``dp_tp`` (the untied
+    head, the aux loss), B 2 x S 2,048 at ``seq_chunk`` 512, and
+    qwen2-0.5b whole under ``dp`` at B 8 x S 1,024 at ``seq_chunk`` 256,
+    on the (1, 1) mesh, the plain loss against
+    ``loss_variant="chunked_ce"`` (``make_step_for_shape``): at the same
+    params and batch the losses within ``CHUNK_LOSS_RTOL`` (and three
+    broken chunked losses, ``chunk_faults``, above it) and the
+    gradients' global norms within ``CHUNK_GNORM_RTOL``, then one timed
+    step each: ms, the card's peak beside the dry-run's (``count_step``
+    with the same options, within ``DRYRUN_PEAK_RTOL``,
+    ``argument_size`` exact, where its peak is reached); where the f32
+    logits set the step's peak (qwen2-0.5b) the chunked peak at least one
+    (B, S, V) f32 logits tensor below the plain one on the card and in
+    the dry-run, elsewhere the chunked dry-run peak not above the plain
+    one; exact flash and RMSNorm launches; (b) ``remat_policy``
+    ``"dots"`` against ``"nothing"``: qwen2-0.5b's ``dp`` step at B 8 x
+    S 1,024 and qwen3-moe at 2 layers under ``fsdp_tp`` at B 2 x S
+    2,048: from the same params and batch the loss and every gradient
+    bit for bit (else within ``TRAIN_LOSS_RTOL`` / ``GRAD_TOL``), the
+    forward products the backward re-ran (none under ``"dots"``), then
+    one timed step of the launcher's step each: ms, peak, equal
+    launches; (c) the three examples in this process through their
+    ``main(argv)``: ``torch_train_lm`` at ``LM_EXAMPLE_ARGS`` for 30
+    steps with a checkpoint at 15, then resumed from it (its steps 15-29
+    within ``TRAIN_LOSS_RTOL`` of the first run's, "(DOWN)" both times,
+    20 flash launches a step), ``torch_serve_lm --chat --turns 3``
+    (paged kernels launched, prefix hits), ``torch_train_3dgan --steps
+    5`` in its capsule (img/s, "capsule run complete").  After each
+    example every kernel it launched is held against its plain version
+    at its shapes, at phase 3's tolerances, with phase 3's broken
+    variants failing (``hold_lm_example``: flash whole with its
+    gradients, RMSNorm at its rows; ``hold_serve_example``: paged decode
+    and prefill at the smoke widths, the turns' contexts and chunks);
+    the readings go into the kernels line (``example_shapes``).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -2138,9 +2179,11 @@ def serve_recurrent(torch, T, dev, counters, by_name, rms_paths) -> dict:
     kw = dict(paged=False, max_slots=8, max_seq_len=1024, prefill_chunk=16,
               prefix_cache_blocks=64)
     out, params = {}, {}
-    for arch, kv_dtype, n_req in (("zamba2-1.2b", "int8", 12),
+    for arch, kv_dtype, n_req in (("zamba2-1.2b", "int8",
+                                   RECURRENT_REQUESTS),
                                   ("zamba2-1.2b", "bfloat16", 4),
-                                  ("mamba2-1.3b", "bfloat16", 12)):
+                                  ("mamba2-1.3b", "bfloat16",
+                                   RECURRENT_REQUESTS)):
         cfg = get_config(arch).with_(kv_cache_dtype=kv_dtype)
         label = f"dense {arch}" + (f" {kv_dtype}" if cfg.num_heads else "")
         if arch not in params:
@@ -3149,6 +3192,14 @@ def whisper_phase(torch, T, dev, counters, by_name, rms_paths) -> dict:
     return out
 
 
+# mamba2-1.3b's and zamba2-1.2b's launcher steps (phases 10, 12) and their
+# dense serving's requests over 8 slots (phase 14), cut from 8 and 12 for
+# the script's time limit when phase 23 came: the checks are per step and
+# per replay, and 10 requests still reuse two slots
+RECURRENT_TRAIN_STEPS = 5
+RECURRENT_REQUESTS = 10
+
+
 # ---------------------------------------------------------------------------
 # sharded training (phase 21)
 # ---------------------------------------------------------------------------
@@ -3165,10 +3216,12 @@ SHARDED_SEQ, SHARDED_BATCH, SHARDED_STEPS = 2048, 2, 8
 # fall
 SHARDED_LR = 1e-4
 # phase 21 (e)'s depths on the CPU: deepseek-coder-33b cut from 2 to 1
-# layer (the CPU's bf16 steps took 193 s at 2 each; qwen3-moe at 1 layer
-# read 0.998 of the loss tolerance, at 2 0.21)
+# layer (the CPU's bf16 steps took 193 s at 2 each), qwen3-moe from 2 to
+# 1 (42 s at 2, its loss gap 0.16 of the tolerance once the CPU held the
+# card's initial weights; the 0.998 read at 1 layer before held the CPU's
+# weights after one update)
 SHARDED_CPU_LAYERS = {"gemma2-27b": 2, "deepseek-coder-33b": 1,
-                      "qwen3-moe-30b-a3b": 2}
+                      "qwen3-moe-30b-a3b": 1}
 # the D tail's new route at gemma2-27b's local layers: the window binds at
 # S 8,192, and at phase 21 (a)'s shape
 D160_SETS = {
@@ -3779,10 +3832,13 @@ def sharded_train(torch, T, cfg, dev, counters) -> dict:
 def sharded_card_vs_cpu(torch, T, cfg, dev, *, seq: int = 128,
                         batch: int = 1) -> dict:
     """One ``fsdp_tp`` step of ``cfg`` on the card and on the CPU from the
-    same f32 weights (drawn on the card at seed 1, copied) and batch:
+    same f32 weights (drawn on the card at seed 1, copied to the CPU
+    before the card's step, which updates its shards in place) and batch:
     loss and the gradient's global norm within ``TRAIN_LOSS_RTOL`` and
     ``TRAIN_GNORM_RTOL``.  Without remat on either side (it changes no
-    value, and the CPU's bf16 step is the slow part)."""
+    value, and the CPU's bf16 step is the slow part); SGD, as the check
+    reads the loss and the norm, which the update does not touch, and
+    AdamW's f32 state and update are seconds more of the CPU's step."""
     cfg = cfg.with_(remat=False)
     import numpy as np
     from repro_torch import optim
@@ -3795,14 +3851,14 @@ def sharded_card_vs_cpu(torch, T, cfg, dev, *, seq: int = 128,
     got = {}
     card = T.init_params(cfg, torch.Generator(device=dev).manual_seed(1),
                          device=dev, weight_dtype=torch.float32)
+    host = _map(card, lambda t: t.to("cpu"))
     for where in (dev, "cpu"):
         t0 = time.perf_counter()
-        p = (card if where == dev else
-             _map(card, lambda t: t.to("cpu")))
+        p = card if where == dev else host
         if where != dev:
-            del card
+            del card, host
             torch.cuda.empty_cache()
-        o = optim.adamw(3e-4, clip_norm=1.0)
+        o = optim.sgd(3e-4, clip_norm=1.0)
         with hvd.init(where):
             groups = make_host_mesh()
             p, s = stepfn.shard_state(p, cfg, o, "fsdp_tp", groups)
@@ -4094,6 +4150,582 @@ def sharded_phase(torch, F, T, dev, counters, by_name, rms_paths,
         by_name["flash_attention"]["launches_per_path"].values())
     rms_paths["training qwen2-0.5b (launcher, dp_tp)"] = launches["rmsnorm"]
     out["at_one"] = res_f
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the chunked cross-entropy sharded, remat_policy, the examples (phase 23)
+# ---------------------------------------------------------------------------
+
+# (arch, layers (None: whole), strategy, B, S, seq_chunk): the tied
+# vocabulary of 256,000 split over model, the untied lm_head with the aux
+# loss, and qwen2-0.5b whole under dp at phase 8's shape
+CHUNK_RUNS = (("gemma2-27b", 2, "fsdp_tp", 2, 2048, 512),
+              ("qwen3-moe-30b-a3b", 2, "dp_tp", 2, 2048, 512),
+              ("qwen2-0.5b", None, "dp", 8, 1024, 256))
+# the run whose step's peak the f32 logits set: there the chunked peak
+# must sit at least one (B, S, V) f32 logits tensor below the plain one,
+# on the card and in the dry-run.  In the cut configs at (1, 1) the peak
+# is elsewhere (gemma2-27b: the tied embedding's f32 gradient in the
+# FSDP reduce-scatter; qwen3-moe: the fused gradient all_reduce), and
+# there the chunked loss must not raise the dry-run's peak
+CHUNK_PEAK_RUN = "qwen2-0.5b"
+# the plain and chunked losses at the same params and batch, relative:
+# read 0 (gemma2-27b, qwen2-0.5b) and 7.7e-8 (qwen3-moe) apart on the
+# H100 (PERF.md section 6); the broken chunked losses of
+# ``chunk_faults`` read 2.3e-4 or more apart, each printed and held
+# above it
+CHUNK_LOSS_RTOL = 2e-5
+# their gradients' global norms, relative: read 1.7e-7 apart where both
+# losses take ``vocab_parallel_nll`` (gemma2-27b), 8.6e-5 and 1.3e-4
+# where the plain one takes log_softmax and the chunked one logsumexp
+# less the target's logit (qwen3-moe, qwen2-0.5b: f32 gradients that
+# differ in their last bits round to another bf16 neighbour in places
+# in the bf16 backward)
+CHUNK_GNORM_RTOL = 1e-3
+
+
+# remat_policy: qwen2-0.5b's dp step at phase 8's shape, and qwen3-moe at
+# 2 layers under fsdp_tp (the reference's hill-climb case)
+DOTS_RUNS = (("qwen2-0.5b", None, "dp", 1024, 8),
+             ("qwen3-moe-30b-a3b", 2, "fsdp_tp", 2048, 2))
+LM_EXAMPLE_STEPS = 30          # torch_train_lm --model 100m, checkpoint at 15
+# its batch and rate: at the example's defaults (B 8 x S 128, lr 3e-3)
+# 30 steps bring the 100m model's loss down neither in the port nor in
+# the reference's examples/train_lm.py, on the CPU (PERF.md section 6)
+LM_EXAMPLE_BATCH, LM_EXAMPLE_SEQ = 32, 256
+LM_EXAMPLE_ARGS = ["--model", "100m", "--seq-len", str(LM_EXAMPLE_SEQ),
+                   "--batch", str(LM_EXAMPLE_BATCH), "--lr", "1e-3"]
+
+
+def chunk_faults(torch, T, cfg, strategy, groups, params, batch,
+                 seq_chunk: int) -> dict:
+    """What each of three broken chunked losses adds to the plain loss at
+    ``params`` and ``batch``, from the plain forward's f32 token losses:
+    one that leaves its padded positions unmasked (a padded position is a
+    zero hidden state, logits 0 against target 0: log V each), one that
+    takes the mean over the padded length, one that drops its last
+    chunk."""
+    from repro_torch.distributed import stepfn
+    shards = (None if strategy == "dp"
+              else stepfn.train_shards(cfg, groups, strategy))
+    with torch.no_grad():
+        logits = T.forward(params, cfg, batch, shards=shards)[0][:, :-1]
+        tgt = batch["labels"][:, 1:].long()
+        nll = (torch.logsumexp(logits.float(), -1) - torch.gather(
+            logits, -1, tgt[..., None])[..., 0].float())
+        del logits
+    B, Sm = nll.shape
+    pad = (-Sm) % seq_chunk
+    ce = float(nll.double().sum()) / (B * Sm)
+    last = float(nll[:, Sm + pad - seq_chunk:].double().sum()) / (B * Sm)
+    return {"left its padding unmasked": pad * math.log(cfg.vocab_size)
+            / Sm,
+            "took the mean over the padded length": ce * Sm / (Sm + pad)
+            - ce,
+            "dropped its last chunk": -last}
+
+
+def loss_grads(torch, T, cfg, params, batch, shards):
+    """(loss, gradients, forward products, products the backward ran)
+    of ``lm_loss`` at ``params`` (``transformer.DotsCounter``)."""
+    from repro_torch.optim import tree_map
+    leaves = []
+
+    def alias(t):
+        leaves.append(t.detach().requires_grad_(True))
+        return leaves[-1]
+    p = tree_map(alias, params)
+    fwd, bwd = T.DotsCounter(), T.DotsCounter()
+    with torch.enable_grad():
+        with fwd:
+            loss, _ = T.lm_loss(p, cfg, batch, shards)
+        with bwd:
+            grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), grads, fwd, bwd
+
+
+def chunked_pair(torch, T, cfg, strategy, batch: int, seq: int,
+                 seq_chunk: int, dev, groups, counters) -> dict:
+    """(a) one config's plain and chunked steps (``make_step_for_shape``
+    at (1, 1)): the first from the same params and batch, its loss and
+    the gradients' global norm (and, before the plain one,
+    ``chunk_faults``); then one timed step each: ms, the card's peak over
+    it (as phase 22 (e) takes it) beside the dry-run's, launches."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed import stepfn
+    from repro_torch.launch import dryrun
+    shape = InputShape("train_4k", seq, batch, "train")
+    out = {}
+    for variant, kw in (("plain", {}), ("chunked_ce", {
+            "loss_variant": "chunked_ce", "seq_chunk": seq_chunk})):
+        check(held_bytes(torch, dev) < 4 * 2**30,
+              f"(a) {cfg.name} {variant}: memory held before the step")
+        params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            0), device=dev, weight_dtype=torch.float32)
+        args = _step_args(torch, cfg, shape, dev, params)
+        if variant == "plain":
+            out["fault_deltas"] = chunk_faults(torch, T, cfg, strategy,
+                                               groups, params, args[-1],
+                                               seq_chunk)
+        step, _ = stepfn.make_step_for_shape(cfg, groups, strategy, shape,
+                                             **kw)
+        arg_bytes = sum(tree_bytes(a) for a in args)
+        res, _ = _timed(torch, step, *args)         # at the initial params
+        r = {"loss": float(res[2]["loss"]),
+             "grad_norm": float(res[2]["grad_norm"])}
+        del res
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts(counters)
+        res, dt = _timed(torch, step, *args)
+        launches = read_counts(counters)
+        card_peak = torch.cuda.max_memory_allocated(dev) - held + arg_bytes
+        rec = dryrun.count_step(cfg, shape, strategy, {"data": 1,
+                                                       "model": 1}, **kw)
+        r.update({"step_ms": dt * 1e3, "step_loss": float(res[2]["loss"]),
+                  "card_peak": card_peak,
+                  "dryrun_peak": rec["peak_memory_per_device"],
+                  "dryrun_peak_at": rec["peak_at"],
+                  "peak_gap": (rec["peak_memory_per_device"] - card_peak)
+                  / card_peak,
+                  "dryrun_argument_size": rec["argument_size"],
+                  "argument_bytes": arg_bytes,
+                  "launches": {k: v for k, v in launches.items() if v}})
+        check(math.isfinite(r["loss"]) and math.isfinite(r["step_loss"]),
+              f"(a) {cfg.name} {variant}: loss not finite")
+        check(abs(r["peak_gap"]) <= DRYRUN_PEAK_RTOL,
+              f"(a) {cfg.name} {variant}: dry-run peak "
+              f"{rec['peak_memory_per_device']} vs the card's {card_peak} "
+              f"({r['peak_gap']:+.2%})")
+        check(rec["argument_size"] == arg_bytes,
+              f"(a) {cfg.name} {variant}: dry-run argument_size")
+        out[variant] = r
+        del params, args, step, res
+    return out
+
+
+def dots_pair(torch, T, arch, layers, strategy, seq, batch, dev, groups,
+              counters) -> dict:
+    """(b) one config under ``remat_policy`` "nothing" and "dots" from the
+    same params and batch: the loss and every gradient (bit for bit),
+    the forward products the backward re-ran, then 2 steps of the
+    launcher's step (``make_train_step``, AdamW 1e-4): the second's ms
+    and peak, launches."""
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenSource, TokenDatasetSpec
+    from repro_torch.distributed import stepfn
+    base = get_config(arch)
+    if layers:
+        base = base.with_(num_layers=layers)
+    src = SyntheticTokenSource(TokenDatasetSpec(base.vocab_size, seq,
+                                                batch))
+    tb = {k: torch.as_tensor(v).to(dev) for k, v in src.batch(0).items()}
+    out, first = {}, None
+    for pol in ("nothing", "dots"):
+        cfg = base.with_(remat_policy=pol)
+        params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            0), device=dev, weight_dtype=torch.float32)
+        loss, grads, fwd, bwd = loss_grads(
+            torch, T, cfg, params, tb,
+            stepfn.train_shards(cfg, groups, strategy))
+        r = out[pol] = {"loss": float(loss),
+                        "forward_products": fwd.grad_on,
+                        "recomputed_products": bwd.grad_on,
+                        "gradient_products": bwd.grad_off}
+        if first is None:
+            first = (loss, grads)
+        else:
+            r["loss_bitwise"] = bool(torch.equal(loss, first[0]))
+            r["grads_bitwise"] = all(torch.equal(a, b)
+                                     for a, b in zip(grads, first[1]))
+            r["max_grad_gap"] = max(((a - b).abs().max()
+                                     / b.abs().max().clamp_min(1e-30)).item()
+                                    for a, b in zip(grads, first[1]))
+        del params, grads
+    del first
+    # the steps with nothing else held, each from fresh params
+    for pol in ("nothing", "dots"):
+        cfg = base.with_(remat_policy=pol)
+        check(held_bytes(torch, dev) < 4 * 2**30,
+              f"(b) {arch} {pol}: memory held")
+        params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            0), device=dev, weight_dtype=torch.float32)
+        r = out[pol]
+        opt = optim.adamw(1e-4, clip_norm=1.0)
+        if strategy == "dp":
+            state = opt.init(params)
+        else:
+            params, state = stepfn.shard_state(params, cfg, opt, strategy,
+                                               groups)
+        step = stepfn.make_train_step(cfg, opt, groups, strategy=strategy,
+                                      device=dev)
+        host = src.batch(0)
+        _timed(torch, step, params, state, host)    # warm-up
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts(counters)
+        res, dt = _timed(torch, step, params, state, host)
+        launches = read_counts(counters)
+        del res                 # the step's (params, state, metrics)
+        r.update({"step_ms": dt * 1e3,
+                  "max_memory_allocated": torch.cuda.max_memory_allocated(
+                      dev),
+                  "launches": {k: v for k, v in launches.items() if v}})
+        del params, state, step
+    return out
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module, its ``main`` not run (the
+    tests load the examples through it too)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(name: str, argv, counters):
+    """``examples/<name>.py``'s ``main(argv)`` in this process, its
+    standard output kept (and printed, indented) and its launches counted
+    from 0: (result, output, launches)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    zero_counts(counters)
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = load_example(name).main(argv)
+    finally:
+        text = buf.getvalue()
+        for line in text.splitlines():
+            print(f"    | {line[:200]}")
+        sys.stdout.flush()
+    return res, text, read_counts(counters)
+
+
+def hold_lm_example(torch, dev, cfg) -> dict:
+    """The kernels ``torch_train_lm`` at ``LM_EXAMPLE_ARGS`` launched,
+    against their plain versions at its shapes (phase 3's checks and
+    broken variants, as ``hold_step_kernels``): flash whole with its
+    gradients at (B, S, H / KV, D), RMSNorm at its B x S rows of
+    ``d_model``."""
+    import numpy as np
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import rmsnorm as rn
+    rng = np.random.default_rng(23)
+    B, S = LM_EXAMPLE_BATCH, LM_EXAMPLE_SEQ
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    out = {"flash_attention": hold_flash_whole(
+        torch, fa, kops, kref, dev, rng, B=B, S=S, H=H, KV=KV, D=D),
+        "rmsnorm": hold_rmsnorm_rows(torch, rn, kref, dev, rng, B * S,
+                                     cfg.d_model)}
+    out["flash_attention"]["shapes"] = (f"q ({B}, {S}, {H}, {D}), k/v ({B}, "
+                                        f"{S}, {KV}, {D}) bf16, causal")
+    out["rmsnorm"]["shapes"] = f"{B * S} x {cfg.d_model}"
+    r = out["flash_attention"]
+    check(r["ratio"] <= 1.0 and r["lse_err"] <= LSE_TOL
+          and r["grad_err"] <= GRAD_TOL,
+          f"(c) torch_train_lm: flash disagrees at (B {B}, S {S})")
+    check(out["rmsnorm"]["ulp"] <= 1.0,
+          f"(c) torch_train_lm: RMSNorm disagrees at {B * S} rows")
+    return out
+
+
+def hold_serve_example(torch, dev, cfg, turns, slots: int, chunk: int,
+                       page: int) -> dict:
+    """The paged kernels ``torch_serve_lm --chat`` launched, against their
+    plain versions at its shapes (phase 3's bounds and broken variants):
+    the smoke config's heads over ``page``-token pages; decode over the
+    engine's ``slots`` rows at each turn's last context (its prompt and
+    reply), a free slot at length 0; prefill of a ``chunk``-token chunk
+    over ``slots`` rows, each turn's last recomputed chunk (its start and
+    length), a row with nothing to prefill."""
+    import numpy as np
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_prefill as pp
+    from repro_torch.kernels import ref as kref
+    rng = np.random.default_rng(23)
+    KV, D = cfg.num_kv_heads, cfg.resolved_head_dim
+    G = cfg.num_heads // KV
+    turns = turns[:slots]
+    free = [0] * (slots - len(turns))
+    lengths = [t["prompt"] + len(t["reply"]) for t in turns] + free
+    starts, q_lens = [], []
+    for t in turns:
+        k = (t["recomputed"] - 1) // chunk
+        starts.append(t["prompt"] - t["recomputed"] + k * chunk)
+        q_lens.append(t["recomputed"] - k * chunk)
+    starts, q_lens = starts + free, q_lens + free
+    out = {}
+    dc = decode_case(torch, rng, dev, B=slots, KV=KV, G=G, D=D, page=page,
+                     lengths=lengths)
+    got = pa.paged_attention(*decode_args(dc), window=None, softcap=None)
+    torch.cuda.synchronize()
+    ref_, mix = decode_bound(pa, dc)
+    r = out["paged_decode_attention"] = {
+        "shapes": f"q ({slots}, {KV}, {G}, {D}) bf16, {page}-token pages, "
+                  f"contexts {lengths}",
+        "err": (got.float() - ref_.float()).abs().max().item(),
+        "ratio": kref.rounding_bound_ratio(got, ref_, mix, pa.P_ROUNDING),
+        "misses": {what: kref.rounding_bound_ratio(wrong(), ref_, mix,
+                                                   pa.P_ROUNDING)
+                   for what, wrong in decode_wrongs(torch, pa, kref, dc)}}
+    zero_ok = all(bool((got[b] == 0).all())
+                  for b, n in enumerate(lengths) if n == 0)
+    check(r["ratio"] <= 1.0 and zero_ok, "(c) torch_serve_lm: the decode "
+          f"kernel disagrees at its shapes ({r['ratio']:.3e})")
+    del dc, got, ref_, mix
+    pc_ = prefill_case(torch, rng, dev, B=slots, KV=KV, G=G, D=D, page=page,
+                       C=chunk, starts=starts, q_lens=q_lens)
+    got = pp.paged_prefill(*prefill_args(pc_), group=G, window=None,
+                           softcap=None)
+    torch.cuda.synchronize()
+    ref_, mix, p_rel = prefill_bound(pp, pc_)
+    r = out["paged_prefill_attention"] = {
+        "shapes": f"q ({slots}, {KV}, {chunk}*{G}, {D}) bf16, C = {chunk}, "
+                  f"starts {starts}, q_lens {q_lens}",
+        "err": (got.float() - ref_.float()).abs().max().item(),
+        "ratio": kref.rounding_bound_ratio(got, ref_, mix, p_rel),
+        "misses": {what: kref.rounding_bound_ratio(wrong(), ref_, mix, p_rel)
+                   for what, wrong in prefill_wrongs(torch, pa, pp, kref,
+                                                     pc_)}}
+    check(r["ratio"] <= 1.0 and padding_rows_zero(got, pc_),
+          "(c) torch_serve_lm: the prefill kernel disagrees at its shapes "
+          f"({r['ratio']:.3e})")
+    return out
+
+
+def record_holds(by_name, holds: dict, label: str) -> None:
+    """Print ``holds`` (kernel -> readings), fail where a broken variant
+    reads within its bound, and add the readings to the kernels line
+    (``example_shapes``)."""
+    print(f"(c) {label}: kernels against their plain versions at its "
+          "shapes: " + json.dumps(holds), flush=True)
+    for name, r in holds.items():
+        for what, miss in r["misses"].items():
+            check(miss > 1.0, f"(c) {label}: the {name} check misses a "
+                  f"kernel that {what} ({miss:.3e})")
+        e = {k: v for k, v in r.items() if k != "misses"}
+        e["max_abs_err"] = e.pop("err")
+        by_name[name].setdefault("example_shapes", []).append(
+            dict(e, path=label))
+
+
+def chunked_phase(torch, T, dev, counters, by_name, rms_paths) -> dict:
+    """Phase 23: the chunked cross-entropy sharded, ``remat_policy``, the
+    examples (the module's docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import hvd
+    from repro_torch.launch.mesh import make_host_mesh
+    out = {"chunked": {}, "dots": {}, "examples": {}}
+
+    def add_path(path, launches):
+        for k in ("flash_attention",):
+            if launches.get(k):
+                e = by_name[k]
+                e["launches_per_path"][path] = launches[k]
+                e["launches"] = sum(e["launches_per_path"].values())
+        if launches.get("rmsnorm"):
+            rms_paths[path] = launches["rmsnorm"]
+
+    # (a) the chunked loss against the plain one, sharded ----------------
+    with hvd.init("cuda"):
+        groups = make_host_mesh()
+        for arch, L, strategy, B, S, seq_chunk in CHUNK_RUNS:
+            full = get_config(arch)
+            cfg = full.with_(num_layers=L) if L else full
+            L = cfg.num_layers
+            r = chunked_pair(torch, T, cfg, strategy, B, S, seq_chunk, dev,
+                             groups, counters)
+            p, c = r["plain"], r["chunked_ce"]
+            gap = abs(c["loss"] - p["loss"]) / abs(p["loss"])
+            gnorm_gap = abs(c["grad_norm"] - p["grad_norm"]) / p["grad_norm"]
+            faults = {what: abs(d) / abs(p["loss"])
+                      for what, d in r.pop("fault_deltas").items()}
+            logits = B * S * cfg.vocab_size * 4
+            r.update({"loss_gap": gap, "loss_rtol": CHUNK_LOSS_RTOL,
+                      "broken_loss_gaps": faults, "grad_norm_gap": gnorm_gap,
+                      "grad_norm_rtol": CHUNK_GNORM_RTOL,
+                      "peak_saved": p["card_peak"] - c["card_peak"],
+                      "dryrun_peak_saved": p["dryrun_peak"]
+                      - c["dryrun_peak"], "logits_bytes": logits})
+            cut = f"cut to {L} layers" if L < full.num_layers else "whole"
+            print(f"(a) {arch} at full width {cut}, {strategy} at (1, 1), "
+                  f"B {B} x S {S}, seq_chunk {seq_chunk}: loss plain "
+                  f"{p['loss']:.6f} chunked {c['loss']:.6f} (gap "
+                  f"{gap:.3e}, rtol {CHUNK_LOSS_RTOL:.0e}; broken chunked "
+                  f"losses: " + ", ".join(f"{w} {g:.3e}" for w, g in
+                                          faults.items())
+                  + f"); grad norm plain {p['grad_norm']:.6f} chunked "
+                  f"{c['grad_norm']:.6f} (gap {gnorm_gap:.3e}, rtol "
+                  f"{CHUNK_GNORM_RTOL:.0e}); step ms plain "
+                  f"{p['step_ms']:.1f} chunked {c['step_ms']:.1f}; peak GB "
+                  f"plain {p['card_peak'] / 1e9:.3f} (dry-run "
+                  f"{p['dryrun_peak'] / 1e9:.3f}) chunked "
+                  f"{c['card_peak'] / 1e9:.3f} (dry-run "
+                  f"{c['dryrun_peak'] / 1e9:.3f}); saved "
+                  f"{r['peak_saved'] / 1e9:.3f} GB (dry-run "
+                  f"{r['dryrun_peak_saved'] / 1e9:.3f}) against the "
+                  f"{logits / 1e9:.3f} GB of f32 logits; the dry-run's "
+                  f"peak at {p['dryrun_peak_at']} (plain), "
+                  f"{c['dryrun_peak_at']} (chunked): " + json.dumps(r),
+                  flush=True)
+            check(gap <= CHUNK_LOSS_RTOL, f"(a) {arch}: chunked and plain "
+                  f"losses {gap:.3e} apart")
+            for what, g in faults.items():
+                check(g > CHUNK_LOSS_RTOL, f"(a) {arch}: the loss check "
+                      f"misses a chunked loss that {what} ({g:.3e})")
+            check(gnorm_gap <= CHUNK_GNORM_RTOL, f"(a) {arch}: gradient "
+                  f"norms {gnorm_gap:.3e} apart")
+            if arch == CHUNK_PEAK_RUN:
+                check(r["peak_saved"] >= logits
+                      and r["dryrun_peak_saved"] >= logits,
+                      f"(a) {arch}: the chunked loss saved "
+                      f"{r['peak_saved']} bytes of peak (dry-run "
+                      f"{r['dryrun_peak_saved']}), less than the {logits} "
+                      f"of f32 logits")
+            else:
+                # the peak is not the loss's (CHUNK_PEAK_RUN); in the
+                # dry-run's exact count the chunked loss must not raise
+                # it (the card's moves by the allocator's blocks)
+                check(r["dryrun_peak_saved"] >= 0, f"(a) {arch}: the "
+                      f"chunked loss raised the dry-run's peak by "
+                      f"{-r['dryrun_peak_saved']} bytes")
+            norms = 4 if cfg.post_block_norm else 2
+            want = {"flash_attention": 2 * L,
+                    "rmsnorm": 2 * norms * L + 1}
+            for v in (p, c):
+                got = {k: v["launches"].get(k, 0) for k in want}
+                check(got == want, f"(a) {arch}: launches {got}, want "
+                      f"{want}")
+                add_path(f"step {arch} ({L} layers, {strategy}, "
+                         f"{'chunked' if v is c else 'plain'})",
+                         v["launches"])
+            out["chunked"][arch] = r
+            held_bytes(torch, dev)
+
+        # (b) remat_policy "dots" against "nothing" ------------------------
+        for arch, L, strategy, seq, batch in DOTS_RUNS:
+            r = dots_pair(torch, T, arch, L, strategy, seq, batch, dev,
+                          groups, counters)
+            n, d = r["nothing"], r["dots"]
+            print(f"(b) {arch}{f' cut to {L} layers' if L else ''}, "
+                  f"{strategy}, B {batch} x S {seq}: \"dots\" against "
+                  f"\"nothing\": loss bit for bit {d['loss_bitwise']}, "
+                  f"gradients bit for bit {d['grads_bitwise']} (largest "
+                  f"gap {d['max_grad_gap']:.3e}); forward products re-run "
+                  f"in the backward {n['recomputed_products']} / "
+                  f"{d['recomputed_products']}; step ms "
+                  f"{n['step_ms']:.1f} / {d['step_ms']:.1f}; peak GB "
+                  f"{n['max_memory_allocated'] / 1e9:.3f} / "
+                  f"{d['max_memory_allocated'] / 1e9:.3f}: " + json.dumps(r),
+                  flush=True)
+            check(d["loss_bitwise"] or abs(d["loss"] - n["loss"])
+                  <= TRAIN_LOSS_RTOL * abs(n["loss"]),
+                  f"(b) {arch}: losses differ")
+            check(d["grads_bitwise"] or d["max_grad_gap"] <= GRAD_TOL,
+                  f"(b) {arch}: gradients differ by {d['max_grad_gap']}")
+            check(d["recomputed_products"] == 0 < n["recomputed_products"],
+                  f"(b) {arch}: \"dots\" re-ran "
+                  f"{d['recomputed_products']} forward products")
+            check(d["forward_products"] == n["forward_products"],
+                  f"(b) {arch}: the forwards differ")
+            check(n["launches"] == d["launches"],
+                  f"(b) {arch}: launches differ by policy")
+            for pol, v in r.items():
+                add_path(f"step {arch} (remat {pol})", v["launches"])
+            out["dots"][arch] = r
+            held_bytes(torch, dev)
+
+    # (c) the examples, in process ----------------------------------------
+    ck = OUT / "lm_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    half = LM_EXAMPLE_STEPS // 2
+    a, text_a, la = run_example("torch_train_lm", LM_EXAMPLE_ARGS + [
+        "--steps", str(LM_EXAMPLE_STEPS), "--ckpt-every", str(half),
+        "--ckpt-dir", str(ck / "a")], counters)
+    shutil.copytree(ck / "a" / f"step_{half:09d}",
+                    ck / "b" / f"step_{half:09d}")
+    b, text_b, lb = run_example("torch_train_lm", LM_EXAMPLE_ARGS + [
+        "--steps", str(LM_EXAMPLE_STEPS), "--resume", "--ckpt-every", "0",
+        "--ckpt-dir", str(ck / "b")], counters)
+    shutil.rmtree(ck, ignore_errors=True)
+    resumed_gap = max(abs(x - y) / abs(y) for x, y in
+                      zip(b["losses"][:half], a["losses"][half:]))
+    out["examples"]["train_lm"] = {
+        "losses": a["losses"], "resumed_losses": b["losses"],
+        "resumed_gap": resumed_gap, "tokens_per_s": a["tokens_per_s"],
+        "params": a["params"], "max_memory_allocated":
+        a.get("max_memory_allocated"), "launches": [la, lb]}
+    print(f"(c) torch_train_lm {' '.join(LM_EXAMPLE_ARGS)} ({a['params']} "
+          f"parameters): "
+          f"{LM_EXAMPLE_STEPS} steps, checkpoints at {half} and "
+          f"{LM_EXAMPLE_STEPS}, {a['tokens_per_s']:.0f} tok/s; resumed "
+          f"from {half}: steps {half}-{LM_EXAMPLE_STEPS - 1} within "
+          f"{resumed_gap:.3e} of the uninterrupted run's (rtol "
+          f"{TRAIN_LOSS_RTOL}); launches {la}, {lb}", flush=True)
+    check("(DOWN)" in text_a and "(DOWN)" in text_b, "(c) torch_train_lm: "
+          "the loss did not go down")
+    check(f"resumed from step {half}" in text_b and "tok/s" in text_a,
+          "(c) torch_train_lm: markers missing")
+    check(resumed_gap <= TRAIN_LOSS_RTOL, "(c) torch_train_lm: the resumed "
+          "run left the uninterrupted one")
+    check(la["flash_attention"] == 2 * 10 * LM_EXAMPLE_STEPS,
+          f"(c) torch_train_lm: {la['flash_attention']} flash launches")
+    for path, n in (("torch_train_lm 100m", la), ("torch_train_lm resumed",
+                                                   lb)):
+        add_path(path, n)
+    record_holds(by_name, hold_lm_example(
+        torch, dev, load_example("torch_train_lm").MODELS["100m"]),
+        "torch_train_lm 100m")
+
+    s, text_s, ls = run_example("torch_serve_lm", [
+        "--chat", "--turns", "3"], counters)
+    out["examples"]["serve_lm"] = {
+        "turns": s["turns"], "prefix_cache": s["prefix_cache"],
+        "paged": s["paged"], "launches": ls}
+    print(f"(c) torch_serve_lm --chat --turns 3 (qwen2-0.5b smoke, paged): "
+          f"recomputed {[t['recomputed'] for t in s['turns']]} of "
+          f"{[t['prompt'] for t in s['turns']]}, hit rate "
+          f"{s['prefix_cache']['hit_rate']:.2f}; launches {ls}", flush=True)
+    check(s["paged"] and "prefix cache: hit rate" in text_s
+          and s["prefix_cache"]["hit_rate"] > 0,
+          "(c) torch_serve_lm: no prefix hit")
+    check(all(0 < t["recomputed"] < t["prompt"] for t in s["turns"][1:]),
+          "(c) torch_serve_lm: a later turn recomputed its whole prompt")
+    check(ls["paged_decode_attention"] > 0
+          and ls["paged_prefill_attention"] > 0,
+          f"(c) torch_serve_lm: the paged kernels did not run ({ls})")
+    for name in ("paged_decode_attention", "paged_prefill_attention"):
+        by_name[name]["launches"] += ls[name]
+    add_path("torch_serve_lm --chat", ls)
+    # the example's default slots, the engine's default chunk and page
+    import inspect
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serving import ServingEngine
+    eng = inspect.signature(ServingEngine).parameters
+    record_holds(by_name, hold_serve_example(
+        torch, dev, get_smoke_config("qwen2-0.5b"), s["turns"], slots=4,
+        chunk=eng["prefill_chunk"].default,
+        page=eng["kv_block_size"].default), "torch_serve_lm --chat")
+
+    g, text_g, lg = run_example("torch_train_3dgan", ["--steps", "5"],
+                                counters)
+    out["examples"]["train_3dgan"] = {
+        "d_losses": g["d_losses"], "g_losses": g["g_losses"],
+        "images_per_s": g["images_per_s"], "image": g["image"],
+        "wall_time_s": g["wall_time_s"]}
+    print(f"(c) torch_train_3dgan --steps 5 in its capsule "
+          f"({g['image']}): {g['images_per_s']:.1f} img/s, energy "
+          f"correlation {g['energy_corr']:.3f}", flush=True)
+    check("img/s" in text_g and "capsule run complete" in text_g
+          and all(math.isfinite(x) for x in g["d_losses"]),
+          "(c) torch_train_3dgan: markers missing")
     return out
 
 
@@ -5636,8 +6268,9 @@ def main() -> int:
     mcfg = get_config("mamba2-1.3b")
     zero_counts(counters)
     run = train_launcher.main(["--arch", "mamba2-1.3b", "--seq-len", "1024",
-                               "--global-batch", "8", "--steps", "8",
-                               "--strategy", "dp"])
+                               "--global-batch", "8", "--steps",
+                               str(RECURRENT_TRAIN_STEPS), "--strategy",
+                               "dp"])
     del run["params"]
     torch.cuda.synchronize()
     launches = read_counts(counters)
@@ -5699,8 +6332,9 @@ def main() -> int:
     E, G = zcfg.hybrid_attn_every, zcfg.num_layers // zcfg.hybrid_attn_every
     zero_counts(counters)
     run = train_launcher.main(["--arch", "zamba2-1.2b", "--seq-len", "1024",
-                               "--global-batch", "8", "--steps", "8",
-                               "--strategy", "dp"])
+                               "--global-batch", "8", "--steps",
+                               str(RECURRENT_TRAIN_STEPS), "--strategy",
+                               "dp"])
     del run["params"]
     torch.cuda.synchronize()
     launches = read_counts(counters)
@@ -5820,6 +6454,15 @@ def main() -> int:
     steps = step_phase(torch, T, dev, counters, by_name, rms_paths)
     print(f"step phase {time.perf_counter() - t22:.1f} s: "
           + json.dumps(steps), flush=True)
+
+    # 23. the chunked loss sharded, remat_policy, the examples -------------
+    phase("the chunked cross-entropy under fsdp_tp / dp_tp, remat_policy "
+          "\"dots\", the three examples")
+    t23 = time.perf_counter()
+    chunked = chunked_phase(torch, T, dev, counters, by_name, rms_paths)
+    by_name["rmsnorm"]["launches"] = sum(rms_paths.values())
+    print(f"chunked phase {time.perf_counter() - t23:.1f} s: "
+          + json.dumps(chunked), flush=True)
 
     # the D tail's launches over every path run (each zeroed just before
     # it): gemma2-27b's training in phase 21 (a)

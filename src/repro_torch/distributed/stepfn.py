@@ -149,18 +149,12 @@ def make_train_step(cfg, optimizer, groups, *, strategy: str = "dp",
     if strategy != "dp":
         return make_sharded_train_step(
             cfg, optimizer, groups, strategy=strategy,
-            loss_variant=loss_variant, microbatches=microbatches,
-            device=device, long_context=long_context, local_rows=local_rows)
+            loss_variant=loss_variant, seq_chunk=seq_chunk,
+            microbatches=microbatches, device=device,
+            long_context=long_context, local_rows=local_rows)
     device = resolve_device(device)
-    if loss_variant not in ("plain", "chunked_ce"):
-        raise ValueError(f"unknown loss_variant {loss_variant!r}")
     data = groups["data"]
-
-    def loss_fn(p, b):
-        if loss_variant == "chunked_ce":
-            return T.lm_loss_chunked(p, cfg, b, seq_chunk=seq_chunk,
-                                     long_context=long_context)
-        return T.lm_loss(p, cfg, b, long_context=long_context)
+    loss_fn = _loss_fn(cfg, loss_variant, seq_chunk, long_context)
 
     def step(params, opt_state, batch: Dict[str, Any]):
         B = batch["tokens"].shape[0]
@@ -192,12 +186,28 @@ def make_train_step(cfg, optimizer, groups, *, strategy: str = "dp",
     return local if local_rows else step
 
 
+def _loss_fn(cfg, loss_variant: str, seq_chunk: int, long_context: bool,
+             shards=None):
+    """``loss_fn(p, b)`` of ``loss_variant``: "plain" (``lm_loss``) or
+    "chunked_ce" (``lm_loss_chunked`` at ``seq_chunk``), tensor parallel
+    under ``shards``."""
+    if loss_variant == "chunked_ce":
+        return lambda p, b: T.lm_loss_chunked(
+            p, cfg, b, shards, seq_chunk=seq_chunk,
+            long_context=long_context)
+    if loss_variant != "plain":
+        raise ValueError(f"unknown loss_variant {loss_variant!r}")
+    return lambda p, b: T.lm_loss(p, cfg, b, shards,
+                                  long_context=long_context)
+
+
 # ---------------------------------------------------------------------------
 # dp_tp / fsdp_tp
 # ---------------------------------------------------------------------------
 
 def make_sharded_train_step(cfg, optimizer, groups, *, strategy: str,
                             loss_variant: str = "plain",
+                            seq_chunk: int = 512,
                             microbatches: int = 1, device="cuda",
                             long_context: bool = False,
                             local_rows: bool = False):
@@ -220,30 +230,22 @@ def make_sharded_train_step(cfg, optimizer, groups, *, strategy: str,
     over, all_reduced over the world.  AdamW updates in place
     (``update_in_place``), shard by shard.  metrics: ``loss`` and the
     loss's metrics averaged over the data axes, ``grad_norm``.
-    ``local_rows``: as :func:`make_train_step`'s."""
+    ``loss_variant``, ``seq_chunk``, ``microbatches``, ``local_rows``: as
+    :func:`make_train_step`'s; the chunked loss is vocab-parallel as the
+    plain one is (``transformer.lm_loss_chunked``)."""
     from repro_torch.core import hvd
     from repro_torch.serving.engine import resolve_device
 
     if strategy not in ("dp_tp", "fsdp_tp"):
         raise ValueError(f"unknown sharded strategy {strategy!r}")
-    if loss_variant != "plain":
-        raise NotImplementedError(
-            f"loss_variant {loss_variant!r} under {strategy}: the sharded "
-            "step runs the plain loss (its vocab-parallel cross-entropy)")
     if "model" not in groups.axis_names:
         raise ValueError(f"{strategy} needs a 'model' axis; the layout has "
                          f"{groups.axis_names}")
     device = resolve_device(device)
-    specs = sh.params_pspec(params_struct(cfg), cfg, strategy, groups)
+    shards = train_shards(cfg, groups, strategy)
+    specs, dgroup = shards.specs, shards.batch
     daxes = sh.data_axes(groups)
-    dgroup = groups[daxes]
-    shards = nn.Shards(specs, groups["model"],
-                       groups["data"] if strategy == "fsdp_tp" else None,
-                       batch=dgroup)
-
-    def loss_fn(p, b):
-        return T.lm_loss(p, cfg, b, shards=shards,
-                         long_context=long_context)
+    loss_fn = _loss_fn(cfg, loss_variant, seq_chunk, long_context, shards)
 
     def rows(batch):
         """This rank's rows of the global batch (``batch_pspec``)."""
@@ -302,6 +304,19 @@ def make_sharded_train_step(cfg, optimizer, groups, *, strategy: str,
 
     step.specs = specs
     return local if local_rows else step
+
+
+def train_shards(cfg, groups, strategy: str):
+    """The ``modules.Shards`` the train step under ``strategy`` runs its
+    loss with: None under ``dp``; else this rank's params' specs over
+    ``model`` (and ``data`` under ``fsdp_tp``), with the data axes' group
+    for statistics of the whole global batch."""
+    if strategy == "dp":
+        return None
+    specs = sh.params_pspec(params_struct(cfg), cfg, strategy, groups)
+    return nn.Shards(specs, groups["model"],
+                     groups["data"] if strategy == "fsdp_tp" else None,
+                     batch=groups[sh.data_axes(groups)])
 
 
 def _flat(tree, specs, prefix=""):
@@ -422,15 +437,17 @@ def make_serve_step(cfg, groups, strategy: str, shape, *,
 
 
 def make_step_for_shape(cfg, groups, strategy: str, shape, optimizer=None,
-                        *, device="cuda"):
+                        *, device="cuda", **train_kw):
     """The step of ``shape``'s kind (``configs.base.SHAPES``) and the
     structs of its arguments: ``(step, structs)``.  ``long_context`` is
     set exactly for ``long_500k``.  Every step takes this rank's rows
     (and cache shard), cut from the global batch by ``structs["specs"]
     ["batch"]``.  train: ``step(params, opt_state, batch)``
     (``make_train_step`` with ``local_rows``), AdamW at 1e-4 unless
-    ``optimizer`` is given; prefill: ``step(params, batch)``; decode: the
-    serve step.  ``structs``: this rank's local
+    ``optimizer`` is given, and ``train_kw`` (``loss_variant``,
+    ``seq_chunk``, ``microbatches``) passed to it, as the reference's
+    hill-climb passes its ``step_kw``; prefill: ``step(params, batch)``;
+    decode: the serve step.  ``structs``: this rank's local
     ``params``, ``opt_state`` (train only) and ``batch`` as ``meta``
     tensors, cut by the specs, and their ``specs``."""
     from repro_torch.configs.base import input_specs
@@ -451,7 +468,10 @@ def make_step_for_shape(cfg, groups, strategy: str, shape, optimizer=None,
         structs["specs"]["opt_state"] = ospec
         return make_train_step(cfg, optimizer, groups, strategy=strategy,
                                device=device, long_context=long_context,
-                               local_rows=True), structs
+                               local_rows=True, **train_kw), structs
+    if train_kw:
+        raise ValueError(f"{sorted(train_kw)} are a train step's options; "
+                         f"{shape.name} is a {shape.kind} step")
     make = make_prefill_step if shape.kind == "prefill" else make_serve_step
     return make(cfg, groups, strategy, shape, long_context=long_context,
                 device=device), structs

@@ -25,10 +25,12 @@ XLA and reads its analyses, this counts what the port's eager step does:
 * ``peak_memory_per_device``: a ``TorchDispatchMode`` adds each new
   storage's bytes to the live bytes when an op makes it and takes them
   off through a ``weakref.finalize`` on the storage; the arguments are
-  live from the start.  (Under a dispatch mode PyTorch's composite
-  backward formulas write a fresh zeros tensor out of place, which the
-  step without the mode writes in place: such an op's output is counted
-  in the place of those zeros.)  ``argument_size`` is the bytes of the params,
+  live from the start; ``peak_at`` names where the peak was reached
+  (this package's innermost three frames).  (Under a dispatch mode
+  PyTorch's composite backward formulas write a fresh zeros tensor out
+  of place, which the step without the mode writes in place: such an
+  op's output is counted in the place of those zeros.)
+  ``argument_size`` is the bytes of the params,
   optimizer state and batch handed to the step (this rank's shards,
   ``sharding.local_bytes`` of their specs); ``output_size`` the bytes of
   the outputs that alias no argument (the serve step's cache and the train
@@ -100,15 +102,27 @@ def _op_bytes(t: torch.Tensor) -> int:
     return _nbytes(t) if t.dim() else 0
 
 
+def _site() -> str:
+    """The innermost three frames of this package on the stack, innermost
+    first (``file:line``): where an allocation was made."""
+    frames = [f for f in traceback.extract_stack()[:-2]
+              if "repro_torch" in f.filename and not
+              f.filename.endswith("dryrun.py")]
+    return " < ".join(f"{f.filename.rsplit('/', 1)[-1]}:{f.lineno}"
+                      for f in frames[-3:][::-1])
+
+
 class Accounting(TorchDispatchMode):
-    """Live storage bytes and their peak, and the bytes every aten op
-    touches (the module's definitions), while active."""
+    """Live storage bytes and their peak, where the peak was reached
+    (``peak_at``, ``_site``), and the bytes every aten op touches (the
+    module's definitions), while active."""
 
     def __init__(self):
         super().__init__()
         self.live: Dict[int, int] = {}
         self.live_bytes = 0
         self.peak = 0
+        self.peak_at = ""
         self.bytes_accessed = 0
         self._zeros = None       # the storage the last op made, if zeros
 
@@ -123,7 +137,9 @@ class Accounting(TorchDispatchMode):
             self.live[key] = n
             self.live_bytes += n
             weakref.finalize(st, self._free, key)
-        self.peak = max(self.peak, self.live_bytes)
+        if self.live_bytes > self.peak:
+            self.peak = self.live_bytes
+            self.peak_at = _site()
 
     def _free(self, key: int) -> None:
         self.live_bytes -= self.live.pop(key, 0)
@@ -165,9 +181,12 @@ def _collectives(groups):
 
 
 def count_step(cfg, shape, strategy: str, mesh_shape: Dict[str, int],
-               rank: int = 0) -> Dict:
+               rank: int = 0, **train_kw) -> Dict:
     """Run the step of ``(cfg, shape)`` once on ``meta`` over rank
-    ``rank``'s abstract groups of ``mesh_shape`` and return its counts:
+    ``rank``'s abstract groups of ``mesh_shape`` and return its counts
+    (``train_kw``: a train step's ``loss_variant``, ``seq_chunk``,
+    ``microbatches``, as the reference's hill-climb passes ``step_kw`` to
+    ``make_train_step``; ``cfg.remat_policy`` is the config's):
     flops, bytes_accessed, collective_bytes (and by scope), the memory
     figures, trace_s, and ``groups_counts`` (``{axes: (calls, bytes)}``
     of what this rank handed each group's collectives)."""
@@ -179,7 +198,7 @@ def count_step(cfg, shape, strategy: str, mesh_shape: Dict[str, int],
     groups = hvd.abstract_groups(dict(mesh_shape), rank)
     t0 = time.perf_counter()
     step, structs = stepfn.make_step_for_shape(cfg, groups, strategy, shape,
-                                               device="meta")
+                                               device="meta", **train_kw)
     args = ((structs["params"], structs["opt_state"], structs["batch"])
             if shape.kind == "train" else (structs["params"],
                                            structs["batch"]))
@@ -208,6 +227,7 @@ def count_step(cfg, shape, strategy: str, mesh_shape: Dict[str, int],
         "collective_bytes_total": int(sum(coll.values())),
         "collective_bytes_by_scope": scope,
         "peak_memory_per_device": int(peak),
+        "peak_at": acct.peak_at,
         "argument_size": int(argument_size),
         "output_size": int(output_size),
         "temp_size": int(peak - argument_size),

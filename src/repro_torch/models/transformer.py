@@ -47,6 +47,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
@@ -576,13 +577,68 @@ def _decoder_layer(lp, cfg, x, encoder_out, shards=None):
                         shards=shards)[0]
 
 
+# ``remat_policy="dots"``: the reference's
+# ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` saves every
+# ``dot_general`` with no batch dims.  In the port those are the aten ops a
+# product of an activation by a 2-D weight lowers to: ``aten.mm`` (``modules.
+# linear`` / ``row_linear``: ``torch.matmul`` folds x (..., d_in) to 2-D, the
+# reference's ``x @ w`` contracting d_in alone: the q, k, v and o
+# projections, the cross-attention's K/V, the MLP's wi, wg and wo, the MoE
+# router, mamba2's in and out projections) and ``aten.addmm`` (the same
+# with its bias fused).  ``aten.bmm`` / ``baddbmm`` are recomputed: the MoE
+# experts' einsums (batch dim e) and the plain attention's and SSD scan's
+# (batch dims b, h), which carry batch dims in the reference too.  The
+# kernels launch outside the dispatcher and are recomputed into fresh
+# buffers like any other op.
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+
+
+class DotsCounter(TorchDispatchMode):
+    """While active, counts the ``_DOTS`` products by grad mode:
+    ``grad_on`` (the forward, and a checkpoint's recompute in the
+    backward) and ``grad_off`` (the gradients' own products)."""
+
+    def __init__(self):
+        super().__init__()
+        self.grad_on = self.grad_off = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in _DOTS:
+            if torch.is_grad_enabled():
+                self.grad_on += 1
+            else:
+                self.grad_off += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+_REMAT_POLICIES = ("nothing", "dots")
+
+
 def _run(cfg, fn, p, *carry):
     """``fn(p, cfg, *carry)``, under ``torch.utils.checkpoint`` when
-    ``cfg.remat`` (its activations recomputed in the backward)."""
-    if cfg.remat:
-        return checkpoint(fn, p, cfg, *carry, use_reentrant=False,
-                          preserve_rng_state=False)
-    return fn(p, cfg, *carry)
+    ``cfg.remat``, as the reference's ``_scan_layers`` reads
+    ``cfg.remat_policy``: ``"nothing"`` recomputes all of its activations
+    in the backward, ``"dots"`` saves the outputs of its products with no
+    batch dims (``_DOTS``) and recomputes the rest."""
+    if cfg.remat_policy not in _REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; the "
+                         f"port runs {_REMAT_POLICIES}")
+    if not cfg.remat:
+        return fn(p, cfg, *carry)
+    kw = {"context_fn": _dots_context} if cfg.remat_policy == "dots" else {}
+    return checkpoint(fn, p, cfg, *carry, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
 
 
 def _encode(enc_params, cfg, encoder_input, shards=None):
@@ -664,14 +720,16 @@ def forward(params, cfg, batch: Dict[str, Any], *, last_only: bool = False,
 
     last_only: unembed only the final position.  return_hidden: return the
     final-norm hidden states (B, S, d) in the compute dtype instead of
-    logits (the chunked loss unembeds them itself).  With ``cfg.remat``
+    logits (kept for parity with the reference's ``forward``; the chunked
+    loss runs ``_stack`` itself).  With ``cfg.remat``
     each layer group (dense), each mamba layer and each application of
     the hybrid family's shared block runs under ``torch.utils.checkpoint``
     (the reference remats whole scan steps; a hybrid group of six mamba
     layers and the shared block would hold all of their activations at
     once in the backward): its activations are recomputed in the
     backward, so attention or the SSD scan runs twice per layer per
-    training step.
+    training step; under ``cfg.remat_policy="dots"`` the outputs of its
+    products with no batch dims are saved instead (``_run``).
 
     ``shards``: the whole tree's ``modules.Shards`` (``dp_tp`` /
     ``fsdp_tp``; the params are this rank's slices).  The leaves outside
@@ -682,9 +740,23 @@ def forward(params, cfg, batch: Dict[str, Any], *, last_only: bool = False,
     ``long_context``: the windows of ``layer_pattern(cfg, True)`` and, for
     the hybrid family, the shared block's ``_shared_window``."""
     check_trainable(cfg)
+    params = _gather_top(params, shards)
+    x, aux = _stack(params, cfg, batch, shards, long_context)
+    if last_only:
+        x = x[:, -1:]
+    x = _norm(cfg, params["final_norm"], x)
+    if return_hidden:
+        return x, aux
+    return _unembed(params, cfg, x, shards), aux
+
+
+def _stack(params, cfg, batch, shards=None, long_context: bool = False):
+    """``forward`` from the embedding through the last layer (before the
+    final norm), on params whose leaves outside the layer stacks are
+    already gathered over ``data`` (``_gather_top``).  Returns ``(x,
+    aux)``."""
     dt = _dtype(cfg.dtype)
     sh = (lambda k: None) if shards is None else (lambda k: shards[k])
-    params = _gather_top(params, shards)
     x = _embed(params, cfg, batch["tokens"], shards)
     positions = None
     if cfg.family == "vlm":
@@ -719,18 +791,7 @@ def forward(params, cfg, batch: Dict[str, Any], *, last_only: bool = False,
         for gp in _unstack(layers):
             x, aux = _run(cfg, _forward_group, gp, x, aux, positions,
                           sh("layers"), windows)
-    if last_only:
-        x = x[:, -1:]
-    x = _norm(cfg, params["final_norm"], x)
-    if return_hidden:
-        return x, aux
-    return _unembed(params, cfg, x, shards), aux
-
-
-def _trunk(params, cfg, batch, long_context: bool = False):
-    """``forward`` up to (excluding) the unembedding: (hidden, aux)."""
-    return forward(params, cfg, batch, return_hidden=True,
-                   long_context=long_context)
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -772,14 +833,27 @@ def lm_loss(params, cfg, batch: Dict[str, Any],
     return _loss_metrics(nll.mean(), aux)
 
 
-def lm_loss_chunked(params, cfg, batch: Dict[str, Any], *,
+def lm_loss_chunked(params, cfg, batch: Dict[str, Any],
+                    shards: Optional[nn.Shards] = None, *,
                     seq_chunk: int = 512, long_context: bool = False
                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """The same loss without the (B, S, V) logits: the trunk runs once,
-    then each chunk of ``seq_chunk`` positions unembeds, takes
-    logsumexp - target logit, and is recomputed in the backward
-    (checkpointed), so the loss holds O(B * seq_chunk * V) at a time."""
-    x, aux = _trunk(params, cfg, batch, long_context)
+    then each chunk of ``seq_chunk`` positions (``S - 1`` padded up to a
+    multiple of it, the padding masked out) unembeds, takes logsumexp -
+    target logit, and is recomputed in the backward (checkpointed, with
+    the reference's default policy whatever ``cfg.remat_policy``), so the
+    loss holds O(B * seq_chunk * V) at a time; the mean is over ``B * (S
+    - 1)``.  ``shards``: as :func:`lm_loss`.  The leaves outside the
+    layer stacks are gathered over ``data`` once and shared by the
+    embedding and every chunk's unembedding (their gradients
+    reduce-scattered once); each chunk's logits are this rank's
+    vocabulary slice where it splits (``_vocab_shards``), its
+    cross-entropy ``modules.vocab_parallel_nll``.  Every rank runs the
+    same chunks in the same order."""
+    check_trainable(cfg)
+    params = _gather_top(params, shards)
+    x, aux = _stack(params, cfg, batch, shards, long_context)
+    x = _norm(cfg, params["final_norm"], x)
     x, labels = _text(cfg, x, batch["labels"])
     B, S, _ = x.shape
     x = x[:, :-1]
@@ -790,9 +864,12 @@ def lm_loss_chunked(params, cfg, batch: Dict[str, Any], *,
         x = torch.nn.functional.pad(x, (0, 0, 0, pad))
         tgt = torch.nn.functional.pad(tgt, (0, pad))
     valid = (torch.arange(Sm + pad, device=x.device) < Sm).float()
+    vsh = _vocab_shards(cfg, shards)
 
     def chunk_nll(xc, tc, vc):
-        logits = _unembed(params, cfg, xc)
+        logits = _unembed(params, cfg, xc, shards)
+        if vsh is not None:
+            return torch.sum(nn.vocab_parallel_nll(logits, tc, vsh) * vc)
         lse = torch.logsumexp(logits, dim=-1)
         hit = torch.gather(logits, -1, tc[..., None])[..., 0]
         return torch.sum((lse - hit) * vc)

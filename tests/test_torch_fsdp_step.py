@@ -3,8 +3,9 @@
 model group's all_reduce bytes are checked against a formula from the
 activations' shapes) and (1, 4) (gemma2-27b smoke's 2 KV heads do not
 split over 4: the ``fit_spec`` fallback; qwen3-moe's 4 experts one a
-rank).  The cases, configs, checks and tolerances are
-``test_torch_sharded_step.py``'s (its helpers run both files).
+rank).  The cases, configs, loss variants (plain and chunked), checks
+and tolerances are ``test_torch_sharded_step.py``'s (its helpers run
+both files).
 
 The other families under ``fsdp_tp`` at (1, 2), against the port's own
 ``dp`` step at world size 1 on the same weights and the launcher's batch
@@ -23,8 +24,9 @@ import numpy as np
 import pytest
 
 from repro_torch.core import hvd
-from test_torch_sharded_step import (FSDP_MESHES, LOSS_RTOL, run_mesh,
-                                     run_reference)
+from test_torch_sharded_step import (FSDP_MESHES, LOSS_RTOL,
+                                     check_chunked_equals_plain, check_mesh,
+                                     launches, run_reference)
 
 GRAD_ATOL = 1e-5
 
@@ -82,9 +84,24 @@ def reference(tmp_path_factory):
     return run_reference(tmp_path_factory.mktemp("reference"), FSDP_MESHES)
 
 
+@pytest.fixture(scope="module")
+def mesh_runs(tmp_path_factory, reference):
+    return launches(tmp_path_factory, reference)
+
+
 @pytest.mark.parametrize("label", list(FSDP_MESHES))
-def test_fsdp_steps_match_the_reference(label, reference, tmp_path):
-    run_mesh(label, reference, tmp_path)
+def test_fsdp_steps_match_the_reference(label, reference, mesh_runs):
+    check_mesh(label, reference, mesh_runs(label))
+
+
+@pytest.mark.parametrize("label", list(FSDP_MESHES))
+def test_chunked_fsdp_steps_match_the_reference(label, reference, mesh_runs):
+    check_mesh(label, reference, mesh_runs(label), "-chunked")
+
+
+@pytest.mark.parametrize("label", list(FSDP_MESHES))
+def test_chunked_fsdp_loss_equals_the_plain_one(label, mesh_runs):
+    check_chunked_equals_plain(label, mesh_runs(label))
 
 
 def test_other_families_fsdp_tp_match_dp(tmp_path):

@@ -2,6 +2,7 @@
 ``chip_smoke.py`` imports JAX or the reference package, and the entry
 points that default to the card refuse to run without one."""
 import ast
+import sys
 from pathlib import Path
 
 import pytest
@@ -59,7 +60,10 @@ def test_port_imports_neither_jax_nor_the_reference():
             "src/repro_torch/launch/mesh.py",
             "src/repro_torch/launch/dryrun.py",
             "examples/torch_quickstart.py",
-            "examples/torch_deploy_supermuc.py"} <= names
+            "examples/torch_deploy_supermuc.py",
+            "examples/torch_train_lm.py",
+            "examples/torch_serve_lm.py",
+            "examples/torch_train_3dgan.py"} <= names
     bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
            for p in files for line, mod in _imported_roots(p)
            if mod in FORBIDDEN]
@@ -72,6 +76,13 @@ def test_import_scan_catches_a_forbidden_import(tmp_path):
                      "import jax.numpy as jnp\n")
     assert [m for _, m in _imported_roots(probe)
             if m in FORBIDDEN] == ["repro", "jax"]
+
+
+def _load_example(name):
+    """``examples/<name>.py`` through ``chip_smoke.load_example``."""
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import load_example
+    return load_example(name)
 
 
 def _no_card():
@@ -164,7 +175,6 @@ def test_deployment_entry_points_default_to_cuda_and_refuse_without_a_card(
         entry, tmp_path):
     _no_card()
     import importlib
-    import importlib.util
     out = ["--out", str(tmp_path / "bench.json")]
     if entry == "container_overhead":
         from repro_torch.benchmarks import container_overhead as mod
@@ -173,14 +183,22 @@ def test_deployment_entry_points_default_to_cuda_and_refuse_without_a_card(
         mod = importlib.import_module(f"repro_torch.benchmarks.{entry}")
         argv = out + ["--ranks", "2"]
     else:
-        spec = importlib.util.spec_from_file_location(
-            entry, ROOT / "examples" / f"torch_{entry}.py")
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
+        mod = _load_example(f"torch_{entry}")
         argv = ["--smoke"] if entry == "quickstart" else []
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mod.main(argv)
     assert not (tmp_path / "bench.json").exists()
+
+
+@pytest.mark.parametrize("entry", ["train_lm", "serve_lm", "train_3dgan"])
+def test_examples_default_to_cuda_and_refuse_without_a_card(entry, tmp_path):
+    _no_card()
+    mod = _load_example(f"torch_{entry}")
+    argv = (["--ckpt-dir", str(tmp_path / "ckpt")] if entry == "train_lm"
+            else [])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(argv)
+    assert not (tmp_path / "ckpt").exists()
 
 
 def test_nccl_ranks_need_a_card_each(monkeypatch, tmp_path):

@@ -7,11 +7,14 @@ Each mesh is one launch of ``hvd.run_ranks`` (2 or 4 ``python -c`` ranks
 on a ``file://`` store, no network) that runs three smoke configs, each
 from the reference's initial params (bridged, then cut into this rank's
 shards by ``sharding.shard``) for 2 AdamW steps on the synthetic token
-source's batches (B 4, S 16).  The reference runs in one subprocess a
-file with ``XLA_FLAGS=--xla_force_host_platform_device_count=4`` (as
-``tests/test_distributed.py`` does), every case on its own mesh (without
-remat, which changes no value there), and here once as its plain
-one-device jitted step, which its sharded steps must equal.
+source's batches (B 4, S 16), under each loss variant (``VARIANTS``: the
+plain loss, and ``loss_variant="chunked_ce"`` at ``seq_chunk`` 8, two
+chunks of S - 1 = 15 positions, one padded).  The reference runs in one
+subprocess a file with
+``XLA_FLAGS=--xla_force_host_platform_device_count=4`` (as
+``tests/test_distributed.py`` does), every case and variant on its own
+mesh (without remat, which changes no value there), and here once as
+its plain one-device jitted step, which its sharded steps must equal.
 
 Cases (mesh (data, model)): ``dp_tp`` at (2, 1) and (1, 2) here,
 ``fsdp_tp`` at (2, 2) and (1, 4) in ``test_torch_fsdp_step.py``, each
@@ -42,7 +45,11 @@ collectives a step equal a formula from the specs (all_gather and
 reduce_scatter of every leaf split over ``data``, the gradient
 all_reduce of the rest, the metrics, the MoE aux loss's means); at
 (2, 2) the model group's all_reduce bytes equal a formula from the
-activations' shapes.  Then the launcher ``--smoke --strategy fsdp_tp``
+activations' shapes (for the chunked loss, from its chunks: each one's
+vocab-parallel cross-entropy in the forward and in its checkpoint's
+recompute).  On the same ranks the chunked loss's steps equal the plain
+loss's (losses, params, and the data group's collectives byte for
+byte).  Then the launcher ``--smoke --strategy fsdp_tp``
 at world size 4 (model axis 1): its losses equal the ``dp`` launcher's at
 the same world size within rtol 1e-5.
 """
@@ -69,6 +76,11 @@ ROOT = Path(__file__).resolve().parents[1]
 LOSS_RTOL = 1e-5
 PARAM_ATOL = 2e-4
 SEQ, BATCH, STEPS, LR = 16, 4, 2, 1e-3
+# the chunked cross-entropy at seq_chunk 8: S - 1 = 15 positions make two
+# chunks, the second with one padded position
+SEQ_CHUNK = 8
+VARIANTS = {"": {}, "-chunked": {"loss_variant": "chunked_ce",
+                                 "seq_chunk": SEQ_CHUNK}}
 ARCHS = ["gemma2-27b", "deepseek-coder-33b", "qwen3-moe-30b-a3b"]
 OVERRIDES = {"gemma2-27b": {"vocab_size": 308},
              "deepseek-coder-33b": {"vocab_size": 308},
@@ -117,16 +129,18 @@ REFERENCE = textwrap.dedent("""
         for label, (strategy, mshape) in spec["cases"].items():
             cfg = base.with_(remat=False)
             mesh = make_mesh(tuple(mshape), ("data", "model"))
-            step, _, _ = stepfn.make_train_step(cfg, opt, mesh, strategy,
-                                                shape)
-            p = jax.tree.map(jnp.copy, init)
-            st = opt.init(p)
-            losses = []
-            for b in batches:
-                p, st, m = step(p, st, b)
-                losses.append(float(m["loss"]))
-            res[f"{arch}/{label}"] = losses
-            np.savez(os.path.join(out, f"ref-{arch}-{label}.npz"), **flat(p))
+            for variant, kw in spec["variants"].items():
+                step, _, _ = stepfn.make_train_step(cfg, opt, mesh, strategy,
+                                                    shape, **kw)
+                p = jax.tree.map(jnp.copy, init)
+                st = opt.init(p)
+                losses = []
+                for b in batches:
+                    p, st, m = step(p, st, b)
+                    losses.append(float(m["loss"]))
+                res[f"{arch}/{label}{variant}"] = losses
+                np.savez(os.path.join(out, f"ref-{arch}-{label}{variant}.npz"),
+                         **flat(p))
         if arch in spec["single"]:
             def sstep(p, s, b):
                 (l, _), g = jax.value_and_grad(
@@ -163,40 +177,44 @@ with hvd.init("cpu", init_method=store):
     for arch, over in spec["archs"].items():
         cfg = get_smoke_config(arch).with_(**over)
         init = np.load(os.path.join(ref_dir, f"init-{arch}.npz"))
-        full = bridge.from_flat({k: init[k] for k in init.files})
         opt = optim.adamw(spec["lr"], clip_norm=1.0)
         pspec, ospec = stepfn.state_specs(cfg, opt, spec["strategy"], groups)
-        params, state = stepfn.shard_state(full, cfg, opt, spec["strategy"],
-                                           groups)
-        del full
-        step = stepfn.make_train_step(cfg, opt, groups,
-                                      strategy=spec["strategy"],
-                                      device="cpu")
-        src = SyntheticTokenSource(TokenDatasetSpec(
-            cfg.vocab_size, spec["seq"], spec["batch"]))
-        losses, counts = [], []
-        for i in range(spec["steps"]):
-            groups.reset_counts()
-            params, state, m = step(params, state, src.batch(i))
-            losses.append(float(m["loss"]))
-            counts.append({"/".join(k): {n: list(v) for n, v in
-                                         g.kinds.items()}
-                           for k, g in groups._groups.items()})
-        def tree_bytes(t):
-            if isinstance(t, dict):
-                return sum(tree_bytes(v) for v in t.values())
-            return t.numel() * t.element_size()
-        res[arch] = {"losses": losses, "counts": counts,
-                     "param_bytes": tree_bytes(params),
-                     "state_bytes": tree_bytes(state),
-                     "want_param_bytes": sh.local_bytes(
-                         pspec, params, {a: 1 for a in groups.shape}),
-                     "want_state_bytes": sh.local_bytes(
-                         ospec, state, {a: 1 for a in groups.shape})}
-        whole = sh.unshard(params, pspec, groups)
-        if rank == 0:
-            np.savez(os.path.join(out, f"port-{arch}.npz"),
-                     **bridge.to_flat(whole))
+        for variant, kw in spec["variants"].items():
+            # fresh leaves each variant: a shard may alias its whole leaf,
+            # which AdamW updates in place
+            full = bridge.from_flat({k: init[k] for k in init.files})
+            params, state = stepfn.shard_state(full, cfg, opt,
+                                               spec["strategy"], groups)
+            del full
+            step = stepfn.make_train_step(cfg, opt, groups,
+                                          strategy=spec["strategy"],
+                                          device="cpu", **kw)
+            src = SyntheticTokenSource(TokenDatasetSpec(
+                cfg.vocab_size, spec["seq"], spec["batch"]))
+            losses, counts = [], []
+            for i in range(spec["steps"]):
+                groups.reset_counts()
+                params, state, m = step(params, state, src.batch(i))
+                losses.append(float(m["loss"]))
+                counts.append({"/".join(k): {n: list(v) for n, v in
+                                             g.kinds.items()}
+                               for k, g in groups._groups.items()})
+            def tree_bytes(t):
+                if isinstance(t, dict):
+                    return sum(tree_bytes(v) for v in t.values())
+                return t.numel() * t.element_size()
+            res[arch + variant] = {
+                "losses": losses, "counts": counts,
+                "param_bytes": tree_bytes(params),
+                "state_bytes": tree_bytes(state),
+                "want_param_bytes": sh.local_bytes(
+                    pspec, params, {a: 1 for a in groups.shape}),
+                "want_state_bytes": sh.local_bytes(
+                    ospec, state, {a: 1 for a in groups.shape})}
+            whole = sh.unshard(params, pspec, groups)
+            if rank == 0:
+                np.savez(os.path.join(out, f"port-{arch}{variant}.npz"),
+                         **bridge.to_flat(whole))
 json.dump(res, open(os.path.join(out, f"rank{rank}.json"), "w"))
 """
 
@@ -206,7 +224,7 @@ def run_reference(out, meshes, single=()):
     step for the archs in ``single``), in one subprocess on 4 host
     devices.  Returns ``(out, {"<arch>/<label>": losses})``."""
     spec = {"seq": SEQ, "batch": BATCH, "steps": STEPS, "lr": LR,
-            "single": list(single),
+            "single": list(single), "variants": VARIANTS,
             "archs": {a: dict(OVERRIDES[a], dtype="float32") for a in ARCHS},
             "cases": {label: [strategy, list(shape)]
                       for label, (strategy, shape) in meshes.items()}}
@@ -298,12 +316,18 @@ def _data_formula(cfg, strategy, mesh_shape, specs, params, local_batch):
     return want
 
 
-def _model_formula(cfg, specs, mesh_shape, local_batch):
+def _model_formula(cfg, specs, mesh_shape, local_batch, seq_chunk=None):
     """The model group's all_reduce bytes a step without remat: each
     Megatron f (backward) and g (forward) once, the vocab-parallel
     cross-entropy's max, sum and target logit (f32), the experts' combine
     (f32) and gate weights' gradient (f32), the split of the dispatch
-    buffer (all_gather, backward)."""
+    buffer (all_gather, backward).  ``seq_chunk``: the chunked loss, each
+    chunk checkpointed whatever ``cfg.remat``: the unembedding's f over
+    the S - 1 positions padded to a multiple of ``seq_chunk``, and the
+    max, sum and target logit in the forward and again in the recompute
+    (the target logit's all_reduce comes before the chunk's last saved
+    tensor, the valid mask its product saves, so early stopping keeps
+    all three)."""
     B, S, d = local_batch, SEQ, cfg.d_model
     act = 4 * B * S * d                     # one (B, S, d) f32 activation
     h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -338,62 +362,127 @@ def _model_formula(cfg, specs, mesh_shape, local_batch):
     if sh.model_dim(vocab) is not None:
         if sh.model_dim(specs["embed"]["table"]) is not None:
             ar += act                       # the embedding's g
-        ar += act + 3 * 4 * B * (S - 1)     # unembed f; max, sum, target
+        if seq_chunk is None:
+            ar += act + 3 * 4 * B * (S - 1)  # unembed f; max, sum, target
+        else:
+            n = S - 1 + (-(S - 1)) % seq_chunk
+            ar += 4 * B * n * d + 2 * 3 * 4 * B * n
     elif sh.model_dim(specs["embed"]["table"]) is not None:
         ar += act
     return ar, ag
 
 
-def run_mesh(label, reference, tmp_path):
-    """One mesh's launch of the three configs, checked as the module's
-    docstring says."""
-    out, ref = reference
+def launch_mesh(label, reference, tmp_path):
+    """One mesh's launch: the three configs under each of ``VARIANTS``,
+    from the same initial shards.  Returns ``(tmp_path, runs)``, each
+    rank's results."""
+    out, _ = reference
     strategy, shape = {**MESHES, **FSDP_MESHES}[label]
     spec = {"strategy": strategy, "mesh": list(shape), "seq": SEQ,
-            "batch": BATCH, "steps": STEPS, "lr": LR,
+            "batch": BATCH, "steps": STEPS, "lr": LR, "variants": VARIANTS,
             "archs": {a: _cfg_kw(a, label) for a in ARCHS}}
     world = shape[0] * shape[1]
     hvd.run_ranks(PORT, world, tmp_path, str(out), json.dumps(spec),
                   timeout=300)
-    runs = [json.loads((tmp_path / f"rank{r}.json").read_text())
-            for r in range(world)]
+    return tmp_path, [json.loads((tmp_path / f"rank{r}.json").read_text())
+                      for r in range(world)]
+
+
+def launches(tmp_path_factory, reference):
+    """``get(label)``: :func:`launch_mesh` of ``label``, run once a
+    module (the plain and chunked tests read the same launch)."""
+    done = {}
+
+    def get(label):
+        if label not in done:
+            done[label] = launch_mesh(label, reference,
+                                      tmp_path_factory.mktemp(label))
+        return done[label]
+    return get
+
+
+def check_mesh(label, reference, launch, variant=""):
+    """One mesh's launch of the three configs under loss ``variant``,
+    checked as the module's docstring says."""
+    out, ref = reference
+    tmp_path, runs = launch
+    strategy, shape = {**MESHES, **FSDP_MESHES}[label]
     mesh_shape = {"data": shape[0], "model": shape[1]}
     mesh = AbstractMesh(shape, ("data", "model"))
+    seq_chunk = VARIANTS[variant].get("seq_chunk")
     for arch in ARCHS:
+        key = arch + variant
         cfg = get_smoke_config(arch).with_(**_cfg_kw(arch, label))
         for r in runs:
-            assert r[arch]["losses"] == runs[0][arch]["losses"], arch
-            assert r[arch]["param_bytes"] == r[arch]["want_param_bytes"]
-            assert r[arch]["state_bytes"] == r[arch]["want_state_bytes"]
-        np.testing.assert_allclose(runs[0][arch]["losses"],
-                                   ref[f"{arch}/{label}"], rtol=LOSS_RTOL,
-                                   err_msg=arch)
-        want = dict(np.load(out / f"ref-{arch}-{label}.npz"))
-        got = dict(np.load(tmp_path / f"port-{arch}.npz"))
+            assert r[key]["losses"] == runs[0][key]["losses"], key
+            assert r[key]["param_bytes"] == r[key]["want_param_bytes"]
+            assert r[key]["state_bytes"] == r[key]["want_state_bytes"]
+        np.testing.assert_allclose(runs[0][key]["losses"],
+                                   ref[f"{arch}/{label}{variant}"],
+                                   rtol=LOSS_RTOL, err_msg=key)
+        want = dict(np.load(out / f"ref-{arch}-{label}{variant}.npz"))
+        got = dict(np.load(tmp_path / f"port-{key}.npz"))
         assert got.keys() == want.keys()
         for k in want:
             np.testing.assert_allclose(got[k], want[k], rtol=0,
                                        atol=PARAM_ATOL,
-                                       err_msg=f"{arch} {k}")
+                                       err_msg=f"{key} {k}")
         params = stepfn.params_struct(cfg)
         specs = sh.params_pspec(params, cfg, strategy, mesh)
         local_batch = BATCH // shape[0]
         data = _data_formula(cfg, strategy, mesh_shape, specs, params,
                              local_batch)
-        for step in runs[0][arch]["counts"]:
+        for step in runs[0][key]["counts"]:
             assert {k: list(v) for k, v in step["data"].items()} == data, \
-                (arch, step["data"], data)
+                (key, step["data"], data)
             if label in NO_REMAT:
-                ar, ag = _model_formula(cfg, specs, mesh_shape, local_batch)
+                ar, ag = _model_formula(cfg, specs, mesh_shape, local_batch,
+                                        seq_chunk)
                 got_m = step["model"]
-                assert got_m["all_reduce"][1] == ar, (arch, got_m, ar)
+                assert got_m["all_reduce"][1] == ar, (key, got_m, ar)
                 assert got_m.get("all_gather", [0, 0])[1] == ag, \
-                    (arch, got_m, ag)
+                    (key, got_m, ag)
+
+
+def check_chunked_equals_plain(label, launch):
+    """On the same ranks, from the same shards and batches, the chunked
+    loss's steps equal the plain loss's: the losses within ``LOSS_RTOL``,
+    the params within ``PARAM_ATOL``, and each step's data-group
+    collectives byte for byte."""
+    tmp_path, runs = launch
+    for arch in ARCHS:
+        plain, chunked = runs[0][arch], runs[0][arch + "-chunked"]
+        np.testing.assert_allclose(chunked["losses"], plain["losses"],
+                                   rtol=LOSS_RTOL, err_msg=arch)
+        for r in runs:
+            for a, b in zip(r[arch]["counts"], r[arch + "-chunked"]["counts"]):
+                assert a["data"] == b["data"], (arch, a["data"], b["data"])
+        want = dict(np.load(tmp_path / f"port-{arch}.npz"))
+        got = dict(np.load(tmp_path / f"port-{arch}-chunked.npz"))
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=0,
+                                       atol=PARAM_ATOL, err_msg=f"{arch} {k}")
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(tmp_path_factory, reference):
+    return launches(tmp_path_factory, reference)
 
 
 @pytest.mark.parametrize("label", list(MESHES))
-def test_sharded_steps_match_the_reference(label, reference, tmp_path):
-    run_mesh(label, reference, tmp_path)
+def test_sharded_steps_match_the_reference(label, reference, mesh_runs):
+    check_mesh(label, reference, mesh_runs(label))
+
+
+@pytest.mark.parametrize("label", list(MESHES))
+def test_chunked_sharded_steps_match_the_reference(label, reference,
+                                                   mesh_runs):
+    check_mesh(label, reference, mesh_runs(label), "-chunked")
+
+
+@pytest.mark.parametrize("label", list(MESHES))
+def test_chunked_sharded_loss_equals_the_plain_one(label, mesh_runs):
+    check_chunked_equals_plain(label, mesh_runs(label))
 
 
 LAUNCH = """
