@@ -21,7 +21,8 @@ Phases (any failure exits nonzero):
               D 64, causal: the tensor-core kernel), zamba2-1.2b's (B 8, S
               1024, H = KV = 32, D 64: MHA) and gemma2-2b shapes
               (B 1, S 4150 — past the window and not a tile multiple — H 8,
-              KV 4, D 288, window 4096, softcap 50: the CUDA-core kernel):
+              KV 4, D 288, window 4096, softcap 50: the tensor-core kernel
+              in 32-key tiles):
               output, logsumexp, and dQ/dK/dV through the autograd Function
               against autograd through the plain version.  The flash and
               paged decode outputs are held element by element to a bound
@@ -29,16 +30,16 @@ Phases (any failure exits nonzero):
               rounding_bound_ratio``: 2^-8 (|P| @ |V|) / l for P in bf16 on
               the tensor cores, 2^-14 for P in f32, plus one bf16 ulp of the
               plain output), and broken kernels must fail it: paged prefill
-              (the tensor-core kernel at qwen2's D = 64, the CUDA-core one at
-              gemma2's 288, each checked to be the one launched) with a
+              (the tensor-core kernel at qwen2's D = 64 and at gemma2's
+              288, each checked to be the one launched) with a
               split's partial left out of the combine (tensor cores), the
               causal mask one key late, each row's last partial page
               dropped, the padding rows written as queries, gemma2's window
               one key wider or narrower; flash with the
               causal mask one key late, each row's last partial tile
               dropped, kv head h % KV (h + 1 at MHA), l not rescaled,
-              gemma2's window one
-              key wider or narrower; decode with a split's partial left out
+              gemma2's window one key wider or narrower (and l not
+              rescaled there); decode with a split's partial left out
               of the combine, each row's newest key missed, a trash entry
               read unmasked, gemma2's window one key wider or narrower.
               The f32 routes of both paged kernels at the same two shape
@@ -205,7 +206,8 @@ Phases (any failure exits nonzero):
               every one on the one-pass kernel, step time, tokens/s, peak
               memory; one step under ``torch.profiler``;
 11. mamba2 training card vs CPU — one step of a 2-layer full-width mamba2
-              at seq 512 (two chunks: the state carries), batch 2, on the
+              at seq 512 (two chunks: the state carries), batch
+              ``RECURRENT_CPU_BATCH``, on the
               same weights on both: loss and gradient norm within
               tolerance;
 12. training zamba2-1.2b, full width, through the launcher (seq 1024,
@@ -218,7 +220,8 @@ Phases (any failure exits nonzero):
               memory; one step under ``torch.profiler``;
 13. zamba2 training card vs CPU — one step of an 8-layer full-width zamba2
               (one group of six and the shared block, a tail of two) at
-              seq 512, batch 2: loss and gradient norm within tolerance;
+              seq 512, batch ``RECURRENT_CPU_BATCH``: loss and gradient
+              norm within tolerance;
 14. dense serving of mamba2-1.3b and zamba2-1.2b, full width — phase 6's
               workload cut to ``RECURRENT_REQUESTS`` prompts (8 slots x
               1,024, chunk 16, 64 prefix blocks asked
@@ -366,11 +369,13 @@ Phases (any failure exits nonzero):
               32 / 16, 144), where the window binds, and at (a)'s shape:
               within the tensor-core bound, the D-tail and window broken
               variants above it, gradients, timed beside SDPA, the plain
-              version and the bound; (e) card against CPU at
+              version and the bound; (e) card against CPU, from f32
+              weights drawn on the CPU at seed 1, at
               ``SHARDED_CPU_LAYERS`` (gemma2-27b's 2 layers,
               deepseek-coder-33b's and qwen3-moe's cut to 1 to keep the
               script within its time limit),
-              one ``fsdp_tp`` step at seq 128, batch 1: loss and
+              one ``fsdp_tp`` step at ``SHARDED_CPU_SEQ``, batch 1:
+              loss and
               gradient norm within the phase 9 tolerances; (f) qwen2-0.5b
               at full width on the (1, 1) mesh: ``dp_tp`` and ``fsdp_tp``
               against ``dp`` after 2 steps (losses within
@@ -449,6 +454,56 @@ Phases (any failure exits nonzero):
     gradients, RMSNorm at its rows; ``hold_serve_example``: paged decode
     and prefill at the smoke widths, the turns' contexts and chunks);
     the readings go into the kernels line (``example_shapes``).
+24. gemma2-2b at full width and depth (26 layers, d 2,304, 8 / 4 heads of
+    288, vocab 256,000, window 4,096 on the 13 local layers, softcaps 50 /
+    30, tied embedding; weights from ``init_params`` at seed 0): (a) the
+    launcher ``--arch gemma2-2b --seq-len 2048 --global-batch 2 --steps
+    8`` (its default ``dp_tp`` on the (1, 1) mesh): losses finite and
+    falling, exactly 52 flash launches a step, all on the tensor-core
+    counter, and 209 one-pass RMSNorms (4 a layer twice, remat, and the
+    final one); step ms, tokens/s, the launcher's peak; the same step
+    again from weights drawn on the card: its peak measured as phase 22
+    does beside the dry-run's (``count_step`` on ``meta``), then one step
+    under ``torch.profiler``; (b) flash at D 288 (``GEMMA_FLASH_SETS``: (a)'s
+    (2, 2,048), and (1, 8,192) with the window 4,096 and without,
+    softcap 50): within the 2^-8 bound, the lse, gradients through the
+    autograd Function, broken variants above the bound (the causal mask
+    one key late, the last partial 32-key tile dropped, the kv head, l
+    not rescaled, the window one key wider or narrower), timed beside
+    the CUDA-core route at the same inputs (which must be slower), SDPA
+    (causal only), the plain version and the bound; (c) paged serving:
+    the launcher at phase 5 (a)'s flags, then the scheduler and engine
+    with 8 greedy prompts of 4,200-6,000 tokens sharing a 256-token
+    prefix in 8,192-position slots (the window binds), 32 new tokens
+    each: every round a replay of one of two programs, each captured
+    once, exactly 26 paged-decode launches a decode round and 26
+    tensor-core prefills a prefill round (none on the CUDA-core kernel),
+    105 one-pass RMSNorms a round, prefix hits, no leak; a B = 8 decode
+    round at contexts 4,200-6,000 replayed == eager, timed against every
+    weight read once; (d) dense serving on phase 6's workload, int8 (26
+    int8 launches a step, no other attention kernel) then bf16, the KV
+    bytes ratio; (e) card against CPU at 2 layers on weights copied from
+    the card: paged and dense int8 last logits within ``CPU_LOGIT_TOL``
+    and 4 equal greedy tokens, one train step (seq ``GEMMA_CPU_SEQ``,
+    batch 1) within ``TRAIN_LOSS_RTOL`` / ``TRAIN_GNORM_RTOL``; (f) after
+    (a), (c) and (d) the kernels they launched held at their shapes
+    (RMSNorm at the step's rows, flash there being (b)'s; paged decode
+    and prefill at the engine's D 288 tiles; the int8 kernel at B 4 over
+    1,024-position stripes) at phase 3's tolerances, broken variants
+    failing.  Phase 4 times the four attention kernels at gemma2-2b's
+    shapes (``gemma2_kernel_times``), the CUDA-core flash and prefill at
+    the same inputs beside them.
+
+The CPU halves of the card-against-CPU checks (phases 7, 9, 11, 13, 14,
+19 (c), 20 (c), 21 (e) and 24 (e)) run in one spawned process (``CpuSide``,
+on ``CPU_SIDE_THREADS`` of the host's cores) while the card's phases go
+on, on the same weights in shared memory.  The weights that phases 9, 11,
+13, 14 and 24 (e) draw on the CPU (``CPU_WEIGHTS``) are drawn there while
+phases 2-4 run; phase 21 (e)'s CPU steps, on weights drawn there as well
+(``fsdp_draw_step``), are queued after phase 4 and read in phase 21.
+Phase 24 (e) queues its serving halves in (c) and reads them in (e); the
+other pairs are checked when the CPU's half is done (at the next phase's
+start, or at the end).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -465,6 +520,7 @@ import sys
 import time
 import zlib
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -542,10 +598,260 @@ def check(cond: bool, msg: str) -> None:
 
 
 _T0 = time.perf_counter()
+CPU_SIDE = None                # the running CpuSide, set by main
 
 
 def phase(name: str) -> None:
+    if CPU_SIDE is not None:
+        CPU_SIDE.poll()
     print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# the CPU halves of the card-against-CPU checks, beside the card's phases
+# ---------------------------------------------------------------------------
+
+CPU_SIDE_THREADS = 6           # of the host's 8 cores; the rest drive the card
+
+
+def cpu_worker(jobs, done, threads: int, src: str) -> None:
+    """Run ``CpuSide``'s jobs one at a time on the CPU: ``(i, name, kw)``
+    calls ``name(torch, "cpu", **kw)`` and answers ``(i, result, error,
+    seconds)``; ``None`` ends it.  The card is hidden from this process."""
+    import os
+    import traceback
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    sys.path.insert(0, src)
+    import torch
+    torch.set_num_threads(threads)
+    while True:
+        job = jobs.get()
+        if job is None:
+            return
+        i, name, kw = job
+        t0 = time.perf_counter()
+        try:
+            done.put((i, globals()[name](torch, "cpu", **kw), None,
+                      time.perf_counter() - t0))
+        except BaseException:
+            done.put((i, None, traceback.format_exc(),
+                      time.perf_counter() - t0))
+        del job, kw
+
+
+class CpuSide:
+    """One spawned process that runs the CPU halves of the card-against-CPU
+    checks while the card's phases go on.  ``submit`` queues a job (its
+    tensors go in shared memory, see ``shared_cpu``) with the function that
+    checks its result against the card's; ``poll`` runs the checks of the
+    jobs that are done, ``close`` waits for the rest and stops the
+    process.  A job that raised, or a process that died, fails the run."""
+
+    def __init__(self, threads: int = CPU_SIDE_THREADS):
+        import torch.multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        self.jobs, self.done = ctx.Queue(), ctx.Queue()
+        self.proc = ctx.Process(target=cpu_worker, daemon=True,
+                                args=(self.jobs, self.done, threads,
+                                      str(SRC)))
+        self.proc.start()
+        self.finish = {}
+        self.checked = set()
+        self.kept = {}
+        self.report = {}
+        self.waited_s = 0.0
+
+    def submit(self, label: str, name: str, finish, **kw) -> None:
+        i = len(self.finish)
+        self.finish[i] = (label, finish)
+        self.jobs.put((i, name, kw))
+        print(f"{label}: the CPU half queued (CPU-side job {i})", flush=True)
+
+    def _take(self, block: bool) -> bool:
+        import queue
+        try:
+            i, res, err, s = self.done.get(timeout=5 if block else 0.001)
+        except queue.Empty:
+            check(self.proc.is_alive(), "the CPU-side process died with "
+                  f"{len(self.finish) - len(self.checked)} jobs open")
+            return False
+        label, finish = self.finish[i]
+        self.checked.add(i)
+        check(err is None, f"{label}: the CPU half raised:\n{err}")
+        print(f"{label}: the CPU half took {s:.1f} s (done at "
+              f"{time.perf_counter() - _T0:.1f} s)", flush=True)
+        self.report[label] = dict(finish(res) or {}, cpu_s=s)
+        return True
+
+    def prefetch(self, label: str, name: str, **kw) -> None:
+        """Queue a job whose result ``fetch(label)`` hands back."""
+        self.submit(label, name, lambda res: self.kept.__setitem__(label,
+                                                                   res), **kw)
+
+    def fetch(self, label: str):
+        while label not in self.kept:
+            self._take(True)
+        return self.kept.pop(label)
+
+    def poll(self) -> None:
+        while len(self.checked) < len(self.finish) and self._take(False):
+            pass
+
+    def close(self) -> None:
+        t0 = time.perf_counter()
+        while len(self.checked) < len(self.finish):
+            self._take(True)
+        self.waited_s = time.perf_counter() - t0
+        self.jobs.put(None)
+        self.proc.join(60)
+        check(self.proc.exitcode == 0, "the CPU-side process did not stop")
+
+
+# the card-vs-CPU checks whose weights are drawn on the CPU (seed 1):
+# (arch, layers, f32 weights), drawn by CpuSide while phases 2-6 run
+CPU_WEIGHTS = (("qwen2-0.5b", 2, True), ("mamba2-1.3b", 2, True),
+               ("zamba2-1.2b", 8, True), ("zamba2-1.2b", 8, False),
+               ("mamba2-1.3b", 4, False), ("gemma2-2b", 2, True))
+
+
+def weights_label(arch: str, layers: int, f32: bool) -> str:
+    return (f"{arch} {layers}-layer weights ({'f32' if f32 else 'bf16'}, "
+            "CPU seed 1)")
+
+
+def draw_weights(torch, where, arch: str, layers: int, f32: bool):
+    """``init_params`` of ``arch`` cut to ``layers`` on the CPU's
+    generator at seed 1 (f32 leaves, or the config's dtype)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    return T.init_params(get_config(arch).with_(num_layers=layers),
+                         torch.Generator().manual_seed(1),
+                         weight_dtype=torch.float32 if f32 else None)
+
+
+def shared_cpu(torch, tree):
+    """``tree``'s tensors copied once into shared host memory, for a
+    ``CpuSide`` job (no further copy on the way)."""
+    def one(t):
+        c = torch.empty(t.shape, dtype=t.dtype).share_memory_()
+        return c.copy_(t)
+    return _map(tree, one)
+
+
+def engine_greedy(torch, where, cfg, params, prompt, *, new: int,
+                  generate: bool, engine_kw: dict, frames=None,
+                  other_frames=None):
+    """One request on a one-slot ``ServingEngine`` on ``where`` (it copies
+    ``params`` there): the prompt's last logits, then ``new`` greedy
+    tokens, through ``generate`` after the slot is freed, or decoded in
+    the prompt's slot.  ``other_frames``: the same request's tokens on
+    other encoder frames (encdec), or None."""
+    import numpy as np
+    from repro_torch.serving import Request, SamplingParams, ServingEngine
+    e = ServingEngine(cfg, params, max_seq_len=64, max_slots=1,
+                      device=where, **engine_kw)
+    slot, last = (e.prefill_into_slot(prompt) if frames is None
+                  else e.prefill_into_slot(prompt, frames))
+
+    def request(enc):
+        return Request(prompt, SamplingParams(max_new_tokens=new,
+                                              greedy=True),
+                       encoder_input=enc)
+    if generate:
+        e.free_slot(slot)
+        toks = e.generate([request(frames)])[0].tolist()
+    else:
+        logits, toks = torch.from_numpy(last)[None], []
+        for i in range(new):
+            t = e.sample_tokens(logits, np.ones(1, np.float32),
+                                np.ones(1, bool))
+            toks.append(int(t[0]))
+            logits = e.decode_once(t, np.array([len(prompt) + i], np.int32))
+    other = (None if other_frames is None
+             else e.generate([request(other_frames)])[0].tolist())
+    return last, toks, other
+
+
+def engine_pair(label: str, lg, tg, shape, *, diff_name: str = "last "
+                "logits", extra: str = ""):
+    """The check of ``engine_greedy``'s CPU result against the card's
+    ``(lg, tg)``: finite logits of ``shape`` within ``CPU_LOGIT_TOL`` and
+    the same greedy tokens."""
+    import numpy as np
+
+    def finish(res):
+        lc, tc, _ = res
+        check(np.isfinite(lg).all() and lg.shape == shape,
+              f"{label}: card logits not finite or of the wrong shape")
+        diff = float(np.abs(lg - lc).max())
+        print(f"{label}, card vs CPU: {diff_name} max |diff| {diff:.3e} (tol "
+              f"{CPU_LOGIT_TOL}); greedy card {tg} cpu {tc}{extra}",
+              flush=True)
+        check(diff <= CPU_LOGIT_TOL, f"{label}: card and CPU logits "
+              "disagree")
+        check(tg == tc, f"{label}: card and CPU greedy tokens differ")
+        return dict(logit_diff=diff, tokens_card=tg, tokens_cpu=tc)
+    return finish
+
+
+def train_step_metrics(torch, where, cfg, params, seq: int, batch: int):
+    """One AdamW train step of ``cfg`` (the launcher's ``dp`` step at world
+    size 1, NCCL or gloo) on ``where`` from ``params`` (copied there; on
+    the CPU updated in place): (loss, gradient norm)."""
+    from repro_torch import optim
+    from repro_torch.core import hvd
+    from repro_torch.data import SyntheticTokenSource, TokenDatasetSpec
+    from repro_torch.distributed import stepfn
+    data = SyntheticTokenSource(TokenDatasetSpec(
+        cfg.vocab_size, seq, batch)).batch(0)
+    p = optim.tree_map(lambda t: t.to(where), params)
+    o = optim.adamw(3e-4, clip_norm=1.0)
+    with hvd.init(where):
+        _, _, m = stepfn.make_train_step(
+            cfg, o, hvd.axis_groups({"data": 1}), device=where)(
+                p, o.init(p), data)
+    return float(m["loss"]), float(m["grad_norm"])
+
+
+def fsdp_step_metrics(torch, where, cfg, params, seq: int, batch: int):
+    """One SGD ``fsdp_tp`` step of ``cfg`` on the (1, 1) host mesh on
+    ``where`` from ``params`` (already there; updated in place): (loss,
+    gradient norm, seconds)."""
+    from repro_torch import optim
+    from repro_torch.core import hvd
+    from repro_torch.data import SyntheticTokenSource, TokenDatasetSpec
+    from repro_torch.distributed import stepfn
+    from repro_torch.launch.mesh import make_host_mesh
+    data = SyntheticTokenSource(TokenDatasetSpec(
+        cfg.vocab_size, seq, batch)).batch(0)
+    t0 = time.perf_counter()
+    o = optim.sgd(3e-4, clip_norm=1.0)
+    with hvd.init(where):
+        groups = make_host_mesh()
+        p, s = stepfn.shard_state(params, cfg, o, "fsdp_tp", groups)
+        _, _, m = stepfn.make_train_step(
+            cfg, o, groups, strategy="fsdp_tp", device=where)(p, s, data)
+    return (float(m["loss"]), float(m["grad_norm"]),
+            time.perf_counter() - t0)
+
+
+def vlm_forward_greedy(torch, where, cfg, params, batch, prompt):
+    """qwen2-vl on ``where`` (``params`` copied there): the text positions'
+    logits and the loss of ``batch``, then 4 greedy tokens of ``prompt``
+    through a one-slot paged engine."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import Request, SamplingParams, ServingEngine
+    p = _map(params, lambda t: t.to(where))
+    b = {k: v.to(where) for k, v in batch.items()}
+    P = cfg.num_patches
+    with torch.no_grad():
+        logits = T.forward(p, cfg, b)[0][0, P:].float().cpu()
+        loss = float(T.lm_loss(p, cfg, b)[0])
+    e = ServingEngine(cfg, p, max_seq_len=64, max_slots=1, paged=True,
+                      prefill_batch=1, device=where)
+    toks = e.generate([Request(prompt, SamplingParams(
+        max_new_tokens=4, greedy=True))])[0].tolist()
+    return logits, loss, toks
 
 
 # ---------------------------------------------------------------------------
@@ -877,20 +1183,26 @@ def flash_bound(fa, q, k, v, kw):
     return plain, mix, fa.p_rounding(q.dtype, q.shape[-1])
 
 
-def flash_wrongs(torch, fa, ref, q, k, v, kw, tile: int = 64):
+def flash_wrongs(torch, fa, ref, q, k, v, kw, tile: Optional[int] = None):
     """Broken flash kernels, as plain versions on changed inputs (and the
     kernel's tile loop without rescaling l): [(what, () -> out)].  The
     causal ones where ``kw`` is causal without a window, the window ones
-    where it has a window."""
+    where it has a window; l not rescaled in either.  ``tile``: the
+    kernel's keys per tile (None: the tensor-core kernel's at this head
+    dim, ``ref.tc_key_tile``)."""
     S, H, KV = q.shape[1], q.shape[2], k.shape[2]
+    tile = tile or ref.tc_key_tile(q.shape[-1])
     plain = lambda qq, kk, vv, **o: fa.flash_attention_plain(
         qq, kk, vv, **dict(kw, **o))[0]
+    no_rescale = ("did not rescale the running sum l",
+                  lambda: ref.flash_tiles_ref(q, k, v, **kw, block_k=tile,
+                                              rescale_l=False)[0])
     if kw.get("window"):
         w = kw["window"]
         return [("saw one key more than the window",
                  lambda: plain(q, k, v, window=w + 1)),
                 ("saw one key less than the window",
-                 lambda: plain(q, k, v, window=w - 1))]
+                 lambda: plain(q, k, v, window=w - 1)), no_rescale]
 
     def late():
         # row i sees keys 0..i+1: row i + 1 of a query one row longer
@@ -914,10 +1226,7 @@ def flash_wrongs(torch, fa, ref, q, k, v, kw, tile: int = 64):
     return [("applied the causal mask one key late", late),
             ("dropped each row's last partial kv tile", drop_tile),
             ("read kv head h % KV instead of h // G" if H > KV
-             else "read kv head h + 1 instead of h", head),
-            ("did not rescale the running sum l",
-             lambda: ref.flash_tiles_ref(q, k, v, **kw, block_k=tile,
-                                         rescale_l=False)[0])]
+             else "read kv head h + 1 instead of h", head), no_rescale]
 
 
 def flash_pad_wrongs(torch, fa, q, k, v, kw):
@@ -1336,7 +1645,7 @@ def profile_train_step(torch, cfg, dev) -> dict:
     from repro_torch.data import SyntheticTokenSource, TokenDatasetSpec
     from repro_torch.distributed import stepfn
     from repro_torch.models import transformer as T
-    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                            device=dev, weight_dtype=torch.float32)
     opt = optim.adamw(3e-4, clip_norm=1.0)
     state = opt.init(params)
@@ -1358,40 +1667,29 @@ def profile_train_step(torch, cfg, dev) -> dict:
 
 
 def train_card_vs_cpu(torch, cfg, *, seq: int, batch: int, dev) -> None:
-    """One train step of ``cfg`` on the card and on the CPU from the same
-    f32 weights and batch (the launcher's ``dp`` step at world size 1,
-    NCCL and gloo): loss and the gradient's global norm within
-    tolerance."""
+    """One train step of ``cfg`` on the card and on the CPU (``CpuSide``)
+    from the same f32 weights (``CPU_WEIGHTS``) and batch (the launcher's
+    ``dp`` step at world size 1, NCCL and gloo): loss and the gradient's
+    global norm within tolerance."""
     import numpy as np
-    from repro_torch import optim
-    from repro_torch.core import hvd
-    from repro_torch.data import SyntheticTokenSource, TokenDatasetSpec
-    from repro_torch.distributed import stepfn
-    from repro_torch.models import transformer as T
-    p_cpu = T.init_params(cfg, torch.Generator().manual_seed(1),
-                          weight_dtype=torch.float32)
-    data = SyntheticTokenSource(TokenDatasetSpec(
-        cfg.vocab_size, seq, batch)).batch(0)
-    got = {}
-    for where in (dev, "cpu"):
-        p = optim.tree_map(lambda t: t.to(where), p_cpu)
-        o = optim.adamw(3e-4, clip_norm=1.0)
-        with hvd.init(where):
-            _, _, m = stepfn.make_train_step(
-                cfg, o, hvd.axis_groups({"data": 1}), device=where)(
-                    p, o.init(p), data)
-        got[str(where)] = (float(m["loss"]), float(m["grad_norm"]))
-        del p, o, m
-    (lg, ng), (lc, nc) = got[str(dev)], got["cpu"]
-    print(f"{cfg.name} {cfg.num_layers}-layer full-width step, seq {seq}, "
-          f"batch {batch}: loss cuda {lg:.6f} cpu {lc:.6f} (rtol "
-          f"{TRAIN_LOSS_RTOL}); grad norm cuda {ng:.6f} cpu {nc:.6f} (rtol "
-          f"{TRAIN_GNORM_RTOL})", flush=True)
-    check(np.isfinite([lg, ng]).all(), "card train step not finite")
-    check(abs(lg - lc) <= TRAIN_LOSS_RTOL * abs(lc),
-          f"{cfg.name}: card and CPU training losses disagree")
-    check(abs(ng - nc) <= TRAIN_GNORM_RTOL * abs(nc),
-          f"{cfg.name}: card and CPU gradient norms disagree")
+    host = CPU_SIDE.fetch(weights_label(cfg.name, cfg.num_layers, True))
+    lg, ng = train_step_metrics(torch, dev, cfg, host, seq, batch)
+
+    def finish(res):
+        lc, nc = res
+        print(f"{cfg.name} {cfg.num_layers}-layer full-width step, seq {seq}, "
+              f"batch {batch}: loss cuda {lg:.6f} cpu {lc:.6f} (rtol "
+              f"{TRAIN_LOSS_RTOL}); grad norm cuda {ng:.6f} cpu {nc:.6f} "
+              f"(rtol {TRAIN_GNORM_RTOL})", flush=True)
+        check(np.isfinite([lg, ng]).all(), "card train step not finite")
+        check(abs(lg - lc) <= TRAIN_LOSS_RTOL * abs(lc),
+              f"{cfg.name}: card and CPU training losses disagree")
+        check(abs(ng - nc) <= TRAIN_GNORM_RTOL * abs(nc),
+              f"{cfg.name}: card and CPU gradient norms disagree")
+        return {"loss": [lg, lc], "grad_norm": [ng, nc]}
+    CPU_SIDE.submit(f"{cfg.name} {cfg.num_layers}-layer train step",
+                    "train_step_metrics", finish, cfg=cfg, params=host,
+                    seq=seq, batch=batch)
 
 
 # ---------------------------------------------------------------------------
@@ -2118,17 +2416,20 @@ def check_round_launches(eng, launches, label: str, cfg) -> dict:
     """A paged serving run's kernel counts are its replays times each
     capture's launches: a decode round launches paged decode once a layer,
     a prefill round paged prefill once a layer (on the tensor-core
-    kernel), and a round of either one RMSNorm a norm (two a layer and the
+    kernel, none on the CUDA-core one), and a round of either one RMSNorm
+    a norm (two a layer, four with gemma2's post-block norms, and the
     final one, each one pass).  Returns the paged kernels' measured
     launches per replay of their round's program."""
     L = cfg.num_layers
+    norms = (4 if cfg.post_block_norm else 2) * L + 1
     dec = eng.programs["decode_step"].replays
     pre = eng.programs["prefill_paged"].replays
     want = {"paged_decode_attention": L * dec,
             "paged_prefill_attention": L * pre,
             "paged_prefill_tensor_core": L * pre,
-            "rmsnorm": (2 * L + 1) * (dec + pre),
-            "rmsnorm_one_pass": (2 * L + 1) * (dec + pre)}
+            "paged_prefill_cuda_core": 0,
+            "rmsnorm": norms * (dec + pre),
+            "rmsnorm_one_pass": norms * (dec + pre)}
     got = {k: launches[k] for k in want}
     check(got == want, f"{label}: launches {got}, want {want} from {dec} "
           f"decode and {pre} prefill replays")
@@ -2294,31 +2595,15 @@ def serve_recurrent(torch, T, dev, counters, by_name, rms_paths) -> dict:
                                      kv_cache_dtype=kv_dtype)
         prompt = np.random.default_rng(2).integers(0, cfg.vocab_size, 48,
                                                    dtype=np.int32)
-        p_cpu = T.init_params(cfg, torch.Generator().manual_seed(1))
-        results = {}
-        for where in (dev, "cpu"):
-            e = ServingEngine(cfg, p_cpu, max_seq_len=64, max_slots=1,
-                              paged=False, device=where)
-            slot, last = e.prefill_into_slot(prompt)
-            logits, toks = torch.from_numpy(last)[None], []
-            for i in range(8):
-                t = e.sample_tokens(logits, np.ones(1, np.float32),
-                                    np.ones(1, bool))
-                toks.append(int(t[0]))
-                logits = e.decode_once(t, np.array([len(prompt) + i],
-                                                   np.int32))
-            results[str(where)] = (last, toks)
-            del e
-        (lg, tg), (lc, tc) = results[str(dev)], results["cpu"]
-        check(np.isfinite(lg).all() and lg.shape == (cfg.vocab_size,),
-              f"{arch}: card logits not finite or of the wrong shape")
-        diff = float(np.abs(lg - lc).max())
-        print(f"{arch} {layers}-layer full-width dense {kv_dtype}, card vs "
-              f"CPU: last logits max |diff| {diff:.3e} (tol "
-              f"{CPU_LOGIT_TOL}); greedy card {tg} cpu {tc}", flush=True)
-        check(diff <= CPU_LOGIT_TOL, f"{arch}: card and CPU logits disagree")
-        check(tg == tc, f"{arch}: card and CPU greedy tokens differ")
-        out[f"{arch} card vs CPU"] = dict(logit_diff=diff, tokens=tg)
+        p_cpu = CPU_SIDE.fetch(weights_label(arch, layers, False))
+        kw = dict(paged=False)
+        lg, tg, _ = engine_greedy(torch, dev, cfg, p_cpu, prompt, new=8,
+                                  generate=False, engine_kw=kw)
+        label = f"{arch} {layers}-layer full-width dense {kv_dtype}"
+        CPU_SIDE.submit(label, "engine_greedy", engine_pair(
+            label, lg, tg, (cfg.vocab_size,)), cfg=cfg, params=p_cpu,
+            prompt=prompt, new=8, generate=False, engine_kw=kw)
+        del p_cpu
     return out
 
 
@@ -2944,9 +3229,8 @@ def vlm_phase(torch, T, dev, counters, by_name, rms_paths) -> dict:
 
     # (c) card against CPU at 2 layers, on weights copied from the card ----
     cfg2 = full.with_(num_layers=2)
-    p_cpu = _map(dict(params, layers=_map(params["layers"],
-                                          lambda t: t[:2])),
-                 lambda t: t.cpu())
+    p_cpu = shared_cpu(torch, dict(params, layers=_map(params["layers"],
+                                                       lambda t: t[:2])))
     del params
     held_bytes(torch, dev)
     p_card = _map(p_cpu, lambda t: t.to(dev))
@@ -2961,35 +3245,28 @@ def vlm_phase(torch, T, dev, counters, by_name, rms_paths) -> dict:
              "labels": torch.from_numpy(rng.integers(
                  0, cfg2.vocab_size, (1, P + text), dtype=np.int32))}
     prompt = rng.integers(0, cfg2.vocab_size, 48, dtype=np.int32)
-    res = {}
-    t0 = time.perf_counter()
-    for where, p in ((dev, p_card), ("cpu", p_cpu)):
-        b = {k: v.to(where) for k, v in batch.items()}
-        with torch.no_grad():
-            logits = T.forward(p, cfg2, b)[0][0, P:].float().cpu()
-            loss = float(T.lm_loss(p, cfg2, b)[0])
-        e = ServingEngine(cfg2, p, max_seq_len=64, max_slots=1, paged=True,
-                          prefill_batch=1, device=where)
-        toks = e.generate([Request(prompt, SamplingParams(
-            max_new_tokens=4, greedy=True))])[0].tolist()
-        res[str(where)] = (logits, loss, toks)
-        del e
-    (lg, ls_g, tg), (lc, ls_c, tc) = res[str(dev)], res["cpu"]
-    diff = float((lg - lc).abs().max())
-    out["card_vs_cpu"] = dict(logit_diff=diff, loss_card=ls_g, loss_cpu=ls_c,
-                              tokens_card=tg, tokens_cpu=tc,
-                              seconds=time.perf_counter() - t0)
-    print(f"(c) vlm 2-layer full width, card vs CPU (256 patches + 16 text "
-          f"tokens, M-RoPE): text logits max |diff| {diff:.3e} (tol "
-          f"{CPU_LOGIT_TOL}); loss {ls_g:.6f} / {ls_c:.6f}; greedy (paged, "
-          f"48-token prompt) card {tg} cpu {tc}", flush=True)
-    check(bool(torch.isfinite(lg).all()) and lg.shape == (text,
-                                                          cfg2.vocab_size),
-          "(c) vlm: card logits not finite or of the wrong shape")
-    check(diff <= CPU_LOGIT_TOL, "(c) vlm: card and CPU logits disagree")
-    check(abs(ls_g - ls_c) <= TRAIN_LOSS_RTOL * abs(ls_c),
-          "(c) vlm: card and CPU losses disagree")
-    check(tg == tc, "(c) vlm: card and CPU greedy tokens differ")
+    lg, ls_g, tg = vlm_forward_greedy(torch, dev, cfg2, p_card, batch,
+                                      prompt)
+
+    def finish(res):
+        lc, ls_c, tc = res
+        diff = float((lg - lc).abs().max())
+        print(f"(c) vlm 2-layer full width, card vs CPU (256 patches + 16 "
+              f"text tokens, M-RoPE): text logits max |diff| {diff:.3e} (tol "
+              f"{CPU_LOGIT_TOL}); loss {ls_g:.6f} / {ls_c:.6f}; greedy "
+              f"(paged, 48-token prompt) card {tg} cpu {tc}", flush=True)
+        check(bool(torch.isfinite(lg).all())
+              and lg.shape == (text, cfg2.vocab_size),
+              "(c) vlm: card logits not finite or of the wrong shape")
+        check(diff <= CPU_LOGIT_TOL, "(c) vlm: card and CPU logits disagree")
+        check(abs(ls_g - ls_c) <= TRAIN_LOSS_RTOL * abs(ls_c),
+              "(c) vlm: card and CPU losses disagree")
+        check(tg == tc, "(c) vlm: card and CPU greedy tokens differ")
+        return dict(logit_diff=diff, loss_card=ls_g, loss_cpu=ls_c,
+                    tokens_card=tg, tokens_cpu=tc)
+    CPU_SIDE.submit("(c) vlm 2-layer full width", "vlm_forward_greedy",
+                    finish, cfg=cfg2, params=p_cpu, batch=batch,
+                    prompt=prompt)
     del p_card, p_cpu
     held_bytes(torch, dev)
     return out
@@ -3154,39 +3431,20 @@ def whisper_phase(torch, T, dev, counters, by_name, rms_paths) -> dict:
     # one request a mode (the CPU runs the encoder and every step's
     # 1,500-frame K/V projections in bf16 on its cores), its 4-token
     # prompt in one 4-token chunk
-    p_cpu = _map(params, lambda t: t.cpu())
-    out["card_vs_cpu"] = {}
+    p_cpu = shared_cpu(torch, params)
+    kw = dict(prefill_chunk=4)
     for label, c in (("bf16", cfg), ("int8",
                                       cfg.with_(kv_cache_dtype="int8"))):
-        res = {}
-        for where, p in ((dev, params), ("cpu", p_cpu)):
-            e = ServingEngine(c, p, max_seq_len=64, max_slots=1,
-                              prefill_chunk=4, device=where)
-            slot, last = e.prefill_into_slot(prompts[0], frames[0])
-            e.free_slot(slot)
-            toks = e.generate([Request(prompts[0], SamplingParams(
-                max_new_tokens=8, greedy=True),
-                encoder_input=frames[0])])[0].tolist()
-            other = None
-            if where == dev:
-                other = e.generate([Request(prompts[0], SamplingParams(
-                    max_new_tokens=8, greedy=True),
-                    encoder_input=frames[1])])[0].tolist()
-            res[str(where)] = (last, toks, other)
-            del e
-        (lg, tg, og), (lc, tc, _) = res[str(dev)], res["cpu"]
-        diff = float(np.abs(lg - lc).max())
-        out["card_vs_cpu"][label] = dict(logit_diff=diff, tokens_card=tg,
-                                         tokens_cpu=tc, other_frames=og)
-        print(f"(c) whisper full depth {label}, card vs CPU: last prompt "
-              f"logits max |diff| {diff:.3e} (tol {CPU_LOGIT_TOL}); greedy "
-              f"card {tg} cpu {tc}; other frames {og}", flush=True)
-        check(np.isfinite(lg).all() and diff <= CPU_LOGIT_TOL,
-              f"(c) whisper {label}: card and CPU logits disagree")
-        check(tg == tc, f"(c) whisper {label}: card and CPU greedy tokens "
-              "differ")
-        check(og != tg, f"(c) whisper {label}: other frames gave the same "
-              "tokens")
+        lg, tg, og = engine_greedy(torch, dev, c, params, prompts[0], new=8,
+                                   generate=True, engine_kw=kw,
+                                   frames=frames[0], other_frames=frames[1])
+        label = f"(c) whisper full depth {label}"
+        check(og != tg, f"{label}: other frames gave the same tokens")
+        CPU_SIDE.submit(label, "engine_greedy", engine_pair(
+            label, lg, tg, lg.shape, diff_name="last prompt logits",
+            extra=f"; other frames {og}"), cfg=c, params=p_cpu,
+            prompt=prompts[0], new=8, generate=True, engine_kw=kw,
+            frames=frames[0])
     del params, p_cpu
     held_bytes(torch, dev)
     return out
@@ -3198,6 +3456,10 @@ def whisper_phase(torch, T, dev, counters, by_name, rms_paths) -> dict:
 # per replay, and 10 requests still reuse two slots
 RECURRENT_TRAIN_STEPS = 5
 RECURRENT_REQUESTS = 10
+# their card-vs-CPU train steps (phases 11, 13): one row of 512 tokens,
+# cut from two beside phase 24 (the CPU's step is the slow part; at two
+# rows the loss gaps read 2.6e-6 and 3.6e-5 against TRAIN_LOSS_RTOL 1e-3)
+RECURRENT_CPU_BATCH = 1
 
 
 # ---------------------------------------------------------------------------
@@ -3222,6 +3484,11 @@ SHARDED_LR = 1e-4
 # weights after one update)
 SHARDED_CPU_LAYERS = {"gemma2-27b": 2, "deepseek-coder-33b": 1,
                       "qwen3-moe-30b-a3b": 1}
+# and its sequence: 64 tokens, cut from 128 to keep the script within its
+# time limit beside phase 24 (the CPU's bf16 step is the slow part; the
+# loss a mean over 63 token losses; at 128 the gaps read 0.009-0.16 of
+# TRAIN_LOSS_RTOL)
+SHARDED_CPU_SEQ = 64
 # the D tail's new route at gemma2-27b's local layers: the window binds at
 # S 8,192, and at phase 21 (a)'s shape
 D160_SETS = {
@@ -3829,45 +4096,52 @@ def sharded_train(torch, T, cfg, dev, counters) -> dict:
     return res, launches
 
 
-def sharded_card_vs_cpu(torch, T, cfg, dev, *, seq: int = 128,
+def sharded_cpu_label(arch: str) -> str:
+    return f"(e) {arch} {SHARDED_CPU_LAYERS[arch]}-layer fsdp_tp step"
+
+
+def queue_sharded_cpu_steps() -> None:
+    """Queue phase 21 (e)'s CPU halves (``fsdp_draw_step``); main queues
+    them after phase 4's times, so that they run beside phases 5-14."""
+    for arch, _ in SHARDED_RUNS:
+        CPU_SIDE.prefetch(sharded_cpu_label(arch), "fsdp_draw_step",
+                          arch=arch, layers=SHARDED_CPU_LAYERS[arch],
+                          seq=SHARDED_CPU_SEQ, batch=1)
+
+
+def fsdp_draw_step(torch, where, arch: str, layers: int, seq: int,
+                   batch: int):
+    """``arch`` cut to ``layers``, f32 weights on the CPU's generator at
+    seed 1: a copy of them in shared memory (for the card's step), then
+    ``fsdp_step_metrics`` on the CPU (which updates the originals)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch).with_(num_layers=layers, remat=False)
+    params = T.init_params(cfg, torch.Generator().manual_seed(1),
+                           weight_dtype=torch.float32)
+    keep = shared_cpu(torch, params)
+    return keep, fsdp_step_metrics(torch, where, cfg, params, seq, batch)
+
+
+def sharded_card_vs_cpu(torch, cfg, dev, *, seq: int = SHARDED_CPU_SEQ,
                         batch: int = 1) -> dict:
     """One ``fsdp_tp`` step of ``cfg`` on the card and on the CPU from the
-    same f32 weights (drawn on the card at seed 1, copied to the CPU
-    before the card's step, which updates its shards in place) and batch:
-    loss and the gradient's global norm within ``TRAIN_LOSS_RTOL`` and
+    same f32 weights (drawn on the CPU at seed 1 by ``fsdp_draw_step``,
+    queued by ``queue_sharded_cpu_steps``) and batch: loss and the
+    gradient's global norm within ``TRAIN_LOSS_RTOL`` and
     ``TRAIN_GNORM_RTOL``.  Without remat on either side (it changes no
     value, and the CPU's bf16 step is the slow part); SGD, as the check
     reads the loss and the norm, which the update does not touch, and
     AdamW's f32 state and update are seconds more of the CPU's step."""
-    cfg = cfg.with_(remat=False)
     import numpy as np
-    from repro_torch import optim
-    from repro_torch.core import hvd
-    from repro_torch.data import SyntheticTokenSource, TokenDatasetSpec
-    from repro_torch.distributed import stepfn
-    from repro_torch.launch.mesh import make_host_mesh
-    data = SyntheticTokenSource(TokenDatasetSpec(
-        cfg.vocab_size, seq, batch)).batch(0)
-    got = {}
-    card = T.init_params(cfg, torch.Generator(device=dev).manual_seed(1),
-                         device=dev, weight_dtype=torch.float32)
-    host = _map(card, lambda t: t.to("cpu"))
-    for where in (dev, "cpu"):
-        t0 = time.perf_counter()
-        p = card if where == dev else host
-        if where != dev:
-            del card, host
-            torch.cuda.empty_cache()
-        o = optim.sgd(3e-4, clip_norm=1.0)
-        with hvd.init(where):
-            groups = make_host_mesh()
-            p, s = stepfn.shard_state(p, cfg, o, "fsdp_tp", groups)
-            _, _, m = stepfn.make_train_step(
-                cfg, o, groups, strategy="fsdp_tp", device=where)(p, s, data)
-        got[str(where)] = (float(m["loss"]), float(m["grad_norm"]),
-                           time.perf_counter() - t0)
-        del p, s, m
-    (lg, ng, tg), (lc, nc, tc) = got[str(dev)], got["cpu"]
+    cfg = cfg.with_(remat=False)
+    label = sharded_cpu_label(cfg.name)
+    host, (lc, nc, tc) = CPU_SIDE.fetch(label)
+    card = _map(host, lambda t: t.to(dev))
+    del host
+    lg, ng, tg = fsdp_step_metrics(torch, dev, cfg, card, seq, batch)
+    del card
+    torch.cuda.empty_cache()
     print(f"(e) {cfg.name} {cfg.num_layers}-layer full-width fsdp_tp step, "
           f"seq {seq}, batch {batch}: loss cuda {lg:.6f} cpu {lc:.6f} (rtol "
           f"{TRAIN_LOSS_RTOL}); grad norm cuda {ng:.6f} cpu {nc:.6f} (rtol "
@@ -3878,7 +4152,9 @@ def sharded_card_vs_cpu(torch, T, cfg, dev, *, seq: int = 128,
           f"(e) {cfg.name}: card and CPU losses disagree")
     check(abs(ng - nc) <= TRAIN_GNORM_RTOL * abs(nc),
           f"(e) {cfg.name}: card and CPU gradient norms disagree")
-    return {"loss": [lg, lc], "grad_norm": [ng, nc], "seconds": [tg, tc]}
+    out = {"loss": [lg, lc], "grad_norm": [ng, nc], "seconds": [tg, tc]}
+    CPU_SIDE.report[label].update(out)
+    return out
 
 
 def strategies_at_one(torch, T, cfg, dev, *, seq: int = 1024,
@@ -3919,44 +4195,59 @@ def strategies_at_one(torch, T, cfg, dev, *, seq: int = 1024,
     return out
 
 
-def d160_phase(torch, F, fa, kops, kref, dev, rng, entry) -> dict:
-    """Phase 21 (d): the flash D tail's tensor-core route (D 144 padded to
-    160) with gemma2-27b's local window 4,096 and softcap 50, where the
-    window binds (S 8,192) and at (a)'s shape: the output element by
-    element within the tensor-core bound (P in bf16: 2^-8), the broken
-    D-tail and window variants above it, the logsumexp, the gradients
-    against the plain version's; timed beside SDPA (causal, no window,
-    no softcap: the nearest library call), the plain version and the
-    bound.  The times go into the D tail's kernels-line ``entry``."""
+def flash_route_sets(torch, F, fa, kops, kref, dev, rng, sets, entry, key,
+                     tag) -> dict:
+    """Flash on its tensor-core route at each of ``sets`` (``flash_case``'s
+    shapes with gemma2's window and softcap): the output element by
+    element within the 2^-8 bound, the logsumexp, the gradients through
+    the autograd Function against the plain version's, the broken
+    variants above the bound (``flash_wrongs``: the window's where it
+    binds, the causal ones where it does not; ``flash_pad_wrongs`` where
+    the wrapper pads D); timed beside SDPA (causal, no window, no
+    softcap: the nearest library call), the plain version and the bound.
+    Where the kernels take D unpadded, the CUDA-core kernel at the same
+    inputs too: within its 2^-14 bound, timed, and slower.  The readings
+    go into the kernels-line ``entry`` under ``key``; ``tag`` heads the
+    printed lines (phase 21 (d): gemma2-27b's D 144 through the D tail's
+    160; phase 24 (b): gemma2-2b's D 288)."""
     flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device=dev)
     out = {}
-    for label, s in D160_SETS.items():
+    for label, s in sets.items():
         fc = flash_case(torch, rng, dev, **s)
         qkv, kw = (fc["q"], fc["k"], fc["v"]), fc["kw"]
-        n_tc = fa.flash_fwd_tensor_core.launches
-        n_tail = fa.flash_d_tail.launches
+        D = s["D"]
+        padded = fa.padded_head_dim(D) != D
+        n = (fa.flash_fwd_tensor_core.launches, fa.flash_d_tail.launches,
+             fa.flash_fwd_cuda_core.launches)
         got, lse = fa.flash_attention(*qkv, **kw)
         torch.cuda.synchronize()
-        check(fa.flash_fwd_tensor_core.launches == n_tc + 1
-              and fa.flash_d_tail.launches == n_tail + 1,
-              f"(d) the D 144 call at {label} missed the tensor-core route")
+        check((fa.flash_fwd_tensor_core.launches, fa.flash_d_tail.launches,
+               fa.flash_fwd_cuda_core.launches)
+              == (n[0] + 1, n[1] + padded, n[2]),
+              f"{tag} the D {D} call at {label} missed the tensor-core "
+              "route")
         plain, mix, p_rel = flash_bound(fa, *qkv, kw)
-        check(p_rel == 2.0 ** -8, "(d) the D 160 route's bound is not the "
-              "tensor cores'")
+        check(p_rel == 2.0 ** -8, f"{tag} the D {D} route's bound is not "
+              "the tensor cores'")
         ratio = kref.rounding_bound_ratio(got, plain, mix, p_rel)
         _, want_lse = fa.flash_attention_plain(*qkv, **kw)
         lse_err = (lse - want_lse).abs().max().item()
         err = (got.float() - plain.float()).abs().max().item()
         del got, lse, want_lse
+        cuda_core = None if padded else (
+            lambda: flash_cuda_core(torch, fa, *qkv, kw)[0])
+        cc_ratio = None if padded else kref.rounding_bound_ratio(
+            cuda_core(), plain, mix, 2.0 ** -14)
         # the window's variants where it binds; where it does not (S at
         # most the window) the call is the causal one, and so are its
         # broken variants
-        wkw = kw if s["S"] > s["window"] else dict(kw, window=None)
-        misses = {}
-        for what, wrong in (flash_wrongs(torch, fa, kref, *qkv, wkw)
-                            + flash_pad_wrongs(torch, fa, *qkv, kw)):
-            misses[what] = kref.rounding_bound_ratio(wrong(), plain, mix,
-                                                     p_rel)
+        wkw = kw if s["S"] > (s["window"] or s["S"]) else dict(kw,
+                                                               window=None)
+        wrongs = flash_wrongs(torch, fa, kref, *qkv, wkw)
+        if padded:
+            wrongs += flash_pad_wrongs(torch, fa, *qkv, kw)
+        misses = {what: kref.rounding_bound_ratio(wrong(), plain, mix, p_rel)
+                  for what, wrong in wrongs}
         del plain, mix
         torch.cuda.empty_cache()
         ins = [t.clone().requires_grad_(True) for t in qkv]
@@ -3984,26 +4275,42 @@ def d160_phase(torch, F, fa, kops, kref, dev, rng, entry) -> dict:
              "bound_ms": max(t_bytes, t_flops),
              "bound_by": "bytes" if t_bytes >= t_flops else "operations",
              "bytes": nbytes, "flops": flops}
-        print(f"(d) flash D 144 -> 160 on the tensor cores, {label} "
+        r["tflops"] = flops / r["ms"] / 1e9
+        cc_txt = ""
+        if cuda_core is not None:
+            r["cuda_core_ratio"] = cc_ratio
+            r["cuda_core_ms"] = time_ms(torch, cuda_core, flush, reps=5,
+                                        warmup=1)
+            cc_txt = (f"; the CUDA-core kernel {cc_ratio:.3e} at 2^-14, "
+                      f"{r['cuda_core_ms']:.4f} ms")
+        route = f"D {D}" + (f" -> {fa.padded_head_dim(D)}" if padded else "")
+        print(f"{tag} flash {route} on the tensor cores, {label} "
               f"{tuple(fc['q'].shape)} over KV {s['KV']}, window "
               f"{s['window']}, softcap {s['softcap']}: max |err| / bound "
               f"{ratio:.3e} (2^-8 (|P| @ |V|) / l + 2^-7 |plain|); lse "
               f"{lse_err:.3e}; grads {gerr:.3e} (tol {GRAD_TOL}); kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
-              f"(causal only) {r['library_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.5f} ms by {r['bound_by']}; broken: "
+              f"{r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s), plain "
+              f"{r['plain_ms']:.4f} ms, SDPA (causal only) "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms by "
+              f"{r['bound_by']}{cc_txt}; broken: "
               + ", ".join(f"a kernel that {w} would read {m:.3e}"
                           for w, m in misses.items()), flush=True)
         check(ratio <= 1.0 and lse_err <= LSE_TOL,
-              f"(d) the D 160 route disagrees at {label}")
-        check(gerr <= GRAD_TOL, f"(d) gradients disagree at {label}")
+              f"{tag} the D {D} route disagrees at {label}")
+        check(gerr <= GRAD_TOL, f"{tag} gradients disagree at {label}")
         for what, miss in misses.items():
-            check(miss > 1.0, f"(d) the check at {label} misses a kernel "
+            check(miss > 1.0, f"{tag} the check at {label} misses a kernel "
                   f"that {what}")
+        if cuda_core is not None:
+            check(cc_ratio <= 1.0, f"{tag} the CUDA-core kernel disagrees "
+                  f"at {label}")
+            check(r["ms"] < r["cuda_core_ms"], f"{tag} the tensor cores are "
+                  f"slower than the CUDA cores at {label}")
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
-        entry.setdefault("windowed", {})[label] = {
-            k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                              "bound_by", "max_abs_err")}
+        entry.setdefault(key, {})[label] = {
+            k: r[k] for k in ("ms", "cuda_core_ms", "plain_ms", "library_ms",
+                              "bound_ms", "bound_by", "max_abs_err")
+            if k in r}
         out[label] = r
         del fc, qkv
         torch.cuda.empty_cache()
@@ -4080,8 +4387,10 @@ def sharded_phase(torch, F, T, dev, counters, by_name, rms_paths,
 
     # (d) the D 160 route where gemma2-27b's window binds ------------------
     rng = np.random.default_rng(21)
-    out["d160"] = d160_phase(torch, F, fa, kops, kref, dev, rng,
-                             by_name["flash_attention_d_tail"])
+    out["d160"] = flash_route_sets(torch, F, fa, kops, kref, dev, rng,
+                                   D160_SETS,
+                                   by_name["flash_attention_d_tail"],
+                                   "windowed", "(d)")
 
     # (e) card against CPU at full width, cut in depth
     out["card_vs_cpu"] = {}
@@ -4089,7 +4398,7 @@ def sharded_phase(torch, F, T, dev, counters, by_name, rms_paths,
         check(held_bytes(torch, dev) < 4 * 2**30,
               f"{arch}: memory held before the CPU check")
         out["card_vs_cpu"][arch] = sharded_card_vs_cpu(
-            torch, T, get_config(arch).with_(
+            torch, get_config(arch).with_(
                 num_layers=SHARDED_CPU_LAYERS[arch]), dev)
 
     # (f) the strategies at (1, 1) against dp, qwen2-0.5b at full width ----
@@ -4729,6 +5038,569 @@ def chunked_phase(torch, T, dev, counters, by_name, rms_paths) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# gemma2-2b at full width (phase 24)
+# ---------------------------------------------------------------------------
+
+GEMMA_ARCH = "gemma2-2b"
+# (a): the launcher's step, B 2 x S 2,048, 8 AdamW steps
+GEMMA_SEQ, GEMMA_BATCH, GEMMA_STEPS = 2048, 2, 8
+# the B = 8 decode round's contexts and the prefill tiles' starts, past the
+# local layers' window of 4,096
+GEMMA_LENS = [4200, 4457, 4714, 4971, 5228, 5485, 5742, 6000]
+# (b): flash at D 288 with gemma2's softcap 50, where the window binds (S
+# 8,192: a local layer, window 4,096, and a global one) and at (a)'s step
+# (its local layers' window spans the sequence: the causal call)
+GEMMA_FLASH_SETS = {
+    "step (2, 2048)": dict(B=2, S=2048, H=8, KV=4, D=288, window=None,
+                           softcap=50.0),
+    "local (1, 8192)": dict(B=1, S=8192, H=8, KV=4, D=288, window=4096,
+                            softcap=50.0),
+    "global (1, 8192)": dict(B=1, S=8192, H=8, KV=4, D=288, window=None,
+                             softcap=50.0)}
+# (c): the engine's prompts, a 256-token shared prefix and a tail to
+# 4,200-6,000 tokens, 32 greedy tokens each, in 8,192-position slots
+GEMMA_PROMPTS, GEMMA_PROMPT_LENS, GEMMA_MAX_SEQ = 8, (4200, 6000), 8192
+# (e): the CPU's 2-layer train step, one row of 64 tokens (the CPU's bf16
+# step over the 256,000-word tied embedding is the slow part)
+GEMMA_CPU_SEQ = 64
+
+
+def flash_cuda_core(torch, fa, q, k, v, kw):
+    """The CUDA-core flash kernel on ``q, k, v`` (what bf16 at D 288 ran
+    before its tensor-core route): (out, lse)."""
+    B, Sq, H, D = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    fa.flash_fwd_cuda_core(q, k, v, out, lse, 1.0 / math.sqrt(D),
+                           kw["causal"], kw["window"], kw["softcap"])
+    return out, lse
+
+
+def prefill_cuda_core(torch, pp, case):
+    """The CUDA-core prefill kernel on ``case`` (D 288's route before)."""
+    q = case["q"]
+    out = torch.empty_like(q)
+    pp.prefill_cuda_core(*prefill_args(case), out, case["group"],
+                         1.0 / math.sqrt(q.shape[-1]), case["window"],
+                         case["softcap"])
+    return out
+
+
+def gemma2_kernel_times(torch, F, rng, dev, by_name, flush,
+                        int8_set) -> dict:
+    """Phase 4 at gemma2-2b's D 288 (``main``'s comment there): each
+    kernel checked and timed by ``time_cases`` under ``gemma2_shapes``;
+    the flash and prefill calls on their tensor-core counters, their
+    CUDA-core routes timed at the same inputs (``cuda_core_ms``)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_prefill as pp
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels.ref import attention_int8kv_ref
+    from repro_torch.serving.profiling import decode_cost, prefill_cost
+    wk = dict(window=4096, softcap=50.0)
+    dc = decode_case(torch, rng, dev, B=8, KV=4, G=2, D=288, page=16,
+                     lengths=GEMMA_LENS, garbage=False, **wk)
+    pc = prefill_case(torch, rng, dev, B=4, KV=4, G=2, D=288, page=16, C=16,
+                      starts=GEMMA_LENS[::2], q_lens=[16] * 4, **wk)
+    fc = flash_case(torch, rng, dev, **GEMMA_FLASH_SETS["step (2, 2048)"])
+    ic = int8_case(torch, rng, dev, **int8_set)
+    da, pa_, fqkv, ia = (decode_args(dc), prefill_args(pc),
+                         (fc["q"], fc["k"], fc["v"]), int8_args(ic))
+    pkw = dict(group=2, **wk)
+    kd, vd = dequantized_kv(ic)
+
+    def decode_ok(got, want):
+        return kref.rounding_bound_ratio(got, want, decode_bound(pa, dc)[1],
+                                         pa.P_ROUNDING) <= 1.0
+
+    def prefill_ok(got, want):
+        _, mix, p_rel = prefill_bound(pp, pc)
+        return (p_rel == 2.0 ** -8 and padding_rows_zero(got, pc)
+                and kref.rounding_bound_ratio(got, want, mix, p_rel) <= 1.0)
+
+    def flash_ok(got, want):
+        _, mix, p_rel = flash_bound(fa, *fqkv, fc["kw"])
+        return (p_rel == 2.0 ** -8
+                and kref.rounding_bound_ratio(got, want, mix, p_rel) <= 1.0)
+
+    lens = ", ".join(map(str, GEMMA_LENS))
+    cases = [
+        ("paged_decode_attention", f"q (8, 4, 2, 288) bf16, 16-token pages, "
+         f"contexts {lens}, window 4096, softcap 50",
+         lambda: pa.paged_attention(*da, **wk),
+         lambda: pa.paged_attention_plain(*da, **wk),
+         lambda: library_decode(torch, F, dc), decode_cost, dc, decode_ok),
+        ("paged_prefill_attention", "q (4, 4, 16*2, 288) bf16, C = 16, "
+         f"starts {GEMMA_LENS[::2]}, window 4096, softcap 50",
+         lambda: pp.paged_prefill(*pa_, **pkw),
+         lambda: pp.paged_prefill_plain(*pa_, **pkw),
+         lambda: library_prefill(torch, F, pc), prefill_cost, pc,
+         prefill_ok),
+        ("flash_attention", "q (2, 2048, 8, 288), k/v (2, 2048, 4, 288) "
+         "bf16, causal, softcap 50",
+         lambda: fa.flash_attention(*fqkv, **fc["kw"])[0],
+         lambda: fa.flash_attention_plain(*fqkv, **fc["kw"])[0],
+         lambda: library_flash(torch, F, fc), flash_cost, fc, flash_ok),
+        ("flash_attention_int8kv", "q (4, 1, 8, 288) bf16, int8 K/V (4, "
+         "5000, 4, 288), window 4096, softcap 50",
+         lambda: fa.flash_attention_int8kv(*ia, **ic["kw"]),
+         lambda: attention_int8kv_ref(*ia, **ic["kw"]),
+         lambda: library_int8(torch, F, ic, kd, vd), int8_cost, ic,
+         lambda got, want: int8_rel_err(got, want) <= INT8_BF16_RTOL)]
+    n_tc = (pp.prefill_tensor_core.launches, fa.flash_fwd_tensor_core.launches)
+    n_cc = (pp.prefill_cuda_core.launches, fa.flash_fwd_cuda_core.launches)
+    pp.paged_prefill(*pa_, **pkw)
+    fa.flash_attention(*fqkv, **fc["kw"])
+    torch.cuda.synchronize()
+    check((pp.prefill_tensor_core.launches, fa.flash_fwd_tensor_core.launches)
+          == (n_tc[0] + 1, n_tc[1] + 1)
+          and (pp.prefill_cuda_core.launches, fa.flash_fwd_cuda_core.launches)
+          == n_cc, "gemma2-2b's D 288 prefill or flash call missed its "
+          "tensor-core route")
+    time_cases(torch, cases, "gemma2-2b", "gemma2_shapes", by_name, flush)
+    # the CUDA-core routes at the same inputs, held to their own bound
+    # (P in f32: 2^-14)
+    cc = {}
+    for kname, run, bound in (
+            ("paged_prefill_attention", lambda: prefill_cuda_core(
+                torch, pp, pc), lambda: prefill_bound(pp, pc)[:2]),
+            ("flash_attention", lambda: flash_cuda_core(
+                torch, fa, *fqkv, fc["kw"])[0],
+             lambda: flash_bound(fa, *fqkv, fc["kw"])[:2])):
+        plain, mix = bound()
+        ratio = kref.rounding_bound_ratio(run(), plain, mix, 2.0 ** -14)
+        del plain, mix
+        check(ratio <= 1.0, f"the CUDA-core {kname} disagrees at gemma2-2b's "
+              "shapes")
+        rec = by_name[kname]["gemma2_shapes"][-1]
+        rec["cuda_core_ms"] = cc[kname] = time_ms(torch, run, flush,
+                                                  reps=5, warmup=1)
+        print(f"{kname} at gemma2-2b's {rec['shapes']}: the CUDA-core route "
+              f"{cc[kname]:.4f} ms (bound ratio {ratio:.3e} at 2^-14) "
+              f"against the tensor cores' {rec['ms']:.4f} ms", flush=True)
+        check(rec["ms"] < cc[kname], f"the tensor-core {kname} is slower "
+              "than the CUDA-core route at gemma2-2b's shapes")
+    del dc, pc, fc, ic, kd, vd
+    torch.cuda.empty_cache()
+    return cc
+
+
+def hold_gemma2_paged(torch, pa, pp, kref, dev, rng) -> dict:
+    """Phase 24 (f) after (c): paged decode and prefill at the engine's
+    D 288 shapes (B = 8 decode at ``GEMMA_LENS``, the 4-row C = 16 prefill
+    tile there, window 4,096, softcap 50) against their plain versions at
+    phase 3's bounds, with phase 3's broken variants; the prefill call on
+    the tensor-core counter."""
+    wk = dict(window=4096, softcap=50.0)
+    dc = decode_case(torch, rng, dev, B=8, KV=4, G=2, D=288, page=16,
+                     lengths=GEMMA_LENS, **wk)
+    pc = prefill_case(torch, rng, dev, B=4, KV=4, G=2, D=288, page=16, C=16,
+                      starts=GEMMA_LENS[1::2], q_lens=[16, 7, 16, 0], **wk)
+    res = {}
+    got = pa.paged_attention(*decode_args(dc), **wk)
+    plain, mix = decode_bound(pa, dc)
+    res["paged_decode_attention"] = {
+        "ratio": kref.rounding_bound_ratio(got, plain, mix, pa.P_ROUNDING),
+        "misses": {w: kref.rounding_bound_ratio(f(), plain, mix,
+                                                pa.P_ROUNDING)
+                   for w, f in decode_wrongs(torch, pa, kref, dc)}}
+    n_tc = pp.prefill_tensor_core.launches
+    got = pp.paged_prefill(*prefill_args(pc), group=2, **wk)
+    torch.cuda.synchronize()
+    check(pp.prefill_tensor_core.launches == n_tc + 1,
+          "(f) the D 288 prefill missed the tensor-core route")
+    plain, mix, p_rel = prefill_bound(pp, pc)
+    res["paged_prefill_attention"] = {
+        "ratio": kref.rounding_bound_ratio(got, plain, mix, p_rel),
+        "padding_zero": padding_rows_zero(got, pc),
+        "misses": {w: kref.rounding_bound_ratio(f(), plain, mix, p_rel)
+                   for w, f in prefill_wrongs(torch, pa, pp, kref, pc)}}
+    del dc, pc, got, plain, mix
+    check(res["paged_prefill_attention"]["padding_zero"],
+          "(f) a D 288 prefill padding row is not zero")
+    return res
+
+
+def check_holds(holds: dict, label: str, tol: float = 1.0) -> None:
+    """Each held kernel within its bound (``ratio``, ``ulp`` or ``rel``
+    at or below ``tol``), each broken variant above it."""
+    print(f"{label}: kernels against their plain versions: "
+          + json.dumps(holds), flush=True)
+    for name, r in holds.items():
+        t = INT8_BF16_RTOL if name == "flash_attention_int8kv" else tol
+        got = r.get("ratio", r.get("ulp", r.get("rel")))
+        check(got <= t, f"{label}: {name} disagrees ({got:.3e})")
+        for what, miss in r["misses"].items():
+            check(miss > t, f"{label}: the {name} check misses a kernel "
+                  f"that {what} ({miss:.3e})")
+
+
+def gemma2_train_profile(torch, T, cfg, dev) -> dict:
+    """The launcher's step (``dp_tp`` on the (1, 1) host mesh, AdamW in
+    place, B 2 x S 2,048) from weights drawn on the card: one step's peak
+    measured as phase 22 measures it against the dry-run (the card's
+    ``max_memory_allocated`` over the step, less what was resident
+    before it, plus the bytes handed to it), then one step under
+    ``torch.profiler``: device time by kernel family."""
+    from repro_torch import optim
+    from repro_torch.core import hvd
+    from repro_torch.data import SyntheticTokenSource, TokenDatasetSpec
+    from repro_torch.distributed import stepfn
+    from repro_torch.launch.mesh import make_host_mesh
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    src = SyntheticTokenSource(TokenDatasetSpec(cfg.vocab_size, GEMMA_SEQ,
+                                                GEMMA_BATCH))
+    with hvd.init(dev):
+        groups = make_host_mesh()
+        opt = optim.adamw(3e-4, clip_norm=1.0)
+        params, state = stepfn.shard_state(
+            T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev, weight_dtype=torch.float32),
+            cfg, opt, "dp_tp", groups)
+        step = stepfn.make_train_step(cfg, opt, groups, strategy="dp_tp",
+                                      device=dev)
+        arg_bytes = tree_bytes(params) + tree_bytes(state)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        params, state, _ = step(params, state, src.batch(0))
+        torch.cuda.synchronize()
+        step_peak = torch.cuda.max_memory_allocated(dev) - held + arg_bytes
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            params, state, _ = step(params, state, src.batch(1))
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        del params, state, step
+    return dict(profile_breakdown(prof, wall_ms), step_peak=step_peak,
+                argument_bytes=arg_bytes)
+
+
+def gemma2_phase(torch, F, T, dev, counters, by_name, rms_paths) -> dict:
+    """Phase 24: gemma2-2b at full width and depth (26 layers, d 2,304, 8 /
+    4 heads of 288, vocab 256,000, window 4,096 on the 13 local layers,
+    softcaps 50 / 30, tied embedding), random weights at seed 0: (a)
+    training through the launcher, then one step profiled; (b) flash at
+    D 288 (``flash_route_sets``); (c) paged serving through the launcher
+    and the engine (long prompts: the window binds), a B = 8 decode round
+    replayed and eager; (d) dense serving, int8 then bf16; (e) card
+    against CPU at 2 layers; (f) after (a), (c) and (d) the kernels they
+    launched held at their shapes.  Adds the paths' launches to
+    ``by_name`` and ``rms_paths``."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_prefill as pp
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.serving import (Request, SamplingParams, Scheduler,
+                                     ServingEngine)
+    cfg = get_config(GEMMA_ARCH)
+    L, V = cfg.num_layers, cfg.vocab_size
+    # a forward's RMSNorms: ln1, post_ln1, ln2 and post_ln2 a layer, and
+    # the final norm (transformer._apply_layer, _stack)
+    norms = 4 * L + 1
+    rng = np.random.default_rng(24)
+    out = {"seconds": {}}
+    t_part = [time.perf_counter()]
+
+    def lap(part):
+        """The seconds ``part`` took (with its holds), into ``out``."""
+        now = time.perf_counter()
+        out["seconds"][part] = now - t_part[0]
+        t_part[0] = now
+
+    # (e)'s train step first, so that its CPU half runs beside (a)-(d)
+    train_card_vs_cpu(torch, cfg.with_(num_layers=2, remat=False),
+                      seq=GEMMA_CPU_SEQ, batch=1, dev=dev)
+    torch.cuda.empty_cache()
+    lap("e, the train step's card half")
+
+    # (a) training through the launcher -----------------------------------
+    shape = InputShape("train", GEMMA_SEQ, GEMMA_BATCH, "train")
+    dry = dryrun.count_step(cfg, shape, "dp_tp", {"data": 1, "model": 1})
+    before = held_bytes(torch, dev)
+    check(before < 4 * 2**30, f"(a) {before} bytes held before training")
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    run = train_launcher.main(["--arch", GEMMA_ARCH, "--seq-len",
+                               str(GEMMA_SEQ), "--global-batch",
+                               str(GEMMA_BATCH), "--steps",
+                               str(GEMMA_STEPS)])
+    wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    del run["params"]
+    held_bytes(torch, dev)
+    steady = run["step_s"][1:]
+    res = {k: run[k] for k in ("strategy", "mesh", "losses", "step_s",
+                               "tokens_per_s", "launches_per_step",
+                               "max_memory_allocated")}
+    res.update(step_ms=sum(steady) / len(steady) * 1e3, wall_s=wall,
+               held_before=before, dryrun_peak=dry["peak_memory_per_device"],
+               dryrun_argument_bytes=dry["argument_size"],
+               dryrun_peak_at=dry["peak_at"], params=cfg.param_count())
+    print(f"(a) {GEMMA_ARCH} through the launcher, B {GEMMA_BATCH} x S "
+          f"{GEMMA_SEQ}: " + json.dumps(res), flush=True)
+    losses = res["losses"]
+    check(res["strategy"] == "dp_tp", "(a) the launcher's default is not "
+          "dp_tp")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "(a) the loss is not finite or did not fall")
+    # remat: every layer's attention and norms twice a step, the final
+    # norm once; every flash on the tensor cores, every norm one pass
+    per = res["launches_per_step"]
+    check(all(n == 2 * L for n in per["flash_attention"])
+          and all(n == 2 * (norms - 1) + 1 for n in per["rmsnorm"]),
+          f"(a) launches a step {per}, want {2 * L} flash and "
+          f"{2 * (norms - 1) + 1} RMSNorm")
+    want = {"flash_attention": 2 * L * GEMMA_STEPS,
+            "flash_attention_tensor_core": 2 * L * GEMMA_STEPS,
+            "flash_attention_cuda_core": 0, "flash_attention_d_tail": 0,
+            "rmsnorm": (2 * (norms - 1) + 1) * GEMMA_STEPS,
+            "rmsnorm_one_pass": (2 * (norms - 1) + 1) * GEMMA_STEPS}
+    got = {k: launches[k] for k in want}
+    check(got == want, f"(a) launches {got}, want {want}")
+    k = by_name["flash_attention"]
+    k["launches_per_path"][f"training {GEMMA_ARCH} (launcher, dp_tp)"] = \
+        launches["flash_attention"]
+    k["launches"] = sum(k["launches_per_path"].values())
+    rms_paths[f"training {GEMMA_ARCH}"] = launches["rmsnorm"]
+    res["profile"] = prof = gemma2_train_profile(torch, T, cfg, dev)
+    res["step_peak_vs_dryrun"] = (prof["step_peak"]
+                                  / dry["peak_memory_per_device"] - 1)
+    print(f"(a) the step's peak {prof['step_peak']} bytes (arguments "
+          f"{prof['argument_bytes']}) against the dry-run's "
+          f"{dry['peak_memory_per_device']} (arguments "
+          f"{dry['argument_size']}): {res['step_peak_vs_dryrun']:+.4f}; the "
+          f"launcher's max_memory_allocated {res['max_memory_allocated']}; "
+          "one step profiled: " + json.dumps(prof), flush=True)
+    check(res["profile"]["by_family_ms"]["flash_attention"] > 0,
+          "(a) the profiler saw no flash kernel")
+    out["train"] = res
+    held_bytes(torch, dev)
+    # (f) the step's RMSNorm at its rows (its flash call is (b)'s first
+    # shape, held there with its gradients and broken variants)
+    out["train_holds"] = {"rmsnorm": hold_rmsnorm_rows(
+        torch, rn, kref, dev, rng, GEMMA_BATCH * GEMMA_SEQ, cfg.d_model)}
+    check_holds(out["train_holds"], "(f) after (a)")
+    lap("a")
+
+    # (b) flash at D 288 where the window binds ---------------------------
+    out["d288"] = flash_route_sets(torch, F, fa, kops, kref, dev, rng,
+                                   GEMMA_FLASH_SETS,
+                                   by_name["flash_attention"], "d288", "(b)")
+    lap("b")
+
+    # (c) paged serving: the launcher, then the engine --------------------
+    before = held_bytes(torch, dev)
+    check(before < 4 * 2**30, f"(c) {before} bytes held before serving")
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts(counters)
+    gw = serve_launcher.main([
+        "--arch", GEMMA_ARCH, "--paged", "--max-slots", "8",
+        "--max-seq-len", "2048", "--prefill-batch", "4",
+        "--prefill-token-budget", "512", "--prefix-cache-blocks", "256",
+        "--shared-prefix", "256", "--requests", "12", "--max-new", "32",
+        "--greedy", "--metrics-json", str(OUT / "gemma2_metrics.json")])
+    torch.cuda.synchronize()
+    launches_a = read_counts(counters)
+    sched = gw.replicas[0].scheduler
+    eng = sched.engine
+    rep_a = report_serving(torch, sched, "(c) gemma2 launcher", dev)
+    check(rep_a["requests"] == 12, "(c) launcher: not every request "
+          "completed")
+    check(rep_a["prefix_hit_rate"] > 0, "(c) launcher: no prefix-cache hit")
+    check_no_leaks(sched, "(c) gemma2 launcher")
+    check_programs(eng, "(c) gemma2 launcher", "prefill_paged",
+                   eng.prefill_batch * eng.prefill_chunk)
+    per_replay = {"launcher": check_round_launches(
+        eng, launches_a, "(c) gemma2 launcher", cfg)}
+    params = eng.params
+    del gw, sched, eng
+    torch.cuda.empty_cache()
+    # (e)'s CPU halves, queued now to run beside (c) and (d): the paged
+    # engine (4 tokens through generate) and the dense int8 one (4 in the
+    # prompt's slot) at 2 layers, on these weights
+    cfg2 = cfg.with_(num_layers=2)
+    p_cpu = shared_cpu(torch, dict(params, layers=_map(params["layers"],
+                                                       lambda t: t[:2])))
+    e_prompt = np.random.default_rng(2).integers(0, V, 48, dtype=np.int32)
+    e_runs = [(f"(e) gemma2 2-layer full-width {mode}", c,
+               dict(paged=mode == "paged", prefill_batch=1))
+              for mode, c in (("paged", cfg2), ("dense int8", cfg2.with_(
+                  kv_cache_dtype="int8")))]
+    for label, c, kw in e_runs:
+        CPU_SIDE.prefetch(label, "engine_greedy", cfg=c, params=p_cpu,
+                          prompt=e_prompt, new=4, generate=kw["paged"],
+                          engine_kw=kw)
+
+    rs = np.random.default_rng(24)
+    shared = rs.integers(0, V, 256, dtype=np.int32)
+    lo, hi = GEMMA_PROMPT_LENS
+    prompts = [np.concatenate([shared, rs.integers(
+        0, V, int(rs.integers(lo - 256, hi - 255)), dtype=np.int32)])
+        for _ in range(GEMMA_PROMPTS)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = ServingEngine(cfg, params, max_seq_len=GEMMA_MAX_SEQ,
+                        max_slots=GEMMA_PROMPTS, prefix_cache_blocks=256,
+                        paged=True, prefill_batch=4, device=dev)
+    sched = Scheduler(eng, prefill_token_budget=512, profile=True)
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    rids = [sched.submit(Request(p, SamplingParams(max_new_tokens=32,
+                                                   greedy=True)))
+            for p in prompts]
+    run_marking_warm(sched)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_b = read_counts(counters)
+    rep_b = report_serving(torch, sched, "(c) gemma2 engine", dev)
+    outs = [sched.output(r) for r in rids]
+    check(all(len(o) == 32 for o in outs),
+          "(c) engine: not every request completed")
+    check(all(((o >= 0) & (o < V)).all() for o in outs),
+          "(c) engine: token ids out of range")
+    check(rep_b["prefix_hit_rate"] > 0, "(c) engine: no prefix-cache hit")
+    check_no_leaks(sched, "(c) gemma2 engine")
+    check(eng.recompiles.warm, "(c) engine: never held both programs")
+    check_programs(eng, "(c) gemma2 engine", "prefill_paged",
+                   eng.prefill_batch * eng.prefill_chunk)
+    per_replay["engine"] = check_round_launches(eng, launches_b,
+                                                "(c) gemma2 engine", cfg)
+    kv_bytes = eng.kv.kv_bytes()
+    out["paged"] = dict(launcher=rep_a, engine=rep_b, wall_s=wall,
+                        prompts=[len(p) for p in prompts], kv_bytes=kv_bytes,
+                        kv_bytes_per_token=kv_bytes / (
+                            GEMMA_PROMPTS * GEMMA_MAX_SEQ),
+                        launches_per_replay=per_replay,
+                        decode_replays=eng.programs["decode_step"].replays,
+                        prefill_replays=eng.programs["prefill_paged"]
+                        .replays)
+    print(f"(c) gemma2 engine: prompts {out['paged']['prompts']}, KV cache "
+          f"{kv_bytes} bytes ({out['paged']['kv_bytes_per_token']:.0f} a "
+          f"position), wall {wall:.2f} s, launches per replay "
+          f"{per_replay}", flush=True)
+    del sched, eng
+    torch.cuda.empty_cache()
+    rd = decode_round(torch, T, cfg, params, dev, lens=GEMMA_LENS)
+    rd["tokens_per_s"] = 8 / rd["replay_ms"] * 1e3
+    out["decode_round"] = rd
+    print("(c) gemma2 B = 8 decode round (replay and eager by CUDA events; "
+          "bound: every weight read once): " + json.dumps(rd), flush=True)
+    check(rd["replay_vs_eager_max_diff"] == 0.0 and rd["captures"] == 1,
+          "(c) the replayed decode round differs from the eager one")
+    for name in ("paged_decode_attention", "paged_prefill_attention"):
+        n = launches_a[name] + launches_b[name]
+        by_name[name]["launches"] += n
+        by_name[name]["launches_per_part"].append(n)
+        by_name[name]["gemma2_launches_per_replay"] = {
+            part: r[name] for part, r in per_replay.items()}
+    rms_paths[f"serving {GEMMA_ARCH}"] = (launches_a["rmsnorm"]
+                                          + launches_b["rmsnorm"])
+    out["paged_holds"] = hold_gemma2_paged(torch, pa, pp, kref, dev, rng)
+    check_holds(out["paged_holds"], "(f) after (c)")
+    lap("c")
+
+    # (d) dense serving, int8 then bf16 -----------------------------------
+    rs = np.random.default_rng(3)
+    dshared = rs.integers(0, V, 32, dtype=np.int32)
+    dense_prompts = [np.concatenate([dshared, rs.integers(
+        0, V, int(rs.integers(16, 97)), dtype=np.int32)]) for _ in range(12)]
+    dense = {}
+    for label, c, prompts_ in (
+            ("int8", cfg.with_(kv_cache_dtype="int8"), dense_prompts),
+            ("bf16", cfg, dense_prompts[:4])):
+        torch.cuda.reset_peak_memory_stats(dev)
+        eng = ServingEngine(c, params, paged=False, max_slots=8,
+                            max_seq_len=1024, prefill_chunk=16,
+                            prefix_cache_blocks=64, device=dev)
+        sched = Scheduler(eng, profile=True)
+        zero_counts(counters)
+        rids = [sched.submit(Request(p, SamplingParams(
+            max_new_tokens=32, greedy=True))) for p in prompts_]
+        run_marking_warm(sched)
+        torch.cuda.synchronize()
+        ld = read_counts(counters)
+        rep = report_serving(torch, sched, f"(d) gemma2 dense {label}", dev)
+        outs = [sched.output(r) for r in rids]
+        steps = eng.decode_steps + eng.prefill_tokens_executed
+        check(all(len(o) == 32 for o in outs),
+              f"(d) dense {label}: not every request completed")
+        check(rep["prefix_hit_rate"] > 0, f"(d) dense {label}: no prefix "
+              "hit")
+        want = {"flash_attention_int8kv": L * steps if label == "int8" else 0,
+                "paged_decode_attention": 0, "paged_prefill_attention": 0,
+                "flash_attention": 0, "rmsnorm": norms * steps,
+                "rmsnorm_one_pass": norms * steps}
+        got = {k: ld[k] for k in want}
+        check(got == want, f"(d) dense {label}: launches {got}, want {want} "
+              f"from {steps} steps (decode steps + prefill tokens)")
+        check_no_leaks(sched, f"(d) gemma2 dense {label}")
+        check(eng.recompiles.warm, f"(d) dense {label}: never held both "
+              "programs")
+        check_programs(eng, f"(d) gemma2 dense {label}", "prefill_chunk",
+                       eng.prefill_chunk)
+        dense[label] = dict(rep, kv_bytes=eng.kv.kv_bytes(),
+                            launches=ld["flash_attention_int8kv"],
+                            steps=steps, rmsnorm=ld["rmsnorm"])
+        del sched, eng
+        torch.cuda.empty_cache()
+    D = cfg.resolved_head_dim
+    dense["kv_bytes_ratio"] = ratio = (dense["int8"]["kv_bytes"]
+                                       / dense["bf16"]["kv_bytes"])
+    print(f"(d) gemma2 dense int8 / bf16 KV bytes {ratio:.4f} (the layout's "
+          f"(2D + 4) / (4D) = {(2 * D + 4) / (4 * D):.4f})", flush=True)
+    check(abs(ratio - (2 * D + 4) / (4 * D)) < 1e-9,
+          "(d) int8 / bf16 KV bytes off the layout's ratio")
+    out["dense"] = dense
+    k = by_name["flash_attention_int8kv"]
+    k["launches_per_path"][f"dense serving {GEMMA_ARCH}"] = \
+        dense["int8"]["launches"]
+    k["launches"] = sum(k["launches_per_path"].values())
+    rms_paths[f"dense serving {GEMMA_ARCH}"] = (dense["int8"]["rmsnorm"]
+                                                + dense["bf16"]["rmsnorm"])
+    # (f) the int8 kernel at the dense decode's D 288: B 4 over stripes of
+    # 1,024 positions, as the engine's
+    ic = int8_case(torch, rng, dev, Sq=1, H=8, KV=4, D=D, Skv=1024,
+                   q_start=[0, 127, 500, 1023], kv_len=[1, 128, 501, 1024])
+    out["int8_hold"] = r = hold_int8_cache(
+        torch, fa, kref, dev, rng, {"k": ic["k8"], "k_scale": ic["k_scale"],
+                                    "v": ic["v8"], "v_scale": ic["v_scale"],
+                                    "heads": 8},
+        ic["q_start"])
+    check_holds({"flash_attention_int8kv": r}, "(f) after (d)")
+    del ic
+    lap("d")
+
+    # (e) card against CPU at 2 layers, on weights copied from the card ----
+    # (their CPU halves queued in (c); the train step's at the start)
+    del params
+    before = held_bytes(torch, dev)
+    check(before < 4 * 2**30, f"(e) {before} bytes held after freeing the "
+          "full-depth weights")
+    p_card = _map(p_cpu, lambda t: t.to(dev))
+    for label, c, kw in e_runs:
+        lg, tg, _ = engine_greedy(torch, dev, c, p_card, e_prompt, new=4,
+                                  generate=kw["paged"], engine_kw=kw)
+        res = CPU_SIDE.fetch(label)
+        CPU_SIDE.report[label].update(engine_pair(label, lg, tg, (V,))(res))
+    del p_card, p_cpu
+    held_bytes(torch, dev)
+    lap("e")
+    print(f"phase 24's parts, seconds: {json.dumps(out['seconds'])}",
+          flush=True)
+    return out
+
+
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
@@ -4773,6 +5645,11 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
+    global CPU_SIDE
+    CPU_SIDE = CpuSide()
+    for arch, layers, f32 in CPU_WEIGHTS:
+        CPU_SIDE.prefetch(weights_label(arch, layers, f32), "draw_weights",
+                          arch=arch, layers=layers, f32=f32)
 
     # 1. device ------------------------------------------------------------
     phase("device")
@@ -5811,6 +6688,19 @@ def main() -> int:
     del vcases, vf, vdc, vpc, vn, vgain
     torch.cuda.empty_cache()
 
+    # gemma2-2b's D 288 (KV 4, G 2, window 4,096, softcap 50) at its paths'
+    # shapes: a B = 8 decode round and the engine's prefill tile (4 rows,
+    # C = 16) at contexts 4,200-6,000, where the window binds; the flash
+    # forward of a training step (2, 2048, 8 / 4) with the softcap (its
+    # local layers' window spans the sequence); the dense int8 decode.
+    # Each checked as in phase 3 (flash and prefill on the tensor-core
+    # routes, checked by their counters), timed beside its plain version,
+    # its library call (SDPA takes no softcap: gather + SDPA with the
+    # masks, SDPA causal) and its bound; the CUDA-core routes the two
+    # tensor-core ones replace, at the same inputs, timed beside them
+    gemma2_shapes = gemma2_kernel_times(torch, F, rng, dev, by_name, flush,
+                                        int8_sets["gemma2-2b decode"])
+
     # the repaired routes as kernels of their own: the f32 decode and
     # CUDA-core f32 prefill at the shapes the launcher's kernel profiles
     # give them (phase 17's engine: 8 slots of 1,024 positions, page 16,
@@ -5895,6 +6785,8 @@ def main() -> int:
               flush=True)
     del prof_cases, d32, p32, d32a, p32a, tf, tfa
     torch.cuda.empty_cache()
+
+    queue_sharded_cpu_steps()           # phase 21 (e)'s CPU halves
 
     # 5. serving at full width ---------------------------------------------
     phase("serving qwen2-0.5b, full width")
@@ -6131,51 +7023,21 @@ def main() -> int:
     phase("card vs CPU")
     prompt = np.random.default_rng(2).integers(0, cfg.vocab_size, 48,
                                                dtype=np.int32)
-    results = {}
-    for where in ("cuda", "cpu"):
-        # the engine copies the weights to its device
-        e = ServingEngine(cfg, params, max_seq_len=64, max_slots=1,
-                          paged=True, prefill_batch=1,
-                          device=dev if where == "cuda" else "cpu")
-        slot, last = e.prefill_into_slot(prompt)
-        e.free_slot(slot)
-        toks = e.generate([Request(prompt, SamplingParams(
-            max_new_tokens=4, greedy=True))])[0]
-        results[where] = (last, toks)
-    (lg, tg), (lc, tc) = results["cuda"], results["cpu"]
-    check(np.isfinite(lg).all() and lg.shape == (cfg.vocab_size,),
-          "card logits not finite or of the wrong shape")
-    diff = float(np.abs(lg - lc).max())
-    print(f"last-position logits: max |cuda - cpu| {diff:.3e} (tol "
-          f"{CPU_LOGIT_TOL}, logit std {float(lc.std()):.3f}); greedy "
-          f"cuda {tg.tolist()} cpu {tc.tolist()}")
-    check(diff <= CPU_LOGIT_TOL, "card and CPU logits disagree")
-    check(tg.tolist() == tc.tolist(), "card and CPU greedy tokens differ")
-    # the dense int8 engine: the card's int8 kernel against the CPU's
-    # plain version under the whole model
-    results = {}
-    for where in ("cuda", "cpu"):
-        e = ServingEngine(cfg8, params, max_seq_len=64, max_slots=1,
-                          paged=False,
-                          device=dev if where == "cuda" else "cpu")
-        slot, last = e.prefill_into_slot(prompt)
-        logits, toks = torch.from_numpy(last)[None], []
-        for i in range(8):                      # greedy, one slot
-            t = e.sample_tokens(logits, np.ones(1, np.float32),
-                                np.ones(1, bool))
-            toks.append(int(t[0]))
-            logits = e.decode_once(t, np.array([len(prompt) + i], np.int32))
-        results[where] = (last, np.array(toks))
-    (lg, tg), (lc, tc) = results["cuda"], results["cpu"]
-    check(np.isfinite(lg).all() and lg.shape == (cfg.vocab_size,),
-          "dense int8: card logits not finite or of the wrong shape")
-    diff = float(np.abs(lg - lc).max())
-    print(f"dense int8, last-position logits: max |cuda - cpu| {diff:.3e} "
-          f"(tol {CPU_LOGIT_TOL}); greedy cuda {tg.tolist()} cpu "
-          f"{tc.tolist()}")
-    check(diff <= CPU_LOGIT_TOL, "dense int8: card and CPU logits disagree")
-    check(tg.tolist() == tc.tolist(),
-          "dense int8: card and CPU greedy tokens differ")
+    # the paged engine (4 tokens through generate), then the dense int8
+    # engine (8 decoded in the prompt's slot: the card's int8 kernel
+    # against the CPU's plain version under the whole model); the CPU
+    # halves run beside the next phases
+    host = shared_cpu(torch, params)
+    for label, c, new, generate, kw in (
+            ("qwen2-0.5b paged", cfg, 4, True,
+             dict(paged=True, prefill_batch=1)),
+            ("qwen2-0.5b dense int8", cfg8, 8, False, dict(paged=False))):
+        lg, tg, _ = engine_greedy(torch, dev, c, params, prompt, new=new,
+                                  generate=generate, engine_kw=kw)
+        CPU_SIDE.submit(label, "engine_greedy", engine_pair(
+            label, lg, tg, (cfg.vocab_size,)), cfg=c, params=host,
+            prompt=prompt, new=new, generate=generate, engine_kw=kw)
+    del host
     # a replayed decode round against the same round run eagerly, paged
     # (8 slots, 4 holding prompts of 48-400 tokens) and dense int8
     rs = np.random.default_rng(5)
@@ -6322,8 +7184,8 @@ def main() -> int:
 
     # 11. mamba2 training, card vs CPU --------------------------------------
     phase("mamba2 training card vs CPU")
-    train_card_vs_cpu(torch, mcfg.with_(num_layers=2), seq=512, batch=2,
-                      dev=dev)
+    train_card_vs_cpu(torch, mcfg.with_(num_layers=2), seq=512,
+                      batch=RECURRENT_CPU_BATCH, dev=dev)
     torch.cuda.empty_cache()
 
     # 12. training zamba2-1.2b at full width ---------------------------------
@@ -6386,9 +7248,9 @@ def main() -> int:
     # 13. zamba2 training, card vs CPU --------------------------------------
     phase("zamba2 training card vs CPU")
     # one group of six mamba layers and the shared block, then a tail of
-    # two; seq 512 (two chunks: the state carries), batch 2
-    train_card_vs_cpu(torch, zcfg.with_(num_layers=8), seq=512, batch=2,
-                      dev=dev)
+    # two; seq 512 (two chunks: the state carries)
+    train_card_vs_cpu(torch, zcfg.with_(num_layers=8), seq=512,
+                      batch=RECURRENT_CPU_BATCH, dev=dev)
     torch.cuda.empty_cache()
 
     # 14. dense serving of the ssm and hybrid families ------------------------
@@ -6460,9 +7322,17 @@ def main() -> int:
           "\"dots\", the three examples")
     t23 = time.perf_counter()
     chunked = chunked_phase(torch, T, dev, counters, by_name, rms_paths)
-    by_name["rmsnorm"]["launches"] = sum(rms_paths.values())
     print(f"chunked phase {time.perf_counter() - t23:.1f} s: "
           + json.dumps(chunked), flush=True)
+
+    # 24. gemma2-2b at full width -----------------------------------------
+    phase("gemma2-2b, full width: training, flash at D 288, paged and dense "
+          "serving, card vs CPU")
+    t24 = time.perf_counter()
+    gemma2 = gemma2_phase(torch, F, T, dev, counters, by_name, rms_paths)
+    by_name["rmsnorm"]["launches"] = sum(rms_paths.values())
+    print(f"gemma2 phase {time.perf_counter() - t24:.1f} s: "
+          + json.dumps(gemma2), flush=True)
 
     # the D tail's launches over every path run (each zeroed just before
     # it): gemma2-27b's training in phase 21 (a)
@@ -6473,6 +7343,11 @@ def main() -> int:
           f"{tail['launches']}", flush=True)
     check(tail["launches"] > 0, "the flash D tail never ran on a path")
 
+    # the CPU halves of the card-against-CPU checks still open
+    CPU_SIDE.close()
+    print(f"card vs CPU, the CPU halves beside the phases (the last waited "
+          f"for {CPU_SIDE.waited_s:.1f} s): " + json.dumps(CPU_SIDE.report),
+          flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 // Dense flash-attention forward (online softmax) for Hopper (sm_90a): a
-// tensor-core kernel for bf16 with D <= 128, and a CUDA-core kernel for f32
-// and for D up to 288.
+// tensor-core kernel for bf16 with D <= 128, 160 and 288, and a CUDA-core
+// kernel for f32 and the other head dims up to 288.
 //
 // Replaces: src/repro/kernels/flash_attention.py :: flash_attention (Pallas
 // body _flash_kernel), reached through repro.kernels.ops.mha_flash_attention.
@@ -13,10 +13,10 @@
 // ridge, so the flops bound it, on the tensor cores.
 //
 // Routing (kernels/flash_attention.py, by dtype and D, never by a failed
-// build or launch): bf16 with D in {32, 64, 96, 128, 160} takes the
+// build or launch): bf16 with D in {32, 64, 96, 128, 160, 288} takes the
 // tensor-core kernel flash_fwd_tc_kernel (160 is gemma2-27b's D = 144
-// padded by the wrapper); f32, and bf16 with any other D (gemma2-2b's
-// D = 288), take the CUDA-core kernel flash_fwd_kernel.
+// padded by the wrapper, 288 gemma2-2b's); f32, and bf16 with any other D,
+// take the CUDA-core kernel flash_fwd_kernel.
 //
 // Tensor-core kernel (flash_fwd_tc_kernel<D, MT>), FlashAttention-2 style
 // with mma.sync.m16n8k16 (bf16 operands, f32 accumulators): one block of 4
@@ -24,24 +24,33 @@
 // owns 16 MT query rows (MT = 2 for D <= 64, so every K and V fragment read
 // from shared memory feeds two row tiles; MT = 1 above, where the
 // accumulators would not fit in registers: at D = 160 a thread holds 80
-// f32 of O, 40 words of Q fragments and 32 f32 of S).  Q is loaded once (ldmatrix
-// into A fragments kept in registers).  K and V tiles of 64 keys stay bf16
-// in a two-stage ring in shared memory, filled with 16-byte cp.async: tile
-// n + 1 is in flight while tile n is multiplied.  Rows are padded by 8 bf16
-// (16 bytes), so the eight row addresses of every ldmatrix fall in
-// different banks.  S = Q K^T runs on the tensor cores (K read with
-// ldmatrix as the col-major B operand); the online softmax runs on S's
-// accumulator fragments in registers (row max and sum over 4 independent
-// chains, then over the 4 threads of a quad with shuffles; p = 2^(s * scale
-// * log2 e - m) is one FFMA and one ex2.approx); P is converted in registers
-// into the A operand of O += P V (V read with ldmatrix.trans).  Causal,
-// window and length masks are applied only on tiles that cross a boundary
-// (two compares per element against per-row bounds); tiles no row of the
-// block can reach are skipped.  The fragment, ldmatrix and softmax code is
-// tc_attention.cuh's, shared with the paged prefill kernel.  The output is
-// staged through shared memory for 16-byte stores.  Shared memory: (64 MT +
-// 4 * 64) * (D + 8) * 2 bytes, 55,296 at D = 64, 107,520 at D = 160.  No wgmma, TMA or warp specialisation yet: mma.sync was
-// the design that could be made right and checked within one change.
+// f32 of O, 40 words of Q fragments and 32 f32 of S).  Up to D = 160, Q is
+// loaded once (ldmatrix into A fragments kept in registers) and keys come
+// in tiles of 64; at D = 288 a thread holds 144 f32 of O, so Q's fragments
+// are read again from the staged Q tile at every k-step and keys come in
+// tiles of 32 (16 f32 of S), which keeps the kernel within the 255
+// registers without spilling (tc_attention.cuh's key_tile, q_in_regs).  K
+// and V tiles stay bf16 in a two-stage ring in shared memory, filled with
+// 16-byte cp.async: tile n + 1 is in flight while tile n is multiplied.
+// Rows are padded by 8 bf16 (16 bytes), so the eight row addresses of every
+// ldmatrix fall in different banks.  S = Q K^T runs on the tensor cores (K
+// read with ldmatrix as the col-major B operand); the online softmax runs
+// on S's accumulator fragments in registers (row max and sum over 4
+// independent chains, then over the 4 threads of a quad with shuffles; p =
+// 2^(s * scale * log2 e - m) is one FFMA and one ex2.approx); P is
+// converted in registers into the A operand of O += P V (V read with
+// ldmatrix.trans).  Causal, window and length masks are applied only on
+// tiles that cross a boundary (two compares per element against per-row
+// bounds); tiles no row of the block can reach are skipped, and at D = 288
+// a warp whose rows all lie past Sq only helps load.  The fragment,
+// ldmatrix and softmax code is tc_attention.cuh's, shared with the paged
+// prefill kernel.  The output is staged through shared memory for 16-byte
+// stores.  Shared
+// memory: (64 MT + 4 KT) * (D + 8) * 2 bytes, 55,296 at D = 64, 107,520 at
+// D = 160, 113,664 at D = 288 (two blocks an SM; 64-key tiles there would
+// take 189,440, one block of 4 warps an SM).  No wgmma, TMA or warp
+// specialisation yet: mma.sync was the design that could be made right and
+// checked within one change.
 //
 // Numerics of the tensor-core kernel: S from bf16 inputs is exact products
 // summed in f32 (as the plain version); m, l, the rescaling and the output
@@ -315,12 +324,11 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core kernel (bf16, D in {32, 64, 96, 128, 160})
+// Tensor-core kernel (bf16, D in {32, 64, 96, 128, 160, 288})
 // ---------------------------------------------------------------------------
 namespace tc {
 
 // the shared tensor-core building blocks (tc_attention.cuh)
-using tc_attn::BK;
 using tc_attn::THREADS;
 using tc_attn::LOG2E;
 using tc_attn::LN2;
@@ -329,10 +337,7 @@ using tc_attn::cp_async_commit;
 using tc_attn::cp_async_wait;
 using tc_attn::pack_bf16;
 using tc_attn::load_tile;
-
-__host__ __device__ constexpr int smem_bytes(int D, int BQ) {
-  return (BQ + 4 * BK) * (D + 8) * 2;  // Q, two K and two V stages, bf16
-}
+using tc_attn::smem_bytes;
 
 template <int D, int MT>
 __global__ void __launch_bounds__(THREADS) flash_fwd_tc_kernel(
@@ -344,14 +349,15 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_tc_kernel(
     int H, int KV, int Sq, int Skv, float scale, int causal, int window,
     float softcap) {
   constexpr int BQ = 64 * MT;          // query rows per block, 16 MT a warp
+  constexpr int KT = tc_attn::key_tile(D);         // keys per tile
+  constexpr bool QR = tc_attn::q_in_regs(D);
   constexpr int DP = D + 8;            // padded smem row (bf16 elements)
-  constexpr int KS = D / 16;           // k-steps of Q K^T
   constexpr int ND = D / 8;            // 8-wide column tiles of O
-  constexpr int NK = BK / 8;           // 8-key column tiles of S
+  constexpr int NK = KT / 8;           // 8-key column tiles of S
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* k_s = q_s + BQ * DP;  // 2 stages of BK x DP
-  __nv_bfloat16* v_s = k_s + 2 * BK * DP;
+  __nv_bfloat16* k_s = q_s + BQ * DP;  // 2 stages of KT x DP
+  __nv_bfloat16* v_s = k_s + 2 * KT * DP;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -362,11 +368,11 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_tc_kernel(
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // longest rows first
 
   int kt_lo = 0;
-  int kt_hi = (Skv + BK - 1) / BK;
-  if (causal) kt_hi = min(kt_hi, (q0 + BQ - 1) / BK + 1);
+  int kt_hi = (Skv + KT - 1) / KT;
+  if (causal) kt_hi = min(kt_hi, (q0 + BQ - 1) / KT + 1);
   if (window > 0) {
     const int lo = q0 - (window - 1);  // oldest row's window start
-    if (lo > 0) kt_lo = lo / BK;
+    if (lo > 0) kt_lo = lo / KT;
   }
 
   const size_t qs = (size_t)H * D, kvs = (size_t)KV * D;
@@ -375,14 +381,17 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_tc_kernel(
   load_tile<D, BQ>(q_s, q, q + (((size_t)b * Sq + q0) * H + h) * D, Sq - q0,
                    qs, tid);
   if (kt_lo < kt_hi) {
-    const int k0 = kt_lo * BK;
-    load_tile<D, BK>(k_s, k, kb + k0 * kvs, Skv - k0, kvs, tid);
-    load_tile<D, BK>(v_s, v, vb + k0 * kvs, Skv - k0, kvs, tid);
+    const int k0 = kt_lo * KT;
+    load_tile<D, KT>(k_s, k, kb + k0 * kvs, Skv - k0, kvs, tid);
+    load_tile<D, KT>(v_s, v, vb + k0 * kvs, Skv - k0, kvs, tid);
   }
   cp_async_commit();
 
   const int g = lane >> 2, t = lane & 3;
   const int wrow = warp * 16 * MT;                 // the warp's first row
+  // at D 288 a warp whose rows all lie past Sq (the last row tile) only
+  // helps load: there a warp's products cost 2.25 times D 128's
+  const bool live = QR || q0 + wrow < Sq;
   float o[MT][ND][4];
   float m_r[MT][2], l_r[MT][2];                    // l_r: this thread's share
 #pragma unroll
@@ -394,7 +403,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_tc_kernel(
     m_r[mt][0] = m_r[mt][1] = NEG_INF;
     l_r[mt][0] = l_r[mt][1] = 0.0f;
   }
-  uint32_t qf[MT][KS][4];
+  uint32_t qf[MT][QR ? D / 16 : 1][4];             // QR: Q's A fragments
   const float sl2 = softcap > 0.0f ? 1.0f : scale * LOG2E;
 
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
@@ -404,39 +413,42 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_tc_kernel(
     // is done with tile kt - 1, whose stage the prefetch below refills
     __syncthreads();
     if (kt + 1 < kt_hi) {                        // prefetch the next tile
-      const int k1 = (kt + 1) * BK;
-      load_tile<D, BK>(k_s + (st ^ 1) * BK * DP, k, kb + k1 * kvs, Skv - k1,
+      const int k1 = (kt + 1) * KT;
+      load_tile<D, KT>(k_s + (st ^ 1) * KT * DP, k, kb + k1 * kvs, Skv - k1,
                        kvs, tid);
-      load_tile<D, BK>(v_s + (st ^ 1) * BK * DP, v, vb + k1 * kvs, Skv - k1,
+      load_tile<D, KT>(v_s + (st ^ 1) * KT * DP, v, vb + k1 * kvs, Skv - k1,
                        kvs, tid);
     }
     cp_async_commit();
+    if (!live) continue;
 
-    if (kt == kt_lo) tc_attn::load_q_frags<D, MT>(qf, q_s, wrow, lane);
-
-    // S = Q K^T: 16 MT rows x 64 keys per warp
+    // S = Q K^T: 16 MT rows x KT keys per warp
     float s[MT][NK][4];
-    tc_attn::qk_tile<D, MT>(s, qf, k_s + st * BK * DP, lane);
+    if constexpr (QR) {
+      if (kt == kt_lo) tc_attn::load_q_frags<D, MT>(qf, q_s, wrow, lane);
+    }
+    tc_attn::qk_tile<D, MT, KT, QR>(s, qf, q_s, wrow, k_s + st * KT * DP,
+                                    lane);
 
     // online softmax on the accumulator fragments, masked only on tiles that
     // cross a boundary: key offset j * 8 + 2 t + (e & 1) of the tile is
     // valid for row r iff it lies in [lo_r, hi_r]
-    const int k0 = kt * BK;
-    const bool need_mask = (k0 + BK > Skv) || (causal && k0 + BK - 1 > q0) ||
+    const int k0 = kt * KT;
+    const bool need_mask = (k0 + KT > Skv) || (causal && k0 + KT - 1 > q0) ||
                            (window > 0 && q0 + BQ - 1 - k0 >= window);
     auto bounds = [&](int mt, int r, int& lo, int& hi) {
       const int qpos = q0 + wrow + mt * 16 + g + 8 * r;
       hi = Skv - 1 - k0;
       if (causal) hi = min(hi, qpos - k0);
-      lo = window > 0 ? qpos - window + 1 - k0 : -BK;
+      lo = window > 0 ? qpos - window + 1 - k0 : -KT;
       hi -= 2 * t;
       lo -= 2 * t;
     };
-    tc_attn::softmax_tile<D, MT>(s, o, m_r, l_r, sl2, scale, softcap,
-                                 need_mask, bounds);
+    tc_attn::softmax_tile<D, MT, KT>(s, o, m_r, l_r, sl2, scale, softcap,
+                                     need_mask, bounds);
 
     // O += P V, P rounded to bf16
-    tc_attn::pv_tile<D, MT>(o, s, v_s + st * BK * DP, lane);
+    tc_attn::pv_tile<D, MT, KT>(o, s, v_s + st * KT * DP, lane);
   }
 
   cp_async_wait<0>();
@@ -547,7 +559,7 @@ extern "C" int flash_attention_fwd(
 }
 
 // The tensor-core kernel: bf16 q, k, v and out, D in {32, 64, 96, 128,
-// 160}.
+// 160, 288}.
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
 // a shape it does not take.
 extern "C" int flash_attention_fwd_tc(
@@ -571,6 +583,9 @@ extern "C" int flash_attention_fwd_tc(
                              causal, window, softcap, s);
     case 160:  // gemma2-27b's D 144, padded by the wrapper
       return tc::launch<160>(q, k, v, out, lse, B, H, KV, Sq, Skv, scale,
+                             causal, window, softcap, s);
+    case 288:  // gemma2-2b
+      return tc::launch<288>(q, k, v, out, lse, B, H, KV, Sq, Skv, scale,
                              causal, window, softcap, s);
     default:
       return (int)cudaErrorInvalidValue;

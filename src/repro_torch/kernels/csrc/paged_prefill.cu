@@ -1,7 +1,7 @@
 // Paged chunked-prefill attention over block tables, for Hopper (sm_90a): a
 // tensor-core kernel split over the context (bf16 with D in {32, 64, 96,
-// 128}) with the shared combine step, and a CUDA-core kernel for the other
-// head dims (gemma2-2b's 288).
+// 128, 288}) with the shared combine step, and a CUDA-core kernel for f32
+// and the other head dims.
 //
 // Replaces: src/repro/kernels/paged_prefill.py :: paged_prefill (Pallas body
 // _paged_prefill_kernel), reached through
@@ -19,7 +19,10 @@
 // tiles, KV, B), 4 warps.  A block holds 64 MT folded query rows (row
 // r = c * G + g of q (B, KV, C*G, D): query token c for head g of the kv
 // group; MT = 2 for D <= 64), so the 112 rows of a C = 16, G = 7 chunk are
-// one row tile and all G heads share every page read.  The host cuts each
+// one row tile and all G heads share every page read.  At gemma2-2b's C =
+// 16, G = 2 a chunk folds to 32 rows: the upper two warps of the 64-row tile
+// hold only padding and skip the products (they still load and meet the
+// barriers), so the tile costs the two live warps' work.  The host cuts each
 // row's key axis (the table's pps * page positions) into `splits` ranges of
 // `keys_per_split` keys, a multiple of 64, from shapes only (never
 // start_pos or q_lens, which live on the card), so that the grid covers the
@@ -30,9 +33,12 @@
 // tiles (four 16-token pages), each staged through the block table with
 // 16-byte cp.async into a two-stage bf16 ring in shared memory (tile n + 1
 // in flight while tile n is multiplied, one barrier a tile; each page read
-// once per block; table entries clamped to [0, NP - 1]).  S = Q K^T, the
-// online softmax and O += P V are tc_attention.cuh's, shared with the flash
-// forward: mma.sync.m16n8k16 in bf16 with f32 accumulators, P rounded to
+// once per block; table entries clamped to [0, NP - 1]).  At D = 288 the
+// tiles are 32 keys (two pages) and Q's fragments are re-read from the
+// staged Q tile at every k-step, as in the flash kernel (tc_attention.cuh:
+// no spill, 113,664 bytes of shared memory, two blocks an SM).  S = Q K^T,
+// the online softmax and O += P V are tc_attention.cuh's, shared with the
+// flash forward: mma.sync.m16n8k16 in bf16 with f32 accumulators, P rounded to
 // bf16 for the PV product (as the flash kernel and SDPA), l summing the
 // unrounded f32 P.  Masks only on tiles that cross a boundary: causal from
 // start_pos + c, the window, and keys past the table (the softcap comes
@@ -40,11 +46,11 @@
 // unnormalised in f32; padding rows (c >= q_len) write neutral partials.
 // split_combine::combine_kernel (split_combine.cuh) then merges the
 // partials of each row into the bf16 output; a row with none (padding, or a
-// q_len = 0 batch row) writes zeros.  Shared memory (64 MT + 4 * 64) *
-// (D + 8) * 2 bytes, 55,296 at D = 64.
+// q_len = 0 batch row) writes zeros.  Shared memory (64 MT + 4 KT) *
+// (D + 8) * 2 bytes, 55,296 at D = 64, 113,664 at D = 288.
 //
-// CUDA-core kernel (paged_prefill_kernel), for the other head dims (D >
-// 128): one thread block per (batch row b, KV head h, tile of 16 folded
+// CUDA-core kernel (paged_prefill_kernel), for f32 and the other head dims:
+// one thread block per (batch row b, KV head h, tile of 16 folded
 // query rows), walking the row's reachable pages through the block table
 // with an online softmax in f32 (f32 FMA, P in f32), per-row m, l and acc in
 // shared memory.  The loop runs from the window's first page (bounded by the
@@ -52,12 +58,11 @@
 // (start + q_len - 1); rows are masked causally with c = r / G, rows with
 // c >= q_len are padding, and a fully masked row keeps p = 0 and writes
 // zeros.  A row of the batch with q_len == 0 reads no page at all.  It
-// re-reads each page once per row tile; moving D = 288 onto tensor cores is
-// later work.  It is instantiated on the element type of q, the pages and
-// the output: bf16 (paged_prefill_bf16) and f32 (paged_prefill_f32, every
-// head dim; the tensor-core kernel is bf16 only).  Everything past the
-// loads is f32 either way, so the f32 instantiation differs only in what it
-// reads and writes.
+// re-reads each page once per row tile.  It is instantiated on the element
+// type of q, the pages and the output: bf16 (paged_prefill_bf16) and f32
+// (paged_prefill_f32, every head dim; the tensor-core kernel is bf16 only).
+// Everything past the loads is f32 either way, so the f32 instantiation
+// differs only in what it reads and writes.
 //
 // Both kernels clamp table entries to [0, NP - 1] and mask every position
 // past the causal bound, so trash or garbage entries never contribute.
@@ -204,29 +209,26 @@ __global__ void paged_prefill_kernel(
 
 
 // ---------------------------------------------------------------------------
-// Tensor-core kernel (bf16, D in {32, 64, 96, 128}), split over the context
+// Tensor-core kernel (bf16, D in {32, 64, 96, 128, 288}), split over the
+// context
 // ---------------------------------------------------------------------------
 namespace tcp {
 
-using tc_attn::BK;
 using tc_attn::THREADS;
 using tc_attn::LN2;
 using tc_attn::LOG2E;
+using tc_attn::smem_bytes;
 
-__host__ __device__ constexpr int smem_bytes(int D, int BQ) {
-  return (BQ + 4 * BK) * (D + 8) * 2;  // Q, two K and two V stages, bf16
-}
-
-// keys [k0, k0 + 64) of kv head h of one row's pages, through its table,
-// into a (BK, D + 8) bf16 tile; keys at or past k_end are zero-filled
-template <int D>
+// keys [k0, k0 + KT) of kv head h of one row's pages, through its table,
+// into a (KT, D + 8) bf16 tile; keys at or past k_end are zero-filled
+template <int D, int KT>
 __device__ __forceinline__ void load_page_tile(
     __nv_bfloat16* dst, const __nv_bfloat16* pages, const int* table,
     int k0, int k_end, int page, int NP, int KV, int h, int tid) {
   constexpr int CH = D / 8;            // 16-byte chunks per key row
   constexpr int DP = D + 8;
 #pragma unroll
-  for (int i = tid; i < BK * CH; i += THREADS) {
+  for (int i = tid; i < KT * CH; i += THREADS) {
     const int t = i / CH, c = i - t * CH;
     const int pos = k0 + t;
     const bool ok = pos < k_end;
@@ -256,13 +258,15 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_tc_kernel(
     int KV, int CG, int G, int NP, int page, int pps, int keys_per_split,
     int splits, float scale, int window, float softcap) {
   constexpr int BQ = 64 * MT;          // folded rows per block, 16 MT a warp
+  constexpr int KT = tc_attn::key_tile(D);         // keys per tile
+  constexpr bool QR = tc_attn::q_in_regs(D);
   constexpr int DP = D + 8;            // padded smem row (bf16 elements)
   constexpr int ND = D / 8;            // 8-wide column tiles of O
-  constexpr int NK = BK / 8;           // 8-key column tiles of S
+  constexpr int NK = KT / 8;           // 8-key column tiles of S
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* k_s = q_s + BQ * DP;  // 2 stages of BK x DP
-  __nv_bfloat16* v_s = k_s + 2 * BK * DP;
+  __nv_bfloat16* k_s = q_s + BQ * DP;  // 2 stages of KT x DP
+  __nv_bfloat16* v_s = k_s + 2 * KT * DP;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -294,17 +298,22 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_tc_kernel(
   }
 
   const int* table = tables + (size_t)b * pps;
-  const int kt_lo = k_lo / BK, kt_hi = (k_hi + BK - 1) / BK;
+  const int kt_lo = k_lo / KT, kt_hi = (k_hi + KT - 1) / KT;
   tc_attn::load_tile<D, BQ>(q_s, q, q + ((size_t)(b * KV + h) * CG + row0) * D,
                             nrows, D, tid);
-  load_page_tile<D>(k_s, k_pages, table, kt_lo * BK, k_hi, page, NP, KV, h,
-                    tid);
-  load_page_tile<D>(v_s, v_pages, table, kt_lo * BK, k_hi, page, NP, KV, h,
-                    tid);
+  load_page_tile<D, KT>(k_s, k_pages, table, kt_lo * KT, k_hi, page, NP, KV,
+                        h, tid);
+  load_page_tile<D, KT>(v_s, v_pages, table, kt_lo * KT, k_hi, page, NP, KV,
+                        h, tid);
   tc_attn::cp_async_commit();
 
   const int g = lane >> 2, t = lane & 3;
   const int wrow = warp * 16 * MT;                 // the warp's first row
+  // at D 288 a warp whose rows all lie past CG only helps load: gemma2-2b's
+  // C = 16, G = 2 chunk folds to 32 rows, half of the 64-row tile (at D
+  // <= 128 the models' chunks fill their tiles: 112 of 128 rows, 128 of
+  // 128)
+  const bool live = QR || wrow < nrows;
   // row c = row / G sees keys [qpos - window + 1, qpos], qpos = start + c,
   // and none past the table
   int qlo[MT][2], qhi[MT][2];
@@ -329,7 +338,7 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_tc_kernel(
   // position (or the table's end), or before the newest one's window start
   const int min_hi = min(start + c_lo, T - 1);
   const int max_lo = window > 0 ? start + c_hi - window + 1 : 0;
-  uint32_t qf[MT][D / 16][4];
+  uint32_t qf[MT][QR ? D / 16 : 1][4];             // QR: Q's A fragments
   const float sl2 = softcap > 0.0f ? 1.0f : scale * LOG2E;
 
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
@@ -339,27 +348,30 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_tc_kernel(
     // is done with tile kt - 1, whose stage the prefetch below refills
     __syncthreads();
     if (kt + 1 < kt_hi) {                        // prefetch the next tile
-      load_page_tile<D>(k_s + (st ^ 1) * BK * DP, k_pages, table,
-                        (kt + 1) * BK, k_hi, page, NP, KV, h, tid);
-      load_page_tile<D>(v_s + (st ^ 1) * BK * DP, v_pages, table,
-                        (kt + 1) * BK, k_hi, page, NP, KV, h, tid);
+      load_page_tile<D, KT>(k_s + (st ^ 1) * KT * DP, k_pages, table,
+                            (kt + 1) * KT, k_hi, page, NP, KV, h, tid);
+      load_page_tile<D, KT>(v_s + (st ^ 1) * KT * DP, v_pages, table,
+                            (kt + 1) * KT, k_hi, page, NP, KV, h, tid);
     }
     tc_attn::cp_async_commit();
-
-    if (kt == kt_lo) tc_attn::load_q_frags<D, MT>(qf, q_s, wrow, lane);
+    if (!live) continue;
 
     float s[MT][NK][4];
-    tc_attn::qk_tile<D, MT>(s, qf, k_s + st * BK * DP, lane);
+    if constexpr (QR) {
+      if (kt == kt_lo) tc_attn::load_q_frags<D, MT>(qf, q_s, wrow, lane);
+    }
+    tc_attn::qk_tile<D, MT, KT, QR>(s, qf, q_s, wrow, k_s + st * KT * DP,
+                                    lane);
 
-    const int k0 = kt * BK;
-    const bool need_mask = k0 + BK - 1 > min_hi || k0 < max_lo;
+    const int k0 = kt * KT;
+    const bool need_mask = k0 + KT - 1 > min_hi || k0 < max_lo;
     auto bounds = [&](int mt, int r, int& lo, int& hi) {
       lo = qlo[mt][r] - k0 - 2 * t;
       hi = qhi[mt][r] - k0 - 2 * t;
     };
-    tc_attn::softmax_tile<D, MT>(s, o, m_r, l_r, sl2, scale, softcap,
-                                 need_mask, bounds);
-    tc_attn::pv_tile<D, MT>(o, s, v_s + st * BK * DP, lane);
+    tc_attn::softmax_tile<D, MT, KT>(s, o, m_r, l_r, sl2, scale, softcap,
+                                     need_mask, bounds);
+    tc_attn::pv_tile<D, MT, KT>(o, s, v_s + st * KT * DP, lane);
   }
   tc_attn::cp_async_wait<0>();
 
@@ -491,10 +503,11 @@ extern "C" int paged_prefill_f32(
 }
 
 // The tensor-core kernel: q (B, KV, CG, D), pages (NP, page, KV, D) and out
-// bf16, D in {32, 64, 96, 128}; tables (B, pps), start_pos and q_lens (B,)
-// int32; part_ml (B, KV, splits, CG, 2) and part_acc (B, KV, splits, CG, D)
-// f32 scratch; keys_per_split a multiple of 64 with keys_per_split * splits
-// >= pps * page.  Launches the split kernel and the combine kernel; returns
+// bf16, D in {32, 64, 96, 128, 288}; tables (B, pps), start_pos and q_lens
+// (B,) int32; part_ml (B, KV, splits, CG, 2) and part_acc (B, KV, splits,
+// CG, D) f32 scratch; keys_per_split a multiple of 64 (a whole number of
+// key tiles at every D) with keys_per_split * splits >= pps * page.
+// Launches the split kernel and the combine kernel; returns
 // cudaGetLastError() after each, or cudaErrorInvalidValue for a shape they
 // do not take.
 extern "C" int paged_prefill_tc_bf16(
@@ -504,7 +517,7 @@ extern "C" int paged_prefill_tc_bf16(
     int D, int NP, int page, int pps, int keys_per_split, int splits,
     float scale, int window, float softcap, void* stream) {
   if (G <= 0 || CG % G != 0 || page <= 0 || keys_per_split <= 0 ||
-      keys_per_split % tcp::BK != 0 || splits <= 0 ||
+      keys_per_split % 64 != 0 || splits <= 0 ||
       (long long)keys_per_split * splits < (long long)pps * page)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -516,6 +529,7 @@ extern "C" int paged_prefill_tc_bf16(
     case 64: return tcp::launch<64>(PREFILL_TC_ARGS);
     case 96: return tcp::launch<96>(PREFILL_TC_ARGS);
     case 128: return tcp::launch<128>(PREFILL_TC_ARGS);
+    case 288: return tcp::launch<288>(PREFILL_TC_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef PREFILL_TC_ARGS

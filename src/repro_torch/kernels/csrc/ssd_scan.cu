@@ -798,8 +798,8 @@ __global__ void __launch_bounds__(TT) ssd_output_kernel(
         for (int e = 0; e < 4; ++e)
           ml[0][nt][e] = m[0][nt][e] -
                          __bfloat162float(__float2bfloat16_rn(m[0][nt][e]));
-      tc_attn::pv_tile<P, 1>(acc, m, x_s + (tj & 1) * TR * XP, lane);
-      tc_attn::pv_tile<P, 1>(acc, ml, x_s + (tj & 1) * TR * XP, lane);
+      tc_attn::pv_tile<P, 1, TR>(acc, m, x_s + (tj & 1) * TR * XP, lane);
+      tc_attn::pv_tile<P, 1, TR>(acc, ml, x_s + (tj & 1) * TR * XP, lane);
       if (tj < ti) {
         cp_async_wait<0>();
         __syncthreads();

@@ -2,14 +2,20 @@
 // flash forward (flash_attention.cu, flash_fwd_tc_kernel) and paged prefill
 // (paged_prefill.cu, paged_prefill_tc_kernel).
 //
-// A block is 4 warps; each warp owns 16 MT query rows and walks 64-key
-// tiles of K and V staged bf16 in shared memory, rows padded by 8 bf16 (16
+// A block is 4 warps; each warp owns 16 MT query rows and walks tiles of KT
+// keys of K and V staged bf16 in shared memory, rows padded by 8 bf16 (16
 // bytes) so the eight row addresses of every ldmatrix fall in different
-// banks.  Per tile:
+// banks.  The tiling follows the head dim (key_tile, q_in_regs): up to D =
+// 160, 64-key tiles with Q's A fragments kept in registers; at D = 288
+// (gemma2-2b) 32-key tiles with Q's fragments re-read from the staged Q
+// tile at every k-step.  There a thread already holds 144 f32 of O; Q's 72
+// words of fragments beside it and a 64-key S would pass the 255 registers
+// a thread may have, and the smaller tiles bring a block's shared memory to
+// 113,664 bytes, so two blocks (8 warps) share an SM.  Per tile:
 // - qk_tile: S = Q K^T with mma.sync.m16n8k16 (bf16 operands, f32
-//   accumulators), Q's A fragments kept in registers (load_q_frags), K read
-//   with ldmatrix as the col-major B operand; each K fragment feeds the
-//   warp's MT row tiles.
+//   accumulators), Q's A fragments from registers or, at D = 288, read
+//   with ldmatrix from the Q tile, K read with ldmatrix as the col-major B
+//   operand; each K fragment feeds the warp's MT row tiles.
 // - softmax_tile: the online softmax on S's accumulator fragments in
 //   registers.  m is kept in the units of s; p = 2^(s * sl2 - m * sl2) is
 //   one FFMA and one ex2.approx, with sl2 = scale * log2(e) (under a
@@ -22,7 +28,7 @@
 //   relative error <= 2^-9) as the A operand, V read with ldmatrix.trans.
 // Numerics: S is exact products of the bf16 inputs summed in f32; m, l, the
 // rescaling and O are f32; only P is rounded, for the PV product, as SDPA
-// does.
+// does.  The tile size moves where m is updated, not what is rounded.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -32,11 +38,20 @@
 
 namespace tc_attn {
 
-constexpr int BK = 64;                 // keys per tile
 constexpr int THREADS = 128;           // 4 warps
 constexpr float NEG_INF = -1.0e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+
+// keys per tile, and whether Q's A fragments stay in registers, at head
+// dim D (the header comment)
+__host__ __device__ constexpr int key_tile(int D) { return D > 160 ? 32 : 64; }
+__host__ __device__ constexpr bool q_in_regs(int D) { return D <= 160; }
+
+// a block's shared memory: Q (BQ rows), two K and two V stages, bf16
+__host__ __device__ constexpr int smem_bytes(int D, int BQ) {
+  return (BQ + 4 * key_tile(D)) * (D + 8) * 2;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -132,29 +147,41 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   }
 }
 
+// the warp's A fragment of Q rows [row, row + 16), columns [16 ks, 16 ks +
+// 16), read with ldmatrix from a (rows, D + 8) tile
+template <int D>
+__device__ __forceinline__ void ldsm_q(uint32_t (&a)[4],
+                                       const __nv_bfloat16* q_s, int row,
+                                       int ks, int lane) {
+  ldsm_x4(a[0], a[1], a[2], a[3],
+          smem_u32(q_s + (row + (lane & 15)) * (D + 8) + ks * 16 +
+                   (lane >> 4) * 8));
+}
+
 // the warp's Q rows [wrow, wrow + 16 MT) of a (rows, D + 8) tile into A
-// fragments
+// fragments kept in registers (q_in_regs)
 template <int D, int MT>
 __device__ __forceinline__ void load_q_frags(uint32_t (&qf)[MT][D / 16][4],
                                              const __nv_bfloat16* q_s,
                                              int wrow, int lane) {
-  constexpr int DP = D + 8;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int ks = 0; ks < D / 16; ++ks)
-      ldsm_x4(qf[mt][ks][0], qf[mt][ks][1], qf[mt][ks][2], qf[mt][ks][3],
-              smem_u32(q_s + (wrow + mt * 16 + (lane & 15)) * DP + ks * 16 +
-                       (lane >> 4) * 8));
+      ldsm_q<D>(qf[mt][ks], q_s, wrow + mt * 16, ks, lane);
 }
 
-// S = Q K^T: 16 MT rows x 64 keys per warp from a (BK, D + 8) K tile
-template <int D, int MT>
-__device__ __forceinline__ void qk_tile(float (&s)[MT][BK / 8][4],
-                                        const uint32_t (&qf)[MT][D / 16][4],
-                                        const __nv_bfloat16* ks_, int lane) {
+// S = Q K^T: 16 MT rows x KT keys per warp from a (KT, D + 8) K tile.
+// Q's A fragments: with QR from `qf` (registers, load_q_frags), else read
+// with ldmatrix from the warp's rows of the Q tile `q_s` at each k-step
+// (`qf` unused)
+template <int D, int MT, int KT, bool QR>
+__device__ __forceinline__ void qk_tile(
+    float (&s)[MT][KT / 8][4], const uint32_t (&qf)[MT][QR ? D / 16 : 1][4],
+    const __nv_bfloat16* q_s, int wrow, const __nv_bfloat16* ks_,
+    int lane) {
   constexpr int DP = D + 8;
-  constexpr int NK = BK / 8;
+  constexpr int NK = KT / 8;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -163,6 +190,12 @@ __device__ __forceinline__ void qk_tile(float (&s)[MT][BK / 8][4],
       for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.0f;
 #pragma unroll
   for (int ks = 0; ks < D / 16; ++ks) {
+    uint32_t qa[MT][4];
+    if constexpr (!QR) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldsm_q<D>(qa[mt], q_s, wrow + mt * 16, ks, lane);
+    }
 #pragma unroll
     for (int j = 0; j < NK; j += 2) {
       const int mi = lane >> 3;
@@ -172,8 +205,13 @@ __device__ __forceinline__ void qk_tile(float (&s)[MT][BK / 8][4],
                        ks * 16 + (mi & 1) * 8));
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
-        mma_bf16(s[mt][j], qf[mt][ks], b0, b1);
-        mma_bf16(s[mt][j + 1], qf[mt][ks], b2, b3);
+        if constexpr (QR) {
+          mma_bf16(s[mt][j], qf[mt][ks], b0, b1);
+          mma_bf16(s[mt][j + 1], qf[mt][ks], b2, b3);
+        } else {
+          mma_bf16(s[mt][j], qa[mt], b0, b1);
+          mma_bf16(s[mt][j + 1], qa[mt], b2, b3);
+        }
       }
     }
   }
@@ -186,12 +224,12 @@ __device__ __forceinline__ void qk_tile(float (&s)[MT][BK / 8][4],
 // r (the thread's rows g and g + 8 of row tile mt) iff it lies in
 // [lo, hi] from bounds(mt, r, lo, hi), both already less 2 t (t = lane & 3);
 // the others become -1e30.  A row with no valid key yet keeps p = 0.
-template <int D, int MT, typename Bounds>
+template <int D, int MT, int KT, typename Bounds>
 __device__ __forceinline__ void softmax_tile(
-    float (&s)[MT][BK / 8][4], float (&o)[MT][D / 8][4], float (&m_r)[MT][2],
+    float (&s)[MT][KT / 8][4], float (&o)[MT][D / 8][4], float (&m_r)[MT][2],
     float (&l_r)[MT][2], float sl2, float scale, float softcap,
     bool need_mask, const Bounds& bounds) {
-  constexpr int NK = BK / 8;
+  constexpr int NK = KT / 8;
   constexpr int ND = D / 8;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
@@ -265,16 +303,16 @@ __device__ __forceinline__ void softmax_tile(
   }
 }
 
-// O += P V from a (BK, D + 8) V tile: P rounded to bf16 in registers as the
+// O += P V from a (KT, D + 8) V tile: P rounded to bf16 in registers as the
 // A operand; each V fragment feeds the warp's MT row tiles
-template <int D, int MT>
+template <int D, int MT, int KT>
 __device__ __forceinline__ void pv_tile(float (&o)[MT][D / 8][4],
-                                        const float (&s)[MT][BK / 8][4],
+                                        const float (&s)[MT][KT / 8][4],
                                         const __nv_bfloat16* vs_, int lane) {
   constexpr int DP = D + 8;
   constexpr int ND = D / 8;
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
+  for (int kk = 0; kk < KT / 16; ++kk) {
     uint32_t a[MT][4];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {

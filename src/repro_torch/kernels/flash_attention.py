@@ -15,9 +15,10 @@ CUDA tensor launches a kernel or raises, a ``meta`` tensor allocates what
 the CUDA route allocates (the padded copies of a D tail, out, lse) and
 adds :func:`cost` to ``_build.meta_cost``.  Which kernel is a rule on dtype
 and head dim (:func:`tensor_core_route`): bf16 whose (padded) D is one of
-``TENSOR_CORE_HEAD_DIMS`` (32-128, and 160 for gemma2-27b's 144) runs the
+``TENSOR_CORE_HEAD_DIMS`` (32-128, 160 for gemma2-27b's 144, and 288 for
+gemma2-2b, whose keys come in 32-key tiles, ``ref.tc_key_tile``) runs the
 tensor-core kernel (mma.sync, P rounded to bf16 for the PV product), f32
-and every other D (gemma2-2b's 288) the CUDA-core kernel (P in f32).
+and every other D the CUDA-core kernel (P in f32).
 Both kernels take D a multiple of 32; any other D up to 288 (gemma2-27b's
 144) runs through :func:`run_padded`: q, k and v gain zero columns up to
 the next multiple of 32, the scale stays 1/sqrt(D) of the true D, and the
@@ -70,7 +71,7 @@ _fn_int8kv = None
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 288
 # the tensor-core kernel's instantiations (csrc/flash_attention.cu)
-TENSOR_CORE_HEAD_DIMS = (32, 64, 96, 128, 160)
+TENSOR_CORE_HEAD_DIMS = (32, 64, 96, 128, 160, 288)
 INT8_ROWS = 16                  # folded query rows per row tile (int8 kernel)
 INT8_KEY_UNIT = 16              # an int8 split's keys are a multiple of this
 INT8_SMEM_BYTES = 64 * 1024     # an int8 split block's shared memory, at most
@@ -150,9 +151,10 @@ def int8_cost(B: int, Sq: int, H: int, KV: int, D: int, Skv: int, *,
 def tensor_core_route(dtype: torch.dtype, D: int) -> bool:
     """The routing rule: bf16 whose padded head dim (``padded_head_dim``)
     the tensor-core kernel is instantiated at (``TENSOR_CORE_HEAD_DIMS``:
-    up to 128, and 160, which gemma2-27b's 144 pads to) runs on the
-    tensor cores; f32, and bf16 at any other D (gemma2-2b's 288), on the
-    CUDA cores.  A true ``D`` and its padded one route alike."""
+    up to 128, 160, which gemma2-27b's 144 pads to, and gemma2-2b's 288)
+    runs on the tensor cores; f32, and bf16 at any other D (192, 224,
+    256), on the CUDA cores.  A true ``D`` and its padded one route
+    alike."""
     return (dtype == torch.bfloat16
             and padded_head_dim(D) in TENSOR_CORE_HEAD_DIMS)
 

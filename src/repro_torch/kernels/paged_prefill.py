@@ -6,16 +6,17 @@ so all G heads of a group share every page read.  ``csrc/paged_prefill.cu``
 holds two kernels, chosen by :func:`tensor_core_route` (dtype and head dim,
 never a failed build or launch):
 
-- bf16 with ``D`` in {32, 64, 96, 128}: a tensor-core kernel (mma.sync, P
-  rounded to bf16 for the PV product) split over the context: a grid of
-  ``(splits x row tiles, KV, B)`` blocks, each over a range of
+- bf16 with ``D`` in {32, 64, 96, 128, 288}: a tensor-core kernel
+  (mma.sync, P rounded to bf16 for the PV product) split over the context:
+  a grid of ``(splits x row tiles, KV, B)`` blocks, each over a range of
   ``keys_per_split`` keys from :func:`split_plan` (shapes only), walked in
-  64-key tiles staged through the block table, writing a partial
-  ``(m, l, acc)`` per row; a second kernel of the same call merges them;
-- f32 (any head dim), and bf16 with other head dims (gemma2-2b's 288): a
-  CUDA-core kernel, one block per ``(b, kv_head, 16 rows)``, walking the
-  row's pages with P in f32, instantiated on the element type (its C
-  entries ``paged_prefill_bf16`` and ``paged_prefill_f32``).
+  tiles of ``ref.tc_key_tile(D)`` keys (64; 32 at gemma2-2b's 288) staged
+  through the block table, writing a partial ``(m, l, acc)`` per row; a
+  second kernel of the same call merges them;
+- f32 (any head dim), and bf16 with other head dims: a CUDA-core kernel,
+  one block per ``(b, kv_head, 16 rows)``, walking the row's pages with P
+  in f32, instantiated on the element type (its C entries
+  ``paged_prefill_bf16`` and ``paged_prefill_f32``).
 
 See the source's header for their bound and design.
 
@@ -40,11 +41,13 @@ from repro_torch.kernels.paged_attention import (BLOCKS_PER_SM,
                                                  KERNEL_DTYPES, SM_COUNT,
                                                  _check_cuda,
                                                  device_sm_count)
-from repro_torch.kernels.ref import paged_prefill_ref
+from repro_torch.kernels.ref import paged_prefill_ref, tc_key_tile
 
 _fns = {}
 _fn_tc = None
-TILE_KEYS = 64                  # keys per tile of the tensor-core kernel
+TILE_KEYS = 64                  # a split is a whole number of these keys
+SMEM_PER_SM = 233_472           # an H100 SM's shared memory (228 KB)
+SMEM_PER_BLOCK_RESERVED = 1024  # of which the runtime keeps per block
 
 
 def _entry(dtype: torch.dtype):
@@ -74,13 +77,13 @@ def _entry_tc():
 
 
 # the tensor-core prefill kernel's instantiations (csrc/paged_prefill.cu)
-TENSOR_CORE_HEAD_DIMS = (32, 64, 96, 128)
+TENSOR_CORE_HEAD_DIMS = (32, 64, 96, 128, 288)
 
 
 def tensor_core_route(dtype: torch.dtype, D: int) -> bool:
     """bf16 at a head dim the tensor-core prefill kernel is built for
-    (``TENSOR_CORE_HEAD_DIMS``); f32 and every other ``D`` (gemma2-2b's
-    288) run the CUDA-core kernel."""
+    (``TENSOR_CORE_HEAD_DIMS``, gemma2-2b's 288 among them); f32 and
+    every other ``D`` run the CUDA-core kernel."""
     return dtype == torch.bfloat16 and D in TENSOR_CORE_HEAD_DIMS
 
 
@@ -121,20 +124,42 @@ def cost(q_shape, group: int, pps: int, *, starts=None, q_lens=None,
     return nbytes, 4 * attended * KV * group * D
 
 
+def row_tile(D: int) -> int:
+    """Folded query rows a tensor-core block holds: 128 for ``D <= 64``
+    (two 16-row tiles a warp), else 64."""
+    return 128 if D <= 64 else 64
+
+
+def tc_smem_bytes(D: int) -> int:
+    """Shared memory of one tensor-core block (``tc_attention.cuh``'s
+    ``smem_bytes``): the Q tile and two stages of K and V tiles, bf16 rows
+    padded by 8."""
+    return (row_tile(D) + 4 * tc_key_tile(D)) * (D + 8) * 2
+
+
+def blocks_resident(D: int) -> int:
+    """Tensor-core blocks one SM holds at once by shared memory, at most
+    ``BLOCKS_PER_SM``: 4 at D = 64, 2 at D = 128 and at D = 288."""
+    return max(1, min(BLOCKS_PER_SM, SMEM_PER_SM
+                      // (tc_smem_bytes(D) + SMEM_PER_BLOCK_RESERVED)))
+
+
 def split_plan(B: int, KV: int, pps: int, page: int, D: int, rows: int,
                sm_count: int = SM_COUNT):
     """``(keys_per_split, splits)`` for a tensor-core prefill call, from
     shapes only (never ``start_pos`` or ``q_lens``, which live on the
     card); ``rows`` is C * G, the folded rows per kv head.
 
-    Enough splits that the grid, ``splits`` x row tiles (128 rows for
-    ``D <= 64``, else 64) x ``KV`` x ``B`` blocks, covers the ``sm_count``
-    SMs about ``BLOCKS_PER_SM`` times over, each split a whole number of
-    64-key tiles; ``keys_per_split * splits >= pps * page``.  Which keys a
-    split's block reads is :func:`ref.prefill_split_ranges`."""
-    tiles = -(-rows // (128 if D <= 64 else 64))
+    Enough splits that the grid, ``splits`` x row tiles (:func:`row_tile`)
+    x ``KV`` x ``B`` blocks, fills every SM with as many blocks as its
+    shared memory holds (:func:`blocks_resident`), each split a whole
+    number of ``TILE_KEYS``; ``keys_per_split * splits >= pps * page``.
+    Fewer splits where fewer blocks fit keep the partials, which the
+    combine reads back, small.  Which keys a split's block reads is
+    :func:`ref.prefill_split_ranges`."""
+    tiles = -(-rows // row_tile(D))
     n_tiles = max(1, -(-pps * page // TILE_KEYS))
-    want = -(-BLOCKS_PER_SM * sm_count // max(1, B * KV * tiles))
+    want = -(-blocks_resident(D) * sm_count // max(1, B * KV * tiles))
     per = -(-n_tiles // want)
     return per * TILE_KEYS, -(-n_tiles // per)
 

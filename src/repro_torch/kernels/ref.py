@@ -21,7 +21,8 @@ ranges and its split-and-combine, in f32), ``int8kv_split_ranges`` and
 ``prefill_split_ranges`` and ``paged_prefill_tiles_ref`` (the tensor-core
 prefill kernel's key ranges and its tile loop over pages, splits and
 combine, P rounded to bf16), ``flash_tiles_ref`` (the tensor-core flash
-kernel's tile loop, with P rounded to bf16 for the PV product),
+kernel's tile loop, with P rounded to bf16 for the PV product; both loops
+walk keys in the kernels' tiles, ``tc_key_tile``),
 ``ssd_tiles_ref`` (the tensor-core SSD scan's CB, chunk states, state
 passing and row tiles, M and w x rounded to bf16, with its broken
 variants), ``rmsnorm_one_pass_ref`` (the one-pass RMSNorm kernel's
@@ -37,6 +38,14 @@ from typing import Optional
 import torch
 
 NEG_INF = -1.0e30
+
+
+def tc_key_tile(D: int) -> int:
+    """Keys per tile of the tensor-core flash and prefill kernels at head
+    dim ``D`` (``csrc/tc_attention.cuh``'s ``key_tile``): 64 up to D =
+    160, 32 at gemma2-2b's 288, where a thread's 144 f32 of O leave no
+    registers for a 64-key S."""
+    return 32 if D > 160 else 64
 
 
 def _gather(pages: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
@@ -220,11 +229,13 @@ def paged_prefill_ref(q, k_pages, v_pages, block_tables, start_pos, q_lens,
 def flash_tiles_ref(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
                     softcap: Optional[float] = None,
-                    scale: Optional[float] = None, block_k: int = 64,
+                    scale: Optional[float] = None,
+                    block_k: Optional[int] = None,
                     p_dtype: torch.dtype = torch.bfloat16,
                     rescale_l: bool = True):
     """The tensor-core flash kernel's loop, in PyTorch, at the model layout
-    (q (B, Sq, H, D), k/v (B, Skv, KV, D)): kv tiles of ``block_k`` keys,
+    (q (B, Sq, H, D), k/v (B, Skv, KV, D)): kv tiles of ``block_k`` keys
+    (None: the kernel's, ``tc_key_tile(D)``),
     S = Q K^T in f32, the online softmax in f32 (running max m, sum l of
     the unrounded P, accumulator rescaled by exp(m_old - m_new)), and P
     rounded to ``p_dtype`` before the PV product.  ``rescale_l=False`` is a
@@ -235,6 +246,7 @@ def flash_tiles_ref(q, k, v, *, causal: bool = True,
     G = H // KV
     if scale is None:
         scale = 1.0 / math.sqrt(D)
+    block_k = block_k or tc_key_tile(D)
     dev = q.device
     qf = q.float().reshape(B, Sq, KV, G, D)
     qpos = torch.arange(Sq, device=dev)[:, None]
@@ -470,7 +482,8 @@ def paged_prefill_tiles_ref(q, k_pages, v_pages, block_tables, start_pos,
     """The tensor-core prefill kernel's loop, in PyTorch, at the kernel's
     layout (q (B, KV, C*G, D), row ``c * G + g``): the table's ``pps *
     page`` keys cut into splits of ``keys_per_split`` (a multiple of 64),
-    each walked in 64-key tiles with S = Q K^T in f32, the online softmax in
+    each walked in the kernel's tiles of ``tc_key_tile(D)`` keys with
+    S = Q K^T in f32, the online softmax in
     f32 (running max m, sum l of the unrounded P, accumulator rescaled by
     exp(m_old - m_new)) and P rounded to ``p_dtype`` for the PV product; a
     partial per split and row, then the combine over the partials with
@@ -486,6 +499,7 @@ def paged_prefill_tiles_ref(q, k_pages, v_pages, block_tables, start_pos,
     n = -(-T // per)
     if scale is None:
         scale = 1.0 / math.sqrt(D)
+    bk = tc_key_tile(D)
     dev = q.device
     pad = (0, 0, 0, 0, 0, n * per - T)
     k = torch.nn.functional.pad(_gather(k_pages, block_tables).float(), pad)
@@ -497,12 +511,12 @@ def paged_prefill_tiles_ref(q, k_pages, v_pages, block_tables, start_pos,
     m = torch.full((B, KV, C, G, n), NEG_INF, device=dev)
     l = torch.zeros((B, KV, C, G, n), device=dev)
     acc = torch.zeros((B, KV, C, G, n, D), device=dev)
-    for k0 in range(0, n * per, 64):
+    for k0 in range(0, n * per, bk):
         j = k0 // per                                    # the tile's split
-        kt, vt = k[:, k0:k0 + 64], v[:, k0:k0 + 64]
+        kt, vt = k[:, k0:k0 + bk], v[:, k0:k0 + bk]
         s = torch.einsum("bkcgd,btkd->bkcgt", qf, kt) * scale
         s = _softcap(s, softcap)
-        kpos = torch.arange(k0, k0 + 64, device=dev)[None, None, :]
+        kpos = torch.arange(k0, k0 + bk, device=dev)[None, None, :]
         mask = (kpos <= qpos[:, :, None]) & (kpos < T) & valid[:, :, None]
         if window is not None:
             mask &= (qpos[:, :, None] - kpos) < window

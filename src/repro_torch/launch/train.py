@@ -5,7 +5,9 @@ In-capsule entrypoint: the Slurm script that ``repro_torch.launch.slurm``
 renders runs ``ch-run <image> -- python -m repro_torch.launch.train
 --arch <id> ...`` on every rank.  The reference's flags, plus ``--device``,
 ``--dtype`` and ``--init-method``: random weights from the port's
-``init_params`` at seed 0 held as f32 masters (broadcast from rank 0, as
+``init_params`` at seed 0 on the device's generator (on the card a layer
+slice at a time: the host's generator took ~27 s to draw gemma2-2b's
+2.66 B f32 leaves whole) held as f32 masters (broadcast from rank 0, as
 Horovod's recipe does), the synthetic Markov token source, the chosen
 optimizer with global-norm clipping at 1.0, and the strategy's step
 (``distributed.stepfn.make_train_step``) at every world size, inside
@@ -157,7 +159,7 @@ def main(argv=None) -> dict:
                   f"params~{cfg.param_count()/1e6:.1f}M")
 
         params = hvd.broadcast(
-            T.init_params(cfg, torch.Generator().manual_seed(0),
+            T.init_params(cfg, torch.Generator(device=device).manual_seed(0),
                           device=device, weight_dtype=torch.float32),
             groups.world)
         pspec = ospec = None

@@ -12,10 +12,10 @@ On the CPU:
   gives the plain version's output and logsumexp, the route of the padded
   D is the true D's, and the two broken D-tail paths (the scale of the
   padded D, junk in the padded columns) read above the kernel's bound.
-  The routing rule: bf16 at D 144 (padded to 160) takes the tensor-core
-  kernel and its 2^-8 rounding of P; D 288 stays on the CUDA cores; the
-  paged prefill kernel, built without a D 160 instantiation, keeps D 144
-  off its tensor cores.
+  The routing rule: bf16 at D 144 (padded to 160) and at D 288 takes the
+  tensor-core kernel and its 2^-8 rounding of P; f32 at D 288 stays on
+  the CUDA cores; the paged prefill kernel, built without a D 160
+  instantiation, keeps D 144 off its tensor cores.
 
 On the card (``gpu``): the f32 routes launch the f32 decode instantiation
 and the CUDA-core prefill kernel, within the bound, with the broken
@@ -139,8 +139,10 @@ def test_f32_prefill_routes_to_the_cuda_core_kernel():
     for D in (32, 64, 96, 128, 288):
         assert not pp.tensor_core_route(torch.float32, D)
         assert pp.p_rounding(torch.float32, D) == 2.0 ** -14
+    # bf16 at gemma2-2b's 288 has its tensor-core route
     assert pp.tensor_core_route(torch.bfloat16, 64)
-    assert not pp.tensor_core_route(torch.bfloat16, 288)
+    assert pp.tensor_core_route(torch.bfloat16, 288)
+    assert not pp.tensor_core_route(torch.bfloat16, 160)
 
 
 @pytest.mark.parametrize("label,which", [("qwen2-0.5b", i) for i in range(3)]
@@ -173,18 +175,24 @@ def test_padded_head_dim(D, want):
 def test_d144_takes_the_tensor_cores_and_288_the_cuda_cores():
     """bf16 at gemma2-27b's D 144 (padded to 160, an instantiation of the
     tensor-core kernel) routes to the tensor cores, with P's bf16 rounding
-    in its bound; gemma2-2b's 288 and every f32 call stay on the CUDA
-    cores; the paged prefill kernel keeps its own head dims."""
+    in its bound; so does gemma2-2b's 288 (and a D that pads to it);
+    f32 at 288 and every other f32 call stay on the CUDA cores,
+    as does bf16 at 192; the paged prefill kernel keeps its own head
+    dims."""
     assert fa.padded_head_dim(144) == 160
     for D in (144, 160, 136):
         assert fa.tensor_core_route(torch.bfloat16, D)
         assert fa.p_rounding(torch.bfloat16, D) == 2.0 ** -8
         assert not fa.tensor_core_route(torch.float32, D)
         assert not pp.tensor_core_route(torch.bfloat16, D)
-    for D in (192, 288):
-        assert not fa.tensor_core_route(torch.bfloat16, D)
-        assert fa.p_rounding(torch.bfloat16, D) == 2.0 ** -14
-    assert fa.TENSOR_CORE_HEAD_DIMS == (32, 64, 96, 128, 160)
+    for D in (288, 260):
+        assert fa.tensor_core_route(torch.bfloat16, D)
+        assert fa.p_rounding(torch.bfloat16, D) == 2.0 ** -8
+        assert not fa.tensor_core_route(torch.float32, D)
+        assert fa.p_rounding(torch.float32, D) == 2.0 ** -14
+    assert not fa.tensor_core_route(torch.bfloat16, 192)
+    assert fa.p_rounding(torch.bfloat16, 192) == 2.0 ** -14
+    assert fa.TENSOR_CORE_HEAD_DIMS == (32, 64, 96, 128, 160, 288)
 
 
 @pytest.mark.parametrize("label", list(FLASH_TAIL_SETS))

@@ -10,14 +10,17 @@ checked on the CPU.
   ``ref.int8kv_split_ranges``; its split-and-combine ``ref.int8kv_split_ref``
   within one bf16 ulp of ``attention_int8kv_ref``) and paged prefill's
   (``paged_prefill.split_plan``, ``ref.prefill_split_ranges``); the prefill
-  kernel's tile loop (``ref.paged_prefill_tiles_ref``: bf16 P, 64-key tiles
-  over pages, splits, combine) stays inside its bound and every broken
-  variant ``chip_smoke.py`` builds falls outside it.
+  kernel's tile loop (``ref.paged_prefill_tiles_ref``: bf16 P, the
+  kernel's key tiles over pages, 32 keys at gemma2-2b's D 288, splits,
+  combine) stays inside its bound, against the plain version and the
+  reference's Pallas kernel (interpret mode), and every broken variant
+  ``chip_smoke.py`` builds falls outside it.
 - ``_build._target`` names a new library when a header changes.
 - The tensor-core flash kernel's loop with P rounded to bf16
   (``ref.flash_tiles_ref``) stays inside the element-wise bound
   ``chip_smoke.py`` holds the kernel to (``ref.rounding_bound_ratio``), on
-  the qwen2-0.5b and gemma2-2b head shapes at small sizes, and against the
+  the qwen2-0.5b and gemma2-2b head shapes at small sizes (gemma2-2b's
+  D 288 in 32-key tiles), and against the
   reference's Pallas kernel (interpret mode); every broken variant that
   ``chip_smoke.py`` builds exceeds the bound, for both kernels, so the
   check's power is shown here and not only on the card.
@@ -44,6 +47,7 @@ import pytest
 import torch
 
 from repro.kernels import flash_attention as jfa
+from repro.kernels import paged_prefill as jpp
 from repro.kernels.ssd_scan import ssd_scan as pallas_ssd_scan
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops
@@ -178,12 +182,14 @@ def _flash_set(label):
 
 
 def test_tensor_core_route_is_a_rule_on_dtype_and_head_dim():
-    # 160: the tensor-core kernel's instantiation for gemma2-27b's D 144
-    for D in (32, 64, 96, 128, 160):
+    # 160: the tensor-core kernel's instantiation for gemma2-27b's D 144;
+    # 288: gemma2-2b's, in 32-key tiles
+    for D in (32, 64, 96, 128, 160, 288):
         assert fa.tensor_core_route(torch.bfloat16, D)
         assert fa.p_rounding(torch.bfloat16, D) == 2.0 ** -8
+    assert [ref.tc_key_tile(D) for D in (64, 160, 288)] == [64, 64, 32]
     for dt, D in ((torch.float32, 64), (torch.bfloat16, 192),
-                  (torch.bfloat16, 288), (torch.float32, 288)):
+                  (torch.bfloat16, 256), (torch.float32, 288)):
         assert not fa.tensor_core_route(dt, D)
         assert fa.p_rounding(dt, D) == 2.0 ** -14
 
@@ -223,15 +229,16 @@ def test_flash_kernel_rounding_against_the_pallas_kernel(label):
 
 
 FLASH_WRONGS = [("qwen2-0.5b", i) for i in range(4)] + [
-    ("gemma2-2b", i) for i in range(2)]
+    ("gemma2-2b", i) for i in range(3)]
 
 
 @pytest.mark.parametrize("label,which", FLASH_WRONGS)
 def test_flash_broken_variants_exceed_the_bound(label, which):
     """Each broken flash kernel ``chip_smoke.py`` builds (causal mask one
     key late, last partial tile dropped, kv head h % KV, l not rescaled;
-    gemma2's window one key wider and narrower) reads above the
-    tensor-core bound, the looser of the two."""
+    gemma2's window one key wider and narrower, l not rescaled in its
+    32-key tiles) reads above the tensor-core bound, the looser of the
+    two."""
     q, k, v, kw = _flash_set(label)
     plain, mix, _ = cs.flash_bound(fa, q, k, v, kw)
     what, wrong = cs.flash_wrongs(torch, fa, ref, q, k, v, kw)[which]
@@ -488,11 +495,11 @@ def test_prefill_split_plan_from_shapes(B, KV, pps, page, D, rows, want):
 
 
 def test_prefill_route_is_a_rule_on_dtype_and_head_dim():
-    for D in (32, 64, 96, 128):
+    for D in (32, 64, 96, 128, 288):
         assert pp.tensor_core_route(torch.bfloat16, D)
         assert pp.p_rounding(torch.bfloat16, D) == 2.0 ** -8
     for dt, D in ((torch.float32, 64), (torch.bfloat16, 48),
-                  (torch.bfloat16, 160), (torch.bfloat16, 288)):
+                  (torch.bfloat16, 160), (torch.float32, 288)):
         assert not pp.tensor_core_route(dt, D)
         assert pp.p_rounding(dt, D) == 2.0 ** -14
 
@@ -523,8 +530,36 @@ def test_prefill_tile_loop_stays_inside_the_bound(label):
     assert ref.rounding_bound_ratio(got32, plain, mix, 2.0 ** -14) <= 1.0
 
 
+@pytest.mark.parametrize("label", list(PREFILL_SETS))
+def test_prefill_tile_loop_against_the_pallas_kernel(label):
+    """The same tile loop (at the card's split plan; gemma2-2b's D 288 in
+    32-key tiles) against the reference's Pallas kernel in interpret mode
+    on the same bf16 inputs, within the bound plus one ulp of the
+    reference's own bf16 output; padding rows zero in both."""
+    case = _prefill_set(label)
+    q, kp, vp, tb, st, ql = cs.prefill_args(case)
+    B, KV, CG, D = q.shape
+    per, _ = pp.split_plan(B, KV, tb.shape[1], kp.shape[1], D, CG)
+    kw = dict(group=case["group"], window=case["window"],
+              softcap=case["softcap"])
+    j = lambda t: jnp.asarray(t.float().numpy(), jnp.bfloat16)
+    ji = lambda t: jnp.asarray(t.numpy())
+    want = jpp.paged_prefill(j(q), j(kp), j(vp), ji(tb), ji(st), ji(ql),
+                             interpret=True, **kw)
+    want = torch.from_numpy(np.array(want.astype(jnp.float32))).to(
+        torch.bfloat16)
+    _, mix, _ = cs.prefill_bound(pp, case)
+    emu = ref.paged_prefill_tiles_ref(q, kp, vp, tb, st, ql,
+                                      keys_per_split=per, **kw)
+    assert ref.rounding_bound_ratio(emu, want, mix, 2.0 ** -8) <= 1.0
+    assert cs.padding_rows_zero(want, case)
+
+
+# both sets run on the tensor cores (gemma2-2b's D 288 since it has a
+# route there): qwen2's four variants, and gemma2's window one key wider
+# and narrower besides
 PREFILL_WRONGS = [("qwen2-0.5b", i) for i in range(4)] + [
-    ("gemma2-2b", i) for i in range(5)]
+    ("gemma2-2b", i) for i in range(6)]
 
 
 @pytest.mark.parametrize("label,which", PREFILL_WRONGS)
@@ -725,6 +760,11 @@ TC_CASES = [
     (1, 257, 257, 4, 4, 96, False, 33, 50.0),
     (1, 150, 100, 4, 2, 64, True, 20, None),   # rows past 119 reach no key
     (1, 70, 300, 2, 2, 64, False, None, None),
+    # gemma2-2b's D 288 (32-key tiles, Q re-read from shared memory): a
+    # local layer's window and softcap, and a last row tile mostly past Sq
+    (1, 300, 300, 8, 4, 288, True, 64, 50.0),
+    (2, 130, 130, 2, 1, 288, True, None, None),
+    (1, 70, 300, 2, 2, 288, False, None, 30.0),
 ]
 
 
@@ -732,9 +772,9 @@ TC_CASES = [
 @pytest.mark.parametrize("B,Sq,Skv,H,KV,D,causal,window,softcap", TC_CASES)
 def test_cuda_tensor_core_flash_within_bound(cuda, B, Sq, Skv, H, KV, D,
                                              causal, window, softcap):
-    """bf16 with D <= 128 goes to the tensor-core kernel (its own counter),
-    output within the 2^-8 bound element by element, lse within 1e-4,
-    rows without a key zeros with lse -inf."""
+    """bf16 with D <= 128 or 288 goes to the tensor-core kernel (its own
+    counter), output within the 2^-8 bound element by element, lse within
+    1e-4, rows without a key zeros with lse -inf."""
     rng = np.random.default_rng(Sq + D)
     mk = lambda *s: torch.tensor(rng.standard_normal(s),
                                  dtype=torch.bfloat16, device=cuda)
@@ -800,6 +840,14 @@ PREFILL_CARD_CASES = {
                  starts=[0, 256, 640, 1024], C=64, q_lens=[64, 3, 64, 0]),
     "B 1, D 128": dict(KV=2, G=4, D=128, page=16, window=100, softcap=30.0,
                        starts=[333], C=16, q_lens=[11]),
+    # gemma2-2b's D 288 at C = 64 (two row tiles of 64, the second half
+    # padding) and at the engine's C = 16 (32 rows: two live warps)
+    "gemma2-2b C 64": dict(KV=4, G=2, D=288, page=16, window=256,
+                           softcap=50.0, starts=[0, 300, 700], C=64,
+                           q_lens=[64, 40, 0]),
+    "gemma2-2b C 16": dict(KV=4, G=2, D=288, page=16, window=None,
+                           softcap=None, starts=[1000, 17, 512, 0], C=16,
+                           q_lens=[16, 16, 1, 7]),
 }
 
 
