@@ -279,8 +279,9 @@ Phases (any failure exits nonzero):
               replica's two programs are captured once and never again,
               each decode replay launches 24 paged-decode kernels (bf16)
               and each prefill replay 24 tensor-core prefills, the counts
-              over the run are exactly replays x 24 plus the f32 kernel
-              profiles' launches (printed beside their bounds), and the
+              over the run are exactly replays x 24 plus the kernel
+              profiles' launches (bf16, the engine's KV dtype; printed
+              beside their bounds), and the
               merged trace passes the schema; (b) failover: three engines
               on one set of weights, ``replica1`` crashing at its step 4,
               18 greedy requests of 256-896 prompt and 16-32 new tokens (12
@@ -2184,20 +2185,22 @@ def fleet_phase(torch, dev, counters, by_name, rms_paths) -> dict:
         pre += p.replays
     profs = stats["kernel_profiles"]
     n_prof = profs["paged_attention"]["reps"] + 1      # and the warm-up
-    want = {"decode_bf16": L * dec, "decode_f32": n_prof,
+    want = {"decode_bf16": L * dec + n_prof, "decode_f32": 0,
             "paged_decode_attention": L * dec + n_prof,
-            "paged_prefill_tensor_core": L * pre,
-            "paged_prefill_cuda_core": n_prof,
+            "paged_prefill_tensor_core": L * pre + n_prof,
+            "paged_prefill_cuda_core": 0,
             "paged_prefill_attention": L * pre + n_prof,
             "rmsnorm": (2 * L + 1) * (dec + pre),
             "rmsnorm_one_pass": (2 * L + 1) * (dec + pre)}
     got = {k: launches[k] for k in want}
     check(got == want, f"(a) launches {got}, want {want} from {dec} decode "
-          f"and {pre} prefill replays over 3 replicas and the f32 profiles")
+          f"and {pre} prefill replays over 3 replicas and the bf16 "
+          f"profiles")
     for name, prof in profs.items():
         bound = max(prof["bytes_accessed"] / HBM_BYTES_PER_S,
-                    prof["flops"] / F32_FLOPS_PER_S) * 1e3
-        print(f"(a) kernel profile {name} (f32): {prof['wall_ms_median']:.4f}"
+                    prof["flops"] / BF16_FLOPS_PER_S) * 1e3
+        print(f"(a) kernel profile {name} (bf16): "
+              f"{prof['wall_ms_median']:.4f}"
               f" ms median of {prof['reps']}, bound {bound:.4f} ms "
               f"({prof['bytes_accessed']:.0f} B, {prof['flops']:.0f} flop)")
         check(prof["wall_ms_median"] > 0, f"(a) {name} profile not timed")

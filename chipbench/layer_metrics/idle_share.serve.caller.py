@@ -1,0 +1,9 @@
+"""Share (%) of the traced slice in which the card was idle while the host
+was in no program span (the caller between gateway steps): the idle gaps
+the program's span recorder read from its CUDA events, by the innermost
+span open, over the slice's seconds."""
+from chipbench import program_spans
+
+
+def read(ctx):
+    return program_spans.idle_share("caller", ctx)

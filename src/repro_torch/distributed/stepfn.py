@@ -22,6 +22,14 @@ and under ``fsdp_tp`` each layer group's params are all-gathered over
 ``data`` just before use and their gradients reduce-scattered.  Params
 are nested dicts of f32 master tensors (the reference's ``param_dtype``);
 compute runs in the config's dtype.
+
+Under the span recorder (``core/spans.py``: while a ``torch.profiler``
+session records) a train step is three spans, each a device unit with CUDA
+events at its edges: ``train.grads`` (the loss and its gradients),
+``train.reduce`` (the gradients' all_reduce and the global norm) and
+``train.update`` (the optimizer).  The step runs ahead of the device, so
+each unit's elapsed time is the device time of its phase; the step settles
+the units that have completed, without waiting.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch import optim
+from repro_torch.core.spans import SPANS
 from repro_torch.distributed import sharding as sh
 from repro_torch.models import modules as nn
 from repro_torch.models import transformer as T
@@ -168,19 +177,24 @@ def make_train_step(cfg, optimizer, groups, *, strategy: str = "dp",
             for k, v in batch.items()})
 
     def local(params, opt_state, batch: Dict[str, Any]):
-        loss, metrics, grads = _grads(loss_fn, params, batch, microbatches,
-                                      device)
-        # rebinding ``grads`` frees the rank's own gradients before the
-        # update (held through it, they would be a second copy of every
-        # gradient at the optimizer's peak)
-        grads = hvd.allreduce(grads, data, average=True)
-        grad_norm = optim.global_norm(grads)
-        if optimizer.update_in_place is not None:
-            optimizer.update_in_place(grads, opt_state, params)
-        else:
-            updates, opt_state = optimizer.update(grads, opt_state, params)
-            params = optim.apply_updates(params, updates)
+        with SPANS.span("train.grads", device=device):
+            loss, metrics, grads = _grads(loss_fn, params, batch,
+                                          microbatches, device)
+        with SPANS.span("train.reduce", device=device):
+            # rebinding ``grads`` frees the rank's own gradients before
+            # the update (held through it, they would be a second copy of
+            # every gradient at the optimizer's peak)
+            grads = hvd.allreduce(grads, data, average=True)
+            grad_norm = optim.global_norm(grads)
+        with SPANS.span("train.update", device=device):
+            if optimizer.update_in_place is not None:
+                optimizer.update_in_place(grads, opt_state, params)
+            else:
+                updates, opt_state = optimizer.update(grads, opt_state,
+                                                      params)
+                params = optim.apply_updates(params, updates)
         metrics = hvd.allreduce(dict(metrics, loss=loss), data)
+        SPANS.settle()
         return params, opt_state, dict(metrics, grad_norm=grad_norm)
 
     return local if local_rows else step
@@ -288,18 +302,22 @@ def make_sharded_train_step(cfg, optimizer, groups, *, strategy: str,
         if n % microbatches:
             raise ValueError(f"{n} rows a rank are not a multiple of "
                              f"microbatches {microbatches}")
-        loss, metrics, grads = _grads(loss_fn, params, batch, microbatches,
-                                      device)
-        grads = reduce_grads(grads)
-        grad_norm = global_norm(grads)
-        if optimizer.update_in_place is not None:
-            optimizer.update_in_place(grads, opt_state, params,
-                                      norm=grad_norm)
-        else:
-            updates, opt_state = optimizer.update(grads, opt_state, params,
-                                                  norm=grad_norm)
-            params = optim.apply_updates(params, updates)
+        with SPANS.span("train.grads", device=device):
+            loss, metrics, grads = _grads(loss_fn, params, batch,
+                                          microbatches, device)
+        with SPANS.span("train.reduce", device=device):
+            grads = reduce_grads(grads)
+            grad_norm = global_norm(grads)
+        with SPANS.span("train.update", device=device):
+            if optimizer.update_in_place is not None:
+                optimizer.update_in_place(grads, opt_state, params,
+                                          norm=grad_norm)
+            else:
+                updates, opt_state = optimizer.update(
+                    grads, opt_state, params, norm=grad_norm)
+                params = optim.apply_updates(params, updates)
         metrics = hvd.allreduce(dict(metrics, loss=loss), dgroup)
+        SPANS.settle()
         return params, opt_state, dict(metrics, grad_norm=grad_norm)
 
     step.specs = specs

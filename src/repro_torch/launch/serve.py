@@ -48,8 +48,10 @@ every ``--metrics-interval-steps`` gateway steps), ``--trace-out BASE``
 the merged trace (``BASE.jsonl`` + ``BASE.chrome.json``; read it with the
 reference's ``scripts/trace_report.py``), ``--trace-buffer-events`` sizes
 each replica's ring, and ``--profile`` prints each replica's step phases
-and recompiles and, paged, the two paged kernels' profiles on f32
-operands beside their bounds (``serving/profiling.py``).
+on the device's clock (each phase's device time and the step's device
+idle, from the span recorder's CUDA events; nothing synchronises) and
+recompiles and, paged, the two paged kernels' profiles on operands in
+the engine's KV dtype beside their bounds (``serving/profiling.py``).
 
 ``--fabric {local,mock}`` runs the replicas as fabric workers behind the
 shared-filesystem mailbox (``serving/fabric/``): ``local`` real worker
@@ -131,9 +133,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--trace-buffer-events", type=int, default=None,
                     help="per-replica trace ring-buffer depth")
     ap.add_argument("--profile", action="store_true",
-                    help="device-synchronised step-phase timing, "
-                         "recompile telemetry and the paged kernels' "
-                         "profiles")
+                    help="step phases on the device's clock, recompile "
+                         "telemetry and the paged kernels' profiles")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the "
                          "kernels' plain PyTorch versions)")
@@ -319,21 +320,26 @@ def main(argv=None):
             ps = rep.scheduler.profiler.summary()
             phases = "  ".join(
                 f"{p} p95 {ps[f'{p}_ms']['p95']:.2f}ms"
-                for p in ("admit", "prefill", "decode", "sample"))
-            print(f"profile [{rep.name}]: {ps['steps']} steps  {phases}")
+                for p in ("admit", "prefill", "decode", "sample", "idle"))
+            print(f"profile [{rep.name}]: {ps['steps']} steps, device "
+                  f"time  {phases}")
             rs = rep.scheduler.engine.recompiles.summary()
             print(f"recompiles [{rep.name}]: {rs['compiles_total']} "
                   f"compilations, {rs['post_warm_recompiles']} post-warm, "
                   f"churning: {rs['churning'] or 'none'}")
         if args.paged:
             from repro_torch.serving.profiling import (HBM_BW, PEAK_FLOPS,
-                                                       profile_paged_kernels)
-            profs = profile_paged_kernels(gateway.replicas[0].scheduler.engine)
+                                                       profile_paged_kernels,
+                                                       profile_shapes)
+            engine = gateway.replicas[0].scheduler.engine
+            dtype = profile_shapes(engine)["dtype"]
+            profs = profile_paged_kernels(engine)
             stats["kernel_profiles"] = profs
             for name, prof in profs.items():
                 bound_ms = max(prof["bytes_accessed"] / HBM_BW,
-                               prof["flops"] / PEAK_FLOPS[torch.float32]) * 1e3
-                print(f"kernel {name} (f32): {prof['wall_ms_median']:.4f} ms "
+                               prof["flops"] / PEAK_FLOPS[dtype]) * 1e3
+                print(f"kernel {name} ({str(dtype)[6:]}): "
+                      f"{prof['wall_ms_median']:.4f} ms "
                       f"(bound {bound_ms:.4f} ms), {prof['flops']:.3g} flops, "
                       f"{prof['achieved_tflops']:.3f} TFLOP/s "
                       f"({prof['fraction_of_peak_flops']:.1%} of peak), "

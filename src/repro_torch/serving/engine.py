@@ -73,6 +73,15 @@ by its next round, so the prefill rounds clone each finished row's last
 logits and the scheduler samples a decode round's logits before the
 next.  A program's build is its compile for ``recompiles``.
 
+Under the span recorder (``core/spans.py``) each paged or dense prefill
+round is the spans ``serve.prefill.build`` (its tile arrays, the
+recompile check), ``serve.prefill.feed`` (the input copies) and
+``serve.prefill.replay`` (the storage check, the replay, the logit
+clones), and a decode round ``serve.decode.feed`` (the copies, the block
+table refresh, the recompile and storage checks) and
+``serve.decode.replay``; the copies, each replay (its CUDA events around
+``prog.replay()``, never in the program) and the clones are device units.
+
 Sampling runs eagerly (the reference's separate ``_sample_vec``
 program), per row: greedy rows take the lowest token id within
 ``greedy_tie_eps`` of the max (exactly the reference's rule); other rows
@@ -94,6 +103,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.spans import SPANS
 from repro_torch.models import transformer as T
 from repro_torch.serving.kvcache import PagedKVCache, _leaves
 from repro_torch.serving.programs import CapturedProgram
@@ -350,7 +360,7 @@ class ServingEngine:
 
     def _replay(self, prog: CapturedProgram) -> torch.Tensor:
         self.kv.check_storage()
-        return prog.replay()
+        return SPANS.replay(prog)
 
     # -- scheduler-facing primitives ----------------------------------------
 
@@ -463,21 +473,28 @@ class ServingEngine:
         program, as the reference's scanned chunk program does.  Sets
         ``last_logits`` (on the device, cloned from the program's (C, V)
         output) when the prompt's last token runs in this chunk."""
-        self._claim_stripe(cur)
-        if self._enc1 is not None:
-            self._enc1.copy_(self._enc_pool[cur.slot:cur.slot + 1])
-        C = self.prefill_chunk
-        ql = min(cur.remaining, C)
-        chunk = np.zeros((C, 1), np.int32)
-        chunk[:ql, 0] = cur.tokens[cur.pos:cur.pos + ql]
-        self.recompiles.observe("prefill_chunk", (1, C), tracer=self.tracer)
-        prog = self._program("prefill_chunk")
-        prog.feed(tokens=chunk,
-                  positions=np.arange(cur.pos, cur.pos + C, dtype=np.int32))
-        logits = self._replay(prog)
-        li = (len(cur.tokens) - 1) - cur.pos    # last real token's step
-        if li < C:
-            cur.last_logits = logits[li].clone()
+        dev = self.device
+        with SPANS.span("serve.prefill.build"):
+            with SPANS.unit("stripe", dev):
+                self._claim_stripe(cur)
+                if self._enc1 is not None:
+                    self._enc1.copy_(self._enc_pool[cur.slot:cur.slot + 1])
+            C = self.prefill_chunk
+            ql = min(cur.remaining, C)
+            chunk = np.zeros((C, 1), np.int32)
+            chunk[:ql, 0] = cur.tokens[cur.pos:cur.pos + ql]
+            self.recompiles.observe("prefill_chunk", (1, C),
+                                    tracer=self.tracer)
+            prog = self._program("prefill_chunk")
+        with SPANS.span("serve.prefill.feed"), SPANS.unit("feed", dev):
+            prog.feed(tokens=chunk, positions=np.arange(
+                cur.pos, cur.pos + C, dtype=np.int32))
+        with SPANS.span("serve.prefill.replay"):
+            logits = self._replay(prog)
+            li = (len(cur.tokens) - 1) - cur.pos    # last real token's step
+            if li < C:
+                with SPANS.unit("clone", dev):
+                    cur.last_logits = logits[li].clone()
         cur.pos += ql
         self.prefill_tokens += ql
         self.prefill_tokens_executed += C
@@ -512,6 +529,7 @@ class ServingEngine:
         C = self.prefill_chunk
         Bp = self.prefill_batch
         tr = self.tracer
+        dev = self.device
 
         def budget_left():
             return (token_budget is None or spent < token_budget
@@ -530,52 +548,64 @@ class ServingEngine:
                         self._dense_chunk(cur)
                         spent += C
                     if cur.done:
-                        self.kv.write_prefill(cur.slot, self._stripe)
+                        with SPANS.unit("write_prefill", dev):
+                            self.kv.write_prefill(cur.slot, self._stripe)
                         self._stripe_owner = None
                         finished.append(cur)
                     if not budget_left():
                         break
             else:
                 while working and budget_left():
-                    sel = working[:Bp]
-                    tables = np.full((Bp, self.kv.blocks_per_slot),
-                                     self.kv.trash_block, np.int32)
-                    toks = np.zeros((Bp, C), np.int32)
-                    starts = np.zeros(Bp, np.int32)
-                    qlens = np.zeros(Bp, np.int32)
-                    for r, cur in enumerate(sel):
-                        tables[r] = self.kv.table_row(cur.slot)
-                        ql = min(cur.remaining, C)
-                        toks[r, :ql] = cur.tokens[cur.pos:cur.pos + ql]
-                        starts[r] = cur.pos
-                        qlens[r] = ql
-                    self.recompiles.observe(
-                        "prefill_paged", (toks.shape, tables.shape), tracer=tr)
-                    prog = self._program("prefill_paged")
-                    prog.feed(tokens=toks, positions=starts, q_lens=qlens,
-                              block_tables=tables)
-                    # writes the round's K/V into the pool storage in place
-                    # (the reference donates the cache to its jitted program)
-                    logits = self._replay(prog)
-                    real = int(qlens.sum())
-                    # FLOPs proxy: every row of the (Bp, C) round executes,
-                    # dummy rows included
-                    spent += Bp * C
-                    self.prefill_tokens += real
-                    self.prefill_tokens_executed += Bp * C
-                    self.prefill_tokens_padding += Bp * C - real
-                    for r, cur in enumerate(sel):
-                        cur.pos += int(qlens[r])
-                        if tr is not None and tr.enabled and qlens[r]:
-                            tr.prefill_advance(cur.slot, int(qlens[r]),
-                                               cur.pos, len(cur.tokens))
-                        if cur.done:
+                    with SPANS.span("serve.prefill.build"):
+                        sel = working[:Bp]
+                        tables = np.full((Bp, self.kv.blocks_per_slot),
+                                         self.kv.trash_block, np.int32)
+                        toks = np.zeros((Bp, C), np.int32)
+                        starts = np.zeros(Bp, np.int32)
+                        qlens = np.zeros(Bp, np.int32)
+                        for r, cur in enumerate(sel):
+                            tables[r] = self.kv.table_row(cur.slot)
+                            ql = min(cur.remaining, C)
+                            toks[r, :ql] = cur.tokens[cur.pos:cur.pos + ql]
+                            starts[r] = cur.pos
+                            qlens[r] = ql
+                        self.recompiles.observe(
+                            "prefill_paged", (toks.shape, tables.shape),
+                            tracer=tr)
+                        prog = self._program("prefill_paged")
+                    with SPANS.span("serve.prefill.feed"), \
+                            SPANS.unit("feed", dev):
+                        prog.feed(tokens=toks, positions=starts,
+                                  q_lens=qlens, block_tables=tables)
+                    with SPANS.span("serve.prefill.replay"):
+                        # writes the round's K/V into the pool storage in
+                        # place (the reference donates the cache to its
+                        # jitted program)
+                        logits = self._replay(prog)
+                        real = int(qlens.sum())
+                        # FLOPs proxy: every row of the (Bp, C) round
+                        # executes, dummy rows included
+                        spent += Bp * C
+                        self.prefill_tokens += real
+                        self.prefill_tokens_executed += Bp * C
+                        self.prefill_tokens_padding += Bp * C - real
+                        done = []
+                        for r, cur in enumerate(sel):
+                            cur.pos += int(qlens[r])
+                            if tr is not None and tr.enabled and qlens[r]:
+                                tr.prefill_advance(cur.slot, int(qlens[r]),
+                                                   cur.pos, len(cur.tokens))
+                            if cur.done:
+                                done.append((r, cur))
+                        if done:
                             # an on-device copy (the next round overwrites
                             # the output): no host sync inside the round
                             # loop, so rounds keep dispatching
-                            cur.last_logits = logits[
-                                r, int(qlens[r]) - 1].clone()
-                            finished.append(cur)
+                            with SPANS.unit("clone", dev):
+                                for r, cur in done:
+                                    cur.last_logits = logits[
+                                        r, int(qlens[r]) - 1].clone()
+                                    finished.append(cur)
                     working = [c for c in working if not c.done]
         except Exception:
             # all-or-nothing per call: release every slot this call
@@ -613,22 +643,28 @@ class ServingEngine:
             # cache untouched, so the scheduler can retry the same step
             self.fault_injector.on_engine_op("decode")
         prog = self._program("decode_step")
-        prog.feed(tokens=np.asarray(tokens, np.int32)[:, None],
-                  positions=np.asarray(positions, np.int32))
-        if self.paged:
-            # free slots' rows point at the trash block; a mid-prefill
-            # slot's table maps real blocks already, so its row is masked
-            # to the trash block too — its dummy decode write at position
-            # 0 must not corrupt KV the prefill just produced.  (A dense
-            # mid-prefill slot prefills into the staging stripe, which
-            # replaces the whole slot stripe when it is done.)  Refreshed
-            # in place: the program reads this one tensor.
-            self.kv.device_block_tables(mask_slots=self._inflight)
-        self.recompiles.observe(
-            "decode_step", (np.shape(tokens), np.shape(positions)),
-            tracer=self.tracer)
+        with SPANS.span("serve.decode.feed"):
+            with SPANS.unit("feed", self.device):
+                prog.feed(tokens=np.asarray(tokens, np.int32)[:, None],
+                          positions=np.asarray(positions, np.int32))
+                if self.paged:
+                    # free slots' rows point at the trash block; a
+                    # mid-prefill slot's table maps real blocks already,
+                    # so its row is masked to the trash block too — its
+                    # dummy decode write at position 0 must not corrupt
+                    # KV the prefill just produced.  (A dense mid-prefill
+                    # slot prefills into the staging stripe, which
+                    # replaces the whole slot stripe when it is done.)
+                    # Refreshed in place: the program reads this one
+                    # tensor.
+                    self.kv.device_block_tables(mask_slots=self._inflight)
+            self.recompiles.observe(
+                "decode_step", (np.shape(tokens), np.shape(positions)),
+                tracer=self.tracer)
+            self.kv.check_storage()
         # updates self.kv.cache in place (the reference donates it)
-        logits = self._replay(prog)
+        with SPANS.span("serve.decode.replay"):
+            logits = SPANS.replay(prog)
         self.decode_steps += 1
         # on device, no sync here; the next decode round overwrites it
         return logits[:, 0]

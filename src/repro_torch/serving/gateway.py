@@ -71,6 +71,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.core.spans import SPANS
 from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.faults import FaultPlan, ReplicaCrashed
 from repro_torch.serving.health import (DEAD, HEALTHY, QUARANTINED,
@@ -377,7 +378,18 @@ class ReplicaGateway:
         """One decode round on every routable replica with work, plus
         health bookkeeping, quarantine auto-rejoin, pending retries,
         and the degradation-ladder update.  Returns True when anything
-        observable happened."""
+        observable happened.  A ``serve.gateway_step`` span
+        (``core/spans.py``), whose self time is that bookkeeping."""
+        drive = False
+        for rep in self.replicas:
+            if getattr(rep.scheduler, "records_spans", False):
+                drive = True
+                break
+        with SPANS.span("serve.gateway_step", step=self._gstep + 1,
+                        drive=drive):
+            return self._step_replicas()
+
+    def _step_replicas(self) -> bool:
         self._gstep += 1
         progressed = False
         for i, rep in enumerate(self.replicas):

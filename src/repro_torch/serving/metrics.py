@@ -134,6 +134,8 @@ class ServingMetrics:
         self.tenants: Dict[str, TenantStats] = {}
         self._tenant_of: Dict[int, str] = {}      # in-flight rids only
         self._admitted: set = set()               # rids past first admit
+        self._admit_ts: Dict[int, float] = {}     # first admit, until the
+                                                  # first token
         self._last_tok_ts: Dict[int, float] = {}  # in-flight decode rows
 
     # -- recording -----------------------------------------------------------
@@ -165,26 +167,34 @@ class ServingMetrics:
         if t.first_submit_ts is None or now < t.first_submit_ts:
             t.first_submit_ts = now
 
-    def record_admit(self, rid: int) -> None:
-        """First admission of ``rid``: queue wait = submit -> now.  A
-        re-admit after preemption is not a queue wait and is ignored."""
+    def record_admit(self, rid: int) -> Optional[float]:
+        """First admission of ``rid``: queue wait = submit -> now, which
+        is returned (ms).  A re-admit after preemption is not a queue wait
+        and is ignored (None)."""
         if rid in self._admitted or rid not in self._submit:
-            return
+            return None
         self._admitted.add(rid)
-        wait_ms = (self.clock() - self._submit[rid]) * 1e3
+        now = self.clock()
+        self._admit_ts[rid] = now
+        wait_ms = (now - self._submit[rid]) * 1e3
         self.queue_wait_ms.add(wait_ms)
         tenant = self._tenant_of.get(rid)
         if tenant is not None:
             self._tenant(tenant).queue_wait_ms.add(wait_ms)
+        return wait_ms
 
-    def record_first_token(self, rid: int) -> None:
+    def record_first_token(self, rid: int) -> Optional[float]:
+        """``rid``'s first token; returns its prefill latency (first
+        admit -> now, ms), or None for a request never admitted here."""
         now = self.clock()
+        admitted = self._admit_ts.pop(rid, None)
         self._first[rid] = now
         self._last_tok_ts[rid] = now
         sub = self._submit.get(rid)
         tenant = self._tenant_of.get(rid)
         if sub is not None and tenant is not None:
             self._tenant(tenant).ttft_ms.add((now - sub) * 1e3)
+        return None if admitted is None else (now - admitted) * 1e3
 
     def record_decode_tokens(self, rids: Iterable[int]) -> None:
         """One decode step emitted a token for each of ``rids``: record
@@ -202,6 +212,7 @@ class ServingMetrics:
     def record_finish(self, rid: int, n_tokens: int, reason: str) -> None:
         now = self.clock()
         first_finish = rid not in self._finish
+        self._admit_ts.pop(rid, None)
         self._finish[rid] = now
         self._tokens[rid] = n_tokens
         self._reasons[rid] = reason

@@ -1,11 +1,14 @@
 """In-process performance profiling for the serving stack.
 
-* :class:`StepProfiler` — step-phase timing.  The scheduler's phase
-  timestamps normally measure *dispatch* (CUDA launches are async); with
-  profiling on, the scheduler brackets each phase with
-  ``torch.cuda.synchronize()`` so the deltas are wall time the device
-  actually spent in admit / prefill / decode / sample.  Windows are
-  bounded (:class:`~repro_torch.serving.slo.SlidingWindow`).
+* :class:`StepProfiler` — step-phase timing on the device's clock.  The
+  scheduler's phase timestamps measure *dispatch* on the host (CUDA
+  launches are async); with profiling on, every step drives the span
+  recorder (``core/spans.py``), and the scheduler feeds this profiler
+  each phase's device time (admit / prefill / decode / sample: the time
+  of the device units that started in the phase's spans, by their CUDA
+  events) and the step's device idle (the gaps before its units), with
+  no synchronise.  Windows are bounded
+  (:class:`~repro_torch.serving.slo.SlidingWindow`).
 
 * :class:`RecompilationTracker` — shape-signature telemetry.  Each of
   the engine's round programs (``serving/programs.py``) has fixed
@@ -21,8 +24,9 @@
   through the tracer.
 
 * :func:`profile_kernel` / :func:`profile_paged_kernels` — per-kernel
-  profiles of the paged attention kernels at the engine's serving shapes,
-  with the reference's result keys.  The reference reads FLOPs and bytes
+  profiles of the paged attention kernels at the engine's serving shapes
+  and in its KV and query dtype (bf16 on the main path), with the
+  reference's result keys.  The reference reads FLOPs and bytes
   from XLA's ``cost_analysis``, which has no counterpart here: they come
   from :func:`decode_cost` / :func:`prefill_cost`, the work the function
   needs for these inputs (each input byte read once, each output byte
@@ -50,12 +54,13 @@ HBM_BW = 3.35e12                # H100 SXM bytes/s (NVIDIA data sheet)
 PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense tensor cores
               torch.float32: 67e12}     # outside the tensor cores
 
-PHASES = ("admit", "prefill", "decode", "sample")
+PHASES = ("admit", "prefill", "decode", "sample", "idle")
 
 
 class StepProfiler:
-    """Bounded per-phase timing windows, fed by ``Scheduler.step()``
-    when the scheduler is constructed with ``profile=True``."""
+    """Bounded per-phase windows of device time (ms), fed by
+    ``Scheduler.step()`` when the scheduler is constructed with
+    ``profile=True``; ``idle`` is the step's device idle time."""
 
     def __init__(self, window: int = 512):
         self.phases: Dict[str, SlidingWindow] = {
@@ -63,10 +68,11 @@ class StepProfiler:
         self.steps = 0
 
     def record_step(self, admit_s: float, prefill_s: float,
-                    decode_s: float, sample_s: float) -> None:
+                    decode_s: float, sample_s: float,
+                    idle_s: float) -> None:
         self.steps += 1
         for name, dur in zip(PHASES, (admit_s, prefill_s,
-                                      decode_s, sample_s)):
+                                      decode_s, sample_s, idle_s)):
             self.phases[name].add(dur * 1e3)
 
     def summary(self) -> Dict[str, object]:
@@ -154,25 +160,31 @@ def profile_kernel(fn: Callable, *args, name: str, flops: float,
 
 def profile_shapes(engine) -> Dict[str, object]:
     """The keyword arguments of :func:`paged_profile_cases` for a paged
-    engine: its batch width, page geometry, head layout and device."""
+    engine: its batch width, page geometry, head layout, device and the
+    dtype its KV pages and queries hold (one dtype: the kernels take q and
+    pages of one)."""
     if not getattr(engine, "paged", False):
         raise ValueError("kernel profiling requires a paged engine")
+    from repro_torch.serving.kvcache import _leaves
     cfg, kv = engine.cfg, engine.kv
     return dict(slots=engine.max_slots, num_blocks=kv.pool.num_blocks,
                 page=kv.block_size, blocks_per_slot=kv.blocks_per_slot,
                 max_seq_len=engine.max_seq_len, num_heads=cfg.num_heads,
                 num_kv_heads=cfg.num_kv_heads,
-                head_dim=cfg.resolved_head_dim, device=engine.device)
+                head_dim=cfg.resolved_head_dim, device=engine.device,
+                dtype=_leaves(kv.cache)[0][1].dtype)
 
 
 def paged_profile_cases(*, slots: int, num_blocks: int, page: int,
                         blocks_per_slot: int, max_seq_len: int,
                         num_heads: int, num_kv_heads: int, head_dim: int,
-                        device, chunk: int = 8) -> Dict[str, dict]:
+                        device, dtype: torch.dtype = torch.float32,
+                        chunk: int = 8) -> Dict[str, dict]:
     """The operands :func:`profile_paged_kernels` times, in the kernels'
-    layout: f32, at a paged engine's serving shapes (``slots`` rows,
-    ``num_blocks`` pages plus the trash page, every row's table reaching
-    ``min(page * blocks_per_slot, max_seq_len)`` positions), from
+    layout: ``dtype`` (the engine's KV dtype, :func:`profile_shapes`), at a
+    paged engine's serving shapes (``slots`` rows, ``num_blocks`` pages
+    plus the trash page, every row's table reaching ``min(page *
+    blocks_per_slot, max_seq_len)`` positions), from
     ``numpy.random.default_rng(0)`` as the reference draws them."""
     import numpy as np
 
@@ -180,16 +192,16 @@ def paged_profile_cases(*, slots: int, num_blocks: int, page: int,
     G = H // KV
     pages = num_blocks + 1                                 # + trash block
     rng = np.random.default_rng(0)
-    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    fl = lambda a: torch.tensor(a, dtype=dtype, device=device)
     i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=device)
-    q1 = f32(rng.standard_normal((B, 1, H, D)))
-    kp = f32(rng.standard_normal((pages, page, KV, D)))
-    vp = f32(rng.standard_normal((pages, page, KV, D)))
+    q1 = fl(rng.standard_normal((B, 1, H, D)))
+    kp = fl(rng.standard_normal((pages, page, KV, D)))
+    vp = fl(rng.standard_normal((pages, page, KV, D)))
     tables = i32(np.arange(B * blocks_per_slot, dtype=np.int32).reshape(
         B, blocks_per_slot) % num_blocks)
     lengths = i32(np.full((B,), min(page * blocks_per_slot, max_seq_len)))
     C = min(chunk, max_seq_len)
-    qc = f32(rng.standard_normal((B, C, H, D)))
+    qc = fl(rng.standard_normal((B, C, H, D)))
     decode = dict(q=q1[:, 0].reshape(B, KV, G, D).contiguous(), k_pages=kp,
                   v_pages=vp, block_tables=tables, lengths=lengths,
                   window=None, softcap=None)
@@ -203,12 +215,12 @@ def paged_profile_cases(*, slots: int, num_blocks: int, page: int,
 def profile_paged_kernels(engine, reps: int = 3,
                           chunk: int = 8) -> Dict[str, Dict[str, object]]:
     """Profile the paged decode and prefill kernels at the engine's own
-    serving shapes on synthetic f32 operands
-    (:func:`paged_profile_cases`), as the reference profiles
+    serving shapes on synthetic operands in the engine's KV and query
+    dtype (:func:`paged_profile_cases`), as the reference profiles
     ``paged_decode_attention`` and ``paged_prefill_attention``.  On the
-    card f32 takes each kernel's f32 route (the decode kernel's f32
-    instantiation, the CUDA-core prefill kernel).  Requires a paged
-    engine."""
+    card bf16, the main path's, takes the routes the engine's rounds
+    take (the decode kernel's bf16 instantiation, the tensor-core
+    prefill kernel).  Requires a paged engine."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import paged_prefill as pp
 

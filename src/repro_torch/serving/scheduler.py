@@ -1,9 +1,27 @@
 """Continuous-batching scheduler: admission queue + slot manager.
 
 A copy of ``repro.serving.scheduler`` for the port; the host-side logic is
-the reference's line for line.  Under ``profile=True`` the phase edges
-synchronise the CUDA device (``torch.cuda.synchronize()``) where the
-reference blocks on its arrays.
+the reference's line for line.
+
+Spans (``core/spans.py``'s recorder, which records while a
+``torch.profiler`` session records or while a step drives it: its tracer
+is enabled, or the scheduler was built with ``profile=True``): each step
+is a ``serve.step`` span with the children ``serve.admit``,
+``serve.prefill`` (the engine's ``serve.prefill.build`` / ``.feed`` /
+``.replay`` per round, and ``serve.sample.first`` for the first tokens
+with their read-back), ``serve.decode.build`` (the per-slot arrays), the
+engine's ``serve.decode.feed`` and ``serve.decode.replay``,
+``serve.sample`` (with its read-back) and ``serve.retire`` (token
+bookkeeping, retirement, the step's close).  The device units of the step
+(each round's copies, its replay, the logit clones, each sample call with
+its read-back) carry CUDA events; the recorder settles them while the
+card runs the step's decode round and after the step's read-back, waiting
+for neither, and the card's idle time before each unit is put down to the
+innermost span the host was in while the card waited (the recorder's gap
+rule).  ``engine_step`` then carries the step's device busy and idle
+seconds and the idle by span, and ``profile=True`` feeds each phase's
+device time and the step's idle into :attr:`profiler`.  Nothing
+synchronises beyond the step's read-backs.
 
 One scheduler drives one :class:`~repro_torch.serving.engine.ServingEngine`
 (conceptually: the serving process inside one ``ch-run`` capsule).  The
@@ -85,6 +103,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.spans import SPANS
 from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.kvcache import OutOfBlocks
 from repro_torch.serving.metrics import ServingMetrics
@@ -154,11 +173,10 @@ class Scheduler:
         engine.kv.tracer = tracer
         if engine.prefix_cache is not None:
             engine.prefix_cache.tracer = tracer
-        # step-phase profiling: with profile=True each phase is
-        # bracketed by a device synchronize so the t0..t4 deltas measure
-        # device time, not dispatch time (CUDA launches are async); the
-        # windows live on self.profiler.  Off by default — the sync points
-        # serialize the pipeline and cost real throughput.
+        # step-phase profiling: with profile=True every step drives the
+        # span recorder, and each phase's device time (its units' time on
+        # the device's clock) and the step's device idle feed
+        # self.profiler's windows; nothing synchronises
         self.profiler = None
         if profile:
             from repro_torch.serving.profiling import StepProfiler
@@ -243,11 +261,6 @@ class Scheduler:
         return pc.peek(prompt) if pc is not None else 0
 
     # -- the loop ------------------------------------------------------------
-
-    def _sync(self) -> None:
-        """Profiler phase edge: wait for the engine's device."""
-        if self.engine.device.type == "cuda":
-            torch.cuda.synchronize(self.engine.device)
 
     def _shares_block(self, a: np.ndarray, b: np.ndarray) -> bool:
         """True when two prompts share at least one full KV block of
@@ -436,11 +449,12 @@ class Scheduler:
                 fresh_logits.append(cur.last_logits)
         if fresh:
             # every first token of the round in one vectorized sample
-            toks = self.engine.sample_tokens(
-                torch.stack(fresh_logits),
-                np.asarray([st.request.params.temperature
-                            for st in fresh], np.float32),
-                np.asarray([st.request.params.greedy for st in fresh]))
+            with SPANS.span("serve.sample.first", device=self.engine.device):
+                toks = self.engine.sample_tokens(
+                    torch.stack(fresh_logits),
+                    np.asarray([st.request.params.temperature
+                                for st in fresh], np.float32),
+                    np.asarray([st.request.params.greedy for st in fresh]))
             for st, tok in zip(fresh, toks):
                 tok = int(tok)
                 st.emitted.append(tok)
@@ -528,14 +542,24 @@ class Scheduler:
                     if victim is None:
                         break              # st itself deferred; move on
 
+    @property
+    def records_spans(self) -> bool:
+        """Whether this scheduler's steps drive the span recorder: its
+        tracer is enabled or it profiles its steps."""
+        return self.tracer.enabled or self.profiler is not None
+
     def _close_step(self, tr, decoded: bool, admitted: int, completed: int,
                     executed: int, t0: float, t1: float, t2: float,
-                    t3: float) -> None:
-        """Emit the per-step engine-timeline event (phase breakdown +
-        gauges snapshot) and sample the step gauges into the metrics
-        when a decode round actually ran (the pre-tracing semantics)."""
+                    t3: float, dev=None) -> None:
+        """Emit the per-step engine-timeline event (phase breakdown on
+        the host's clock + gauges snapshot, and the device units the
+        recorder settled in the step: ``dev``, what it settled while the
+        card ran the decode round, and the rest after the read-back) and
+        sample the step gauges into the metrics when a decode round
+        actually ran (the pre-tracing semantics)."""
         kv = self.engine.kv
         t4 = tr.clock()
+        dev = SPANS.settle(into=dev)
         tr.engine_step(
             decoded=decoded, queue_depth=len(self.queue),
             active=len(self.active), max_slots=self.max_slots,
@@ -546,9 +570,20 @@ class Scheduler:
             free_blocks=kv.pool.available, free_slots=kv.free_slot_count,
             inflight=len(self.prefilling),
             prefix_pins=(kv.prefix_pool.in_use
-                         if kv.prefix_pool is not None else 0))
-        if self.profiler is not None:
-            self.profiler.record_step(t1 - t0, t2 - t1, t3 - t2, t4 - t3)
+                         if kv.prefix_pool is not None else 0),
+            device=dev)
+        if self.profiler is not None and dev is not None:
+            # a unit's phase: the second part of the span it started in
+            # (serve.prefill.replay -> prefill, serve.sample.first -> sample)
+            phase = dict.fromkeys(("admit", "prefill", "decode", "sample"),
+                                  0.0)
+            for _, span, a, b in dev["units"]:
+                parts = span.split(".")
+                if len(parts) > 1 and parts[1] in phase:
+                    phase[parts[1]] += b - a
+            self.profiler.record_step(
+                phase["admit"], phase["prefill"], phase["decode"],
+                phase["sample"], dev["idle_s"])
         tr.check_slo()
 
     def step(self) -> bool:
@@ -558,9 +593,11 @@ class Scheduler:
         live sequence.  Returns False when there was nothing to do.
 
         Every call emits one ``engine_step`` trace event with the phase
-        durations (admission / prefill-advance / decode dispatch /
-        sample+retire) and a gauges snapshot, so a stalled request can
-        be read against what the engine was actually doing that step."""
+        durations on the host's clock (admission / prefill-advance /
+        decode dispatch / sample+retire), a gauges snapshot and, while
+        the span recorder records, the device units it settled, so a
+        stalled request can be read against what the engine was actually
+        doing that step."""
         fi = self.fault_injector
         if fi is not None and fi.on_step() == "stall":
             # injected wedge: claim liveness, do nothing.  This is the
@@ -569,19 +606,18 @@ class Scheduler:
             # progress-signature watchdog can tell
             return True
         tr = self.tracer
-        prof = self.profiler
+        with SPANS.span("serve.step", step=tr.current_step,
+                        drive=self.records_spans):
+            return self._run_step(tr)
+
+    def _run_step(self, tr) -> bool:
         t0 = tr.clock()
-        admitted = self._admit()
-        if prof is not None:                 # device-accurate phase edges
-            # deliberate: only when step profiling is armed, so phase
-            # walls measure device time, not dispatch time
-            self._sync()  # repro-lint: disable=RL001
+        with SPANS.span("serve.admit"):
+            admitted = self._admit()
         t1 = tr.clock()
         exec0 = self.engine.prefill_tokens_executed
-        completed = self._advance_prefill()
-        if prof is not None:
-            # deliberate: profiler-gated phase edge (see above)
-            self._sync()  # repro-lint: disable=RL001
+        with SPANS.span("serve.prefill"):
+            completed = self._advance_prefill()
         executed = self.engine.prefill_tokens_executed - exec0
         t2 = tr.clock()
         if not self.active:
@@ -601,40 +637,43 @@ class Scheduler:
             self._close_step(tr, False, admitted, completed, executed,
                              t0, t1, t2, t2)
             return ret
-        self._grow_or_preempt()
-        if not self.active:                # everything deferred; retry
-            self._close_step(tr, False, admitted, completed, executed,
-                             t0, t1, t2, t2)
-            return bool(self.queue or self.prefilling)
-        S = self.max_slots
-        tokens = np.zeros(S, np.int32)
-        positions = np.zeros(S, np.int32)
-        temps = np.ones(S, np.float32)
-        greedy = np.zeros(S, bool)
-        for slot, st in self.active.items():
-            tokens[slot] = st.emitted[-1]
-            positions[slot] = st.pos
-            temps[slot] = st.request.params.temperature
-            greedy[slot] = st.request.params.greedy
+        with SPANS.span("serve.decode.build"):
+            self._grow_or_preempt()
+            if not self.active:            # everything deferred; retry
+                self._close_step(tr, False, admitted, completed, executed,
+                                 t0, t1, t2, t2)
+                return bool(self.queue or self.prefilling)
+            S = self.max_slots
+            tokens = np.zeros(S, np.int32)
+            positions = np.zeros(S, np.int32)
+            temps = np.ones(S, np.float32)
+            greedy = np.zeros(S, bool)
+            for slot, st in self.active.items():
+                tokens[slot] = st.emitted[-1]
+                positions[slot] = st.pos
+                temps[slot] = st.request.params.temperature
+                greedy[slot] = st.request.params.greedy
         logits = self.engine.decode_once(tokens, positions)
-        if prof is not None:
-            # deliberate: profiler-gated phase edge (see _admit edge)
-            self._sync()  # repro-lint: disable=RL001
         t3 = tr.clock()
-        toks = self.engine.sample_tokens(logits, temps, greedy)
-        # per-tenant inter-token gaps: record before retirement pops the
-        # rows' last-token timestamps
-        tr.decode_tokens([st.rid for st in self.active.values()])
-        for slot in list(self.active):
-            st = self.active[slot]
-            st.pos += 1
-            tok = int(toks[slot])
-            st.emitted.append(tok)
-            if tr.enabled:
-                tr.decode(st.rid, st.pos - 1, tok)
-            self._maybe_retire(st, tok)
-        self._close_step(tr, True, admitted, completed, executed,
-                         t0, t1, t2, t3)
+        # the card runs the decode round: settle what has finished (the
+        # idle split's host work then costs the card nothing)
+        dev = SPANS.settle()
+        with SPANS.span("serve.sample", device=self.engine.device):
+            toks = self.engine.sample_tokens(logits, temps, greedy)
+        with SPANS.span("serve.retire"):
+            # per-tenant inter-token gaps: record before retirement pops
+            # the rows' last-token timestamps
+            tr.decode_tokens([st.rid for st in self.active.values()])
+            for slot in list(self.active):
+                st = self.active[slot]
+                st.pos += 1
+                tok = int(toks[slot])
+                st.emitted.append(tok)
+                if tr.enabled:
+                    tr.decode(st.rid, st.pos - 1, tok)
+                self._maybe_retire(st, tok)
+            self._close_step(tr, True, admitted, completed, executed,
+                             t0, t1, t2, t3, dev)
         return True
 
     def run(self) -> None:

@@ -35,9 +35,42 @@ Three layers:
 
 * **Engine step timeline** — one ``engine_step`` event per
   ``Scheduler.step()`` with the phase breakdown (admission /
-  prefill-advance / decode dispatch / sample+retire, in seconds) and a
-  gauges snapshot: free KV blocks, free slots, pinned prefix blocks,
-  in-flight prefill cursors, queue depth, live sequences.
+  prefill-advance / decode dispatch / sample+retire, ``dur_*_s``: host
+  seconds, the time the host spent in each phase, which on the card is
+  enqueue time, not device time) and a gauges snapshot: free KV blocks,
+  free slots, pinned prefix blocks, in-flight prefill cursors, queue
+  depth, live sequences.  While the span recorder records, the event
+  also carries the step's device clock: ``dev_busy_s`` and ``dev_idle_s``
+  (device time of the units settled in the step, and the idle gaps
+  before them), ``dev_idle_by_span`` (those gaps' seconds by
+  the innermost span the host was in), and ``dev_units`` / ``dev_gaps``
+  (``[name, span, start, end]`` and ``[span, start, end]`` on this
+  clock) for the Chrome export's "device" thread.
+
+* **The span recorder** — ``core/spans.py``'s ``SPANS``, the one
+  recorder of the process, shared with the train step.  It records while
+  a ``torch.profiler`` session records or while a step drives it (a
+  scheduler whose tracer is enabled, as ``launch/serve.py --trace-out``
+  makes it, or that was built with ``profile=True``); otherwise each of
+  its sites costs a flag read.  Spans (``serve.gateway_step``,
+  ``serve.step`` and its phases, the engine's per-round
+  ``serve.prefill.build`` / ``.feed`` / ``.replay`` and
+  ``serve.decode.feed`` / ``.replay``, ``serve.sample.first``,
+  ``serve.sample``, ``serve.retire``) carry their host start and end on
+  this module's clock, their parent and the step, and open a
+  ``record_function`` range of their name under the profiler.  The
+  device units of a step (each round's input copies, its graph replay,
+  the logit clones, each sample call with its read-back) carry CUDA
+  events at their edges, never inside a captured program; they are
+  settled without a wait while the card runs the decode round and after
+  the step's read-back, and the idle gap before
+  each unit — ``elapsed(previous end, this start)``, on one in-order
+  stream exactly the card's idle time — occupies the host interval
+  just before the unit's start, which is split over the innermost spans
+  open there (``caller`` where none was).  Per request, the queue wait
+  (submit -> first admit) and the prefill latency (first admit -> first
+  token) are the metrics' own, passed to the recorder from
+  :meth:`Tracer.admit` and :meth:`Tracer.first_token` while it records.
 
 Exporters (files only, per the no-external-systems constraint):
 
@@ -51,8 +84,10 @@ Exporters (files only, per the no-external-systems constraint):
   trace-event format, loads directly in Perfetto or
   ``chrome://tracing``: each replica is a *process*, request spans are
   async lanes (``b``/``e`` with per-event ``n`` instants), engine-step
-  phases are complete slices on an "engine" thread, and free-block /
-  queue-depth gauges are counter tracks.
+  phases are complete slices on an "engine" thread, the device units
+  and labelled idle gaps of steps the span recorder recorded are slices
+  on a "device" thread, and free-block / queue-depth gauges are counter
+  tracks.
 * :func:`merge_traces` — gateway-level merge: interleaves N replicas'
   ring buffers on the shared clock (every tracer in one gateway uses
   the same ``clock``), stamping each event with its replica name, so a
@@ -67,6 +102,7 @@ from collections import deque
 from pathlib import Path
 from typing import Dict, Iterable, List, Mapping, Optional, Sequence
 
+from repro_torch.core.spans import SPANS
 from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.slo import SLOMonitor
 
@@ -199,7 +235,9 @@ class Tracer:
                 self._emit("submit", rid, tenant=tenant)
 
     def first_token(self, rid: int) -> None:
-        self.metrics.record_first_token(rid)
+        latency = self.metrics.record_first_token(rid)
+        if latency is not None:
+            SPANS.mark("prefill_latency_ms", latency, rid)
         if self.enabled:
             self._emit("first_token", rid)
 
@@ -257,7 +295,9 @@ class Tracer:
               resumed: bool) -> None:
         # queue wait (submit -> first admit) per request/tenant; the
         # metrics ignore re-admits after preemption
-        self.metrics.record_admit(rid)
+        wait = self.metrics.record_admit(rid)
+        if wait is not None:
+            SPANS.mark("queue_wait_ms", wait, rid)
         if self.enabled:
             self._emit("admit", rid, slot=slot, seq_len=seq_len,
                        cached_len=cached_len, resumed=resumed)
@@ -405,12 +445,23 @@ class Tracer:
                     dur_admit_s: float, dur_prefill_s: float,
                     dur_decode_s: float, dur_sample_s: float,
                     free_blocks: int, free_slots: int, inflight: int,
-                    prefix_pins: int) -> None:
+                    prefix_pins: int,
+                    device: Optional[Mapping] = None) -> None:
         """Close one scheduler step: gauge sampling (decode steps only —
-        the pre-tracing metrics semantics) plus the timeline event."""
+        the pre-tracing metrics semantics) plus the timeline event.  The
+        ``dur_*_s`` phases are host seconds; ``device`` (what the span
+        recorder settled in the step, or None) adds the
+        ``dev_*`` fields."""
         if decoded:
             self.metrics.sample_gauges(queue_depth, active, max_slots)
         if self.enabled:
+            dev = {}
+            if device is not None:
+                dev = {"dev_busy_s": device["busy_s"],
+                       "dev_idle_s": device["idle_s"],
+                       "dev_idle_by_span": dict(device["idle_by_span"]),
+                       "dev_units": [list(u) for u in device["units"]],
+                       "dev_gaps": [list(g) for g in device["gaps"]]}
             self._emit("engine_step", decoded=decoded,
                        queue_depth=queue_depth, active=active,
                        admitted=admitted, completed=completed,
@@ -421,7 +472,7 @@ class Tracer:
                        dur_decode_s=dur_decode_s,
                        dur_sample_s=dur_sample_s,
                        free_blocks=free_blocks, free_slots=free_slots,
-                       inflight=inflight, prefix_pins=prefix_pins)
+                       inflight=inflight, prefix_pins=prefix_pins, **dev)
         self.current_step += 1
 
     # -- export --------------------------------------------------------------
@@ -480,9 +531,11 @@ def to_chrome_trace(events_by_replica: Mapping[str, Sequence[Mapping]]
 
     Layout: one *process* per replica; request spans as async lanes
     (``b``/``e`` pairs keyed by a per-replica string id, with ``n``
-    instants for every intra-span event); engine-step phases as ``X``
-    complete slices on an "engine" thread; free-block and queue-depth
-    gauges as counter tracks.  Timestamps are microseconds relative to
+    instants for every intra-span event); engine-step phases (host time)
+    as ``X`` complete slices on an "engine" thread; each recorded step's
+    device units and its idle gaps (``idle: <span>``, the span the host
+    was in) as ``X`` slices on a "device" thread; free-block and
+    queue-depth gauges as counter tracks.  Timestamps are microseconds relative to
     the earliest event across all replicas (the shared clock).
     """
     all_ts = [ev["ts"] for evs in events_by_replica.values() for ev in evs]
@@ -500,6 +553,8 @@ def to_chrome_trace(events_by_replica: Mapping[str, Sequence[Mapping]]
                     "args": {"name": "requests"}})
         out.append({"ph": "M", "pid": pid, "tid": 1, "name": "thread_name",
                     "args": {"name": "engine"}})
+        out.append({"ph": "M", "pid": pid, "tid": 2, "name": "thread_name",
+                    "args": {"name": "device"}})
         for rid, revs in sorted(_span_bounds(evs).items()):
             span_id = f"{replica}/req{rid}"
             name = f"req {rid}"
@@ -544,6 +599,16 @@ def to_chrome_trace(events_by_replica: Mapping[str, Sequence[Mapping]]
                             "ts": us(end - dur), "dur": dur * 1e6,
                             "args": {"step": ev["step"]}})
                 end -= dur
+            for name, span, a, b in ev.get("dev_units", ()):
+                out.append({"ph": "X", "cat": "device", "name": name,
+                            "pid": pid, "tid": 2, "ts": us(a),
+                            "dur": (b - a) * 1e6,
+                            "args": {"step": ev["step"], "span": span}})
+            for span, a, b in ev.get("dev_gaps", ()):
+                out.append({"ph": "X", "cat": "device",
+                            "name": f"idle: {span}", "pid": pid, "tid": 2,
+                            "ts": us(a), "dur": (b - a) * 1e6,
+                            "args": {"step": ev["step"]}})
             out.append({"ph": "C", "pid": pid, "name": "free_blocks",
                         "ts": us(ev["ts"]),
                         "args": {"free_blocks": ev.get("free_blocks", 0)}})

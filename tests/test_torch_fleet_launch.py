@@ -124,7 +124,8 @@ def test_profile_paged_kernels_keys_and_formulas():
     """The reference's result keys on a paged CPU engine, with FLOPs and
     bytes from the port's cost formulas, which equal the work written out
     here (the engine's serving shapes: 4 slots of 128 positions, page
-    16, qwen2 smoke's heads, f32)."""
+    16, qwen2 smoke's heads, in the engine's KV dtype: bf16, 2 bytes an
+    element, against the bf16 peak)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import transformer as T
     from repro_torch.serving import ServingEngine, profile_paged_kernels
@@ -141,14 +142,16 @@ def test_profile_paged_kernels_keys_and_formulas():
     H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     G, B, L, C, pps = H // KV, 4, 128, 8, 8
     want = {"paged_attention": (
-                2 * B * H * D * 4 + B * L * KV * D * 4 * 2 + B * 4 * (1 + pps),
+                2 * B * H * D * 2 + B * L * KV * D * 2 * 2 + B * 4 * (1 + pps),
                 4 * B * L * KV * G * D),
             "paged_prefill": (
-                2 * B * C * H * D * 4 + B * C * KV * D * 4 * 2
+                2 * B * C * H * D * 2 + B * C * KV * D * 2 * 2
                 + B * 4 * (2 + pps),
                 4 * B * sum(c + 1 for c in range(C)) * KV * G * D)}
     cases = prof.paged_profile_cases(**prof.profile_shapes(eng))
-    assert cases["paged_attention"]["q"].dtype == torch.float32
+    for case in cases.values():
+        assert {case[k].dtype for k in ("q", "k_pages", "v_pages")} == {
+            torch.bfloat16}
     for name, p in got.items():
         assert keys <= set(p) and p["device"] == "cpu"
         assert p["name"] == name and p["reps"] == 2
@@ -157,7 +160,7 @@ def test_profile_paged_kernels_keys_and_formulas():
         assert p["arithmetic_intensity"] == pytest.approx(
             p["flops"] / p["bytes_accessed"])
         assert p["fraction_of_peak_flops"] == pytest.approx(
-            p["flops"] / (p["wall_ms_median"] / 1e3) / 67e12)
+            p["flops"] / (p["wall_ms_median"] / 1e3) / 989e12)
     assert (prof.decode_cost(cases["paged_attention"]),
             prof.prefill_cost(cases["paged_prefill"])) == \
         (want["paged_attention"], want["paged_prefill"])
