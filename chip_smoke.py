@@ -119,10 +119,14 @@ Phases (any failure exits nonzero):
               flash: the decode shapes above, and the dense prefill
               replay's B = 1 against a 1,024-position stripe, kv_len
               1-128; SSD: mamba2-1.3b training, b 8; RMSNorm: mamba2's
-              gated norm, 8,192 x 4,096 f32 -> bf16) with CUDA events, L2
-              flushed before every launch and a spin kernel after the
-              flush so the host's enqueue is not timed, the same element-
-              wise checks as phase 3, beside its plain version, the
+              gated norm, 8,192 x 4,096 f32 -> bf16; the unembedding's
+              split: a 32,736 x 5,312 chunk of the training cell's
+              32,736 x 151,936 cotangent, aligned (vector route) and
+              one column on (scalar route), bit for bit) with CUDA
+              events, L2 flushed before every launch and a spin kernel
+              after the flush so the host's enqueue is not timed, the
+              same elementwise checks as phase 3, beside its plain
+              version, the
               library yardstick (gather + scaled_dot_product_attention;
               scaled_dot_product_attention on K/V dequantized beforehand;
               ``F.rms_norm``; none for the SSD scan; used nowhere in the
@@ -955,6 +959,37 @@ def flash_case(torch, rng, dev, *, B, S, H, KV, D, window=None,
                                              softcap=softcap))
 
 
+def unembed_split_cases(torch, dev, *, rows: int = 32 * 1023,
+                        vocab: int = 151_936, d: int = 896,
+                        seed: int = 3) -> list:
+    """The tied unembedding's backward split at the training cell's shape:
+    the cotangent the cross-entropy hands it (softmax minus one-hot over
+    the rows) of (rows x vocab) f32 logits drawn at qwen2-0.5b's scale
+    (std 0.6), and two cases of it, each ``g`` with its two outputs
+    ``out`` and ``out_plain``: the second chunk of
+    ``unembed.chunk_cols(rows, d)`` columns (row stride ``vocab``; the
+    kernel's vector route), and that chunk one column on and one column
+    shorter (unaligned start, odd width: the scalar route)."""
+    from repro_torch.kernels import unembed as ue
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    full = torch.empty((rows, vocab), dtype=torch.float32, device=dev)
+    for r0 in range(0, rows, 4096):
+        blk = full[r0:r0 + 4096]
+        n = blk.shape[0]
+        blk.copy_(torch.softmax(0.6 * torch.randn(
+            (n, vocab), generator=gen, device=dev), -1))
+        blk[torch.arange(n, device=dev), torch.randint(
+            0, vocab, (n,), generator=gen, device=dev)] -= 1
+    full.div_(rows)
+    cols = ue.chunk_cols(rows, d)
+    cases = []
+    for g in (full[:, cols:2 * cols], full[:, cols + 1:2 * cols]):
+        mk = lambda: torch.empty((rows, 3, g.shape[1]),
+                                 dtype=torch.bfloat16, device=dev)
+        cases.append(dict(g=g, out=mk(), out_plain=mk()))
+    return cases
+
+
 def library_flash(torch, F, case):
     """scaled_dot_product_attention on the same (causal, no window, no
     softcap) inputs, back in the model layout."""
@@ -1600,13 +1635,17 @@ def profile_breakdown(prof, wall_ms: float) -> dict:
     """Device time of one profiled step by kernel family: the device-side
     events' time (``self_device_time_total``, in us) summed over kernels;
     busy share = total kernel time / the step's wall time (the profiler's
-    own overhead is in that wall time)."""
+    own overhead is in that wall time).  The program's and a caller's
+    ranges (user annotations) are not kernels and are left out."""
+    ranges = {e.name for e in prof.events()
+              if getattr(e, "is_user_annotation", False)}
     fams = {"flash_attention": 0.0, "ssd_scan": 0.0, "rmsnorm": 0.0,
             "conv": 0.0, "nccl": 0.0, "gemm": 0.0, "other": 0.0}
     top = []
     for e in prof.key_averages():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue                              # host-side op
+        if not str(getattr(e, "device_type", "")).endswith("CUDA") \
+                or e.key in ranges:
+            continue                              # host-side op, a range
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
@@ -1637,10 +1676,16 @@ def profile_breakdown(prof, wall_ms: float) -> dict:
 # ---------------------------------------------------------------------------
 
 def profile_train_step(torch, cfg, dev) -> dict:
-    """One full-width train step (seq 1024, batch 8, AdamW), the launcher's
-    ``dp`` step (AdamW in place) at world size 1 on NCCL (its gradient all_reduce
-    included), under ``torch.profiler``, after two unprofiled steps;
-    device time by kernel family."""
+    """Device time by kernel family of :func:`profiled_train_step` at
+    batch 8."""
+    return profile_breakdown(*profiled_train_step(torch, cfg, dev))
+
+
+def profiled_train_step(torch, cfg, dev, batch: int = 8):
+    """One full-width train step (seq 1024, ``batch`` rows, AdamW), the
+    launcher's ``dp`` step (AdamW in place) at world size 1 on NCCL (its
+    gradient all_reduce included), under ``torch.profiler``, after two
+    unprofiled steps: the profiler and the step's wall time in ms."""
     from repro_torch import optim
     from repro_torch.core import hvd
     from repro_torch.data import SyntheticTokenSource, TokenDatasetSpec
@@ -1650,7 +1695,7 @@ def profile_train_step(torch, cfg, dev) -> dict:
                            device=dev, weight_dtype=torch.float32)
     opt = optim.adamw(3e-4, clip_norm=1.0)
     state = opt.init(params)
-    src = SyntheticTokenSource(TokenDatasetSpec(cfg.vocab_size, 1024, 8))
+    src = SyntheticTokenSource(TokenDatasetSpec(cfg.vocab_size, 1024, batch))
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with hvd.init(dev):
@@ -1664,7 +1709,7 @@ def profile_train_step(torch, cfg, dev) -> dict:
             params, state, _ = step(params, state, src.batch(2))
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    return profile_breakdown(prof, wall_ms)
+    return prof, wall_ms
 
 
 def train_card_vs_cpu(torch, cfg, *, seq: int, batch: int, dev) -> None:
@@ -5677,6 +5722,7 @@ def main() -> int:
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import unembed as ue
     from repro_torch.kernels.ref import attention_int8kv_ref
     counters = {"paged_decode_attention": pa.paged_attention,
                 "decode_bf16": pa.DTYPE_LAUNCHES[torch.bfloat16],
@@ -5694,7 +5740,9 @@ def main() -> int:
                 "ssd_tensor_core": ssd.ssd_tensor_core,
                 "ssd_cuda_core": ssd.ssd_cuda_core, "rmsnorm": rn.rmsnorm,
                 "rmsnorm_one_pass": rn.rmsnorm_one_pass,
-                "rmsnorm_two_pass": rn.rmsnorm_two_pass}
+                "rmsnorm_two_pass": rn.rmsnorm_two_pass,
+                "unembed_tensor_core": ue.unembed_tensor_core,
+                "unembed_split": ue.unembed_split}
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.2f} s "
@@ -6293,6 +6341,9 @@ def main() -> int:
     icase = int8_case(torch, rng, dev, **int8_sets["qwen2-0.5b decode"])
     iargs, ikw = int8_args(icase), icase["kw"]
     kd, vd = dequantized_kv(icase)
+    # the unembedding's backward split on the training cell's chunk, at
+    # the vector route and, one column on, the scalar route
+    ucase, uodd = unembed_split_cases(torch, dev)
     kernels = []
     for kname, fn, plain, lib, cost, case, src, tpu in (
             ("paged_decode_attention",
@@ -6333,7 +6384,17 @@ def main() -> int:
              lambda: F.rms_norm(ncase["x"], (4096,), weight=gain, eps=1e-6),
              rmsnorm_cost, ncase,
              "src/repro_torch/kernels/csrc/rmsnorm.cu",
-             "src/repro/kernels/rmsnorm.py:24")):
+             "src/repro/kernels/rmsnorm.py:24"),
+            ("unembed_split",
+             lambda: ue.unembed_split(ucase["g"], ucase["out"]),
+             lambda: ue.unembed_split_plain(ucase["g"], ucase["out_plain"]),
+             None, lambda c: ue.split_cost(*c["g"].shape), ucase,
+             "src/repro_torch/kernels/csrc/unembed_split.cu", None),
+            ("unembed_split_unaligned",
+             lambda: ue.unembed_split(uodd["g"], uodd["out"]),
+             lambda: ue.unembed_split_plain(uodd["g"], uodd["out_plain"]),
+             None, lambda c: ue.split_cost(*c["g"].shape), uodd,
+             "src/repro_torch/kernels/csrc/unembed_split.cu", None)):
         ref_t, got_t = plain(), fn()
         ref, out = ref_t.float(), got_t.float()
         err = (out - ref).abs().max().item()
@@ -6351,6 +6412,9 @@ def main() -> int:
             _, mix, p_rel = flash_bound(fa, *fargs, fcase["kw"])
             ok = kref.rounding_bound_ratio(got_t, ref_t, mix, p_rel) <= 1.0
             del mix
+        elif kname.startswith("unembed_split"):
+            ok = torch.equal(got_t.view(torch.int16),
+                             ref_t.view(torch.int16))
         elif kname == "paged_decode_attention":
             mix = decode_bound(pa, dcase)[1]
             ok = kref.rounding_bound_ratio(got_t, ref_t, mix,
@@ -6373,7 +6437,7 @@ def main() -> int:
         bound_by = "bytes" if t_bytes >= t_flops else "operations"
         entry = {"name": kname, "route": "cuda", "source": src,
                  "replaces": tpu, "tpu_kernel": tpu, "launches": 0,
-                 "max_abs_err": max(err, worst[kname]),
+                 "max_abs_err": max(err, worst.get(kname, 0.0)),
                  "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
                  "bound_ms": max(t_bytes, t_flops), "bound_by": bound_by,
                  "library_ms": lib_ms, "bytes": nbytes, "flops": flops}
@@ -6388,6 +6452,17 @@ def main() -> int:
         f"tensor cores (mma.sync), {len(ssd.TC_KERNELS)} launches: "
         + ", ".join(ssd.TC_KERNELS))
     by_name["rmsnorm"]["design"] = "one pass, each row read once into registers"
+    for name, route in (("unembed_split", "vector: split_vec_kernel"),
+                        ("unembed_split_unaligned",
+                         "scalar: split_scalar_kernel")):
+        by_name[name]["replaces"] = ("src/repro/models/modules.py unembed "
+                                     "(no pallas_call: XLA's dot)")
+        by_name[name]["design"] = (
+            f"{route}; the f32 cotangent read once, hi, mid and lo "
+            "written once, equal to unembed_split_plain bit for bit")
+    ucase.clear()
+    uodd.clear()
+    torch.cuda.empty_cache()
 
     # the int8 kernel and paged prefill also at the shapes their paths run
     # most: the dense prefill replay (B = 1, one query, a 1,024-position
@@ -7345,6 +7420,21 @@ def main() -> int:
     print(f"flash D-tail launches over {len(PATH_COUNTS)} path runs: "
           f"{tail['launches']}", flush=True)
     check(tail["launches"] > 0, "the flash D tail never ran on a path")
+
+    # the tied unembedding on the tensor cores (bf16 x on the card): the
+    # backward's split kernel over every path run, beside the Function's
+    # calls (forwards and backwards; its products are torch.mm's)
+    split = by_name["unembed_split"]
+    split["launches"] = sum(c["unembed_split"] for c in PATH_COUNTS)
+    split["unembed_calls"] = sum(c["unembed_tensor_core"]
+                                 for c in PATH_COUNTS)
+    split["path_runs"] = len(PATH_COUNTS)
+    print(f"unembedding on the tensor cores over {len(PATH_COUNTS)} path "
+          f"runs: {split['unembed_calls']} forwards and backwards, "
+          f"{split['launches']} split launches", flush=True)
+    check(split["unembed_calls"] > 0,
+          "the tied unembedding never took the tensor cores on a path")
+    check(split["launches"] > 0, "the unembedding's split never ran")
 
     # the CPU halves of the card-against-CPU checks still open
     CPU_SIDE.close()

@@ -29,6 +29,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.unembed import TiedUnembed
 
 
 def truncated_normal_(t: torch.Tensor, stddev: float,
@@ -265,11 +266,15 @@ def unembed(p, x: torch.Tensor, sh: Optional[Shards] = None
             ) -> torch.Tensor:
     """Tied unembedding: table cast to x's dtype, f32 accumulation, f32
     logits (the reference's ``preferred_element_type=float32``).  The
-    products of two bf16 values are exact in f32, so an f32 matmul of the
-    cast operands is that accumulation.  Where ``sh`` splits the vocabulary
-    over ``model``: this rank's slice of the logits (column-parallel)."""
+    products of two bf16 values are exact in f32: bf16 x on the card (and
+    on ``meta``) runs ``kernels.unembed.TiedUnembed``, the products on the
+    tensor cores; f32 x, and the CPU, an f32 matmul of the cast operands.
+    Where ``sh`` splits the vocabulary over ``model``: this rank's slice
+    of the logits (column-parallel)."""
     if sh is not None and sh.dim("table") is not None:
         x = sh.copy_in(x)
+    if x.dtype == torch.bfloat16 and x.device.type in ("cuda", "meta"):
+        return TiedUnembed.apply(x, p["table"].to(x.dtype))
     table = p["table"].to(x.dtype).float()
     return torch.matmul(x.float(), table.t())
 
